@@ -1,0 +1,202 @@
+"""Paged decode kernels: CUDA launch wrappers and their plain versions.
+
+Counterpart of `repro.kernels.paged_attention` (Pallas, TPU). The kernels
+are CUDA C++ for Hopper in `csrc/paged_attention.cu`; the source note
+there says which TPU kernel each replaces, what bounds it and what its
+design does about that.
+
+  * `paged_flash_decode_gqa` — one-token GQA attention over each row's
+    valid prefix ``idx <= pos``, read straight from the block-paged cache
+    through the page table: no dense ``[B, M*bs, ...]`` view is built.
+    Pages with id 0 (the trash block) and pages wholly past ``pos`` are
+    skipped; a row whose table is all zeros returns exact zeros.
+  * `paged_write_token` — writes one token per row into block
+    ``tables[b, clip(pos // bs, 0, M-1)]`` at offset ``pos % bs``, in
+    place. Unmapped targets land in the trash block 0.
+
+Each wrapper takes its plain PyTorch version only for CPU tensors; for a
+CUDA tensor it launches the kernel or raises. `<wrapper>.launches` counts
+kernel launches (never plain calls).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG = -1e30
+_FLOAT_TYPES = (torch.float32, torch.bfloat16)
+_MAX_SMEM = 48 * 1024
+# launch geometry of csrc/paged_attention.cu (kMaxGroup, kDecodeWarps)
+_MAX_GROUP = 8
+_DECODE_WARPS = 8
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and the kernels' oracle on the card)
+# ---------------------------------------------------------------------------
+
+def paged_flash_decode_gqa_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, tables: torch.Tensor,
+                                 positions: torch.Tensor, *,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel's function on gathered pages, in fp32: softmax over the
+    positions ``idx <= pos`` whose page id is nonzero; zeros for a row
+    with no such position."""
+    B, T, H, hd = q.shape
+    bs, KV = k_pages.shape[1], k_pages.shape[2]
+    M = tables.shape[1]
+    group = H // KV
+    scale = scale or 1.0 / math.sqrt(hd)
+    tbl = tables.long()
+    kk = k_pages[tbl.reshape(-1)].reshape(B, M * bs, KV, hd).float()
+    vv = v_pages[tbl.reshape(-1)].reshape(B, M * bs, KV, hd).float()
+    idx = torch.arange(M * bs, device=q.device)
+    valid = ((idx[None, :] <= positions.long()[:, None])
+             & (tbl.repeat_interleave(bs, dim=1) > 0))[:, None, None, :]
+    qg = q.float().reshape(B, KV, group, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, kk) * scale
+    s = torch.where(valid, s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    denom = torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    out = torch.einsum("bkgs,bskh->bkgh", p, vv) / denom
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def paged_write_token_plain(leaf: torch.Tensor, tables: torch.Tensor,
+                            positions: torch.Tensor,
+                            values: torch.Tensor) -> torch.Tensor:
+    """Write `values` [B, ...] into `leaf` [N+1, bs, ...] in place through
+    the page table; returns `leaf`."""
+    bs = leaf.shape[1]
+    B, M = tables.shape
+    pos = positions.long()
+    blk = torch.clamp(torch.div(pos, bs, rounding_mode="floor"), 0, M - 1)
+    phys = tables.long().gather(1, blk[:, None])[:, 0]
+    off = torch.remainder(pos, bs)
+    leaf[phys, off] = values.reshape((B,) + tuple(leaf.shape[2:])).to(leaf.dtype)
+    return leaf
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("paged_attention")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.paged_flash_decode_gqa.argtypes = [vp] * 6 + [ci] * 6 + [
+        ctypes.c_float, ci, ci, vp]
+    lib.paged_flash_decode_gqa.restype = ci
+    lib.paged_write_token.argtypes = [vp] * 4 + [ci] * 3 + [
+        ctypes.c_int64, ci, ci, vp]
+    lib.paged_write_token.restype = ci
+    return lib
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_index(tables: torch.Tensor, positions: torch.Tensor, B: int,
+                 device: torch.device) -> None:
+    for name, t in (("tables", tables), ("positions", positions)):
+        _require(t.device == device, f"{name} must be on {device}")
+        _require(t.dtype == torch.int32, f"{name} must be int32")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(tables.dim() == 2 and tables.shape[0] == B,
+             f"tables must be [B={B}, M], got {tuple(tables.shape)}")
+    _require(positions.shape == (B,),
+             f"positions must be [B={B}], got {tuple(positions.shape)}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def paged_flash_decode_gqa(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor,
+                           positions: torch.Tensor, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """q [B,1,H,hd]; k/v_pages [N+1, bs, KV, hd]; tables [B, M] int32
+    (0 = unmapped); positions [B] int32. Returns [B,1,H,hd] in q's type.
+    q and the pages may each be float32 or bfloat16."""
+    if not q.is_cuda:
+        return paged_flash_decode_gqa_plain(q, k_pages, v_pages, tables,
+                                            positions, scale=scale)
+    B, T, H, hd = q.shape
+    _require(T == 1, f"one query token per row, got T={T}")
+    _require(k_pages.dim() == 4 and v_pages.shape == k_pages.shape,
+             "k/v pages must both be [N+1, bs, KV, hd]")
+    _, bs, KV, hd_k = k_pages.shape
+    _require(hd_k == hd and H % KV == 0,
+             f"q heads {H}x{hd} do not fit pages KV={KV} hd={hd_k}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _require(t.device == q.device, f"{name} must be on {q.device}")
+        _require(t.dtype in _FLOAT_TYPES, f"{name} must be fp32 or bf16")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(k_pages.dtype == v_pages.dtype, "k/v pages differ in type")
+    _check_index(tables, positions, B, q.device)
+    group = H // KV
+    _require(group <= _MAX_GROUP,
+             f"{group} query heads per KV head; the kernel takes <= {_MAX_GROUP}")
+    smem = 4 * group * (hd * (1 + _DECODE_WARPS) + 2 * _DECODE_WARPS)
+    _require(smem <= _MAX_SMEM, f"group*hd too large for shared memory "
+                                f"({smem} bytes)")
+    scale = scale or 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    err = _lib().paged_flash_decode_gqa(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        B, tables.shape[1], bs, KV, group, hd, float(scale),
+        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
+        _stream(q.device))
+    if err:
+        raise RuntimeError(f"paged_flash_decode_gqa launch failed: CUDA "
+                           f"error {err}")
+    paged_flash_decode_gqa.launches += 1
+    return out
+
+
+paged_flash_decode_gqa.launches = 0
+
+
+def paged_write_token(leaf: torch.Tensor, tables: torch.Tensor,
+                      positions: torch.Tensor,
+                      values: torch.Tensor) -> torch.Tensor:
+    """Scatter one token per row through the page table, in place.
+    leaf [N+1, block_size, ...]; tables [B, M] int32; positions [B] int32;
+    values [B, ...] (cast to the leaf's type). Returns `leaf`."""
+    if not leaf.is_cuda:
+        return paged_write_token_plain(leaf, tables, positions, values)
+    B, M = tables.shape
+    bs = leaf.shape[1]
+    F = math.prod(leaf.shape[2:])
+    values = values.contiguous()
+    _require(values.numel() == B * F,
+             f"values {tuple(values.shape)} do not hold {B} rows of {F}")
+    for name, t in (("leaf", leaf), ("values", values)):
+        _require(t.device == leaf.device, f"{name} must be on {leaf.device}")
+        _require(t.dtype in _FLOAT_TYPES, f"{name} must be fp32 or bf16")
+    _require(leaf.is_contiguous(), "leaf must be contiguous (written in place)")
+    _check_index(tables, positions, B, leaf.device)
+    err = _lib().paged_write_token(
+        leaf.data_ptr(), values.data_ptr(), tables.data_ptr(),
+        positions.data_ptr(), B, M, bs, F,
+        int(leaf.dtype == torch.bfloat16), int(values.dtype == torch.bfloat16),
+        _stream(leaf.device))
+    if err:
+        raise RuntimeError(f"paged_write_token launch failed: CUDA error {err}")
+    paged_write_token.launches += 1
+    return leaf
+
+
+paged_write_token.launches = 0

@@ -1,0 +1,282 @@
+"""Cascade serving CLI for the port: small + large model, Gatekeeper
+deferral, on CUDA by default.
+
+Counterpart of `repro.launch.serve` with the same flags, defaults and
+argparse-time rejections of contradictory combinations. Flags for what
+the port does not run yet are rejected by name at argparse time (see
+ROADMAP.md): ladders of more than two tiers, the semantic-agreement
+signal, online recalibration, the thread/stub/socket/pool M_L backends,
+memory pressure (oversubscription, preemption, swap tier), admission
+overload control, and the /metrics endpoint and profiler flags. One flag
+is new: --device (default: cuda, which must exist).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 \\
+        --max-new 8 --engine continuous --backend paged --ragged-min 8 \\
+        --ragged-max 32 --block-size 8 --prefill-chunk 8
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, reduced
+from repro_torch.data.synthetic import make_lm_stream, make_ragged_lm_stream
+from repro_torch.models import transformer as tfm
+from repro_torch.serving import (CascadeEngine, CascadeSpec, CascadeTier,
+                                 ContinuousCascadeEngine, DeferralEdge,
+                                 EngineConfig, MLBackendConfig, ModelRunner,
+                                 PagedConfig, make_requests,
+                                 poisson_arrivals)
+from repro_torch.serving.obs import (Observability, add_obs_args,
+                                     obs_config_from_args)
+from repro_torch.serving.obs.config import UNPORTED_FLAGS
+
+# flags of the JAX CLI whose features are not ported yet (dest, flag)
+_UNPORTED = (("recalibrate", "--recalibrate"),
+             ("recalib_target", "--recalib-target"),
+             ("recalib_step", "--recalib-step"),
+             ("recalib_deadband", "--recalib-deadband"),
+             ("recalib_warmup", "--recalib-warmup"),
+             ("signal_k", "--signal-k"),
+             ("signal_temperature", "--signal-temperature"),
+             ("ml_address", "--ml-address"), ("ml_spawn", "--ml-spawn"),
+             ("ml_connect_timeout", "--ml-connect-timeout"),
+             ("ml_request_timeout", "--ml-request-timeout"),
+             ("ml_retries", "--ml-retries"),
+             ("ml_health_interval", "--ml-health-interval"),
+             ("stub_latency", "--stub-latency"),
+             ("oversubscribe", "--oversubscribe"),
+             ("pressure_policy", "--pressure-policy"),
+             ("max_preemptions", "--max-preemptions"),
+             ("swap_blocks", "--swap-blocks"),
+             ("max_queue", "--max-queue"), ("deadline_ms", "--deadline-ms"),
+             ) + UNPORTED_FLAGS
+
+
+def _tier_seed(seed: int, tier: int) -> int:
+    return int(np.random.SeedSequence([seed, tier]).generate_state(1)[0])
+
+
+def build_ladder(arch: str, seed: int, n_tiers: int, reduce: bool = True,
+                 device=None):
+    """One ModelRunner per tier: tier 0 is `arch` (its `reduced` variant
+    unless reduce=False, which keeps the published widths), the last tier
+    the demo "large" model — 4 layers, twice the width and FFN, 8 heads.
+    Weights are random, seeded per tier."""
+    if n_tiers != 2:
+        raise NotImplementedError(f"{n_tiers}-tier ladders are not ported "
+                                  f"yet (see ROADMAP.md)")
+    device = resolve_device(device)
+    small_cfg = get_config(arch)
+    if reduce:
+        small_cfg = reduced(small_cfg)
+    large_cfg = small_cfg.replace(name=small_cfg.name + "-large",
+                                  n_layers=4, d_model=small_cfg.d_model * 2,
+                                  n_heads=8, d_ff=small_cfg.d_ff * 2)
+    return [ModelRunner(c, tfm.init_params(c, _tier_seed(seed, i), device))
+            for i, c in enumerate((small_cfg, large_cfg))]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, which must exist)")
+    ap.add_argument("--engine", choices=("static", "continuous"),
+                    default="continuous")
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--deferral-ratio", type=float, default=0.3)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--min-tokens", type=int, default=2)
+    ap.add_argument("--margin", type=float, default=0.0)
+    ap.add_argument("--no-early-exit", action="store_true")
+    ap.add_argument("--tiers", type=int, default=2,
+                    help="cascade ladder depth (only 2 is ported)")
+    ap.add_argument("--signal",
+                    choices=("mean_confidence", "semantic_agreement"),
+                    default="mean_confidence",
+                    help="deferral signal (only mean_confidence is ported)")
+    ap.add_argument("--signal-k", type=int, default=4)
+    ap.add_argument("--signal-temperature", type=float, default=0.8)
+    ap.add_argument("--recalibrate", action="store_true")
+    ap.add_argument("--recalib-target", type=float, default=-1.0)
+    ap.add_argument("--recalib-step", type=float, default=0.08)
+    ap.add_argument("--recalib-deadband", type=float, default=0.1)
+    ap.add_argument("--recalib-warmup", type=int, default=32)
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="Poisson arrivals/s; 0 = all at t=0")
+    ap.add_argument("--large-backend",
+                    choices=("sync", "thread", "stub", "socket", "pool"),
+                    default="sync",
+                    help="M_L regeneration backend (only sync is ported)")
+    ap.add_argument("--ml-address", default="")
+    ap.add_argument("--ml-spawn", type=int, default=0)
+    ap.add_argument("--ml-connect-timeout", type=float, default=2.0)
+    ap.add_argument("--ml-request-timeout", type=float, default=30.0)
+    ap.add_argument("--ml-retries", type=int, default=3)
+    ap.add_argument("--ml-health-interval", type=float, default=2.0)
+    ap.add_argument("--large-batch", type=int, default=0,
+                    help="M_L regeneration batch size (0 = one "
+                         "exact-size batch at end of run)")
+    ap.add_argument("--large-max-wait", type=float, default=0.0,
+                    help="seconds a partial M_L batch may wait before "
+                         "flushing padded (0 = wait for a full batch)")
+    ap.add_argument("--stub-latency", type=float, default=0.0)
+    ap.add_argument("--audit-log", default=None,
+                    help="JSONL audit log path (continuous engine)")
+    ap.add_argument("--backend", choices=("slot", "paged"), default="slot",
+                    help="continuous engine KV-cache backend")
+    ap.add_argument("--block-size", type=int, default=8,
+                    help="paged backend: tokens per cache block")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="paged backend: physical block budget "
+                         "(0 = worst case, always fits)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="paged backend: prefill chunk tokens "
+                         "(0 = whole prompt in one chunk)")
+    ap.add_argument("--paged-kernel", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="paged backend: route decode through the CUDA "
+                         "paged kernels (auto = on for CUDA tensors; env "
+                         "REPRO_PAGED_KERNEL overrides auto)")
+    ap.add_argument("--serial-prefill", action="store_true",
+                    help="paged backend: disable batched same-offset "
+                         "prefill chunk dispatch")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="paged backend: disable copy-on-write prefix "
+                         "sharing")
+    ap.add_argument("--oversubscribe", type=float, default=1.0)
+    ap.add_argument("--pressure-policy",
+                    choices=("preempt", "defer", "shed"), default="preempt")
+    ap.add_argument("--max-preemptions", type=int, default=2)
+    ap.add_argument("--swap-blocks", type=int, default=0)
+    ap.add_argument("--max-queue", type=int, default=0)
+    ap.add_argument("--deadline-ms", type=float, default=0.0)
+    ap.add_argument("--ragged-min", type=int, default=0,
+                    help=">0: ragged prompt lengths uniform in "
+                         "[ragged-min, ragged-max] (continuous engine)")
+    ap.add_argument("--ragged-max", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    add_obs_args(ap)
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+
+    def given(dest: str) -> bool:
+        return getattr(args, dest) != ap.get_default(dest)
+
+    if args.ragged_min > 0 and args.engine == "static":
+        ap.error("--ragged-min/--ragged-max need --engine continuous "
+                 "(the static engine serves lock-step uniform batches)")
+    obs_cfg = obs_config_from_args(args)
+    if args.engine == "static" and obs_cfg.any_enabled:
+        ap.error("observability flags (--trace-out/--metrics-out/"
+                 "--device-timing) need --engine continuous")
+    if args.backend != "paged":
+        for dest in ("block_size", "blocks", "prefill_chunk",
+                     "paged_kernel", "serial_prefill", "no_prefix_sharing"):
+            if given(dest):
+                ap.error(f"--{dest.replace('_', '-')} needs --backend "
+                         f"paged (got --backend {args.backend}, which "
+                         f"would silently ignore it)")
+    if args.tiers < 2:
+        ap.error(f"--tiers must be >= 2, got {args.tiers}")
+    # what the port does not run yet: rejected by name, never ignored
+    unported = [flag for dest, flag in _UNPORTED if given(dest)]
+    if args.tiers != 2:
+        unported.append(f"--tiers {args.tiers}")
+    if args.signal != "mean_confidence":
+        unported.append(f"--signal {args.signal}")
+    if args.large_backend != "sync":
+        unported.append(f"--large-backend {args.large_backend}")
+    if unported:
+        ap.error(f"{', '.join(unported)}: not ported to repro_torch yet "
+                 f"(see ROADMAP.md)")
+
+    device = resolve_device(args.device)
+    small, large = build_ladder(args.arch, args.seed, 2, device=device)
+    small_cfg = small.cfg
+
+    ragged = args.ragged_min > 0
+    cal_len = ((args.ragged_min + max(args.ragged_max, args.ragged_min))
+               // 2 if ragged else args.prompt_len)
+    cal = make_lm_stream([args.seed, 1], args.requests, cal_len,
+                         small_cfg.vocab_size)
+    if ragged:
+        live = make_ragged_lm_stream(
+            [args.seed, 2], args.requests, args.ragged_min,
+            max(args.ragged_max, args.ragged_min), small_cfg.vocab_size)
+    else:
+        live = make_lm_stream([args.seed, 2], args.requests,
+                              args.prompt_len, small_cfg.vocab_size)
+
+    if args.engine == "static":
+        engine = CascadeEngine(small, large)
+        tau = engine.calibrate(cal, args.prompt_len, args.max_new,
+                               args.deferral_ratio)
+        print(f"calibrated tau={tau:.4f} for target deferral "
+              f"{args.deferral_ratio}")
+        res = engine.serve(live, args.prompt_len, args.max_new)
+        print(f"served {len(live)} requests on {device}: deferral_ratio="
+              f"{res.deferral_ratio:.3f}, compute_cost={res.compute_cost:.3f}x,"
+              f" mean_confidence={res.confidence.mean():.4f}")
+        print("first tokens:", res.tokens[:4].tolist())
+        return res
+
+    spec = CascadeSpec(
+        tiers=[CascadeTier(small_cfg.name, runner=small, cost=0.2),
+               CascadeTier(large.cfg.name, runner=large, cost=1.0)],
+        edges=[DeferralEdge(margin=args.margin, min_tokens=args.min_tokens)])
+    config = EngineConfig(
+        n_slots=args.slots, early_exit=not args.no_early_exit,
+        backend=args.backend,
+        paged=PagedConfig(
+            block_size=args.block_size,
+            n_blocks=args.blocks or None,
+            prefill_chunk=args.prefill_chunk or None,
+            paged_kernel={"auto": None, "on": True,
+                          "off": False}[args.paged_kernel],
+            batch_prefill=not args.serial_prefill,
+            prefix_sharing=not args.no_prefix_sharing),
+        ml=MLBackendConfig(large_batch=args.large_batch or None,
+                           max_wait=args.large_max_wait or None))
+    engine = ContinuousCascadeEngine(spec, config)
+    tau = engine.calibrate(cal, cal_len, args.max_new, args.deferral_ratio)
+    print(f"calibrated tau {tau:.4f} for target deferral "
+          f"{args.deferral_ratio}")
+    arrivals = (poisson_arrivals(len(live), args.arrival_rate, args.seed)
+                if args.arrival_rate > 0 else None)
+    reqs = make_requests(live, args.max_new, arrivals)
+    obs = Observability(obs_cfg)
+    try:
+        res = engine.run(reqs, args.max_new, audit_path=args.audit_log,
+                         obs=obs)
+    finally:
+        obs.finish()
+    print(f"served {len(live)} requests on {args.slots} slots "
+          f"({args.backend} backend, M_L via sync, {device}) in "
+          f"{res.steps} M_S steps: deferral_ratio={res.deferral_ratio:.3f}, "
+          f"early_exits={int(res.early_exited.sum())}, "
+          f"saved_M_S_steps={res.saved_steps}")
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in res.stats.items()}, indent=1))
+    if args.audit_log:
+        print(f"audit log written to {args.audit_log}")
+    if args.trace_out:
+        print(f"trace written to {args.trace_out}")
+    if args.metrics_out:
+        print(f"metrics scrape written to {args.metrics_out}")
+    print("first tokens:", res.tokens[:4].tolist())
+    return res
+
+
+if __name__ == "__main__":
+    main()

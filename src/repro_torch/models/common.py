@@ -1,0 +1,113 @@
+"""Shared model components: seeded initializer, norms, RoPE, embeddings.
+
+Counterpart of `repro.models.common`. Models are plain functions over
+nested-dict parameter trees of tensors, laid out exactly as the JAX
+package lays them out, so converted JAX weights drop straight in
+(`repro_torch.convert`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+class ParamInit:
+    """Seeded parameter initializer on one device.
+
+    One `torch.Generator` draws every parameter in a fixed order, so a
+    seed gives the same weights on every run on the same device type. The
+    shapes, the normal std 1/sqrt(fan_in) and the zero norms follow the
+    JAX `ParamFactory`; the bits do not (its crc32 key folding is not
+    reproduced — tests carry JAX weights over through `convert.py`)."""
+
+    def __init__(self, seed: int, dtype: torch.dtype, device: torch.device):
+        self.dtype = dtype
+        self.device = device
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(int(seed))
+
+    def normal(self, shape: Sequence[int], fan_in: int) -> torch.Tensor:
+        x = torch.randn(tuple(shape), generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return (x * (1.0 / math.sqrt(max(fan_in, 1)))).to(self.dtype)
+
+    def zeros(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` with JAX's type promotion: bf16 activations against
+    fp32 weights compute in fp32, as `jnp.einsum` does (torch refuses
+    mixed operand types)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)                       # [head_dim/2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., T, H, D]; positions: broadcastable to [..., T]."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)
+    angles = positions[..., None].float() * freqs           # [..., T, D/2]
+    cos = torch.cos(angles)[..., None, :]                   # [..., T, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), table)
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x [..., d] @ table.T -> fp32 logits [..., V]."""
+    return torch.einsum("...d,vd->...v", x.float(), table.float())
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def make_causal_mask(q_len: int, kv_len: int, q_offset,
+                     device=None) -> torch.Tensor:
+    """[q_len, kv_len] bool; True = attendable. q_offset = absolute position
+    of q index 0."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return kv_pos <= q_pos
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up

@@ -1,0 +1,799 @@
+"""Cascade serving engines (paper Fig. 1: M_S local, M_L behind a backend,
+confidence gate g).
+
+Counterpart of `repro.serving.engine` (see its docstring for the design).
+
+`ModelRunner` — greedy prefill + decode for one model; `generate` keeps
+the tokens and the eq.-8 confidence sum on the device and copies them to
+the host once per batch.
+
+`CascadeEngine` — the static reference path: M_S generates every request
+in full, requests whose mean confidence falls below tau are regenerated
+by M_L.
+
+`ContinuousCascadeEngine` — continuous batching over a slot or block-paged
+KV pool. Every decode step decodes ALL slots at per-slot positions and
+accumulates the confidence sum on the device; only small per-slot control
+vectors cross to the host each sync. Once a request has decoded
+`min_tokens` tokens, a running mean confidence below ``tau - margin``
+evicts it in flight, and it is regenerated on M_L. On the paged backend
+(`backend="paged"`), prompts prefill in chunks batched across same-offset
+requests, prompt prefixes are shared copy-on-write, and decode goes
+through the CUDA paged kernels when `paged_kernel` resolves on.
+
+What the port does not run yet is rejected (see ROADMAP.md): ladders of
+more than two tiers, backends other than "sync", memory pressure,
+recalibration and overload control.
+
+Differences from the JAX engine: PyTorch runs eagerly (no jit; the decode
+loop is a Python loop of device ops), and the KV caches are updated in
+place. Greedy equivalences within the port match the JAX package's:
+slot against paged, kernel against plain path, shared against unshared
+prefix, and ``early_exit=False`` continuous against static.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.calibration import (calibrate_edges,
+                                          expected_compute_cost,
+                                          ladder_compute_cost)
+from repro_torch.core.cascade_spec import CascadeSpec
+from repro_torch.core.deferral import SignalObservation, negative_entropy
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import transformer as tfm
+from repro_torch.serving.cache_pool import SlotCachePool, scatter_rows
+from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.large_backend import SyncLocalBackend
+from repro_torch.serving.obs import Observability, emit_request_spans
+from repro_torch.serving.paged_pool import PagedCachePool, next_pow2
+from repro_torch.serving.request import (DEFERRED_PENDING, DONE,
+                                         ArrivalQueue, Request)
+from repro_torch.serving.scheduler import SlotScheduler
+from repro_torch.serving.telemetry import ServingTelemetry
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _to_host(ints: torch.Tensor, floats: torch.Tensor
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Copy an int32 and a float32 tensor of the same leading shape to the
+    host in ONE transfer (the floats travel bit-exact as int32)."""
+    packed = torch.cat([ints.to(torch.int32).reshape(ints.shape[0], -1),
+                        floats.float().view(torch.int32).reshape(
+                            floats.shape[0], -1)], dim=1).cpu().numpy()
+    n = packed.shape[1] - (floats.numel() // floats.shape[0])
+    return packed[:, :n], packed[:, n:].view(np.float32)
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """Static-engine output batch (rid order == input row order)."""
+    tokens: np.ndarray            # [B, max_new] final (post-cascade) tokens
+    small_tokens: np.ndarray
+    confidence: np.ndarray        # [B] mean per-step neg entropy (eq. 8)
+    deferred: np.ndarray          # [B] bool
+    deferral_ratio: float
+    compute_cost: float
+    steps: int
+
+
+class ModelRunner:
+    """Greedy prefill + decode for one model on its parameters' device."""
+
+    def __init__(self, cfg, params: Any):
+        self.cfg = cfg
+        self.params = params
+        self.device = tfm.param_device(params)
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, prompt_len: int,
+                 max_new: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Greedy generation. prompts [B, prompt_len]. Returns (tokens
+        [B, max_new], mean_neg_entropy [B]) in one device->host copy."""
+        cfg, params = self.cfg, self.params
+        toks = torch.from_numpy(np.ascontiguousarray(prompts, np.int64)
+                                ).to(self.device)
+        B = toks.shape[0]
+        cache = tfm.init_cache(cfg, B, prompt_len + max_new,
+                               device=self.device)
+        logits, cache = tfm.prefill(params, cfg, toks, cache, last_only=True)
+        last = logits[:, -1, :]
+        tok = _argmax(last)
+        conf_sum = negative_entropy(last)
+        buf = torch.zeros((B, max_new), dtype=torch.int32, device=self.device)
+        buf[:, 0] = tok
+        for i in range(max_new - 1):
+            step_logits, cache = tfm.decode_step(params, cfg, tok,
+                                                 prompt_len + i, cache)
+            tok = _argmax(step_logits)
+            conf_sum = conf_sum + negative_entropy(step_logits)
+            buf[:, i + 1] = tok
+        tokens, conf = _to_host(buf, conf_sum / max_new)
+        return tokens, conf[:, 0]
+
+
+class CascadeEngine:
+    """Two-ModelRunner cascade with a calibrated threshold (static,
+    lock-step uniform batches — the reference path)."""
+
+    def __init__(self, small: ModelRunner, large: ModelRunner,
+                 tau: float = -1.0, cost_small: float = 0.2,
+                 cost_large: float = 1.0):
+        self.small = small
+        self.large = large
+        self.tau = tau
+        self.cost_small = cost_small
+        self.cost_large = cost_large
+
+    def calibrate(self, val_prompts: np.ndarray, prompt_len: int,
+                  max_new: int, deferral_ratio: float) -> float:
+        """Pick tau so `deferral_ratio` of the validation prompts fall
+        below it (`core.calibration.calibrate_edges`)."""
+        spec = CascadeSpec.two_tier(self.small, self.large, tau=self.tau,
+                                    cost_small=self.cost_small,
+                                    cost_large=self.cost_large)
+        self.tau = calibrate_edges(spec, val_prompts, max_new=max_new,
+                                   deferral_ratio=deferral_ratio,
+                                   prompt_len=prompt_len)[0]
+        return self.tau
+
+    def serve(self, prompts: np.ndarray, prompt_len: int,
+              max_new: int) -> ServeResult:
+        """Full M_S decode, then batched M_L regeneration of the
+        below-tau rows."""
+        s_tokens, conf = self.small.generate(prompts, prompt_len, max_new)
+        deferred = conf < self.tau
+        tokens = s_tokens.copy()
+        if deferred.any():
+            idx = np.nonzero(deferred)[0]
+            l_tokens, _ = self.large.generate(prompts[idx], prompt_len,
+                                              max_new)
+            tokens[idx] = l_tokens
+        ratio = float(deferred.mean())
+        return ServeResult(
+            tokens=tokens, small_tokens=s_tokens, confidence=conf,
+            deferred=deferred, deferral_ratio=ratio,
+            compute_cost=expected_compute_cost(ratio, self.cost_small,
+                                               self.cost_large),
+            steps=max_new)
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ContinuousServeResult:
+    """Continuous-engine output (requests sorted by rid)."""
+    requests: List[Request]
+    tokens: np.ndarray            # [N, max_new] final tokens, rid order
+    confidence: np.ndarray        # [N] mean neg entropy at retirement
+    deferred: np.ndarray          # [N] bool
+    early_exited: np.ndarray      # [N] bool (in-flight deferrals)
+    deferral_ratio: float
+    saved_steps: int              # M_S decode steps skipped via early exit
+    steps: int                    # engine decode steps executed
+    stats: Dict[str, Any]         # telemetry summary
+
+
+class ContinuousCascadeEngine:
+    """Continuous-batching two-tier cascade over a slot or block-paged KV
+    pool, built from a `CascadeSpec` (tiers + the deferral edge) and an
+    `EngineConfig` (slots, KV backend, M_L batching).
+
+    Per-slot device state (all [n_slots] unless noted): last_tok, pos,
+    n_gen (prefill token counts as 1), budget (the request's max_new; a
+    slot self-deactivates on device when n_gen reaches it), conf_sum (the
+    running eq.-8 sum, ON DEVICE), active, and tokens [n_slots, max_new]
+    (copied to the host at retirement)."""
+
+    def __init__(self, spec: CascadeSpec,
+                 config: Optional[EngineConfig] = None):
+        if not isinstance(spec, CascadeSpec):
+            raise TypeError("ContinuousCascadeEngine needs a CascadeSpec "
+                            "(CascadeSpec.two_tier(small, large, ...))")
+        if spec.n_tiers != 2:
+            raise NotImplementedError(
+                f"{spec.n_tiers}-tier ladders are not ported yet (see "
+                f"ROADMAP.md); the port serves the two-tier cascade")
+        if spec.tiers[1].backend not in (None, "sync"):
+            raise NotImplementedError(
+                f"tier backend {spec.tiers[1].backend!r} is not ported yet "
+                f"(see ROADMAP.md)")
+        if config is not None and not isinstance(config, EngineConfig):
+            raise TypeError(f"config must be an EngineConfig, got "
+                            f"{type(config).__name__}")
+        self.spec = spec
+        self.config = config if config is not None else EngineConfig()
+
+    @property
+    def small(self) -> ModelRunner:
+        return self.spec.tiers[0].runner
+
+    @property
+    def large(self) -> ModelRunner:
+        return self.spec.tiers[1].runner
+
+    @property
+    def tau(self) -> float:
+        return self.spec.edges[0].tau
+
+    @tau.setter
+    def tau(self, v: float) -> None:
+        self.spec.edges[0].tau = float(v)
+
+    def calibrate(self, val_prompts: np.ndarray, prompt_len: int,
+                  max_new: int, deferral_ratio: float = 0.2) -> float:
+        """Calibrate the edge's tau on a uniform validation batch."""
+        return calibrate_edges(self.spec, val_prompts, max_new=max_new,
+                               deferral_ratio=deferral_ratio,
+                               prompt_len=prompt_len)[0]
+
+    # -- device programs -----------------------------------------------------
+    def _decode_body(self, cache, state, pages, max_new: int,
+                     paged_kernel: Optional[bool] = None) -> dict:
+        """One decode step over ALL slots at per-slot positions. Inactive
+        slots compute but their state is untouched; in paged mode their
+        page-table rows are masked to the trash block, so a stale `pos`
+        can never write into a block that now belongs to someone else."""
+        small = self.small
+        if pages is not None:
+            pages = torch.where(state["active"][:, None], pages, 0)
+        logits, _ = tfm.decode_step(small.params, small.cfg,
+                                    state["last_tok"], state["pos"], cache,
+                                    pages=pages, paged_kernel=paged_kernel)
+        tok = _argmax(logits)
+        neg_ent = negative_entropy(logits)
+        act = state["active"]
+        inc = act.to(torch.int32)
+        rows = torch.arange(act.shape[0], device=act.device)
+        col = torch.clamp(state["n_gen"], 0, max_new - 1).long()
+        tokens = state["tokens"]
+        tokens[rows, col] = torch.where(act, tok, tokens[rows, col])
+        n_gen = state["n_gen"] + inc
+        return {
+            "last_tok": torch.where(act, tok, state["last_tok"]),
+            "pos": state["pos"] + inc,
+            "n_gen": n_gen,
+            "budget": state["budget"],
+            "conf_sum": state["conf_sum"] + torch.where(act, neg_ent, 0.0),
+            "active": act & (n_gen < state["budget"]),
+            "tokens": tokens,
+        }
+
+    @staticmethod
+    def _seed_slots(state, slots, logits, budgets, prompt_lens,
+                    max_new: int) -> None:
+        """Start decode in `slots` from their last-prompt-token logits
+        [k, V] (in place): first token, confidence seed, position."""
+        tok0 = _argmax(logits)
+        row0 = torch.zeros((len(slots), max_new), dtype=torch.int32,
+                           device=logits.device)
+        row0[:, 0] = tok0
+        budgets = budgets.to(logits.device)
+        state["last_tok"][slots] = tok0
+        state["pos"][slots] = prompt_lens.to(logits.device)
+        state["n_gen"][slots] = 1
+        state["budget"][slots] = budgets
+        state["conf_sum"][slots] = negative_entropy(logits)
+        state["active"][slots] = budgets > 1
+        state["tokens"][slots] = row0
+
+    # -- host-side control loop -------------------------------------------
+    @torch.inference_mode()
+    def run(self, requests: List[Request], max_new: Optional[int] = None,
+            audit_path: Optional[str] = None, *,
+            obs=None) -> ContinuousServeResult:
+        """Serve `requests` (each with its own prompt and budget).
+
+        `max_new` is the run-wide token-buffer width and budget cap
+        (default: the largest request budget). `obs` is None, an
+        `ObsConfig` (the engine builds and finishes the runtime) or a
+        caller-owned `Observability`."""
+        if not requests:
+            raise ValueError("run() needs at least one request")
+        small, ecfg = self.small, self.config
+        cfg, dev = small.cfg, small.device
+        if max_new is None:
+            max_new = max(r.max_new for r in requests)
+        for r in requests:
+            r.max_new = min(r.max_new, max_new)
+        max_len = max(r.prompt_len + r.max_new for r in requests)
+        paged = ecfg.backend == "paged"
+        pc = ecfg.paged
+        use_kernel = False
+        if paged:
+            bs = pc.block_size
+            n_blocks = (pc.n_blocks if pc.n_blocks is not None
+                        else ecfg.n_slots * math.ceil(max_len / bs))
+            biggest = max(math.ceil((r.prompt_len + r.max_new - 1) / bs)
+                          for r in requests)
+            if n_blocks < biggest:
+                raise ValueError(
+                    f"n_blocks={n_blocks} cannot hold the largest request "
+                    f"({biggest} blocks of {bs}); raise n_blocks")
+            pool = PagedCachePool(cfg, ecfg.n_slots, n_blocks, bs, max_len,
+                                  dev)
+            use_kernel = kernel_ops.paged_kernel_enabled(pc.paged_kernel, dev)
+        else:
+            pool = SlotCachePool(cfg, ecfg.n_slots, max_len, dev)
+
+        sched = SlotScheduler(pool)
+        queue = ArrivalQueue(requests)
+        own_obs = not isinstance(obs, Observability)
+        obs_rt = obs if isinstance(obs, Observability) else Observability(obs)
+        tr = obs_rt.tracer
+        dev_timer = obs_rt.device_timer
+        tel = ServingTelemetry(audit_path, obs=obs_rt)
+        edge0 = self.spec.edges[0]
+        sig0 = edge0.signal
+
+        try:
+            S = ecfg.n_slots
+            zi = dict(dtype=torch.int32, device=dev)
+            state = {
+                "last_tok": torch.zeros((S,), **zi),
+                "pos": torch.zeros((S,), **zi),
+                "n_gen": torch.zeros((S,), **zi),
+                "budget": torch.full((S,), max_new, **zi),
+                "conf_sum": torch.zeros((S,), dtype=torch.float32, device=dev),
+                "active": torch.zeros((S,), dtype=torch.bool, device=dev),
+                "tokens": torch.zeros((S, max_new), **zi),
+            }
+            # paged: admitted requests still prefilling, FIFO of
+            # [request, slot, next chunk offset]
+            prefilling: List[List] = []
+            n_steps = 0
+            n_prefill_chunks = 0
+            n_prefill_dispatches = 0
+            n_prefill_tokens = 0
+            n_shared_tokens = 0
+            peak_active = 0
+            n_deferrals = 0
+            ml = SyncLocalBackend(self.large, max_new, ecfg.ml.large_batch,
+                                  ecfg.ml.max_wait, registry=tel.registry)
+            by_rid = {r.rid: r for r in requests}
+            ml_depths: List[int] = []
+            reg = tel.registry
+            reg.gauge("serving_active_slots",
+                      "requests resident in M_S decode slots",
+                      fn=lambda: sched.n_active)
+            reg.gauge("serving_queue_ready",
+                      "arrived requests awaiting slot admission",
+                      fn=lambda: queue.n_ready)
+            reg.gauge("serving_requests_admitted",
+                      "requests admitted into slots (lifetime)",
+                      fn=lambda: sched.n_admitted)
+            reg.gauge("serving_requests_retired",
+                      "requests retired from slots (lifetime)",
+                      fn=lambda: sched.n_retired)
+            if paged:
+                pool.register_metrics(reg)
+            # host mirrors of the confidence accumulators (tracing only)
+            conf_prev = np.zeros(S, np.float64)
+            ngen_prev = np.zeros(S, np.int64)
+            tel.reset_clock()
+
+            def submit_large(req: Request):
+                nonlocal n_deferrals
+                n_deferrals += 1
+                req.tier = 1
+                req.state = DEFERRED_PENDING
+                req.t_submit_large = tel.now
+                ml.submit([req])
+                tel.event("large_submit", rid=req.rid, edge=0,
+                          depth=ml.n_pending)
+
+            def poll_large():
+                """Fold completed M_L regenerations back into the run."""
+                for res in ml.poll():
+                    req = by_rid[res.rid]
+                    now = tel.now
+                    req.tier = 1
+                    req.tokens = np.asarray(
+                        res.tokens, np.int32)[:req.max_new].copy()
+                    req.state = DONE
+                    req.t_done = now
+                    tel.m_tokens.labels(model="large").inc(len(req.tokens))
+                    tel.event("large_complete", rid=req.rid, tier=1,
+                              batch_id=res.batch_id, n_real=res.n_real,
+                              pad_to=res.pad_to, reason=res.reason,
+                              wait_ms=round(
+                                  (now - req.t_submit_large) * 1e3, 3))
+
+            def sync_retire():
+                """Pull the small control vectors, retire finished and
+                in-flight-deferred slots, and deactivate them on device.
+                Slots still prefilling are skipped."""
+                mid_prefill = {s for _, s, _ in prefilling}
+                n_gen, conf_sum = _to_host(state["n_gen"], state["conf_sum"])
+                n_gen, conf_sum = n_gen[:, 0], conf_sum[:, 0]
+                toks = None
+                retired: List[int] = []
+                now = tel.now
+                tau0 = edge0.tau
+                for slot in sched.active_slots:
+                    if slot in mid_prefill:
+                        continue
+                    req = sched.running[slot]
+                    n = int(n_gen[slot])
+                    mean = float(conf_sum[slot]) / max(n, 1)
+                    finished = n >= req.max_new
+                    evict = (not finished and ecfg.early_exit
+                             and sig0.supports_running
+                             and n >= edge0.min_tokens
+                             and sig0.running(mean, n) < tau0 - edge0.margin)
+                    if not (finished or evict):
+                        continue
+                    if toks is None:
+                        toks = state["tokens"].cpu().numpy()
+                    req.n_small_steps = n
+                    req.small_tokens = toks[slot, :n].copy()
+                    if evict:
+                        conf_r, defer = mean, True
+                    else:
+                        conf_r = (mean if sig0.supports_running
+                                  else float(sig0.finalize(SignalObservation(
+                                      prompt=req.prompt, mean_confidence=mean,
+                                      tokens=req.small_tokens, runner=small,
+                                      max_new=req.max_new, rid=req.rid))))
+                        defer = conf_r < tau0
+                    req.confidence = conf_r
+                    sched.retire(slot, now, deferred=defer, early=evict)
+                    if defer:
+                        submit_large(req)
+                    else:
+                        req.tokens = toks[slot, :req.max_new].copy()
+                    reason = ("defer_early" if evict else
+                              "defer_final" if defer else "finish")
+                    tel.event("retire", rid=req.rid, slot=slot,
+                              reason=reason, n_gen=n,
+                              confidence=round(mean, 6))
+                    tel.m_requests.labels(outcome=reason).inc()
+                    if not defer:
+                        tel.m_tokens.labels(model="small").inc(
+                            len(req.tokens))
+                    retired.append(slot)
+                if retired:
+                    state["active"][retired] = False
+
+            def seed_conf_trace(pairs):
+                """Start each new request's per-token confidence record
+                from its prefill seed (tracing only)."""
+                ng, cs = _to_host(state["n_gen"], state["conf_sum"])
+                for slot, req in pairs:
+                    conf_prev[slot] = float(cs[slot, 0])
+                    ngen_prev[slot] = int(ng[slot, 0])
+                    req.conf_trace = [round(conf_prev[slot], 6)]
+
+            def record_conf_trace(decoding):
+                """Extend the per-token confidence records from per-sync
+                deltas of conf_sum (tracing only)."""
+                ng, cs = _to_host(state["n_gen"], state["conf_sum"])
+                for slot in decoding:
+                    req = sched.running[slot]
+                    dn = int(ng[slot, 0]) - int(ngen_prev[slot])
+                    if req.conf_trace is not None and dn > 0:
+                        req.conf_trace.append(round(
+                            (float(cs[slot, 0]) - conf_prev[slot]) / dn, 6))
+                    conf_prev[slot] = float(cs[slot, 0])
+                    ngen_prev[slot] = int(ng[slot, 0])
+
+            def admit_slot_groups(admitted):
+                """Slot backend: batched prefill per distinct prompt
+                length, each group's rows scattered into its slots."""
+                by_len: Dict[int, List[Tuple[int, Request]]] = {}
+                for s, r in admitted:
+                    by_len.setdefault(r.prompt_len, []).append((s, r))
+                for P, group in sorted(by_len.items()):
+                    slots = [s for s, _ in group]
+                    prompts = torch.from_numpy(np.stack(
+                        [r.prompt for _, r in group]).astype(np.int64)).to(dev)
+                    fresh = tfm.init_cache(cfg, len(group), pool.max_len,
+                                           device=dev)
+                    logits, fresh = tfm.prefill(small.params, cfg, prompts,
+                                                fresh, last_only=True)
+                    scatter_rows(pool.cache, fresh,
+                                 torch.tensor(slots, device=dev))
+                    self._seed_slots(
+                        state, slots, logits[:, -1, :],
+                        torch.tensor([r.max_new for _, r in group],
+                                     dtype=torch.int32),
+                        torch.full((len(group),), P, dtype=torch.int32),
+                        max_new)
+                now = tel.now
+                for _, r in admitted:
+                    r.t_prefill_done = now
+                if tr is not None:
+                    seed_conf_trace(admitted)
+
+            def run_prefill_chunk():
+                """Paged backend: one prefill dispatch for the oldest
+                mid-prefill request's next chunk — plus, with
+                `batch_prefill`, the same-offset chunks of every other
+                mid-prefill request. Every row's chunk span is made
+                write-private first (CoW) and the rows' writable blocks
+                are checked pairwise disjoint."""
+                nonlocal n_prefill_chunks, n_prefill_dispatches, \
+                    n_prefill_tokens
+                head_req, _, off0 = prefilling[0]
+                C = pc.prefill_chunk or (head_req.prompt_len - off0)
+                if pc.batch_prefill:
+                    group = [e for e in prefilling if e[2] == off0
+                             and (pc.prefill_chunk
+                                  or e[0].prompt_len - e[2]) == C]
+                else:
+                    group = [prefilling[0]]
+                k = len(group)
+                for _, slot, off in group:
+                    pool.ensure_writable(slot, off, off + C)
+                pool.check_write_disjoint(
+                    (slot, off, off + C) for _, slot, off in group)
+                # bucket the width to a power of two: pad rows write to
+                # the trash block and their logits are ignored
+                Bc = next_pow2(k)
+                chunks = np.zeros((Bc, C), np.int64)
+                tbl = np.zeros((Bc, pool.max_blocks), np.int32)
+                last_idx = np.zeros((Bc,), np.int64)
+                for i, (req, slot, off) in enumerate(group):
+                    piece = req.prompt[off:off + C]
+                    chunks[i, :piece.shape[0]] = piece
+                    tbl[i] = pool.tables[slot]
+                    last_idx[i] = min(req.prompt_len - 1 - off, C - 1)
+                    n_prefill_tokens += int(piece.shape[0])
+                logits, _ = tfm.prefill(
+                    small.params, cfg, torch.from_numpy(chunks).to(dev),
+                    pool.cache, cache_offset=off0,
+                    pages=torch.from_numpy(tbl).to(dev),
+                    last_index=torch.from_numpy(last_idx).to(dev))
+                if dev_timer.enabled:
+                    t_dev = tel.now
+                    dev_timer.block(dev)
+                    tel.phase_add("prefill", 0.0, tel.now - t_dev)
+                n_prefill_dispatches += 1
+                n_prefill_chunks += k
+                seeded: List[Tuple[int, Request]] = []
+                for i, entry in enumerate(group):
+                    req, slot, off = entry
+                    if off + C >= req.prompt_len:            # final chunk
+                        prefilling.remove(entry)
+                        self._seed_slots(
+                            state, [slot], logits[i:i + 1, 0, :],
+                            torch.tensor([req.max_new], dtype=torch.int32),
+                            torch.tensor([req.prompt_len], dtype=torch.int32),
+                            max_new)
+                        if pc.prefix_sharing:
+                            pool.register_prefix(slot, req.prompt)
+                        req.t_prefill_done = tel.now
+                        tel.event("prefill_done", rid=req.rid, slot=slot,
+                                  chunks=math.ceil(
+                                      max(req.prompt_len
+                                          - req.shared_prefix_tokens, 1)
+                                      / C),
+                                  shared=req.shared_prefix_tokens)
+                        seeded.append((slot, req))
+                    else:
+                        entry[2] = off + C
+                if seeded:
+                    if tr is not None:
+                        seed_conf_trace(seeded)
+                    sync_retire()        # max_new == 1: already finished
+
+            def decoding_slots() -> List[int]:
+                mid_prefill = {s for _, s, _ in prefilling}
+                return [s for s in sched.active_slots if s not in mid_prefill]
+
+            try:
+                while len(queue) or sched.n_active:
+                    t_it = tel.now
+                    if paged:
+                        # admit one at a time: each admission reserves its
+                        # blocks, so the next FIFO head's capacity check
+                        # sees the updated reservation
+                        admitted = []
+                        while True:
+                            got = sched.admit_ready(
+                                queue, tel.now, limit=1,
+                                can_admit=lambda r: pool.can_reserve(
+                                    r.prompt_len + r.max_new - 1))
+                            if not got:
+                                break
+                            slot, req = got[0]
+                            pool.reserve(slot,
+                                         req.prompt_len + req.max_new - 1)
+                            start = 0
+                            if pc.prefix_sharing:
+                                # map resident prefix blocks by refcount;
+                                # a fully shared prompt still recomputes
+                                # its final token for the seed logits
+                                shared = pool.share_prefix(slot, req.prompt)
+                                start = min(shared, req.prompt_len - 1)
+                                req.shared_prefix_tokens = start
+                                n_shared_tokens += start
+                            pool.ensure_mapped(slot, req.prompt_len)
+                            prefilling.append([req, slot, start])
+                            admitted.append((slot, req))
+                        if admitted:
+                            tel.event("admit",
+                                      rids=[r.rid for _, r in admitted],
+                                      slots=[s for s, _ in admitted],
+                                      shared=[r.shared_prefix_tokens
+                                              for _, r in admitted])
+                        t_sched = tel.now
+                        did_prefill = bool(prefilling)
+                        if did_prefill:
+                            run_prefill_chunk()
+                    else:
+                        admitted = sched.admit_ready(queue, tel.now)
+                        t_sched = tel.now
+                        did_prefill = bool(admitted)
+                        if admitted:
+                            admit_slot_groups(admitted)
+                            tel.event("admit",
+                                      rids=[r.rid for _, r in admitted],
+                                      slots=[s for s, _ in admitted])
+                            sync_retire()   # min_tokens=1 / max_new=1 edges
+                    t_prefill = tel.now
+                    tel.phase_add("schedule", t_sched - t_it)
+                    if did_prefill:
+                        tel.phase_add("prefill", t_prefill - t_sched)
+                    peak_active = max(peak_active, sched.n_active)
+                    decoding = decoding_slots()
+                    tables = None
+                    if paged and decoding:
+                        # map (and make write-private) each decoding row's
+                        # span [pos, pos + steps_per_sync)
+                        pos_host = state["pos"].cpu().numpy()
+                        need = 1
+                        covers = {}
+                        for slot in decoding:
+                            req = sched.running[slot]
+                            total = req.prompt_len + req.max_new - 1
+                            cover = min(int(pos_host[slot])
+                                        + ecfg.steps_per_sync, total)
+                            pool.ensure_mapped(slot, cover)
+                            pool.ensure_writable(slot, int(pos_host[slot]),
+                                                 cover)
+                            covers[slot] = cover
+                            need = max(need, cover)
+                        pool.check_write_disjoint(
+                            (s, int(pos_host[s]), c)
+                            for s, c in covers.items())
+                        # active-prefix tightening: walk only the
+                        # bucketed block prefix the masks can reach
+                        tables = pool.tables_device(
+                            pool.active_prefix_blocks(need))
+                    t_dec = tel.now
+                    if decoding:
+                        for _ in range(ecfg.steps_per_sync):
+                            state = self._decode_body(
+                                pool.cache, state, tables, max_new,
+                                paged_kernel=use_kernel if paged else None)
+                        dec_dev = 0.0
+                        if dev_timer.enabled:
+                            t_dev = tel.now
+                            dev_timer.block(dev)
+                            dec_dev = tel.now - t_dev
+                        n_steps += ecfg.steps_per_sync
+                        tel.event("step", slots=decoding,
+                                  n=ecfg.steps_per_sync,
+                                  ml_pending=ml.n_pending)
+                        if tr is not None:
+                            record_conf_trace(decoding)
+                        sync_retire()
+                        t_dec_end = tel.now
+                        tel.phase_add("decode", t_dec_end - t_dec, dec_dev)
+                        tel.m_decode_step.observe(
+                            (t_dec_end - t_dec) / ecfg.steps_per_sync)
+                    elif not sched.n_active and len(queue):
+                        nxt = queue.next_arrival
+                        if nxt is not None:
+                            time.sleep(min(max(nxt - tel.now, 0.0), 1e-3)
+                                       + 1e-5)
+                        t_dec_end = tel.now
+                    else:
+                        t_dec_end = t_dec
+                    t_poll = tel.now
+                    ml_depths.append(ml.n_pending)
+                    poll_large()
+                    t_end = tel.now
+                    tel.phase_add("ml_wait", t_end - t_poll)
+                    if tr is not None:
+                        if admitted:
+                            tr.complete("schedule", "engine", t_it,
+                                        t_sched - t_it, 0)
+                        if did_prefill:
+                            tr.complete("prefill", "engine", t_sched,
+                                        t_prefill - t_sched, 0)
+                        if decoding:
+                            tr.complete("decode", "engine", t_dec,
+                                        t_dec_end - t_dec, 0)
+                        tr.complete("ml_poll", "engine", t_poll,
+                                    t_end - t_poll, 0)
+                        tr.complete("iteration", "engine", t_it,
+                                    t_end - t_it, 0,
+                                    args={"n_active": sched.n_active,
+                                          "ml_pending": ml.n_pending})
+
+                # all M_S work is done: the sync backend runs every
+                # released M_L batch inline on flush
+                t_drain = tel.now
+                ml.flush()
+                poll_large()
+                if ml.n_pending:
+                    raise RuntimeError(f"M_L drain left {ml.n_pending} "
+                                       f"deferral(s) pending")
+                makespan = tel.now
+                tel.phase_add("drain", makespan - t_drain)
+                if tr is not None:
+                    tr.complete("drain", "engine", t_drain,
+                                makespan - t_drain, 0)
+            finally:
+                ml.close()
+        finally:
+            tel.close()
+
+        reqs = sorted(requests, key=lambda r: r.rid)
+        if tr is not None:
+            emit_request_spans(tr, reqs)
+        cost_small, cost_large = self.spec.costs
+        stats = tel.summary(reqs, makespan, cost_small, cost_large)
+        stats["backend"] = ecfg.backend
+        stats["cache_bytes"] = pool.footprint_bytes()
+        stats["peak_active"] = peak_active
+        stats["ml_backend"] = ml.name
+        stats["ml_batches"] = len(ml.batch_log)
+        stats["ml_batch_occupancy"] = (
+            float(np.mean([b["n_real"] / max(b["pad_to"], 1)
+                           for b in ml.batch_log]))
+            if ml.batch_log else float("nan"))
+        stats["ml_queue_depth_peak"] = int(max(ml_depths, default=0))
+        stats["ml_queue_depth_mean"] = (float(np.mean(ml_depths))
+                                        if ml_depths else 0.0)
+        reach = [1.0, n_deferrals / len(reqs)]
+        stats["n_tiers"] = 2
+        stats["tier_names"] = [t.name for t in self.spec.tiers]
+        stats["tier_served"] = [sum(1 for r in reqs if r.tier == i)
+                                for i in range(2)]
+        stats["edge_deferrals"] = [n_deferrals]
+        stats["edge_tau"] = [edge0.tau]
+        stats["edge_signal"] = [sig0.name]
+        stats["tier_reach"] = reach
+        stats["compute_cost"] = ladder_compute_cost(reach, self.spec.costs)
+        if paged:
+            stats.update(block_size=pc.block_size,
+                         n_blocks=pool.n_blocks,
+                         peak_blocks=pool.peak_mapped,
+                         prefill_chunks=n_prefill_chunks,
+                         prefill_dispatches=n_prefill_dispatches,
+                         prefill_tokens=n_prefill_tokens,
+                         prefix_sharing=pc.prefix_sharing,
+                         shared_tokens=n_shared_tokens,
+                         shared_blocks=pool.shared_blocks_total,
+                         cow_clones=pool.cow_clones,
+                         paged_kernel=use_kernel)
+        if own_obs:
+            obs_rt.finish()
+        tokens = np.zeros((len(reqs), max_new), np.int32)
+        for i, r in enumerate(reqs):
+            tokens[i, :len(r.tokens)] = r.tokens
+        return ContinuousServeResult(
+            requests=reqs,
+            tokens=tokens,
+            confidence=np.array([r.confidence for r in reqs]),
+            deferred=np.array([r.deferred for r in reqs]),
+            early_exited=np.array([r.early_exited for r in reqs]),
+            deferral_ratio=float(np.mean([r.deferred for r in reqs])),
+            saved_steps=sum(r.saved_steps for r in reqs),
+            steps=n_steps,
+            stats=stats,
+        )

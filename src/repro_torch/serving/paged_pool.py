@@ -1,0 +1,459 @@
+"""Block-paged KV-cache pool for continuous batching with ragged prompts.
+
+Counterpart of `repro.serving.paged_pool` (see its docstring for the full
+design). The cache is stored in fixed-size **blocks** of `block_size`
+tokens shared by all slots:
+
+  * every cache leaf is ``[L, n_blocks + 1, block_size, KV, hd]``;
+    physical block 0 is a shared **trash block** that is never allocated
+    (unmapped page-table entries and writes from inactive decode rows land
+    there harmlessly);
+  * each slot owns a row of the **page table** ``[n_slots, M]`` mapping
+    its logical block ``m`` to a physical block id, 0 meaning unmapped;
+  * blocks are mapped on demand and returned at retirement.
+
+Admission is **reservation-based**: admitting a request reserves its
+worst-case block count, blocks are mapped lazily, and ``free >= reserved``
+guarantees `ensure_mapped` never fails mid-flight. **Prefix sharing**:
+blocks carry reference counts; a prefix registry keyed on the hash chain
+of each full prompt block's tokens lets a new request map already
+resident blocks instead of prefilling them. Shared blocks are read-only:
+`ensure_writable` copy-on-write clones a shared block before any write,
+and `check_write_disjoint` asserts per dispatch that no physical block is
+writable from two rows (the paged write kernel's contract).
+
+Differences from the JAX pool: the cache is mutated IN PLACE (a CoW clone
+copies block ``old`` to ``new`` in every layer at once, before the next
+write dispatch), and `tables_device` is an int32 tensor on the model's
+device. Oversubscription, the preemption snapshots and the host swap tier
+are not ported yet (see ROADMAP.md).
+
+Invariants (as in the JAX pool, checked by `check_invariants`):
+  * per-slot table rows never repeat a block and never map block 0;
+  * every block's refcount equals the number of table rows of in-use
+    slots that map it; blocks with refcount 0 are exactly the free set;
+  * refcounted + free is always exactly {1..n_blocks};
+  * len(free) >= total outstanding reservation;
+  * registry entries point at blocks that are mapped or cached-free,
+    bijectively with the reverse map;
+  * a slot's table row is all-zero whenever the slot is free.
+"""
+from __future__ import annotations
+
+import hashlib
+import heapq
+import math
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.serving.cache_pool import cache_bytes
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1) — the shared bucketing policy
+    for active-prefix table slicing and batched prefill width."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def prefix_block_keys(tokens: np.ndarray, block_size: int) -> List[bytes]:
+    """Hash-chain keys of every FULL block of `tokens`: key m digests
+    (key of block m-1, tokens of block m), so equal keys mean equal whole
+    prefixes."""
+    out: List[bytes] = []
+    prev = b""
+    toks = np.ascontiguousarray(tokens, np.int32)
+    for m in range(len(toks) // block_size):
+        h = hashlib.blake2b(prev, digest_size=16)
+        h.update(toks[m * block_size:(m + 1) * block_size].tobytes())
+        prev = h.digest()
+        out.append(prev)
+    return out
+
+
+class PagedCachePool:
+    """Block-paged per-slot cache + slot/block/reservation bookkeeping.
+
+    The **slot** API (`alloc`/`release`/`n_free`/`in_use`) matches
+    `SlotCachePool`, so `SlotScheduler` drives either pool; the **block**
+    API (`can_reserve`/`reserve`/`ensure_mapped`) makes admission
+    ragged-aware; the **sharing** API (`share_prefix`/`register_prefix`/
+    `ensure_writable`/`cow_clone`/`check_write_disjoint`) lets slots alias
+    read-only prompt blocks safely."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, n_blocks: int,
+                 block_size: int, max_len: int, device,
+                 dtype: Optional[torch.dtype] = None):
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        if block_size < 1 or n_blocks < 1:
+            raise ValueError("block_size and n_blocks must be >= 1")
+        tfm.attn_config(cfg)           # only full-causal GQA caches page
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        self.max_len = max_len
+        self.device = torch.device(device)
+        # logical blocks a slot may address (max_len plus one block of
+        # slack for padded-chunk clamping)
+        self.max_blocks = math.ceil(max_len / block_size) + 1
+        # batch = blocks gives exactly the paged layout (block 0 = trash)
+        self.cache = tfm.init_cache(cfg, n_blocks + 1, block_size,
+                                    dtype=dtype or cfg.cdtype(), device=device)
+
+        # host bookkeeping
+        self.tables = np.zeros((n_slots, self.max_blocks), np.int32)
+        self.n_mapped = np.zeros(n_slots, np.int64)
+        self.ref = np.zeros(n_blocks + 1, np.int64)  # per-block refcount
+        self._owed = np.zeros(n_slots, np.int64)     # reserved, not yet mapped
+        self._reserved_total = 0
+        # free blocks: plain (never registered) preferred over cached
+        # (registered prefix, content intact); lowest id first in each
+        self._free_plain: List[int] = list(range(1, n_blocks + 1))
+        self._free_cached: List[int] = []
+        self._free_set: set = set(self._free_plain)
+        self._free_slots: List[int] = list(range(n_slots))  # min-heap
+        self._in_use: set = set()
+        # prefix registry: chain key -> physical block, plus reverse map
+        self._prefix_registry: Dict[bytes, int] = {}
+        self._registered_key: Dict[int, bytes] = {}
+        self.generations = [0] * n_slots
+        self.peak_mapped = 0           # high-water physical blocks in use
+        self.shared_blocks_total = 0   # lifetime blocks mapped via sharing
+        self.cow_clones = 0            # lifetime copy-on-write clones
+        self._tables_cache: Dict[Optional[int], torch.Tensor] = {}
+
+    # -- capacity / accounting --------------------------------------------
+    def blocks_for(self, n_tokens: int) -> int:
+        """Physical blocks needed to store `n_tokens` cache entries."""
+        return max(0, math.ceil(n_tokens / self.block_size))
+
+    @property
+    def n_physical_in_use(self) -> int:
+        """Physical blocks allocated (refcount > 0); shared blocks once."""
+        return self.n_blocks - len(self._free_set)
+
+    def footprint_bytes(self) -> int:
+        """Device bytes held by the paged cache (all physical blocks)."""
+        return cache_bytes(self.cache)
+
+    # -- slot bookkeeping (SlotCachePool-compatible) ----------------------
+    @property
+    def n_free(self) -> int:
+        return len(self._free_slots)
+
+    @property
+    def in_use(self) -> frozenset:
+        return frozenset(self._in_use)
+
+    def alloc(self) -> int:
+        """Lowest-numbered free slot (deterministic placement)."""
+        if not self._free_slots:
+            raise RuntimeError("cache pool exhausted")
+        slot = heapq.heappop(self._free_slots)
+        self._in_use.add(slot)
+        self.generations[slot] += 1
+        return slot
+
+    def release(self, slot: int,
+                expected_generation: Optional[int] = None) -> None:
+        """Free the slot: drop its blocks' refcounts (zero-ref blocks go
+        back to the free heaps, registered ones as cached), its
+        reservation, and its table row. Double or stale release raises."""
+        if slot not in self._in_use:
+            raise RuntimeError(
+                f"double release of slot {slot}: slot is not in use "
+                f"(already released or never allocated)")
+        if (expected_generation is not None
+                and expected_generation != self.generations[slot]):
+            raise RuntimeError(
+                f"stale release of slot {slot}: caller holds generation "
+                f"{expected_generation} but the slot was re-allocated "
+                f"(now generation {self.generations[slot]})")
+        self._in_use.remove(slot)
+        heapq.heappush(self._free_slots, slot)
+        for m in range(int(self.n_mapped[slot])):
+            blk = int(self.tables[slot, m])
+            self.ref[blk] -= 1
+            if self.ref[blk] == 0:
+                self._push_free(blk)
+        self._reserved_total -= int(self._owed[slot])
+        self._owed[slot] = 0
+        self.n_mapped[slot] = 0
+        self.tables[slot] = 0
+        self._tables_cache.clear()
+
+    # -- free-block heaps (lazy deletion) ----------------------------------
+    def _push_free(self, blk: int) -> None:
+        heap = (self._free_cached if blk in self._registered_key
+                else self._free_plain)
+        heapq.heappush(heap, blk)
+        self._free_set.add(blk)
+
+    def _pop_free(self) -> int:
+        """Lowest-id unregistered free block, else evict (deregister) the
+        lowest-id cached one. Caller owns the block (ref set to 1)."""
+        for heap in (self._free_plain, self._free_cached):
+            while heap:
+                blk = heapq.heappop(heap)
+                if blk not in self._free_set:
+                    continue                    # stale lazy-deleted entry
+                self._free_set.remove(blk)
+                key = self._registered_key.pop(blk, None)
+                if key is not None:             # evict the cached prefix
+                    del self._prefix_registry[key]
+                self.ref[blk] = 1
+                return blk
+        raise RuntimeError("paged pool out of blocks — reservation "
+                           "invariant violated")
+
+    def _take_free_block(self, slot: int) -> int:
+        """Allocate one fresh block for `slot`, charged against its
+        reservation — or, beyond it, against unreserved headroom."""
+        charged = self._owed[slot] > 0
+        if not charged and (self.n_physical_in_use + 1
+                            + self._reserved_total > self.n_blocks):
+            raise RuntimeError(
+                f"slot {slot} mapping beyond its reservation would leave "
+                f"free ({len(self._free_set) - 1}) < reserved "
+                f"({self._reserved_total}) — raise n_blocks")
+        blk = self._pop_free()
+        if charged:
+            self._owed[slot] -= 1
+            self._reserved_total -= 1
+        self.peak_mapped = max(self.peak_mapped, self.n_physical_in_use)
+        return blk
+
+    # -- block reservation / mapping --------------------------------------
+    def can_reserve(self, n_tokens: int) -> bool:
+        """True if a request needing `n_tokens` cache entries fits the
+        reservation budget (``free - reserved >= need``)."""
+        return (self.n_physical_in_use + self._reserved_total
+                + self.blocks_for(n_tokens) <= self.n_blocks)
+
+    def reserve(self, slot: int, n_tokens: int) -> None:
+        """Reserve the slot's worst-case block count (after
+        `can_reserve`)."""
+        need = self.blocks_for(n_tokens)
+        if (self.n_physical_in_use + self._reserved_total + need
+                > self.n_blocks):
+            raise RuntimeError("paged pool over-reserved: admission must "
+                               "check can_reserve() first")
+        self._owed[slot] = need
+        self._reserved_total += need
+
+    def ensure_mapped(self, slot: int, n_tokens: int) -> int:
+        """Map blocks until the slot covers `n_tokens` logical entries.
+        Returns the number of newly mapped blocks."""
+        need = self.blocks_for(n_tokens)
+        newly = 0
+        while int(self.n_mapped[slot]) < need:
+            blk = self._take_free_block(slot)
+            self.tables[slot, int(self.n_mapped[slot])] = blk
+            self.n_mapped[slot] += 1
+            newly += 1
+        if newly:
+            self._tables_cache.clear()
+        return newly
+
+    # -- prefix sharing / copy-on-write ------------------------------------
+    def share_prefix(self, slot: int, tokens: np.ndarray) -> int:
+        """Map the longest registered prefix of `tokens` into `slot`'s
+        (empty) table row without prefilling it; returns the prompt tokens
+        covered (a multiple of `block_size`). Aliased blocks give their
+        reservation back — minus one block of slack when the whole prompt
+        is shared with an aliased tail, so its worst-case `cow_clone`
+        (the final prompt token is recomputed in place) cannot fail."""
+        assert int(self.n_mapped[slot]) == 0, \
+            "share_prefix needs an empty table row"
+        shared = 0
+        aliased = 0
+        for m, key in enumerate(prefix_block_keys(tokens, self.block_size)):
+            blk = self._prefix_registry.get(key)
+            if blk is None:
+                break
+            if self.ref[blk] == 0:
+                # cached free block: resurrect, charged like a fresh
+                # mapping (or, past the reservation, only within headroom)
+                if self._owed[slot] <= 0 and (
+                        self.n_physical_in_use + 1 + self._reserved_total
+                        > self.n_blocks):
+                    break
+                self._free_set.remove(blk)
+                if self._owed[slot] > 0:
+                    self._owed[slot] -= 1
+                    self._reserved_total -= 1
+                self.ref[blk] = 1
+            else:
+                self.ref[blk] += 1
+                aliased += 1
+            self.tables[slot, m] = blk
+            self.n_mapped[slot] += 1
+            shared += 1
+        if shared:
+            give = aliased
+            if (shared * self.block_size >= len(tokens)
+                    and self.ref[int(self.tables[slot, shared - 1])] > 1):
+                give -= 1
+            give = min(max(give, 0), int(self._owed[slot]))
+            self._owed[slot] -= give
+            self._reserved_total -= give
+            self.shared_blocks_total += shared
+            self._tables_cache.clear()
+            self.peak_mapped = max(self.peak_mapped, self.n_physical_in_use)
+        return shared * self.block_size
+
+    def register_prefix(self, slot: int, tokens: np.ndarray) -> int:
+        """Publish `slot`'s fully-prefilled prompt blocks for later
+        `share_prefix` calls; first registration of a key wins. Returns
+        how many entries were added."""
+        n = 0
+        for m, key in enumerate(prefix_block_keys(tokens, self.block_size)):
+            if m >= int(self.n_mapped[slot]):
+                break
+            blk = int(self.tables[slot, m])
+            if key in self._prefix_registry or blk in self._registered_key:
+                continue
+            self._prefix_registry[key] = blk
+            self._registered_key[blk] = key
+            n += 1
+        return n
+
+    def cow_clone(self, slot: int, m: int) -> int:
+        """Copy-on-write: give `slot` a private copy of its logical block
+        `m` (currently aliased by another slot). The copy is made in
+        place, in every layer at once. Returns the new physical id."""
+        old = int(self.tables[slot, m])
+        assert old > 0 and self.ref[old] > 1, \
+            f"cow_clone: slot {slot} block {m} (phys {old}) is not shared"
+        new = self._take_free_block(slot)
+        self.ref[old] -= 1
+        self.tables[slot, m] = new
+        self._tables_cache.clear()
+        self.cow_clones += 1
+        for leaves in self.cache.values():
+            for leaf in leaves.values():
+                leaf[:, new] = leaf[:, old]        # [L, bs, KV, hd] copy
+        return new
+
+    def ensure_writable(self, slot: int, lo: int, hi: int) -> int:
+        """CoW-clone every mapped block of `slot` holding a position in
+        [lo, hi) whose refcount exceeds one. Returns the clone count."""
+        if hi <= lo:
+            return 0
+        m_hi = min((hi - 1) // self.block_size, int(self.n_mapped[slot]) - 1)
+        n = 0
+        for m in range(lo // self.block_size, m_hi + 1):
+            blk = int(self.tables[slot, m])
+            if blk > 0 and self.ref[blk] > 1:
+                self.cow_clone(slot, m)
+                n += 1
+        return n
+
+    def check_write_disjoint(self,
+                             ranges: Iterable[Tuple[int, int, int]]) -> None:
+        """Raise unless the physical blocks writable by one dispatch —
+        (slot, lo, hi) token spans, one per row — are pairwise disjoint
+        across rows. Trash-block targets are exempt."""
+        owner: Dict[int, int] = {}
+        for slot, lo, hi in ranges:
+            if hi <= lo:
+                continue
+            m_hi = min((hi - 1) // self.block_size,
+                       int(self.n_mapped[slot]) - 1)
+            for m in range(lo // self.block_size, m_hi + 1):
+                blk = int(self.tables[slot, m])
+                if blk == 0:
+                    continue
+                prev = owner.get(blk)
+                if prev is not None and prev != slot:
+                    raise RuntimeError(
+                        f"paged write aliasing: block {blk} is writable "
+                        f"from slots {prev} and {slot} in one dispatch — "
+                        f"CoW guard failed (ensure_writable not called?)")
+                owner[blk] = slot
+
+    # -- observability ------------------------------------------------------
+    @property
+    def n_shared_blocks(self) -> int:
+        """Physical blocks currently aliased by more than one slot."""
+        return int((self.ref > 1).sum())
+
+    @property
+    def n_cached_blocks(self) -> int:
+        """Zero-ref blocks still holding a registered prefix."""
+        return sum(1 for b in self._registered_key if b in self._free_set)
+
+    def register_metrics(self, reg) -> None:
+        """Expose pool occupancy as pull-mode gauges on a registry."""
+        g = reg.gauge("serving_pool_blocks",
+                      "paged KV pool physical blocks by state", ("kind",))
+        g.labels(kind="total").set_fn(lambda: self.n_blocks)
+        g.labels(kind="free").set_fn(lambda: len(self._free_set))
+        g.labels(kind="reserved").set_fn(lambda: self._reserved_total)
+        g.labels(kind="in_use").set_fn(lambda: self.n_physical_in_use)
+        g.labels(kind="refcounted").set_fn(lambda: self.n_shared_blocks)
+        g.labels(kind="cached").set_fn(lambda: self.n_cached_blocks)
+        g.labels(kind="peak").set_fn(lambda: self.peak_mapped)
+        reg.gauge("serving_pool_cow_clones_total",
+                  "lifetime copy-on-write block clones",
+                  fn=lambda: self.cow_clones)
+        reg.gauge("serving_pool_shared_blocks_total",
+                  "lifetime blocks mapped via prefix sharing",
+                  fn=lambda: self.shared_blocks_total)
+
+    def active_prefix_blocks(self, n_tokens: int) -> int:
+        """Logical blocks covering `n_tokens` entries, bucketed up to a
+        power of two and clamped to `max_blocks`: decode walks only this
+        table prefix."""
+        return min(next_pow2(self.blocks_for(n_tokens)), self.max_blocks)
+
+    def tables_device(self, prefix: Optional[int] = None) -> torch.Tensor:
+        """The page table (or its first `prefix` columns) as a contiguous
+        int32 tensor on the cache's device, rebuilt only after the host
+        table changed."""
+        if prefix is not None and prefix >= self.max_blocks:
+            prefix = None
+        got = self._tables_cache.get(prefix)
+        if got is None:
+            host = self.tables if prefix is None else self.tables[:, :prefix]
+            got = torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
+            self._tables_cache[prefix] = got
+        return got
+
+    # -- invariants (tests) ------------------------------------------------
+    def check_invariants(self) -> None:
+        counts = np.zeros(self.n_blocks + 1, np.int64)
+        for s in range(self.n_slots):
+            row = [int(self.tables[s, m])
+                   for m in range(int(self.n_mapped[s]))]
+            assert 0 not in row, "trash block mapped"
+            assert len(row) == len(set(row)), \
+                f"slot {s} maps a block twice in its own row"
+            for b in row:
+                counts[b] += 1
+        assert (counts[1:] == self.ref[1:]).all(), \
+            "refcount drift: ref[] != table-row mapping counts"
+        mapped = {b for b in range(1, self.n_blocks + 1) if self.ref[b] > 0}
+        free = set(self._free_set)
+        assert mapped.isdisjoint(free), "free block still referenced"
+        assert mapped | free == set(range(1, self.n_blocks + 1)), \
+            "blocks leaked"
+        assert len(free) >= self._reserved_total >= 0, \
+            "reservation exceeds free blocks"
+        for key, blk in self._prefix_registry.items():
+            assert self._registered_key.get(blk) == key, \
+                "registry / reverse-map mismatch"
+        assert len(self._registered_key) == len(self._prefix_registry)
+        for s in range(self.n_slots):
+            if s not in self._in_use:
+                assert (self.tables[s] == 0).all(), \
+                    f"free slot {s} holds mapped blocks"
+        assert len(self._in_use) + len(self._free_slots) == self.n_slots

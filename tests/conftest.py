@@ -10,6 +10,11 @@ import jax  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs an NVIDIA GPU (skipped without one)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)

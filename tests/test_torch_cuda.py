@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `requires_cuda`: they skip without an NVIDIA GPU (the kernels have
+no CPU mode). On the card, where JAX need not be installed: ``PYTHONPATH=src
+python -m pytest -q --noconftest tests/test_torch_cuda.py`` (this file
+imports no JAX; tests/conftest.py does). `chip_smoke.py` runs the same
+comparisons at full width."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import paged_attention as pa
+
+pytestmark = pytest.mark.requires_cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(cuda, B, H, KV, hd, bs, q_dtype, kv_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, 8 * bs, size=B)
+    n_map = [math.ceil((int(p) + 1) / bs) for p in pos]
+    n_map[-1] = 0                               # one all-trash row
+    M = max(n_map)
+    N = sum(n_map) + 2
+    perm = rng.permutation(N) + 1
+    tables = np.zeros((B, M), np.int32)
+    used = 0
+    for b, n in enumerate(n_map):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, 1, H, hd), generator=g, device=cuda).to(q_dtype)
+    kp = torch.randn((N + 1, bs, KV, hd), generator=g, device=cuda).to(kv_dtype)
+    vp = torch.randn((N + 1, bs, KV, hd), generator=g, device=cuda).to(kv_dtype)
+    return (q, kp, vp, torch.from_numpy(tables).to(cuda),
+            torch.from_numpy(pos.astype(np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("shape", [(4, 4, 2, 16, 4), (8, 16, 8, 128, 16)],
+                         ids=["reduced", "full-width"])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_decode_kernel_matches_plain(cuda, shape, q_dtype, kv_dtype):
+    """atol 1e-4 for fp32 output (both accumulate in fp32, in different
+    orders); 2e-2 for a bf16 output (one bf16 rounding of the result)."""
+    q, kp, vp, tables, pos = _case(cuda, *shape, q_dtype, kv_dtype)
+    n = pa.paged_flash_decode_gqa.launches
+    out = pa.paged_flash_decode_gqa(q, kp, vp, tables, pos)
+    ref = pa.paged_flash_decode_gqa_plain(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode_gqa.launches == n + 1
+    atol = 1e-4 if q_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    assert out[-1].abs().max() == 0
+
+
+@pytest.mark.parametrize("leaf_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("val_dtype", [torch.bfloat16, torch.float32])
+def test_write_kernel_matches_plain_bit_exact(cuda, leaf_dtype, val_dtype):
+    q, kp, _, tables, pos = _case(cuda, 8, 16, 8, 128, 16, torch.float32,
+                                  leaf_dtype)
+    vals = torch.randn((8, 8, 128), device=cuda).to(val_dtype)
+    ref = pa.paged_write_token_plain(kp.clone(), tables, pos, vals)
+    n = pa.paged_write_token.launches
+    got = pa.paged_write_token(kp, tables, pos, vals)
+    torch.cuda.synchronize()
+    assert got is kp and pa.paged_write_token.launches == n + 1
+    torch.testing.assert_close(got[1:], ref[1:], atol=0, rtol=0)
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    q, kp, vp, tables, pos = _case(cuda, 4, 4, 2, 16, 4, torch.float32,
+                                   torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_flash_decode_gqa(q, kp, vp, tables.long(), pos)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        pa.paged_flash_decode_gqa(q.half(), kp, vp, tables, pos)
+
+
+def test_engine_kernel_path_matches_plain_path(cuda):
+    from repro_torch.launch import serve
+    from repro_torch.data.synthetic import make_ragged_lm_stream
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, PagedConfig, make_requests)
+    small, large = serve.build_ladder("internlm2-1.8b", 0, 2, device=cuda)
+    prompts = make_ragged_lm_stream(3, 6, 4, 20, small.cfg.vocab_size)
+    runs = {}
+    for kernel in (True, False):
+        eng = ContinuousCascadeEngine(
+            CascadeSpec.two_tier(small, large, tau=-1e9),
+            EngineConfig(n_slots=3, early_exit=False, backend="paged",
+                         paged=PagedConfig(block_size=4, prefill_chunk=4,
+                                           paged_kernel=kernel)))
+        runs[kernel] = eng.run(make_requests(prompts, 5), 5)
+    np.testing.assert_array_equal(runs[True].tokens, runs[False].tokens)
+    assert runs[True].stats["paged_kernel"]

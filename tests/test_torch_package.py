@@ -1,0 +1,106 @@
+"""The port stands alone: no file of src/repro_torch, and not chip_smoke.py,
+imports `jax` or the JAX package `repro`; its entry points run on CUDA
+unless told otherwise and raise without it; its CLI rejects by name what
+is not ported yet; chip_smoke.py refuses to run without a card or outside
+a checkout."""
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            # dynamic imports by dotted name ("repro.x" / "jax.numpy")
+            head = node.value.split(".")[0]
+            if "." in node.value and " " not in node.value and head in FORBIDDEN:
+                yield head
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_neither_jax_nor_repro(path):
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+def test_port_modules_load_without_jax():
+    code = ("import sys, importlib, pkgutil, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("internlm2-1.8b"))
+    for call in (lambda: tfm.init_params(cfg),
+                 lambda: tfm.init_cache(cfg, 1, 4),
+                 lambda: params_from_jax({}),
+                 lambda: serve.build_ladder("internlm2-1.8b", 0, 2),
+                 lambda: serve.main(["--requests", "2"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert tfm.init_params(cfg, device="cpu")["embedding"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("argv", [
+    ["--tiers", "3"],
+    ["--large-backend", "thread"],
+    ["--signal", "semantic_agreement"],
+    ["--recalibrate"],
+    ["--backend", "paged", "--blocks", "8", "--oversubscribe", "2"],
+    ["--max-queue", "4"],
+    ["--metrics-port", "0"],
+], ids=lambda a: a[0] if a[0] != "--backend" else a[-2])
+def test_cli_rejects_unported_features_by_name(argv, capsys):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu"] + argv)
+    assert exc.value.code == 2
+    assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_cli_rejects_paged_knobs_on_slot_backend(capsys):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--block-size", "4"])
+    assert "needs --backend paged" in capsys.readouterr().err
+
+
+def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and proc.stdout == ""
