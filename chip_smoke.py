@@ -2,24 +2,35 @@
 
     python3 chip_smoke.py          # from the root of a repository checkout
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in the order they run; any failure raises and the script exits
+non-zero:
 
   1. The card: name and power limit as nvidia-smi reports them.
-  2. Build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc,
-     sm_90a) into `build/repro_torch_kernels/`, and print the build time
-     and ptxas's register / shared-memory report.
-  3. Hold each kernel against its plain PyTorch version at the full-width
-     internlm2-1.8b decode shapes (8 rows, 16/8/128 heads, block 16, fp32
-     q, bf16 pages, ragged positions, one all-trash row; plus fp32
-     pages), and time kernel, plain version and a PyTorch library call
-     with CUDA events, beside the bytes/operations bound.
-  4. The main path: a full-width internlm2-1.8b M_S -> M_L cascade on the
-     paged backend with the kernels on, through `build_ladder`,
+  2. Build the CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
+     per source, sm_90a, in parallel) into `build/repro_torch_kernels/`,
+     and print the build time and ptxas's register / shared-memory report.
+  3. Hold the GQA decode and paged write kernels against their plain
+     PyTorch versions at the full-width internlm2-1.8b decode shapes (8
+     rows, 16/8/128 heads, block 16, fp32 q, bf16 pages, ragged positions,
+     one all-trash row; plus fp32 pages), and time kernel, plain version
+     and a PyTorch library call with CUDA events, beside the bytes /
+     operations bound.
+  3b. The same for the MLA decode kernel at the full-width DeepSeek-V2
+     decode shapes (8 rows, 128 heads, kv_lora 512, rope 64, block 16):
+     bf16 q, pages and norm weight (the main path's types), and all fp32.
+  4. The first main path: a full-width internlm2-1.8b M_S -> M_L cascade
+     on the paged backend with the kernels on, through `build_ladder`,
      `ContinuousCascadeEngine.calibrate` and `.run`, with the launch
      counters reset just before and checked just after; plus one
-     full-width decode step, kernel path against plain path, by logits.
-  5. The reduced fp32 fixture, kernel path against plain path (identical
-     greedy tokens per request), and `launch.serve.main()` with defaults.
+     full-width decode step, kernel path against plain path, by logits,
+     and a profiled decode step.
+  6. The second main path, the same way: DeepSeek-V2 (MLA + MoE) at its
+     published widths, M_S cut to 2 layers (one dense, one MoE layer with
+     all 160 routed experts), M_L `build_ladder`'s 4-layer large tier.
+     Freed before phase 5.
+  5. The reduced fp32 fixtures of both architectures, kernel path against
+     plain path (identical greedy tokens per request), and
+     `launch.serve.main()` with defaults.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -38,8 +49,10 @@ SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 
-# main-path configuration (full width, one card)
+# main-path configurations (full width, one card)
 ARCH = "internlm2-1.8b"
+MLA_ARCH = "deepseek-v2-236b"
+MLA_SMALL_LAYERS = 2            # one dense + one MoE layer: a whole period
 N_SLOTS, BLOCK, CHUNK = 8, 16, 128
 N_REQUESTS, RAGGED, MAX_NEW, DEFERRAL = 16, (64, 256), 32, 0.3
 SEED = 0
@@ -55,6 +68,11 @@ STEP_LOGIT_GUARD = 0.2  # the same step with the main config's bf16
                         # attention can flip a bf16 rounding of the residual
                         # stream. Sound readings on an H100 were 0.053 and
                         # 0.064; the guard is about 3x the larger
+MLA_STEP_LOGIT_GUARD = 1.0  # DeepSeek-V2 step in bf16: the plain path also
+                        # rounds the normed latent to bf16 (as JAX does) where
+                        # the kernel keeps it fp32, and a changed top-6 route
+                        # moves one row by a fraction of an expert's output
+L2_BYTES = 50e6
 
 
 def _fail_early(msg: str) -> None:
@@ -88,14 +106,11 @@ def bound(bytes_moved: float, flops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def decode_case(torch, kv_dtype, rng):
-    """Full-width decode inputs: 8 rows, ragged positions, row 7 unmapped.
-    The table is as wide as the main path's widest active prefix, and one
-    row sits at the last position the main path reaches. `R` rotating page
-    copies exceed the 50 MB L2, so timed launches read their pages from
-    device memory as the decode loop does (24 layers of weights pass
-    through L2 between two visits of one layer's cache)."""
-    B, H, KV, hd, bs = N_SLOTS, 16, 8, 128, BLOCK
+def case_tables(torch, rng) -> dict:
+    """The main path's decode state at its widest: 8 rows, a table as wide
+    as the widest active prefix, ragged positions with one row at the last
+    position the main path reaches, and row 7 unmapped (all trash)."""
+    B, bs = N_SLOTS, BLOCK
     M = math.ceil((RAGGED[1] + MAX_NEW) / bs)        # 18 blocks per row
     pos = [70, RAGGED[1] + MAX_NEW - 1, 130, 200, 96, 180, 240, 150]
     n_map = [math.ceil((p + 1) / bs) for p in pos]
@@ -107,19 +122,50 @@ def decode_case(torch, kv_dtype, rng):
     for b, n in enumerate(n_map):
         tables[b, :n] = torch.from_numpy(perm[used:used + n].astype("int32"))
         used += n
-    dev = DEV
-    q = torch.randn((B, 1, H, hd), device=dev)
-    R = 8
-    pages = [(torch.randn((N + 1, bs, KV, hd), device=dev).to(kv_dtype),
-              torch.randn((N + 1, bs, KV, hd), device=dev).to(kv_dtype))
-             for _ in range(R)]
     valid_tokens = sum(min(p + 1, n * bs) for p, n in zip(pos, n_map))
     # table entries the decode reads: those of blocks 0 .. pos // bs
     table_entries = sum(min(M, math.ceil((p + 1) / bs)) for p in pos)
-    return dict(q=q, pages=pages, tables=tables.to(dev),
-                pos=torch.tensor(pos, dtype=torch.int32, device=dev),
+    return dict(tables=tables.to(DEV),
+                pos=torch.tensor(pos, dtype=torch.int32, device=DEV),
                 valid_tokens=valid_tokens, table_entries=table_entries,
-                B=B, H=H, KV=KV, hd=hd, M=M, N=N)
+                B=B, M=M, N=N)
+
+
+def decode_case(torch, kv_dtype, rng):
+    """Full-width GQA decode inputs on `case_tables`. `R` rotating page
+    copies exceed the 50 MB L2, so timed launches read their pages from
+    device memory as the decode loop does (24 layers of weights pass
+    through L2 between two visits of one layer's cache)."""
+    c = case_tables(torch, rng)
+    H, KV, hd = 16, 8, 128
+    q = torch.randn((c["B"], 1, H, hd), device=DEV)
+    R = 8
+    c["pages"] = [
+        (torch.randn((c["N"] + 1, BLOCK, KV, hd), device=DEV).to(kv_dtype),
+         torch.randn((c["N"] + 1, BLOCK, KV, hd), device=DEV).to(kv_dtype))
+        for _ in range(R)]
+    c.update(q=q, H=H, KV=KV, hd=hd)
+    return c
+
+
+def mla_case(torch, dtype, rng):
+    """Full-width DeepSeek-V2 MLA decode inputs on `case_tables`, every
+    operand in `dtype`. Enough rotating page copies to exceed twice the
+    L2 (between two visits of one layer's cache the main path streams
+    gigabytes of expert weights through it)."""
+    c = case_tables(torch, rng)
+    H, r, dr = 128, 512, 64
+    copy_bytes = (c["N"] + 1) * BLOCK * (r + dr) * torch.finfo(dtype).bits / 8
+    R = math.ceil(2 * L2_BYTES / copy_bytes)
+    c["pages"] = [
+        (torch.randn((c["N"] + 1, BLOCK, r), device=DEV).to(dtype),
+         torch.randn((c["N"] + 1, BLOCK, dr), device=DEV).to(dtype))
+        for _ in range(R)]
+    c.update(q_abs=torch.randn((c["B"], 1, H, r), device=DEV).to(dtype),
+             q_rope=torch.randn((c["B"], 1, H, dr), device=DEV).to(dtype),
+             kv_norm=(0.1 * torch.randn(r, device=DEV)).to(dtype),
+             H=H, r=r, dr=dr, scale=1.0 / math.sqrt(128 + dr))
+    return c
 
 
 class Rotation:
@@ -218,6 +264,215 @@ def check_write_kernel(torch, pa, c, kv_name, kv_dtype, smi) -> dict:
                 bound_by=bound_by, library_ms=lib_ms)
 
 
+def check_mla_kernel(torch, pa, c, name, smi) -> dict:
+    """paged_flash_decode_mla against its plain version; times both and
+    SDPA. Returns the kernel's record."""
+    tables, pos, scale = c["tables"], c["pos"], c["scale"]
+    qa, qr, w = c["q_abs"], c["q_rope"], c["kv_norm"]
+    ckv, kr = c["pages"][0]
+    out = pa.paged_flash_decode_mla(qa, qr, ckv, kr, w, tables, pos,
+                                    scale=scale)
+    ref = pa.paged_flash_decode_mla_plain(qa, qr, ckv, kr, w, tables, pos,
+                                          scale=scale)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not (out.dtype == torch.float32 and torch.isfinite(out).all()
+            and err <= DECODE_ATOL):
+        raise AssertionError(f"paged_flash_decode_mla ({name}) max |err| "
+                             f"{err} > {DECODE_ATOL}")
+    if out[-1].abs().max() != 0:
+        raise AssertionError("MLA all-trash row is not exact zeros")
+    pages = Rotation(c["pages"])
+    ms = time_ms(lambda: pa.paged_flash_decode_mla(
+        qa, qr, *pages(), w, tables, pos, scale=scale))
+    plain_ms = time_ms(lambda: pa.paged_flash_decode_mla_plain(
+        qa, qr, *pages(), w, tables, pos, scale=scale))
+    # yardstick only, never called by the port: one SDPA over the
+    # pre-gathered, pre-normed bf16 view, the latent as one shared KV head
+    # and the 128 query heads as its query rows
+    B, S = c["B"], c["M"] * BLOCK
+    idx = tables.long().reshape(-1)
+    mask = ((torch.arange(S, device=DEV)[None, :] <= pos[:, None])
+            & (tables.repeat_interleave(BLOCK, 1) > 0))[:, None, None, :]
+
+    def view(pg):
+        lat = pg[0][idx].reshape(B, S, c["r"]).float()
+        lat = lat * torch.rsqrt(lat.pow(2).mean(-1, keepdim=True) + 1e-6) * (
+            1.0 + w.float())
+        k = torch.cat([lat, pg[1][idx].reshape(B, S, c["dr"]).float()], -1)
+        return (k[:, None].to(torch.bfloat16),
+                lat[:, None].to(torch.bfloat16))
+    views = Rotation([view(pg) for pg in c["pages"]])
+    qb = torch.cat([qa, qr], -1).transpose(1, 2).to(torch.bfloat16)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, *views(), attn_mask=mask, scale=scale))
+    H, r, dr = c["H"], c["r"], c["dr"]
+    n_bytes = (c["valid_tokens"] * (r + dr) * ckv.element_size()
+               + qa.numel() * qa.element_size() + qr.numel() * qr.element_size()
+               + w.numel() * w.element_size() + out.numel() * 4
+               + 4 * c["table_entries"] + 4 * pos.numel())
+    # per valid position: scores 2H(r+dr), values 2Hr, the rms-norm 4r
+    flops = c["valid_tokens"] * (2 * H * (r + dr) + 2 * H * r + 4 * r)
+    bound_ms, bound_by = bound(n_bytes, flops)
+    print(f"[kernel] paged_flash_decode_mla {name}: max|err| {err:.3g} "
+          f"(atol {DECODE_ATOL}), all-trash row exact 0; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, sdpa(gathered, normed) {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {flops} fp32 "
+          f"flop; {len(c['pages'])} page copies) on {smi}")
+    return dict(name="paged_flash_decode_mla", route="cuda",
+                source="src/repro_torch/kernels/csrc/mla_attention.cu",
+                replaces="src/repro/kernels/paged_attention.py:198",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+
+def describe_ladder(torch, small, large, t_init: float) -> None:
+    cfg, lcfg = small.cfg, large.cfg
+    n_params = [sum(t.numel() for t in _leaves(r.params))
+                for r in (small, large)]
+    extra = ""
+    if cfg.mla is not None:
+        extra = (f" MLA q_lora {cfg.mla.q_lora} kv_lora {cfg.mla.kv_lora} "
+                 f"rope {cfg.mla.rope_dim};")
+    if cfg.moe is not None:
+        extra += (f" MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+                  f"d_ff {cfg.moe.d_ff_expert} + {cfg.moe.n_shared_experts} "
+                  f"shared, {cfg.moe.n_dense_layers} dense layer(s);")
+    print(f"[main] {cfg.name}: {cfg.n_layers} layers d_model "
+          f"{cfg.d_model} {cfg.n_heads}/{cfg.n_kv_heads} heads hd "
+          f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size},{extra} "
+          f"{n_params[0] / 1e9:.3f} B params; M_L {lcfg.n_layers} layers "
+          f"d_model {lcfg.d_model} {lcfg.n_heads} heads, "
+          f"{n_params[1] / 1e9:.3f} B params; {cfg.param_dtype} weights, "
+          f"{cfg.compute_dtype} activations/cache; init {t_init:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+
+def check_one_step(torch, tfm, small, rng, guard: float) -> None:
+    """One full-width decode step, kernel path against plain path, with
+    fp32 activations (isolates the kernels) and with the config's own."""
+    cfg = small.cfg
+    for label, step_cfg, tol in (
+            ("fp32 activations", cfg.replace(compute_dtype="float32"),
+             STEP_LOGIT_ATOL),
+            (f"{cfg.compute_dtype} activations", cfg, guard)):
+        err, agree, scale = decode_step_check(torch, tfm, small.params,
+                                              step_cfg, rng)
+        print(f"[main] one decode step, kernel vs plain path, {label}, "
+              f"bf16 cache: max|dlogit| {err:.4g} (atol {tol}; logit std "
+              f"{scale:.3g}), argmax agreement {agree:.3f}")
+        if not err <= tol:
+            raise AssertionError(f"full-width decode step ({label}) "
+                                 f"logits differ by {err} > {tol}")
+
+
+def report_profile(torch, tfm, small, rng, smi) -> None:
+    wall_ms, busy_ms, top = profile_decode(torch, tfm, small.params,
+                                           small.cfg, rng)
+    busy = ("not measured (profiler saw no device time)" if busy_ms is None
+            else f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}, "
+                 f"idle {1 - busy_ms / wall_ms:.1%})")
+    print(f"[main] full-width decode step (8 rows, kernels on): host "
+          f"wall {wall_ms:.3f} ms, {busy} on {smi}")
+    for name, ms in top:
+        print(f"[main]   {ms:.4f} ms/step  {name[:90]}")
+
+
+KERNELS = ("paged_flash_decode_gqa", "paged_flash_decode_mla",
+           "paged_write_token")
+
+
+def serve_main_path(torch, pa, small, large, per_step: dict, smi) -> dict:
+    """Calibrate and run the cascade on the paged backend with the kernels
+    on; every kernel's counter is set to 0 just before and read just after.
+    Checks that kernel k launched per_step[k] times per decode step (and
+    the others never). Returns the counts."""
+    import numpy as np
+    from repro_torch.data.synthetic import (make_lm_stream,
+                                            make_ragged_lm_stream)
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, PagedConfig,
+                                     make_requests)
+    from repro_torch.serving.request import DONE
+    cfg = small.cfg
+    engine = ContinuousCascadeEngine(
+        CascadeSpec.two_tier(small, large),
+        EngineConfig(n_slots=N_SLOTS, backend="paged",
+                     paged=PagedConfig(block_size=BLOCK, prefill_chunk=CHUNK,
+                                       paged_kernel=True)))
+    cal_len = sum(RAGGED) // 2
+    cal = make_lm_stream([SEED, 1], N_REQUESTS, cal_len, cfg.vocab_size)
+    live = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
+                                 cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        getattr(pa, k).launches = 0
+    t0 = time.perf_counter()
+    tau = engine.calibrate(cal, cal_len, MAX_NEW, DEFERRAL)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    res = engine.run(make_requests(live, MAX_NEW), MAX_NEW)
+    torch.cuda.synchronize()
+    launches = {k: getattr(pa, k).launches for k in KERNELS}
+    st = res.stats
+    print(f"[main] calibrated tau {tau:.4f} for deferral {DEFERRAL} in "
+          f"{t_cal:.2f} s; served {N_REQUESTS} requests (prompts "
+          f"{RAGGED[0]}-{RAGGED[1]} tokens, max_new {MAX_NEW}) on "
+          f"{N_SLOTS} slots in {st['makespan_s']:.3f} s: "
+          f"{st['throughput_tok_s']:.1f} tok/s, M_S "
+          f"{st['small_tok_s']:.1f} tok/s, deferral_ratio "
+          f"{res.deferral_ratio:.3f}, early exits "
+          f"{int(res.early_exited.sum())}, {res.steps} decode steps, "
+          f"{st['prefill_dispatches']} prefill dispatches, peak blocks "
+          f"{st['peak_blocks']}/{st['n_blocks']}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    print("[main] phases (host wall s): " + ", ".join(
+        f"{k[6:-2]} {v:.3f}" for k, v in st.items()
+        if k.startswith("phase_")))
+    if not all(r.state == DONE for r in res.requests):
+        raise AssertionError("not every request finished")
+    if res.tokens.shape != (N_REQUESTS, MAX_NEW) or not np.isfinite(
+            res.confidence).all():
+        raise AssertionError("malformed serving result")
+    want = {k: per_step.get(k, 0) * res.steps for k in KERNELS}
+    print(f"[main] kernel launches {launches}, expected {want} ("
+          + ", ".join(f"{n} {k}" for k, n in per_step.items())
+          + " per decode step)")
+    if launches != want or res.steps == 0:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    return launches
+
+
+def reduced_fixture(torch, serve, arch) -> None:
+    """Reduced fp32 `arch`, kernel path against plain path on the paged
+    engine: identical greedy tokens per request."""
+    import numpy as np
+    from repro_torch.data.synthetic import make_ragged_lm_stream
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, PagedConfig,
+                                     make_requests)
+    small, large = serve.build_ladder(arch, SEED, 2, device=DEV)
+    prompts = make_ragged_lm_stream([SEED, 3], 8, 4, 24,
+                                    small.cfg.vocab_size)
+    runs = {}
+    for kernel in (True, False):
+        eng = ContinuousCascadeEngine(
+            CascadeSpec.two_tier(small, large, tau=-1e9),
+            EngineConfig(n_slots=3, early_exit=False, backend="paged",
+                         paged=PagedConfig(block_size=4, prefill_chunk=4,
+                                           paged_kernel=kernel)))
+        runs[kernel] = eng.run(make_requests(prompts, 6), 6)
+    for a, b in zip(runs[True].requests, runs[False].requests):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"reduced {arch} rid {a.rid}: kernel "
+                                 f"tokens {a.tokens} != plain {b.tokens}")
+    conf_err = float(np.abs(runs[True].confidence
+                            - runs[False].confidence).max())
+    print(f"[reduced] {small.cfg.name} fp32 fixture, kernel vs plain path: "
+          f"identical greedy tokens for {len(prompts)} requests, max|dconf| "
+          f"{conf_err:.3g}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         _fail_early(f"no repro_torch sources under {SRC}: run from the "
@@ -257,7 +512,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     records = {}
     with torch.inference_mode():
-        # -- 3. kernels against their plain versions -------------------------
+        # -- 3. GQA decode and paged write against their plain versions -----
         for kv_name, kv_dtype in (("bf16", torch.bfloat16),
                                   ("fp32", torch.float32)):
             case = decode_case(torch, kv_dtype, rng)
@@ -267,136 +522,65 @@ def main() -> int:
                 records["paged_flash_decode_gqa"] = rec_d
                 records["paged_write_token"] = rec_w
             del case
+        # -- 3b. MLA decode against its plain version -----------------------
+        for name, dtype in (("all bf16", torch.bfloat16),
+                            ("all fp32", torch.float32)):
+            case = mla_case(torch, dtype, rng)
+            rec = check_mla_kernel(torch, pa, case, name, smi)
+            if dtype == torch.bfloat16:          # the main path's types
+                records["paged_flash_decode_mla"] = rec
+            del case
         torch.cuda.empty_cache()
 
-        # -- 4. the main path at full width ---------------------------------
-        from repro_torch.data.synthetic import (make_lm_stream,
-                                                make_ragged_lm_stream)
         from repro_torch.launch import serve
         from repro_torch.models import transformer as tfm
-        from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
-                                         EngineConfig, PagedConfig,
-                                         make_requests)
-        from repro_torch.serving.request import DONE
+        by_path = {}
 
+        # -- 4. internlm2-1.8b at full width --------------------------------
         t0 = time.perf_counter()
         small, large = serve.build_ladder(ARCH, SEED, 2, reduce=False,
                                           device=DEV)
         torch.cuda.synchronize()
-        cfg = small.cfg
-        n_params = [sum(t.numel() for t in _leaves(r.params))
-                    for r in (small, large)]
-        print(f"[main] {cfg.name}: {cfg.n_layers} layers d_model "
-              f"{cfg.d_model} {cfg.n_heads}/{cfg.n_kv_heads} heads hd "
-              f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size}, "
-              f"{n_params[0] / 1e9:.3f} B params; M_L {large.cfg.n_layers} "
-              f"layers d_model {large.cfg.d_model}, {n_params[1] / 1e9:.3f} "
-              f"B params; {cfg.param_dtype} weights, {cfg.compute_dtype} "
-              f"activations/cache; init {time.perf_counter() - t0:.1f} s")
-
-        # one full-width decode step: kernel path against plain path, with
-        # fp32 activations (isolates the kernels) and with the main config
-        for label, step_cfg, tol in (
-                ("fp32 activations", cfg.replace(compute_dtype="float32"),
-                 STEP_LOGIT_ATOL),
-                ("bf16 activations", cfg, STEP_LOGIT_GUARD)):
-            err, agree, scale = decode_step_check(torch, tfm, small.params,
-                                                  step_cfg, rng)
-            print(f"[main] one decode step, kernel vs plain path, {label}, "
-                  f"bf16 cache: max|dlogit| {err:.4g} (atol {tol}; logit std "
-                  f"{scale:.3g}), argmax agreement {agree:.3f}")
-            if not err <= tol:
-                raise AssertionError(f"full-width decode step ({label}) "
-                                     f"logits differ by {err} > {tol}")
-        wall_ms, busy_ms, top = profile_decode(torch, tfm, small.params, cfg,
-                                               rng)
-        busy = ("not measured (profiler saw no device time)" if busy_ms is None
-                else f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}, "
-                     f"idle {1 - busy_ms / wall_ms:.1%})")
-        print(f"[main] full-width decode step (8 rows, kernels on): host "
-              f"wall {wall_ms:.3f} ms, {busy} on {smi}")
-        for name, ms in top:
-            print(f"[main]   {ms:.4f} ms/step  {name[:90]}")
-
-        engine = ContinuousCascadeEngine(
-            CascadeSpec.two_tier(small, large),
-            EngineConfig(n_slots=N_SLOTS, backend="paged",
-                         paged=PagedConfig(block_size=BLOCK,
-                                           prefill_chunk=CHUNK,
-                                           paged_kernel=True)))
-        cal_len = sum(RAGGED) // 2
-        cal = make_lm_stream([SEED, 1], N_REQUESTS, cal_len, cfg.vocab_size)
-        live = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
-                                     cfg.vocab_size)
-        torch.cuda.reset_peak_memory_stats()
-        pa.paged_flash_decode_gqa.launches = 0
-        pa.paged_write_token.launches = 0
-        t0 = time.perf_counter()
-        tau = engine.calibrate(cal, cal_len, MAX_NEW, DEFERRAL)
-        torch.cuda.synchronize()
-        t_cal = time.perf_counter() - t0
-        res = engine.run(make_requests(live, MAX_NEW), MAX_NEW)
-        torch.cuda.synchronize()
-        launches = {"paged_flash_decode_gqa": pa.paged_flash_decode_gqa.launches,
-                    "paged_write_token": pa.paged_write_token.launches}
-        st = res.stats
-        print(f"[main] calibrated tau {tau:.4f} for deferral {DEFERRAL} in "
-              f"{t_cal:.2f} s; served {N_REQUESTS} requests (prompts "
-              f"{RAGGED[0]}-{RAGGED[1]} tokens, max_new {MAX_NEW}) on "
-              f"{N_SLOTS} slots in {st['makespan_s']:.3f} s: "
-              f"{st['throughput_tok_s']:.1f} tok/s, M_S "
-              f"{st['small_tok_s']:.1f} tok/s, deferral_ratio "
-              f"{res.deferral_ratio:.3f}, early exits "
-              f"{int(res.early_exited.sum())}, {res.steps} decode steps, "
-              f"{st['prefill_dispatches']} prefill dispatches, peak blocks "
-              f"{st['peak_blocks']}/{st['n_blocks']}, peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
-        print(f"[main] phases (host wall s): " + ", ".join(
-            f"{k[6:-2]} {v:.3f}" for k, v in st.items()
-            if k.startswith("phase_")))
-        if not all(r.state == DONE for r in res.requests):
-            raise AssertionError("not every request finished")
-        if res.tokens.shape != (N_REQUESTS, MAX_NEW) or not np.isfinite(
-                res.confidence).all():
-            raise AssertionError("malformed serving result")
-        want = {"paged_write_token": 2 * cfg.n_layers * res.steps,
-                "paged_flash_decode_gqa": cfg.n_layers * res.steps}
-        print(f"[main] kernel launches {launches}, expected {want} "
-              f"(2*{cfg.n_layers} and {cfg.n_layers} per decode step)")
-        if launches != want or res.steps == 0:
-            raise AssertionError(f"launch counts {launches} != {want}")
-        del engine, small, large
+        describe_ladder(torch, small, large, time.perf_counter() - t0)
+        check_one_step(torch, tfm, small, rng, STEP_LOGIT_GUARD)
+        report_profile(torch, tfm, small, rng, smi)
+        L = small.cfg.n_layers
+        by_path[ARCH] = serve_main_path(
+            torch, pa, small, large,
+            {"paged_flash_decode_gqa": L, "paged_write_token": 2 * L}, smi)
+        del small, large
         torch.cuda.empty_cache()
 
-        # -- 5. reduced fp32 fixture: kernel path == plain path -------------
-        small, large = serve.build_ladder(ARCH, SEED, 2, device=DEV)
-        prompts = make_ragged_lm_stream([SEED, 3], 8, 4, 24,
-                                        small.cfg.vocab_size)
-        runs = {}
-        for kernel in (True, False):
-            eng = ContinuousCascadeEngine(
-                CascadeSpec.two_tier(small, large, tau=-1e9),
-                EngineConfig(n_slots=3, early_exit=False, backend="paged",
-                             paged=PagedConfig(block_size=4, prefill_chunk=4,
-                                               paged_kernel=kernel)))
-            runs[kernel] = eng.run(make_requests(prompts, 6), 6)
-        for a, b in zip(runs[True].requests, runs[False].requests):
-            if not np.array_equal(a.tokens, b.tokens):
-                raise AssertionError(f"reduced fixture rid {a.rid}: kernel "
-                                     f"tokens {a.tokens} != plain {b.tokens}")
-        conf_err = float(np.abs(runs[True].confidence
-                                - runs[False].confidence).max())
-        print(f"[reduced] fp32 fixture, kernel vs plain path: identical "
-              f"greedy tokens for {len(prompts)} requests, max|dconf| "
-              f"{conf_err:.3g}")
+        # -- 6. DeepSeek-V2 (MLA + MoE) at full width -----------------------
+        t0 = time.perf_counter()
+        small, large = serve.build_ladder(MLA_ARCH, SEED, 2, reduce=False,
+                                          device=DEV,
+                                          small_layers=MLA_SMALL_LAYERS)
+        torch.cuda.synchronize()
+        describe_ladder(torch, small, large, time.perf_counter() - t0)
+        check_one_step(torch, tfm, small, rng, MLA_STEP_LOGIT_GUARD)
+        report_profile(torch, tfm, small, rng, smi)
+        L = small.cfg.n_layers
+        by_path[MLA_ARCH] = serve_main_path(
+            torch, pa, small, large,
+            {"paged_flash_decode_mla": L, "paged_write_token": 2 * L}, smi)
+        del small, large
+        torch.cuda.empty_cache()
+
+        # -- 5. reduced fp32 fixtures: kernel path == plain path ------------
+        for arch in (ARCH, MLA_ARCH):
+            reduced_fixture(torch, serve, arch)
+        from repro_torch.serving.request import DONE
         res = serve.main([])
         if not all(r.state == DONE for r in res.requests):
             raise AssertionError("serve.main() left requests unfinished")
 
     for name, rec in records.items():
-        rec["launches"] = launches[name]
-    print(json.dumps({"kernels": [records["paged_flash_decode_gqa"],
-                                  records["paged_write_token"]]}))
+        rec["launches"] = sum(counts[name] for counts in by_path.values())
+        rec["launches_by_path"] = {arch: counts[name]
+                                   for arch, counts in by_path.items()
+                                   if counts[name]}
+    print(json.dumps({"kernels": [records[k] for k in KERNELS]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -442,7 +626,8 @@ def decode_step_check(torch, tfm, params, cfg, rng):
     d = prepare_decode(torch, tfm, params, cfg, rng)
     out = {}
     for kernel in (True, False):
-        c = {"dense": {k: v.clone() for k, v in d["cache"]["dense"].items()}}
+        c = {kind: {k: v.clone() for k, v in leaves.items()}
+             for kind, leaves in d["cache"].items()}
         out[kernel], _ = tfm.decode_step(params, cfg, d["tok"], d["pos"], c,
                                          pages=d["tables"],
                                          paged_kernel=kernel)

@@ -1,13 +1,15 @@
 """Model configuration for the port: `ModelConfig`, `get_config`, `reduced`.
 
-Own copy of `repro.configs` for the families the port serves; `pdtype()` and
-`cdtype()` return torch dtypes. Each architecture lives in its own module
+Own copy of `repro.configs` for the families the port serves (dense GQA
+decoders and DeepSeek-style MLA/MoE decoders); `pdtype()` and `cdtype()`
+return torch dtypes. Each architecture lives in its own module
 (src/repro_torch/configs/<id>.py) exporting `CONFIG`.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
 
 import torch
 
@@ -15,9 +17,29 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    shared_d_ff: Optional[int] = None
+    n_dense_layers: int = 1          # leading layers with dense FFN
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    q_lora: int = 1536
+    kv_lora: int = 512
+    rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # the port serves "dense" only
+    family: str                      # the port serves "dense" and "moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,7 +51,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    sliding_window: int | None = None
+    moe: Optional[MoESpec] = None
+    mla: Optional[MLASpec] = None
+    sliding_window: Optional[int] = None
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     source: str = ""                 # citation
@@ -44,7 +68,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-_ALIAS = {"internlm2-1.8b": "internlm2_1_8b"}
+_ALIAS = {"internlm2-1.8b": "internlm2_1_8b",
+          "deepseek-v2-236b": "deepseek_v2_236b"}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -53,16 +78,16 @@ def get_config(name: str) -> ModelConfig:
         mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     except ModuleNotFoundError:
         raise NotImplementedError(
-            f"config {name!r} is not ported yet (the port serves dense "
-            f"GQA decoders; see ROADMAP.md)") from None
+            f"config {name!r} is not ported yet (the port serves "
+            f"{', '.join(sorted(_ALIAS))}; see ROADMAP.md)") from None
     return mod.CONFIG
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """CPU-smoke variant of the same family: 2 layers, d_model<=256,
-    4 heads of 32, small vocab, fp32 — identical to `repro.configs.reduced`
-    for dense configs."""
-    return cfg.replace(
+    4 heads of 32, small vocab, fp32, <=4 experts — identical to
+    `repro.configs.reduced` for the families the port serves."""
+    kw = dict(
         name=cfg.name + "-reduced",
         n_layers=2,
         d_model=min(cfg.d_model, 256),
@@ -72,3 +97,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         param_dtype="float32", compute_dtype="float32",
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2, d_ff_expert=64,
+            n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+            shared_d_ff=64 if cfg.moe.n_shared_experts else None,
+            n_dense_layers=1)
+    if cfg.mla is not None:
+        kw["mla"] = MLASpec(q_lora=64, kv_lora=32, rope_dim=16, v_head_dim=32)
+    return cfg.replace(**kw)

@@ -10,10 +10,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention import (paged_flash_decode_gqa,
+                                                 paged_flash_decode_mla,
                                                  paged_write_token)
 
-__all__ = ["paged_flash_decode_gqa", "paged_kernel_enabled",
-           "paged_write_token"]
+__all__ = ["paged_flash_decode_gqa", "paged_flash_decode_mla",
+           "paged_kernel_enabled", "paged_write_token"]
 
 
 def paged_kernel_enabled(override: Optional[bool] = None,

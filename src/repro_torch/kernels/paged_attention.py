@@ -1,15 +1,21 @@
 """Paged decode kernels: CUDA launch wrappers and their plain versions.
 
 Counterpart of `repro.kernels.paged_attention` (Pallas, TPU). The kernels
-are CUDA C++ for Hopper in `csrc/paged_attention.cu`; the source note
-there says which TPU kernel each replaces, what bounds it and what its
-design does about that.
+are CUDA C++ for Hopper in `csrc/paged_attention.cu` and
+`csrc/mla_attention.cu`; the source notes there say which TPU kernel each
+replaces, what bounds it and what its design does about that.
 
   * `paged_flash_decode_gqa` — one-token GQA attention over each row's
     valid prefix ``idx <= pos``, read straight from the block-paged cache
     through the page table: no dense ``[B, M*bs, ...]`` view is built.
     Pages with id 0 (the trash block) and pages wholly past ``pos`` are
     skipped; a row whose table is all zeros returns exact zeros.
+  * `paged_flash_decode_mla` — weight-absorbed MLA decode over the
+    compressed cache: each valid ckv page block is rms-normed in fp32 with
+    ``(1 + kv_norm)``; the score is ``(q_abs . ckv_n + q_rope . kr) *
+    scale`` and the value ``ckv_n``. Returns the fp32 latent context
+    ``[B, 1, H, kv_lora]``, with the same page-skipping and all-trash
+    contract as the GQA decode.
   * `paged_write_token` — writes one token per row into block
     ``tables[b, clip(pos // bs, 0, M-1)]`` at offset ``pos % bs``, in
     place. Unmapped targets land in the trash block 0.
@@ -35,6 +41,8 @@ _MAX_SMEM = 48 * 1024
 # launch geometry of csrc/paged_attention.cu (kMaxGroup, kDecodeWarps)
 _MAX_GROUP = 8
 _DECODE_WARPS = 8
+# limits of csrc/mla_attention.cu (kMaxR, kMaxDr, kMaxBs)
+_MLA_MAX_R, _MLA_MAX_DR, _MLA_MAX_BS = 512, 64, 32
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +77,37 @@ def paged_flash_decode_gqa_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def paged_flash_decode_mla_plain(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                                 ckv_pages: torch.Tensor,
+                                 kr_pages: torch.Tensor,
+                                 kv_norm: torch.Tensor, tables: torch.Tensor,
+                                 positions: torch.Tensor, *, scale: float,
+                                 eps: float = 1e-6) -> torch.Tensor:
+    """The MLA kernel's function on gathered pages, in fp32. Positions
+    that do not count (past ``pos`` or in page 0) get weight exactly 0 and
+    their latent is never read into the sum."""
+    B, T, H, r = q_abs.shape
+    bs, dr = ckv_pages.shape[1], kr_pages.shape[-1]
+    M = tables.shape[1]
+    tbl = tables.long()
+    ckv = ckv_pages[tbl.reshape(-1)].reshape(B, M * bs, r).float()
+    kr = kr_pages[tbl.reshape(-1)].reshape(B, M * bs, dr).float()
+    var = torch.mean(ckv * ckv, dim=-1, keepdim=True)
+    ckv_n = ckv * torch.rsqrt(var + eps) * (1.0 + kv_norm.float())
+    idx = torch.arange(M * bs, device=q_abs.device)
+    valid = ((idx[None, :] <= positions.long()[:, None])
+             & (tbl.repeat_interleave(bs, dim=1) > 0))        # [B, S]
+    ckv_n = torch.where(valid[..., None], ckv_n, 0.0)
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.float()[:, 0], ckv_n)
+         + torch.einsum("bhk,bsk->bhs", q_rope.float()[:, 0], kr)) * scale
+    s = torch.where(valid[:, None], s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid[:, None], torch.exp(s - m), 0.0)
+    denom = torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    out = torch.einsum("bhs,bsr->bhr", p, ckv_n) / denom
+    return out[:, None]
+
+
 def paged_write_token_plain(leaf: torch.Tensor, tables: torch.Tensor,
                             positions: torch.Tensor,
                             values: torch.Tensor) -> torch.Tensor:
@@ -101,6 +140,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _mla_lib() -> ctypes.CDLL:
+    lib = _build.load("mla_attention")
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_flash_decode_mla.argtypes = [vp] * 8 + [ci] * 6 + [cf, cf] + [
+        ci] * 4 + [vp]
+    lib.paged_flash_decode_mla.restype = ci
+    return lib
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -116,6 +165,10 @@ def _check_index(tables: torch.Tensor, positions: torch.Tensor, B: int,
              f"tables must be [B={B}, M], got {tuple(tables.shape)}")
     _require(positions.shape == (B,),
              f"positions must be [B={B}], got {tuple(positions.shape)}")
+
+
+def _bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
 
 
 def _stream(device: torch.device) -> int:
@@ -167,6 +220,60 @@ def paged_flash_decode_gqa(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_flash_decode_gqa.launches = 0
+
+
+def paged_flash_decode_mla(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                           ckv_pages: torch.Tensor, kr_pages: torch.Tensor,
+                           kv_norm: torch.Tensor, tables: torch.Tensor,
+                           positions: torch.Tensor, *, scale: float,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """q_abs [B,1,H,r] (q_nope absorbed through W_uk); q_rope [B,1,H,dr];
+    ckv_pages [N+1, bs, r]; kr_pages [N+1, bs, dr]; kv_norm [r]; tables
+    [B, M] int32 (0 = unmapped); positions [B] int32. Returns the latent
+    context [B,1,H,r] in float32. q_abs, q_rope, the pages and kv_norm may
+    each be float32 or bfloat16 (both page leaves of one type)."""
+    if not q_abs.is_cuda:
+        return paged_flash_decode_mla_plain(q_abs, q_rope, ckv_pages,
+                                            kr_pages, kv_norm, tables,
+                                            positions, scale=scale, eps=eps)
+    B, T, H, r = q_abs.shape
+    _require(T == 1, f"one query token per row, got T={T}")
+    _require(ckv_pages.dim() == 3 and kr_pages.dim() == 3
+             and kr_pages.shape[:2] == ckv_pages.shape[:2],
+             "pages must be ckv [N+1, bs, r] and kr [N+1, bs, dr]")
+    _, bs, r_p = ckv_pages.shape
+    dr = kr_pages.shape[2]
+    _require(r_p == r and q_rope.shape == (B, 1, H, dr)
+             and kv_norm.shape == (r,),
+             f"q_abs {tuple(q_abs.shape)} / q_rope {tuple(q_rope.shape)} / "
+             f"kv_norm {tuple(kv_norm.shape)} do not fit pages r={r_p} "
+             f"dr={dr}")
+    for name, t in (("q_abs", q_abs), ("q_rope", q_rope),
+                    ("ckv_pages", ckv_pages), ("kr_pages", kr_pages),
+                    ("kv_norm", kv_norm)):
+        _require(t.device == q_abs.device, f"{name} must be on {q_abs.device}")
+        _require(t.dtype in _FLOAT_TYPES, f"{name} must be fp32 or bf16")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(ckv_pages.dtype == kr_pages.dtype, "ckv/kr pages differ in type")
+    _require(r <= _MLA_MAX_R and dr <= _MLA_MAX_DR and bs <= _MLA_MAX_BS,
+             f"the kernel takes r <= {_MLA_MAX_R}, dr <= {_MLA_MAX_DR}, "
+             f"block <= {_MLA_MAX_BS}; got {r}, {dr}, {bs}")
+    _check_index(tables, positions, B, q_abs.device)
+    out = torch.empty((B, 1, H, r), dtype=torch.float32, device=q_abs.device)
+    err = _mla_lib().paged_flash_decode_mla(
+        q_abs.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
+        kr_pages.data_ptr(), kv_norm.data_ptr(), tables.data_ptr(),
+        positions.data_ptr(), out.data_ptr(), B, H, tables.shape[1], bs, r,
+        dr, float(scale), float(eps), _bf16(q_abs), _bf16(q_rope),
+        _bf16(ckv_pages), _bf16(kv_norm), _stream(q_abs.device))
+    if err:
+        raise RuntimeError(f"paged_flash_decode_mla launch failed: CUDA "
+                           f"error {err}")
+    paged_flash_decode_mla.launches += 1
+    return out
+
+
+paged_flash_decode_mla.launches = 0
 
 
 def paged_write_token(leaf: torch.Tensor, tables: torch.Tensor,

@@ -4,11 +4,13 @@ deferral, on CUDA by default.
 Counterpart of `repro.launch.serve` with the same flags, defaults and
 argparse-time rejections of contradictory combinations. Flags for what
 the port does not run yet are rejected by name at argparse time (see
-ROADMAP.md): ladders of more than two tiers, the semantic-agreement
-signal, online recalibration, the thread/stub/socket/pool M_L backends,
-memory pressure (oversubscription, preemption, swap tier), admission
-overload control, and the /metrics endpoint and profiler flags. One flag
-is new: --device (default: cuda, which must exist).
+ROADMAP.md): architectures of unported families, ladders of more than
+two tiers, the semantic-agreement signal, online recalibration, the
+thread/stub/socket/pool M_L backends, memory pressure (oversubscription,
+preemption, swap tier), admission overload control, and the /metrics
+endpoint and profiler flags. One flag is new: --device (default: cuda,
+which must exist). `--arch` takes internlm2-1.8b (dense GQA) and
+deepseek-v2-236b (MLA + MoE).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 \\
         --max-new 8 --engine continuous --backend paged --ragged-min 8 \\
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from typing import Optional
 
 import numpy as np
 
@@ -61,11 +64,12 @@ def _tier_seed(seed: int, tier: int) -> int:
 
 
 def build_ladder(arch: str, seed: int, n_tiers: int, reduce: bool = True,
-                 device=None):
+                 device=None, small_layers: Optional[int] = None):
     """One ModelRunner per tier: tier 0 is `arch` (its `reduced` variant
-    unless reduce=False, which keeps the published widths), the last tier
-    the demo "large" model — 4 layers, twice the width and FFN, 8 heads.
-    Weights are random, seeded per tier."""
+    unless reduce=False, which keeps the published widths; `small_layers`
+    cuts its depth), the last tier the demo "large" model — 4 layers,
+    twice the width and FFN, 8 heads. Weights are random, seeded per
+    tier."""
     if n_tiers != 2:
         raise NotImplementedError(f"{n_tiers}-tier ladders are not ported "
                                   f"yet (see ROADMAP.md)")
@@ -73,6 +77,8 @@ def build_ladder(arch: str, seed: int, n_tiers: int, reduce: bool = True,
     small_cfg = get_config(arch)
     if reduce:
         small_cfg = reduced(small_cfg)
+    if small_layers is not None:
+        small_cfg = small_cfg.replace(n_layers=small_layers)
     large_cfg = small_cfg.replace(name=small_cfg.name + "-large",
                                   n_layers=4, d_model=small_cfg.d_model * 2,
                                   n_heads=8, d_ff=small_cfg.d_ff * 2)
@@ -200,6 +206,10 @@ def main(argv=None):
     if unported:
         ap.error(f"{', '.join(unported)}: not ported to repro_torch yet "
                  f"(see ROADMAP.md)")
+    try:
+        tfm.attn_config(get_config(args.arch))
+    except NotImplementedError as e:
+        ap.error(f"--arch {args.arch}: {e}")
 
     device = resolve_device(args.device)
     small, large = build_ladder(args.arch, args.seed, 2, device=device)

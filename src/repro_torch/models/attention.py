@@ -1,13 +1,17 @@
-"""GQA attention with dense and block-paged KV caches.
+"""Attention blocks: GQA and DeepSeek-style MLA (multi-head latent
+attention: kv_lora compression, decoupled RoPE, weight-absorbed decode),
+each with dense and block-paged caches.
 
-Counterpart of the GQA half of `repro.models.attention` (MLA, cross- and
-sliding-window attention are not ported; see ROADMAP.md). Functions take
-ONE layer's parameters; the caller slices the stacked layer axis.
+Counterpart of `repro.models.attention` (cross- and sliding-window
+attention and MLA's KV-chunked prefill are not ported; see ROADMAP.md).
+Functions take ONE layer's parameters; the caller slices the stacked layer
+axis.
 
-Cache layouts (per layer):
-  * dense — [batch, max_len, KV, hd]: writes go to absolute positions,
+Cache layouts (per layer; GQA leaves end in ``[KV, hd]``, MLA's two
+leaves ``ckv``/``kr`` in ``[kv_lora]``/``[rope_dim]``):
+  * dense — [batch, max_len, ...]: writes go to absolute positions,
     reads mask ``idx <= position``.
-  * paged — [n_blocks + 1, block_size, KV, hd] plus a page table `pages`
+  * paged — [n_blocks + 1, block_size, ...] plus a page table `pages`
     [B, M] mapping each row's logical block to a physical block (0 is the
     shared trash block). Writes scatter to
     ``(pages[b, pos // block_size], pos % block_size)``.
@@ -18,8 +22,8 @@ them, so no copy of a cache leaf is made per step.
 
 Paged decode has two implementations of the same masked softmax: the
 plain path (`_paged_write` + `gather_blocks` + `_attend`) and the kernel
-path (`kernels.ops.paged_write_token` + `paged_flash_decode_gqa`, CUDA on
-the card). `paged_kernel` picks one; None defers to
+path (`kernels.ops.paged_write_token` + `paged_flash_decode_gqa` or
+`paged_flash_decode_mla`, CUDA on the card). `paged_kernel` picks one; None defers to
 `kernels.ops.paged_kernel_enabled` (on exactly for CUDA tensors).
 """
 from __future__ import annotations
@@ -31,7 +35,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.common import apply_rope, einsum, make_causal_mask
+from repro_torch.models.common import (apply_rope, einsum, make_causal_mask,
+                                       rms_norm)
 
 NEG_INF = -1e30
 
@@ -44,6 +49,11 @@ class AttnConfig:
     head_dim: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    # MLA fields (used only by the mla_* functions)
+    q_lora: int = 0
+    kv_lora: int = 0
+    rope_dim: int = 64
+    v_head_dim: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -194,3 +204,133 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
         mask = (idx <= p)[None, :]                             # [1, S]
     out = _attend(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale)
     return _out_proj(params, out, x), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_qkr(params: dict, cfg: AttnConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    cq = rms_norm(einsum("btd,dr->btr", x, params["wdq"]), params["q_norm"])
+    q = einsum("btr,rhk->bthk", cq, params["wuq"])
+    dn = cfg.head_dim
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latent(params: dict, cfg: AttnConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """The token's compressed kv [B,T,kv_lora] and roped shared key
+    [B,T,rope_dim] — what the MLA cache stores."""
+    ckv = einsum("btd,dr->btr", x, params["wdkv"])
+    kr = apply_rope(einsum("btd,dk->btk", x, params["wkr"])[:, :, None, :],
+                    positions, cfg.rope_theta)[:, :, 0, :]
+    return ckv, kr
+
+
+def mla_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
+                positions: torch.Tensor, cache: Optional[dict] = None,
+                cache_offset: int = 0, pages: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Training / prefill: materializes per-head K/V from the latent; the
+    cache stores only (ckv, kr). With `cache`, writes them at
+    [cache_offset, cache_offset+T) (through the page table with `pages`)
+    and attends over the cache."""
+    B, T, _ = x.shape
+    q_nope, q_rope = _mla_qkr(params, cfg, x, positions)
+    ckv, kr = _mla_latent(params, cfg, x, positions)
+    new_cache = None
+    if pages is not None:
+        tpos = cache_offset + torch.arange(T, device=x.device)
+        cckv = _paged_write(cache["ckv"], pages, tpos, ckv)
+        ckr = _paged_write(cache["kr"], pages, tpos, kr)
+        new_cache = {"ckv": cckv, "kr": ckr}
+        ckv_all = gather_blocks(cckv, pages).to(x.dtype)
+        kr_all = gather_blocks(ckr, pages).to(x.dtype)
+        mask = make_causal_mask(T, ckv_all.shape[1], cache_offset, x.device)
+    elif cache is not None:
+        cckv, ckr = cache["ckv"], cache["kr"]
+        cckv[:, cache_offset:cache_offset + T] = ckv.to(cckv.dtype)
+        ckr[:, cache_offset:cache_offset + T] = kr.to(ckr.dtype)
+        new_cache = {"ckv": cckv, "kr": ckr}
+        ckv_all, kr_all = cckv.to(x.dtype), ckr.to(x.dtype)
+        mask = make_causal_mask(T, ckv_all.shape[1], cache_offset, x.device)
+    else:
+        ckv_all, kr_all = ckv, kr
+        mask = make_causal_mask(T, T, 0, x.device)
+    ckv_n = rms_norm(ckv_all, params["kv_norm"])
+    k_nope = einsum("bsr,rhk->bshk", ckv_n, params["wuk"])
+    v = einsum("bsr,rhk->bshk", ckv_n, params["wuv"])
+    scale = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_dim)
+    scores = (torch.einsum("bthk,bshk->bhts", q_nope.float(), k_nope.float())
+              + torch.einsum("bthk,bsk->bhts", q_rope.float(),
+                             kr_all.float())) * scale
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    out = torch.einsum("bhts,bshk->bthk", probs.to(v.dtype), v).to(x.dtype)
+    return _out_proj(params, out, x), new_cache
+
+
+def mla_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
+               position: Union[int, torch.Tensor], cache: dict,
+               pages: Optional[torch.Tensor] = None,
+               paged_kernel: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, dict]:
+    """Weight-absorbed decode: W_uk is folded into the query, so scores
+    and values are computed against the compressed cache, O(kv_lora) per
+    position. `position` is a scalar or an int vector [B]; `pages` [B, M]
+    (needs per-row positions) selects the paged cache and `paged_kernel`
+    the kernel path (the CUDA MLA flash-decode, which rms-norms each ckv
+    block in fp32 and returns the fp32 latent context) over the plain
+    gather path."""
+    B, T, _ = x.shape
+    assert T == 1
+    pos = torch.as_tensor(position, device=x.device)
+    per_row = pos.dim() == 1
+    pos_bt = pos[:, None] if per_row else pos.reshape(1, 1)
+    q_nope, q_rope = _mla_qkr(params, cfg, x, pos_bt)
+    ckv_new, kr_new = _mla_latent(params, cfg, x, pos_bt)
+    scale = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_dim)
+    if pages is not None and kernel_ops.paged_kernel_enabled(paged_kernel,
+                                                             x.device):
+        assert per_row, "paged decode needs per-row positions"
+        tables = pages.to(torch.int32).contiguous()
+        pos32 = pos.to(torch.int32).contiguous()
+        cckv = kernel_ops.paged_write_token(cache["ckv"], tables, pos32,
+                                            ckv_new[:, 0])
+        ckr = kernel_ops.paged_write_token(cache["kr"], tables, pos32,
+                                           kr_new[:, 0])
+        q_abs = einsum("bthk,rhk->bthr", q_nope, params["wuk"])
+        ctx_lat = kernel_ops.paged_flash_decode_mla(
+            q_abs.contiguous(), q_rope.contiguous(), cckv, ckr,
+            params["kv_norm"].contiguous(), tables, pos32,
+            scale=scale).to(x.dtype)
+        out = einsum("bthr,rhk->bthk", ctx_lat, params["wuv"])
+        return _out_proj(params, out, x), {"ckv": cckv, "kr": ckr}
+    if pages is not None:
+        assert per_row, "paged decode needs per-row positions"
+        cckv = _paged_write(cache["ckv"], pages, pos[:, None], ckv_new)
+        ckr = _paged_write(cache["kr"], pages, pos[:, None], kr_new)
+        ckv_seq, kr_seq = gather_blocks(cckv, pages), gather_blocks(ckr, pages)
+    else:
+        cckv, ckr = cache["ckv"], cache["kr"]
+        if per_row:
+            rows = torch.arange(B, device=x.device)
+            cckv[rows, pos.long()] = ckv_new[:, 0].to(cckv.dtype)
+            ckr[rows, pos.long()] = kr_new[:, 0].to(ckr.dtype)
+        else:
+            cckv[:, int(position)] = ckv_new[:, 0].to(cckv.dtype)
+            ckr[:, int(position)] = kr_new[:, 0].to(ckr.dtype)
+        ckv_seq, kr_seq = cckv, ckr
+    idx = torch.arange(ckv_seq.shape[1], device=x.device)
+    mask = ((idx[None, :] <= pos[:, None]) if per_row
+            else (idx <= pos)[None, :])[:, None, None, :]
+    ckv_n = rms_norm(ckv_seq.to(x.dtype), params["kv_norm"])
+    q_abs = einsum("bthk,rhk->bthr", q_nope, params["wuk"])
+    scores = (torch.einsum("bthr,bsr->bhts", q_abs.float(), ckv_n.float())
+              + torch.einsum("bthk,bsk->bhts", q_rope.float(),
+                             kr_seq.to(x.dtype).float())) * scale
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    ctx_lat = torch.einsum("bhts,bsr->bthr", probs.to(x.dtype),
+                           ckv_n).to(x.dtype)
+    out = einsum("bthr,rhk->bthk", ctx_lat, params["wuv"])
+    return _out_proj(params, out, x), {"ckv": cckv, "kr": ckr}

@@ -8,7 +8,7 @@ package lays them out, so converted JAX weights drop straight in
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -29,10 +29,27 @@ class ParamInit:
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(int(seed))
 
-    def normal(self, shape: Sequence[int], fan_in: int) -> torch.Tensor:
-        x = torch.randn(tuple(shape), generator=self.gen, device=self.device,
-                        dtype=torch.float32)
-        return (x * (1.0 / math.sqrt(max(fan_in, 1)))).to(self.dtype)
+    # fp32 draws per step: bounds the init's scratch at 2 GiB. A tensor that
+    # fits in one step is drawn in one call, so its bits do not depend on
+    # the step (every internlm2-1.8b tensor fits, so its weights are those
+    # of a single draw per tensor)
+    CHUNK = 1 << 29
+
+    def normal(self, shape: Sequence[int], fan_in: int,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """std 1/sqrt(fan_in) normal in `dtype` (default: the factory's),
+        drawn in fp32 CHUNK elements at a time into the flat output, so a
+        bf16 expert stack of tens of GB never exists in fp32 at once."""
+        out = torch.empty(tuple(shape), dtype=dtype or self.dtype,
+                          device=self.device)
+        flat = out.view(-1)
+        std = 1.0 / math.sqrt(max(fan_in, 1))
+        for lo in range(0, flat.numel(), self.CHUNK):
+            n = min(self.CHUNK, flat.numel() - lo)
+            flat[lo:lo + n] = torch.randn(n, generator=self.gen,
+                                          device=self.device,
+                                          dtype=torch.float32) * std
+        return out
 
     def zeros(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)

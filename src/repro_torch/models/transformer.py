@@ -1,11 +1,13 @@
-"""Decoder LM for ``family="dense"``: init, caches, prefill, one-token decode.
+"""Decoder LM for ``family="dense"`` and ``family="moe"``: init, caches,
+prefill, one-token decode.
 
-Counterpart of `repro.models.transformer` for dense GQA decoders. The
-parameter tree has the JAX package's layout — layers stacked on a leading
-``[L, ...]`` axis under ``params["blocks"]["dense"]`` — and the layers run
-as a Python loop over that axis (the JAX package folds it with
-`lax.scan`). Caches are stacked the same way, ``[L, batch, ...]``, and are
-written in place.
+Counterpart of `repro.models.transformer` for dense and MoE decoders with
+GQA or MLA attention. The parameter tree has the JAX package's layout —
+homogeneous layer groups stacked on a leading ``[L, ...]`` axis under
+``params["blocks"]["dense"]`` and ``["moe"]`` (the MoE family's leading
+dense layers, then its MoE layers) — and the layers run as a Python loop
+over each group (the JAX package folds them with `lax.scan`). Caches are
+stacked the same way, ``[L, batch, ...]``, and are written in place.
 
 API:
     init_params(cfg, seed, device)              -> params
@@ -23,39 +25,65 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ffn as ffn_lib
 from repro_torch.models.common import (ParamInit, embed_tokens, rms_norm,
                                        unembed)
-from repro_torch.models.ffn import mlp_forward
+
+_PORTED_FAMILIES = ("dense", "moe")
 
 
 def attn_config(cfg: ModelConfig) -> attn_lib.AttnConfig:
-    if cfg.family != "dense" or cfg.sliding_window is not None:
+    if cfg.family not in _PORTED_FAMILIES or cfg.sliding_window is not None:
         raise NotImplementedError(
             f"family {cfg.family!r} (sliding_window={cfg.sliding_window}) is "
-            f"not ported: the port runs dense full-causal GQA decoders only "
-            f"(MLA, MoE and SSM families are queued in ROADMAP.md)")
+            f"not ported: the port runs full-causal dense and MoE decoders "
+            f"with GQA or MLA attention (SSM, hybrid, enc-dec, VLM and "
+            f"sliding-window models are queued in ROADMAP.md)")
+    mla = cfg.mla
     return attn_lib.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
-        rope_theta=cfg.rope_theta)
+        rope_theta=cfg.rope_theta,
+        q_lora=mla.q_lora if mla else 0,
+        kv_lora=mla.kv_lora if mla else 0,
+        rope_dim=mla.rope_dim if mla else 64,
+        v_head_dim=mla.v_head_dim if mla else 0)
+
+
+def moe_config(cfg: ModelConfig) -> ffn_lib.MoEConfig:
+    m = cfg.moe
+    return ffn_lib.MoEConfig(
+        d_model=cfg.d_model, d_ff=m.d_ff_expert, n_experts=m.n_experts,
+        top_k=m.top_k, n_shared_experts=m.n_shared_experts,
+        shared_d_ff=m.shared_d_ff)
+
+
+def _group_sizes(cfg: ModelConfig) -> Dict[str, int]:
+    """Stacked layer-group sizes, in trunk order."""
+    if cfg.family == "moe":
+        nd = cfg.moe.n_dense_layers
+        return {"dense": nd, "moe": cfg.n_layers - nd}
+    return {"dense": cfg.n_layers}
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Seeded random weights with the JAX package's shapes and layout."""
-    attn_config(cfg)
-    pi = ParamInit(seed, cfg.pdtype(), resolve_device(device))
-    L, d, H, KV = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    hd, f, V = cfg.head_dim, cfg.d_ff, cfg.vocab_size
-    params: Dict[str, Any] = {
-        "embedding": pi.normal((V, d), fan_in=d),
-        "final_norm": pi.zeros((d,)),
-    }
-    if not cfg.tie_embeddings:
-        params["unembed"] = pi.normal((V, d), fan_in=d)
+def _init_attn(pi: ParamInit, cfg: ModelConfig, L: int) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.mla:
+        m = cfg.mla
+        dr, dv = m.rope_dim, m.v_head_dim or hd
+        return {"wdq": pi.normal((L, d, m.q_lora), fan_in=d),
+                "q_norm": pi.zeros((L, m.q_lora)),
+                "wuq": pi.normal((L, m.q_lora, H, hd + dr), fan_in=m.q_lora),
+                "wdkv": pi.normal((L, d, m.kv_lora), fan_in=d),
+                "kv_norm": pi.zeros((L, m.kv_lora)),
+                "wkr": pi.normal((L, d, dr), fan_in=d),
+                "wuk": pi.normal((L, m.kv_lora, H, hd), fan_in=m.kv_lora),
+                "wuv": pi.normal((L, m.kv_lora, H, dv), fan_in=m.kv_lora),
+                "wo": pi.normal((L, H, dv, d), fan_in=H * dv)}
     attn = {"wq": pi.normal((L, d, H, hd), fan_in=d),
             "wk": pi.normal((L, d, KV, hd), fan_in=d),
             "wv": pi.normal((L, d, KV, hd), fan_in=d),
@@ -63,26 +91,71 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     if cfg.qkv_bias:
         attn.update(bq=pi.zeros((L, H, hd)), bk=pi.zeros((L, KV, hd)),
                     bv=pi.zeros((L, KV, hd)))
-    params["blocks"] = {"dense": {
-        "norm1": pi.zeros((L, d)),
-        "attn": attn,
-        "norm2": pi.zeros((L, d)),
-        "mlp": {"w_up": pi.normal((L, d, f), fan_in=d),
-                "w_down": pi.normal((L, f, d), fan_in=f),
-                "w_gate": pi.normal((L, d, f), fan_in=d)},
-    }}
+    return attn
+
+
+def _init_mlp(pi: ParamInit, L: int, d: int, f: int) -> dict:
+    return {"w_up": pi.normal((L, d, f), fan_in=d),
+            "w_down": pi.normal((L, f, d), fan_in=f),
+            "w_gate": pi.normal((L, d, f), fan_in=d)}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Seeded random weights with the JAX package's shapes and layout (the
+    MoE router in fp32 whatever the parameter type, as in JAX)."""
+    attn_config(cfg)
+    pi = ParamInit(seed, cfg.pdtype(), resolve_device(device))
+    d, V = cfg.d_model, cfg.vocab_size
+    params: Dict[str, Any] = {
+        "embedding": pi.normal((V, d), fan_in=d),
+        "final_norm": pi.zeros((d,)),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = pi.normal((V, d), fan_in=d)
+    blocks: Dict[str, Any] = {}
+    for kind, L in _group_sizes(cfg).items():
+        if not L:
+            continue
+        b = {"norm1": pi.zeros((L, d)), "attn": _init_attn(pi, cfg, L),
+             "norm2": pi.zeros((L, d))}
+        if kind == "dense":
+            b["mlp"] = _init_mlp(pi, L, d, cfg.d_ff)
+        else:
+            m = cfg.moe
+            E, f = m.n_experts, m.d_ff_expert
+            b["moe"] = {
+                "router": pi.normal((L, d, E), fan_in=d, dtype=torch.float32),
+                "w_gate": pi.normal((L, E, d, f), fan_in=d),
+                "w_up": pi.normal((L, E, d, f), fan_in=d),
+                "w_down": pi.normal((L, E, f, d), fan_in=f)}
+            if m.n_shared_experts > 0:
+                b["moe"]["shared"] = _init_mlp(
+                    pi, L, d, m.shared_d_ff or f * m.n_shared_experts)
+        blocks[kind] = b
+    params["blocks"] = blocks
     return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, device=None) -> dict:
-    """Zeroed K/V cache {"dense": {"k", "v"}}, each [L, batch, max_len,
-    KV, hd]. With batch = n_blocks + 1 and max_len = block_size this is
+    """Zeroed caches, one per layer group: GQA {"k", "v"} of [L, batch,
+    max_len, KV, hd]; MLA {"ckv", "kr"} of [L, batch, max_len, kv_lora |
+    rope_dim]. With batch = n_blocks + 1 and max_len = block_size this is
     exactly the paged layout (block 0 = trash)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     kw = dict(dtype=dtype or cfg.cdtype(), device=resolve_device(device))
-    return {"dense": {"k": torch.zeros(shape, **kw),
-                      "v": torch.zeros(shape, **kw)}}
+    cache = {}
+    for kind, L in _group_sizes(cfg).items():
+        if not L:
+            continue
+        lead = (L, batch, max_len)
+        if cfg.mla:
+            cache[kind] = {"ckv": torch.zeros(lead + (cfg.mla.kv_lora,), **kw),
+                           "kr": torch.zeros(lead + (cfg.mla.rope_dim,), **kw)}
+        else:
+            shape = lead + (cfg.n_kv_heads, cfg.head_dim)
+            cache[kind] = {"k": torch.zeros(shape, **kw),
+                           "v": torch.zeros(shape, **kw)}
+    return cache
 
 
 def param_device(params: dict) -> torch.device:
@@ -101,23 +174,37 @@ def _layer(tree: dict, i: int) -> dict:
 def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
            cache_offset: int = 0, decode: bool = False, position=None,
            pages=None, paged_kernel=None):
-    """Pre-norm blocks over the stacked layer axis. Returns (x, cache)."""
+    """Pre-norm blocks over each stacked layer group in order (attention or
+    MLA, then the dense MLP or the MoE FFN). Returns (x, cache)."""
     ac = attn_config(cfg)
-    blocks = params["blocks"]["dense"]
-    stacked = cache["dense"] if cache is not None else None
-    for i in range(cfg.n_layers):
-        p = _layer(blocks, i)
-        c = (None if stacked is None
-             else {"k": stacked["k"][i], "v": stacked["v"][i]})
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        if decode:
-            y, _ = attn_lib.gqa_decode(p["attn"], ac, h, position, c,
-                                       pages=pages, paged_kernel=paged_kernel)
-        else:
-            y, _ = attn_lib.gqa_forward(p["attn"], ac, h, positions, c,
-                                        cache_offset, pages=pages)
-        x = x + y
-        x = x + mlp_forward(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
+    mc = moe_config(cfg) if cfg.moe else None
+    if cfg.mla:
+        fwd, dec = attn_lib.mla_forward, attn_lib.mla_decode
+    else:
+        fwd, dec = attn_lib.gqa_forward, attn_lib.gqa_decode
+    for kind, L in _group_sizes(cfg).items():
+        if not L:
+            continue
+        blocks = params["blocks"][kind]
+        stacked = cache[kind] if cache is not None else None
+        for i in range(L):
+            p = _layer(blocks, i)
+            c = (None if stacked is None
+                 else {name: leaf[i] for name, leaf in stacked.items()})
+            h = rms_norm(x, p["norm1"], cfg.norm_eps)
+            if decode:
+                y, _ = dec(p["attn"], ac, h, position, c, pages=pages,
+                           paged_kernel=paged_kernel)
+            else:
+                y, _ = fwd(p["attn"], ac, h, positions, c, cache_offset,
+                           pages=pages)
+            x = x + y
+            h = rms_norm(x, p["norm2"], cfg.norm_eps)
+            if kind == "moe":
+                y, _ = ffn_lib.moe_forward(p["moe"], mc, h)
+            else:
+                y = ffn_lib.mlp_forward(p["mlp"], h)
+            x = x + y
     return x, cache
 
 

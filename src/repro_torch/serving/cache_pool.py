@@ -4,9 +4,9 @@ Counterpart of `repro.serving.cache_pool`. One cache tree is allocated ONCE
 with batch = n_slots and lives for the engine's lifetime; requests borrow
 a slot (one batch row of every leaf) and return it on retirement.
 Admission overwrites the whole row with a freshly prefilled cache, so
-stale K/V from the previous tenant never leaks. The port serves dense GQA
-caches only, whose leaves are ``[L, batch, max_len, KV, hd]``: the batch
-axis is 1 for every leaf.
+stale K/V from the previous tenant never leaks. Every leaf, GQA
+``[L, batch, max_len, KV, hd]`` or MLA ``[L, batch, max_len, kv_lora |
+rope_dim]``, has its batch axis at 1.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ Counterpart of `repro.serving.paged_pool` (see its docstring for the full
 design). The cache is stored in fixed-size **blocks** of `block_size`
 tokens shared by all slots:
 
-  * every cache leaf is ``[L, n_blocks + 1, block_size, KV, hd]``;
+  * every cache leaf is ``[L, n_blocks + 1, block_size, ...]`` (GQA
+    ``k``/``v`` end in ``[KV, hd]``, MLA ``ckv``/``kr`` in ``[kv_lora]`` /
+    ``[rope_dim]``);
     physical block 0 is a shared **trash block** that is never allocated
     (unmapped page-table entries and writes from inactive decode rows land
     there harmlessly);
@@ -94,7 +96,7 @@ class PagedCachePool:
             raise ValueError("n_slots must be >= 1")
         if block_size < 1 or n_blocks < 1:
             raise ValueError("block_size and n_blocks must be >= 1")
-        tfm.attn_config(cfg)           # only full-causal GQA caches page
+        tfm.attn_config(cfg)           # only full-causal caches page
         self.cfg = cfg
         self.n_slots = n_slots
         self.n_blocks = n_blocks
@@ -340,7 +342,7 @@ class PagedCachePool:
         self.cow_clones += 1
         for leaves in self.cache.values():
             for leaf in leaves.values():
-                leaf[:, new] = leaf[:, old]        # [L, bs, KV, hd] copy
+                leaf[:, new] = leaf[:, old]        # [L, bs, ...] copy
         return new
 
     def ensure_writable(self, slot: int, lo: int, hi: int) -> int:

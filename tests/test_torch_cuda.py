@@ -78,6 +78,38 @@ def test_write_kernel_matches_plain_bit_exact(cuda, leaf_dtype, val_dtype):
     torch.testing.assert_close(got[1:], ref[1:], atol=0, rtol=0)
 
 
+def _mla_case(cuda, B, H, r, dr, bs, q_dtype, kv_dtype, seed=0):
+    """MLA decode inputs on the GQA case's tables and positions."""
+    _, _, _, tables, pos = _case(cuda, B, 1, 1, 1, bs, torch.float32,
+                                 torch.float32, seed)
+    N = int(tables.max())
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    return (rnd(B, 1, H, r).to(q_dtype), rnd(B, 1, H, dr).to(q_dtype),
+            rnd(N + 1, bs, r).to(kv_dtype), rnd(N + 1, bs, dr).to(kv_dtype),
+            (0.1 * rnd(r)).to(kv_dtype), tables, pos)
+
+
+@pytest.mark.parametrize("shape", [(4, 4, 32, 16, 4), (8, 128, 512, 64, 16)],
+                         ids=["reduced", "full-width"])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_mla_kernel_matches_plain(cuda, shape, q_dtype, kv_dtype):
+    """fp32 output, accumulated in fp32 by both in different orders: atol
+    1e-4. The all-trash row is exact zeros."""
+    args = _mla_case(cuda, *shape, q_dtype, kv_dtype)
+    scale = 1.0 / math.sqrt(128 + shape[3])
+    n = pa.paged_flash_decode_mla.launches
+    out = pa.paged_flash_decode_mla(*args, scale=scale)
+    ref = pa.paged_flash_decode_mla_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode_mla.launches == n + 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert out[-1].abs().max() == 0
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     q, kp, vp, tables, pos = _case(cuda, 4, 4, 2, 16, 4, torch.float32,
                                    torch.float32)
@@ -85,14 +117,33 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         pa.paged_flash_decode_gqa(q, kp, vp, tables.long(), pos)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         pa.paged_flash_decode_gqa(q.half(), kp, vp, tables, pos)
+    qa, qr, ckv, kr, w, tables, pos = _mla_case(
+        cuda, 4, 4, 32, 16, 4, torch.float32, torch.float32)
+    n = pa.paged_flash_decode_mla.launches
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_flash_decode_mla(qa, qr, ckv, kr, w, tables.long(), pos,
+                                  scale=0.1)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        pa.paged_flash_decode_mla(qa.half(), qr, ckv, kr, w, tables, pos,
+                                  scale=0.1)
+    with pytest.raises(ValueError, match="differ in type"):
+        pa.paged_flash_decode_mla(qa, qr, ckv, kr.bfloat16(), w, tables, pos,
+                                  scale=0.1)
+    with pytest.raises(ValueError, match="r <= 512"):
+        big = torch.zeros((ckv.shape[0], 4, 1024), device=cuda)
+        pa.paged_flash_decode_mla(
+            torch.zeros((4, 1, 4, 1024), device=cuda), qr, big, kr,
+            torch.zeros(1024, device=cuda), tables, pos, scale=0.1)
+    assert pa.paged_flash_decode_mla.launches == n
 
 
-def test_engine_kernel_path_matches_plain_path(cuda):
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-236b"])
+def test_engine_kernel_path_matches_plain_path(cuda, arch):
     from repro_torch.launch import serve
     from repro_torch.data.synthetic import make_ragged_lm_stream
     from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
                                      EngineConfig, PagedConfig, make_requests)
-    small, large = serve.build_ladder("internlm2-1.8b", 0, 2, device=cuda)
+    small, large = serve.build_ladder(arch, 0, 2, device=cuda)
     prompts = make_ragged_lm_stream(3, 6, 4, 20, small.cfg.vocab_size)
     runs = {}
     for kernel in (True, False):
