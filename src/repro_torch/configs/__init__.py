@@ -24,8 +24,6 @@ class MoESpec:
     n_shared_experts: int = 0
     shared_d_ff: Optional[int] = None
     n_dense_layers: int = 1          # leading layers with dense FFN
-    capacity_factor: float = 1.25
-    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)

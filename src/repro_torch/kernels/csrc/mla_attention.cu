@@ -254,11 +254,13 @@ int launch(const void* qa, const void* qr, const void* ckv, const void* kr,
            float* out, int B, int H, int M, int bs, int r, int dr, float scale,
            float eps, int qa_bf16, int qr_bf16, int w_bf16,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(r, dr, bs);
-  cudaError_t err = cudaFuncSetAttribute(
+  // raised once per instantiation, to the largest shape the entry point
+  // accepts; a failure is kept and returned by every later launch
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
       mla_decode_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+      (int)smem_bytes(kMaxR, kMaxDr, kMaxBs));
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  const size_t smem = smem_bytes(r, dr, bs);
   dim3 grid((H + kHeads - 1) / kHeads, B);
   mla_decode_kernel<KT><<<grid, kThreads, smem, stream>>>(
       qa, qr, static_cast<const KT*>(ckv), static_cast<const KT*>(kr), w,

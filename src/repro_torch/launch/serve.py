@@ -20,12 +20,11 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Optional
 
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ModelConfig, get_config, reduced
 from repro_torch.data.synthetic import make_lm_stream, make_ragged_lm_stream
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import (CascadeEngine, CascadeSpec, CascadeTier,
@@ -64,21 +63,23 @@ def _tier_seed(seed: int, tier: int) -> int:
 
 
 def build_ladder(arch: str, seed: int, n_tiers: int, reduce: bool = True,
-                 device=None, small_layers: Optional[int] = None):
+                 device=None):
     """One ModelRunner per tier: tier 0 is `arch` (its `reduced` variant
-    unless reduce=False, which keeps the published widths; `small_layers`
-    cuts its depth), the last tier the demo "large" model — 4 layers,
-    twice the width and FFN, 8 heads. Weights are random, seeded per
-    tier."""
+    unless reduce=False, which keeps the published widths), the last tier
+    the demo "large" model (see `ladder_from_config`)."""
     if n_tiers != 2:
         raise NotImplementedError(f"{n_tiers}-tier ladders are not ported "
                                   f"yet (see ROADMAP.md)")
-    device = resolve_device(device)
     small_cfg = get_config(arch)
-    if reduce:
-        small_cfg = reduced(small_cfg)
-    if small_layers is not None:
-        small_cfg = small_cfg.replace(n_layers=small_layers)
+    return ladder_from_config(reduced(small_cfg) if reduce else small_cfg,
+                              seed, device)
+
+
+def ladder_from_config(small_cfg: ModelConfig, seed: int, device=None):
+    """The two-tier ladder over a resolved tier-0 config: `small_cfg`, then
+    the demo "large" model — 4 layers, twice the width and FFN, 8 heads.
+    Weights are random, seeded per tier."""
+    device = resolve_device(device)
     large_cfg = small_cfg.replace(name=small_cfg.name + "-large",
                                   n_layers=4, d_model=small_cfg.d_model * 2,
                                   n_heads=8, d_ff=small_cfg.d_ff * 2)

@@ -24,7 +24,6 @@ class MoEConfig:
     top_k: int
     n_shared_experts: int = 0
     shared_d_ff: Optional[int] = None   # defaults to d_ff * n_shared
-    normalize_gates: bool = True   # renormalize top-k gates to sum 1
 
 
 def mlp_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -34,18 +33,18 @@ def mlp_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _route(router_w: torch.Tensor, x2d: torch.Tensor, cfg: MoEConfig):
-    """Router in fp32: returns (gates [T,k] fp32, expert_idx [T,k] int64,
-    the switch-style load-balance aux loss)."""
+    """Router in fp32: returns (gates [T,k] fp32 renormalised to sum 1,
+    expert_idx [T,k] int64, the switch-style load-balance aux loss,
+    assignments per expert [E] int64)."""
     logits = x2d.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
-    if cfg.normalize_gates:
-        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     E = cfg.n_experts
-    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
-    frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
+    counts = torch.bincount(idx.reshape(-1), minlength=E)
+    frac_tokens = counts.float() / torch.clamp(counts.sum().float(), min=1.0)
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
-    return gates, idx, aux
+    return gates, idx, aux, counts
 
 
 def _moe_local_math(x2d: torch.Tensor, router_w: torch.Tensor,
@@ -57,12 +56,11 @@ def _moe_local_math(x2d: torch.Tensor, router_w: torch.Tensor,
     The per-expert counts cross to the host once per call, to size the
     groups."""
     T, d = x2d.shape
-    gates, idx, aux = _route(router_w, x2d, cfg)
-    flat_e = idx.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
+    gates, idx, aux, counts = _route(router_w, x2d, cfg)
+    order = torch.argsort(idx.reshape(-1), stable=True)
     tok = torch.div(order, cfg.top_k, rounding_mode="floor")
     xs = x2d[tok]
-    counts = torch.bincount(flat_e, minlength=cfg.n_experts).tolist()
+    counts = counts.tolist()
     out = torch.empty((xs.shape[0], d), dtype=torch.promote_types(
         x2d.dtype, w_down.dtype), device=x2d.device)
     start = 0

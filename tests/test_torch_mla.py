@@ -78,7 +78,11 @@ def test_configs_match_jax():
                   "d_ff", "vocab_size", "rope_theta", "norm_eps", "family",
                   "param_dtype", "compute_dtype"):
             assert getattr(t, f) == getattr(j, f), f
-        assert vars(t.moe) == vars(j.moe) and vars(t.mla) == vars(j.mla)
+        # the port keeps MoESpec's fields that its dropless local path reads
+        for f in ("n_experts", "top_k", "d_ff_expert", "n_shared_experts",
+                  "shared_d_ff", "n_dense_layers"):
+            assert getattr(t.moe, f) == getattr(j.moe, f), f
+        assert vars(t.mla) == vars(j.mla)
 
 
 def test_convert_keeps_mla_moe_trees_and_fp32_router():
@@ -266,11 +270,14 @@ def test_router_gates_sum_to_one_and_match_jax():
     jcfg, tcfg, jp, tp, x = _moe_case(False)
     x2d = x.reshape(-1, 16)
     jg, ji, jaux = jffn._route(jp["router"], jnp.asarray(x2d), jcfg)
-    tg, ti, taux = tffn._route(tp["router"], torch.from_numpy(x2d), tcfg)
+    tg, ti, taux, tcounts = tffn._route(tp["router"], torch.from_numpy(x2d),
+                                        tcfg)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6)
     np.testing.assert_allclose(tg.sum(-1).numpy(), np.ones(32), atol=1e-6)
     assert float(taux) == pytest.approx(float(jaux), abs=1e-6)
+    np.testing.assert_array_equal(
+        tcounts.numpy(), np.bincount(np.asarray(ji).reshape(-1), minlength=4))
 
 
 @pytest.mark.parametrize("shared", [False, True], ids=["routed", "shared"])
