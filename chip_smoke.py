@@ -32,6 +32,22 @@ non-zero:
   5. The reduced fp32 fixtures of both architectures, kernel path against
      plain path (identical greedy tokens per request), and
      `launch.serve.main()` with defaults.
+  7. Training, after the serving ladders are freed:
+     7a. The fused Gatekeeper-loss kernel against its plain version at the
+         full-width Stage-2 shapes (T = 16*128 tokens, d 2048, vocab
+         92544; bf16 x and fp32 table as the main path gives them, and all
+         fp32), timed beside its bound and cuBLAS's fp32 logits GEMM; and
+         the gradients of `gatekeeper_loss_fused` (kernel forward, chunked
+         backward) against autograd through the plain version.
+     7b. The training main path: `launch.train.run` on internlm2-1.8b at
+         its published width, 2 Stage-1 (CE) and 3 Stage-2 (Gatekeeper)
+         steps of 16 x 128 tokens, with the loss kernel's counter set to 0
+         just before and checked after every step: none in Stage 1, one
+         per Stage-2 step; then one more Stage-2 step under the profiler.
+     7c. Reduced fp32 internlm2-1.8b and DeepSeek-V2: one Stage-2 loss and
+         gradient through the kernel against `loss_kernel=False`; then a
+         reduced `launch.train.run` with --ckpt whose Stage-2 checkpoint
+         restores bit for bit.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -80,6 +96,19 @@ MAX_ROUTE_FLIPS = N_SLOTS // 2  # bf16 step: rows whose top-k expert set may
                         # spread, so it is reported and held to no bound;
                         # the fp32 step allows none
 L2_BYTES = 50e6
+
+# phase 7: training
+TRAIN_BATCH, TRAIN_SEQ, STAGE1_STEPS, STAGE2_STEPS = 16, 128, 2, 3
+LOSS_T = TRAIN_BATCH * TRAIN_SEQ  # Stage-2 tokens per step
+LOSS_ATOL = 1e-3        # ce / kl / entropy: fp32 logits over d = 2048 summed
+                        # in other orders than cuBLAS's, then exp/log
+TIE_GAP = 1e-4          # rows whose top-2 logits lie closer may flip
+                        # `correct`; they are reported and held to no bound
+DX_RTOL_OF_MAX = 1e-2   # bf16 dx: both sides round nearly equal fp32
+                        # gradients to bf16, which can land one bf16 step
+                        # (up to 2^-7 of the largest entry) apart
+DTABLE_RTOL_OF_MAX = 1e-4  # fp32 dtable, the same sums in other orders
+REDUCED_GRAD_RTOL_OF_MAX = 1e-4  # reduced fp32 step, kernel vs chunked loss
 
 
 def _fail_early(msg: str) -> None:
@@ -489,6 +518,257 @@ def reduced_fixture(torch, serve, arch) -> None:
           f"{conf_err:.3g}")
 
 
+def loss_case(torch, x_dtype, V: int, d: int, seed: int):
+    """Stage-2 loss inputs at the main path's shapes: x [LOSS_T, d] of
+    unit scale (the final rms-norm's output), table [V, d] fp32 of std
+    1/sqrt(d) like the init, targets at the argmax for half the rows."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((LOSS_T, d), generator=g, device=DEV).to(x_dtype)
+    table = torch.randn((V, d), generator=g, device=DEV) / math.sqrt(d)
+    logits = x.float() @ table.t()
+    top2 = torch.topk(logits, 2, dim=-1).values
+    tgt = torch.randint(0, V, (LOSS_T,), generator=g, device=DEV,
+                        dtype=torch.int32)
+    hit = torch.rand(LOSS_T, generator=g, device=DEV) < 0.5
+    tgt = torch.where(hit, logits.argmax(-1).int(), tgt).contiguous()
+    return x, table, tgt, top2[:, 0] - top2[:, 1]
+
+
+def check_loss_kernel(torch, gk, smi, V: int, d: int) -> dict:
+    """gatekeeper_loss_tokens against its plain version (bf16 x and all
+    fp32); times kernel, plain version and the fp32 cuBLAS GEMM of the
+    logits alone (bf16 x case). Returns the kernel's record."""
+    rec = None
+    for name, x_dtype in (("x bf16, table fp32", torch.bfloat16),
+                          ("all fp32", torch.float32)):
+        x, table, tgt, gap = loss_case(torch, x_dtype, V, d, SEED + 7)
+        got = gk.gatekeeper_loss_tokens(x, table, tgt)
+        want = gk.gatekeeper_loss_tokens_plain(x, table, tgt)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max())
+                  for i, (a, b) in enumerate(zip(got, want)) if i != 2)
+        clear = gap > TIE_GAP
+        flips = int((got[2] != want[2]).sum())
+        clear_flips = int((got[2][clear] != want[2][clear]).sum())
+        ok = all(bool(torch.isfinite(t).all()) for t in got)
+        print(f"[train] gatekeeper_loss_tokens {name}, T {LOSS_T} d {d} V "
+              f"{V}: max|err| ce/kl/entropy {err:.3g} (atol {LOSS_ATOL}); "
+              f"correct differs on {flips} rows, {clear_flips} of them with "
+              f"a top-2 gap > {TIE_GAP} ({int((~clear).sum())} rows under "
+              f"it); frac correct {float(want[2].mean()):.3f}")
+        if not (ok and err <= LOSS_ATOL and clear_flips == 0):
+            raise AssertionError(f"gatekeeper_loss_tokens ({name}): err "
+                                 f"{err} or {clear_flips} flips on clear rows")
+        if rec is None:                     # the main path's types
+            ms = time_ms(lambda: gk.gatekeeper_loss_tokens(x, table, tgt),
+                         iters=5, warmup=1)
+            plain_ms = time_ms(lambda: gk.gatekeeper_loss_tokens_plain(
+                x, table, tgt), iters=5, warmup=1)
+            x32 = x.float()
+            # yardstick only, never called by the port: cuBLAS's fp32 GEMM
+            # of the logits, which computes none of the reductions
+            lib_ms = time_ms(lambda: x32 @ table.t(), iters=5, warmup=1)
+            n_bytes = (x.numel() * x.element_size() + table.numel() * 4
+                       + tgt.numel() * 4 + 4 * LOSS_T * 4)
+            flops = 2 * LOSS_T * V * d
+            bound_ms, bound_by = bound(n_bytes, flops)
+            print(f"[kernel] gatekeeper_loss_tokens {name}: kernel {ms:.3f} "
+                  f"ms, plain {plain_ms:.3f} ms, cuBLAS fp32 logits GEMM "
+                  f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+                  f"{n_bytes} B, {flops} fp32 flop) on {smi}")
+            rec = dict(name="gatekeeper_loss_tokens", route="cuda",
+                       source="src/repro_torch/kernels/csrc/gatekeeper_loss.cu",
+                       replaces="src/repro/kernels/gatekeeper_loss.py:99",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms)
+        del x, table, tgt, got, want
+        torch.cuda.empty_cache()
+    return rec
+
+
+def check_loss_gradients(torch, gk, V: int, d: int) -> None:
+    """dx (bf16) and dtable of `gatekeeper_loss_fused` against autograd
+    through the plain version, at the main path's shapes; the backward
+    launches no kernel."""
+    x, table, tgt, _ = loss_case(torch, torch.bfloat16, V, d, SEED + 8)
+    valid = (torch.arange(LOSS_T, device=DEV) % 5 != 0).float()
+    alpha = 0.3
+    xk, tk = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    n = gk.gatekeeper_loss_tokens.launches
+    loss_k, _ = gk.gatekeeper_loss_fused(xk, tk, tgt, valid, alpha=alpha)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    launched = gk.gatekeeper_loss_tokens.launches - n
+    grads_k = (xk.grad.float(), tk.grad)
+    del xk, tk
+    xp, tp = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    ce, kl, corr, _ = gk.gatekeeper_loss_tokens_plain(xp, tp, tgt)
+    corr = corr.detach()
+    denom = valid.sum()
+    loss_p = (alpha * (ce * corr * valid).sum()
+              + (1 - alpha) * (kl * (1 - corr) * valid).sum()) / denom
+    loss_p.backward()
+    torch.cuda.synchronize()
+    errs = []
+    for name, gkk, gp, tol in (("dx", grads_k[0], xp.grad.float(),
+                                DX_RTOL_OF_MAX),
+                               ("dtable", grads_k[1], tp.grad,
+                                DTABLE_RTOL_OF_MAX)):
+        rel = float((gkk - gp).abs().max()) / float(gp.abs().max())
+        errs.append((name, rel, tol))
+    dloss = abs(float(loss_k.detach()) - float(loss_p.detach()))
+    print(f"[train] gatekeeper_loss_fused gradients at T {LOSS_T} d {d} V "
+          f"{V} (bf16 x, 1 in 5 tokens masked): |dloss| {dloss:.3g}, "
+          + ", ".join(f"max|d{n[1:]}| / max|{n}| {r:.3g} (<= {t})"
+                      for n, r, t in errs)
+          + f"; kernel launches in forward+backward: {launched}")
+    if launched != 1 or dloss > LOSS_ATOL or any(r > t for _, r, t in errs):
+        raise AssertionError(f"fused loss gradients: {errs}, |dloss| "
+                             f"{dloss}, {launched} launches")
+
+
+def train_main_path(torch, gk, train, smi) -> int:
+    """`launch.train.run` at full width with the loss kernel's counter
+    set to 0 just before and read after every logged step. Returns the
+    Stage-2 launch count."""
+    args = train.build_parser().parse_args([
+        "--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq-len",
+        str(TRAIN_SEQ), "--task", "stream", "--stage1-steps",
+        str(STAGE1_STEPS), "--stage2-steps", str(STAGE2_STEPS),
+        "--log-every", "1", "--n-train", "256", "--seed", str(SEED),
+        "--device", DEV])
+    peaks, seen = {}, []
+
+    def on_step(stage, rec):
+        launches = gk.gatekeeper_loss_tokens.launches
+        want = rec["step"] if stage == 2 else 0
+        seen.append((stage, rec["step"], launches))
+        if launches != want:
+            raise AssertionError(f"stage {stage} step {rec['step']}: loss "
+                                 f"kernel launched {launches} times, not "
+                                 f"{want}")
+        if rec["step"] == (STAGE1_STEPS if stage == 1 else STAGE2_STEPS):
+            peaks[stage] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    gk.gatekeeper_loss_tokens.launches = 0
+    params, hist = train.run(args, log_fn=on_step)
+    torch.cuda.synchronize()
+    launches = gk.gatekeeper_loss_tokens.launches
+    for stage, log in hist.items():
+        times = [r["time_s"] for r in log]
+        steps = [b - a for a, b in zip([0.0] + times, times)]
+        print(f"[train] stage {stage}: {len(log)} steps of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens, step wall s "
+              + ", ".join(f"{t:.3f}" for t in steps)
+              + f"; peak device memory {peaks[stage]:.2f} GiB on {smi}")
+        for r in log:
+            if not all(math.isfinite(v) for v in r.values()):
+                raise AssertionError(f"stage {stage}: non-finite {r}")
+    last = hist[2][-1]
+    print(f"[train] stage 2 last step: loss {last['loss']}, l_corr "
+          f"{last['l_corr']}, l_incorr {last['l_incorr']}, frac_correct "
+          f"{last['frac_correct']}, mean_entropy {last['mean_entropy']}, "
+          f"grad_norm {last['grad_norm']}; loss kernel launches per step "
+          f"{[n for st, _, n in seen if st == 2]} (cumulative)")
+    if launches != STAGE2_STEPS:
+        raise AssertionError(f"{launches} loss kernel launches, want "
+                             f"{STAGE2_STEPS}")
+    profile_train_step(torch, train, params, args, smi)
+    return launches
+
+
+def profile_train_step(torch, train, params, args, smi) -> None:
+    """One more full-width Stage-2 step on the trained parameters, timed
+    on the host clock and under torch.profiler: device busy and idle
+    share, and the kernels that take the step's device time."""
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.launch import steps
+    from repro_torch.training import optim
+    cfg = train.build_cfg(args)
+    step = steps.make_train_step(cfg, GatekeeperConfig(alpha=args.alpha),
+                                 optim.AdamWConfig())
+    opt = optim.adamw_init(params)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=g, device=DEV)
+             for k in ("tokens", "targets")}
+
+    def run():
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, top = profile_steps(torch, run, 1, top_n=8)
+    busy = ("not measured (profiler saw no device time)" if busy_ms is None
+            else f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}, "
+                 f"idle {1 - busy_ms / wall_ms:.1%})")
+    print(f"[train] full-width Stage-2 step ({TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens): host wall {wall_ms:.1f} ms, {busy} on {smi}")
+    for name, ms in top:
+        print(f"[train]   {ms:.3f} ms/step  {name[:90]}")
+
+
+def reduced_training_fixture(torch, train) -> None:
+    """Reduced fp32 Stage-2 loss and gradients, kernel against chunked
+    loss, for both architectures; then a reduced two-stage run whose
+    Stage-2 checkpoint restores bit for bit."""
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import checkpoint, optim
+    for arch in (ARCH, MLA_ARCH):
+        cfg = reduced(get_config(arch))
+        params = tfm.init_params(cfg, SEED, DEV)
+        rng = np.random.default_rng(SEED + 9)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))).to(DEV)
+        with torch.no_grad():
+            logits = tfm.forward(params, cfg, tok)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        gap = float((top2[..., 0] - top2[..., 1]).min())
+        tgt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))).to(DEV)
+        hit = torch.from_numpy(rng.random((4, 16)) < 0.5).to(DEV)
+        tgt = torch.where(hit, logits.argmax(-1), tgt)
+        batch = {"tokens": tok, "targets": tgt,
+                 "loss_mask": (torch.arange(16, device=DEV) % 4 != 0)
+                 .float().expand(4, 16)}
+        out = {}
+        for kernel in (True, False):
+            fn = steps.make_loss_fn(cfg, GatekeeperConfig(alpha=0.3), 0.01,
+                                    loss_kernel=kernel)
+            out[kernel] = optim.value_and_grad(fn, params, batch)
+        (lk, ak), gk_ = out[True]
+        (lp, ap), gp = out[False]
+        aux_err = max(abs(float(ak[k]) - float(ap[k])) for k in ap)
+        grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                         1e-30)
+                       for a, b in zip(optim.tree_leaves(gk_),
+                                       optim.tree_leaves(gp)))
+        print(f"[reduced] {cfg.name} Stage-2 loss, kernel vs chunked: "
+              f"|dloss| {abs(float(lk) - float(lp)):.3g}, max|daux| "
+              f"{aux_err:.3g} (atol 1e-5), max leaf |dgrad|/max|grad| "
+              f"{grad_err:.3g} (<= {REDUCED_GRAD_RTOL_OF_MAX}); min top-2 "
+              f"gap {gap:.3g}; frac_correct {float(ap['frac_correct']):.3f}")
+        if not (abs(float(lk) - float(lp)) <= 1e-5 and aux_err <= 1e-5
+                and grad_err <= REDUCED_GRAD_RTOL_OF_MAX):
+            raise AssertionError(f"reduced {arch}: kernel loss differs")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train.build_parser().parse_args([
+            "--reduced", "--stage1-steps", "3", "--stage2-steps", "3",
+            "--n-train", "64", "--seq-len", "16", "--batch", "8",
+            "--log-every", "3", "--ckpt", tmp, "--device", DEV])
+        params, _ = train.run(args)
+        back = checkpoint.restore_checkpoint(f"{tmp}/stage2", params)
+        same = all(torch.equal(a, b) for a, b in zip(
+            optim.tree_leaves(back), optim.tree_leaves(params)))
+        print(f"[reduced] {args.arch} two-stage run with --ckpt: Stage-2 "
+              f"checkpoint restores bit for bit: {same}")
+        if not same or checkpoint.checkpoint_step(f"{tmp}/stage2") != 3:
+            raise AssertionError("checkpoint round trip differs")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         _fail_early(f"no repro_torch sources under {SRC}: run from the "
@@ -597,7 +877,21 @@ def main() -> int:
         rec["launches_by_path"] = {arch: counts[name]
                                    for arch, counts in by_path.items()
                                    if counts[name]}
-    print(json.dumps({"kernels": [records[k] for k in KERNELS]}))
+
+    # -- 7. training ---------------------------------------------------------
+    from repro_torch.kernels import gatekeeper_loss as gk
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    rec = check_loss_kernel(torch, gk, smi, cfg.vocab_size, cfg.d_model)
+    check_loss_gradients(torch, gk, cfg.vocab_size, cfg.d_model)
+    torch.cuda.empty_cache()
+    n = train_main_path(torch, gk, train, smi)
+    rec.update(launches=n, launches_by_path={"train": n})
+    torch.cuda.empty_cache()
+    reduced_training_fixture(torch, train)
+
+    print(json.dumps({"kernels": [records[k] for k in KERNELS] + [rec]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -681,7 +975,6 @@ def profile_decode(torch, tfm, params, cfg, rng, steps: int = 5):
     """Main-path decode steps (kernels on) timed on the host clock, then
     again under torch.profiler for the device-busy time. Returns (wall ms
     per step, device-busy ms per step or None, [(kernel, ms per step)])."""
-    from torch.profiler import ProfilerActivity, profile
     d = prepare_decode(torch, tfm, params, cfg, rng)
 
     def run():
@@ -689,6 +982,15 @@ def profile_decode(torch, tfm, params, cfg, rng, steps: int = 5):
             tfm.decode_step(params, cfg, d["tok"], d["pos"], d["cache"],
                             pages=d["tables"], paged_kernel=True)
         torch.cuda.synchronize()
+    return profile_steps(torch, run, steps)
+
+
+def profile_steps(torch, run, steps: int, top_n: int = 6):
+    """`run()` (which runs `steps` steps and synchronises) once to warm
+    up, once on the host clock, once under torch.profiler. Returns (wall
+    ms per step, device-busy ms per step or None, the top_n [(kernel, ms
+    per step)])."""
+    from torch.profiler import ProfilerActivity, profile
     run()                                             # warm-up
     t0 = time.perf_counter()
     run()
@@ -702,7 +1004,7 @@ def profile_decode(torch, tfm, params, cfg, rng, steps: int = 5):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / steps)
     busy = sum(by_name.values()) or None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     return wall_ms, busy, top
 
 

@@ -1,17 +1,25 @@
-"""Synthetic serving workloads, drawn with numpy from an integer seed.
+"""Synthetic workloads, drawn with numpy from an integer seed.
 
-Counterpart of `repro.data.synthetic.make_lm_stream` and
-`make_ragged_lm_stream`. The JAX versions use a JAX key only to draw the
-numpy seed; these take the seed directly (an int, or a sequence of ints as
-`numpy.random.default_rng` accepts), so the same seed gives the same
-tokens on every machine. The classification, QA and caption generators
-serve training and are not ported yet (see ROADMAP.md).
+Counterpart of `repro.data.synthetic.make_lm_stream`,
+`make_ragged_lm_stream` and `make_qa`. The JAX stream generators use a
+JAX key only to draw the numpy seed; these take the seed directly (an
+int, or a sequence of ints as `numpy.random.default_rng` accepts), so the
+same seed gives the same tokens on every machine. `make_qa` keeps the
+JAX layout, constants and operation mix but draws its bits with numpy,
+so its sequences differ from JAX's for any key. The classification and
+caption generators serve the classifier and VLM paths and are not ported
+yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List
 
 import numpy as np
+
+# Reserved token ids shared by all synthetic vocabularies
+PAD, TOK_REDUCE_CONF, TOK_ANSWER_N, TOK_N, BOS, SEP = 0, 1, 2, 3, 4, 5
+SYMBOL_BASE = 6
 
 
 def make_lm_stream(seed, n_seqs: int, seq_len: int, vocab: int) -> np.ndarray:
@@ -49,3 +57,42 @@ def make_ragged_lm_stream(seed, n_seqs: int, len_min: int, len_max: int,
     lens = np.random.default_rng([*np.atleast_1d(seed), 1]).integers(
         len_min, len_max + 1, size=n_seqs)
     return [base[i, :lens[i]].astype(np.int32) for i in range(n_seqs)]
+
+
+@dataclasses.dataclass
+class QAData:
+    tokens: np.ndarray       # [N, T] int32, next-token targets = tokens[:,1:]
+    answer_pos: int          # index of the answer token
+    loss_mask: np.ndarray    # [N, T-1] — 1 where next-token loss applies
+    op: np.ndarray           # [N] 0=copy 1=add 2=mul (difficulty)
+    n_symbols: int
+    vocab: int
+
+    @property
+    def inputs(self):
+        return self.tokens[:, :-1]
+
+    @property
+    def targets(self):
+        return self.tokens[:, 1:]
+
+
+def make_qa(seed, n: int, n_symbols: int = 16,
+            op_probs=(0.4, 0.3, 0.3)) -> QAData:
+    """Closed-form QA sequences [BOS, op_tok, a, b, c, SEP, ans, PAD]:
+    copy -> ans=a; add -> ans=(a+b) mod K; mul -> ans=(a*b+c) mod K.
+    The loss applies only where SEP predicts the answer."""
+    K = n_symbols
+    rng = np.random.default_rng(seed)
+    op = rng.choice(3, size=n, p=np.asarray(op_probs, np.float64))
+    abc = rng.integers(0, K, size=(n, 3))
+    a, b, c = abc[:, 0], abc[:, 1], abc[:, 2]
+    ans = np.where(op == 0, a, np.where(op == 1, (a + b) % K, (a * b + c) % K))
+    toks = np.stack([
+        np.full(n, BOS), SYMBOL_BASE + K + op, SYMBOL_BASE + a,
+        SYMBOL_BASE + b, SYMBOL_BASE + c, np.full(n, SEP), SYMBOL_BASE + ans,
+        np.full(n, PAD)], axis=1).astype(np.int32)
+    answer_pos = 6
+    mask = np.zeros((n, toks.shape[1] - 1), np.float32)
+    mask[:, answer_pos - 1] = 1.0                  # predict ans from SEP
+    return QAData(toks, answer_pos, mask, op, K, SYMBOL_BASE + K + 3)

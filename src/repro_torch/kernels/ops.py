@@ -9,11 +9,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.gatekeeper_loss import (gatekeeper_loss_fused,
+                                                 gatekeeper_loss_tokens)
 from repro_torch.kernels.paged_attention import (paged_flash_decode_gqa,
                                                  paged_flash_decode_mla,
                                                  paged_write_token)
 
-__all__ = ["paged_flash_decode_gqa", "paged_flash_decode_mla",
+__all__ = ["gatekeeper_loss_fused", "gatekeeper_loss_tokens",
+           "paged_flash_decode_gqa", "paged_flash_decode_mla",
            "paged_kernel_enabled", "paged_write_token"]
 
 

@@ -1,0 +1,193 @@
+"""The Stage-2 train step: Gatekeeper token loss fused with the
+unembedding, AdamW, gradient accumulation.
+
+Counterpart of the training half of `repro.launch.steps`. The loss over
+the vocabulary comes in two implementations of the same function:
+
+  * `chunked_gatekeeper_loss` — plain PyTorch, the JAX package's
+    two-pass vocabulary-chunked algorithm (pass 1: max, log-sum-exp and
+    argmax; pass 2: entropy and target logit), differentiated by
+    autograd. The CPU path, and the yardstick on the card.
+  * `kernels.ops.gatekeeper_loss_fused` — the CUDA kernel
+    `gatekeeper_loss_tokens` in the forward, a chunked plain backward.
+
+`make_train_step(loss_kernel=None)` takes the kernel exactly when the
+parameters live on CUDA; True or False force one. `fused_confidence`,
+`make_prefill` and `make_serve_step` are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.core.gatekeeper import GatekeeperConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import transformer as tfm
+from repro_torch.training import optim
+
+
+def chunked_gatekeeper_loss(x_final: torch.Tensor, table: torch.Tensor,
+                            targets: torch.Tensor, gk: GatekeeperConfig,
+                            valid_mask: Optional[torch.Tensor] = None,
+                            n_chunks: int = 16):
+    """Gatekeeper token loss fused with the unembedding, two passes over
+    vocabulary chunks. x_final [B, S, d]; table [V, d]; targets [B, S].
+    `n_chunks` halves until it divides V. Returns (loss, {"l_corr",
+    "l_incorr", "frac_correct", "mean_entropy"})."""
+    B, S, d = x_final.shape
+    V = table.shape[0]
+    while V % n_chunks != 0:
+        n_chunks //= 2
+    Vc = V // n_chunks
+    x2 = x_final.reshape(B * S, d).float()     # fp32 logits, as JAX's
+    tgt = targets.reshape(B * S).long()        # preferred_element_type
+    n = B * S
+
+    def chunk_logits(i):
+        return x2 @ table[i * Vc:(i + 1) * Vc].float().t()
+
+    m = torch.full((n,), -math.inf, device=x2.device)
+    lse_acc = torch.zeros(n, device=x2.device)
+    amax_val = torch.full((n,), -math.inf, device=x2.device)
+    preds = torch.zeros(n, dtype=torch.long, device=x2.device)
+    for i in range(n_chunks):                    # pass 1
+        logits = chunk_logits(i)
+        cmax = logits.amax(-1)
+        new_m = torch.maximum(m, cmax)
+        lse_acc = lse_acc * torch.exp(m - new_m) + torch.exp(
+            torch.logsumexp(logits, dim=-1) - new_m)
+        m = new_m
+        better = cmax > amax_val
+        amax_val = torch.where(better, cmax, amax_val)
+        preds = torch.where(better, logits.argmax(-1) + i * Vc, preds)
+    lse = m + torch.log(lse_acc)
+
+    entropy = torch.zeros(n, device=x2.device)
+    tgt_logit = torch.zeros(n, device=x2.device)
+    for i in range(n_chunks):                    # pass 2
+        logits = chunk_logits(i)
+        logp = logits - lse[:, None]
+        entropy = entropy - torch.sum(torch.exp(logp) * logp, dim=-1)
+        loc = tgt - i * Vc
+        in_chunk = (loc >= 0) & (loc < Vc)
+        got = logits.gather(1, torch.clamp(loc, 0, Vc - 1)[:, None])[:, 0]
+        tgt_logit = torch.where(in_chunk, got, tgt_logit)
+
+    ce = lse - tgt_logit
+    kl = math.log(float(V)) - entropy
+    correct = (preds == tgt).float().detach()
+    valid = (torch.ones_like(correct) if valid_mask is None
+             else valid_mask.reshape(n).float())
+    return _reduce(ce, kl, correct, entropy, valid, gk.alpha)
+
+
+def _reduce(ce, kl, correct, entropy, valid, alpha: float):
+    denom = torch.clamp(valid.sum(), min=1.0)
+    l_corr = (ce * correct * valid).sum() / denom
+    l_incorr = (kl * (1 - correct) * valid).sum() / denom
+    loss = alpha * l_corr + (1 - alpha) * l_incorr
+    aux = {"l_corr": l_corr, "l_incorr": l_incorr,
+           "frac_correct": (correct * valid).sum() / denom,
+           "mean_entropy": (entropy * valid).sum() / denom}
+    return loss, aux
+
+
+def fused_gatekeeper_loss(x_final: torch.Tensor, table: torch.Tensor,
+                          targets: torch.Tensor, gk: GatekeeperConfig,
+                          valid_mask: Optional[torch.Tensor] = None):
+    """`chunked_gatekeeper_loss`'s function and outputs through
+    `kernels.ops.gatekeeper_loss_fused` (one kernel launch on CUDA)."""
+    B, S, d = x_final.shape
+    valid = (None if valid_mask is None
+             else valid_mask.reshape(B * S).float())
+    loss, a = kernel_ops.gatekeeper_loss_fused(
+        x_final.reshape(B * S, d), table, targets.reshape(B * S), valid,
+        alpha=gk.alpha)
+    v = torch.ones_like(a["ce"]) if valid is None else valid
+    denom = torch.clamp(v.sum(), min=1.0)
+    return loss, {"l_corr": a["l_corr"], "l_incorr": a["l_incorr"],
+                  "frac_correct": (a["correct"] * v).sum() / denom,
+                  "mean_entropy": (a["entropy"] * v).sum() / denom}
+
+
+def _final_hidden(params, cfg: ModelConfig, batch):
+    """(x_final [B, T, d], MoE aux-loss sum, loss mask or None)."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"training family {cfg.family!r} is not ported (the encoder-"
+            f"decoder branch waits; see ROADMAP.md)")
+    if batch.get("patches") is not None:
+        raise NotImplementedError("VLM patch inputs are not ported "
+                                  "(see ROADMAP.md)")
+    x, aux = tfm.final_hidden(params, cfg, batch["tokens"])
+    return x, aux, batch.get("loss_mask")
+
+
+def _pad_targets(cfg: ModelConfig, batch, T: int):
+    """Targets aligned with the (possibly patch-extended) sequence: zeros
+    in front for prepended positions."""
+    tgt = batch["targets"]
+    if tgt.shape[1] < T:
+        pad = torch.zeros((tgt.shape[0], T - tgt.shape[1]), dtype=tgt.dtype,
+                          device=tgt.device)
+        tgt = torch.cat([pad, tgt], dim=1)
+    return tgt
+
+
+def make_loss_fn(cfg: ModelConfig, gk: GatekeeperConfig,
+                 aux_weight: float = 0.01,
+                 loss_kernel: Optional[bool] = None):
+    """loss_fn(params, batch) -> (loss + aux_weight * MoE aux, aux)."""
+
+    def loss_fn(params, batch):
+        x, model_aux, mask = _final_hidden(params, cfg, batch)
+        table = params.get("unembed", params["embedding"])
+        tgt = _pad_targets(cfg, batch, x.shape[1])
+        use_kernel = (x.is_cuda if loss_kernel is None else loss_kernel)
+        fn = fused_gatekeeper_loss if use_kernel else chunked_gatekeeper_loss
+        loss, aux = fn(x, table, tgt, gk, mask)
+        return loss + aux_weight * model_aux, aux
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig,
+                    gk: GatekeeperConfig = GatekeeperConfig(alpha=0.5),
+                    opt_cfg: optim.AdamWConfig = optim.AdamWConfig(),
+                    aux_weight: float = 0.01, microbatches: int = 1,
+                    loss_kernel: Optional[bool] = None):
+    """Gatekeeper fine-tune step (paper Stage 2):
+    (params, opt_state, batch) -> (params, opt_state, metrics), with the
+    parameters and moments updated in place. `microbatches` > 1
+    accumulates gradients over equal splits of the batch's first axis."""
+    loss_fn = make_loss_fn(cfg, gk, aux_weight, loss_kernel)
+
+    def train_step(params, opt_state, batch):
+        if microbatches > 1:
+            B = next(iter(batch.values())).shape[0]
+            if B % microbatches:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{microbatches} microbatches")
+            n = B // microbatches
+            loss, aux, grads = 0.0, None, None
+            for i in range(microbatches):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                (l_i, a_i), g_i = optim.value_and_grad(loss_fn, params, mb)
+                loss = loss + l_i
+                aux = a_i if aux is None else {k: aux[k] + a_i[k] for k in aux}
+                grads = g_i if grads is None else optim.tree_map(
+                    torch.add, grads, g_i)
+            inv = 1.0 / microbatches
+            loss = loss * inv
+            aux = {k: v * inv for k, v in aux.items()}
+            grads = optim.tree_map(lambda g: g * inv, grads)
+        else:
+            (loss, aux), grads = optim.value_and_grad(loss_fn, params, batch)
+        params, opt_state, om = optim.adamw_update(opt_cfg, grads, opt_state,
+                                                   params)
+        return params, opt_state, {**aux, **om, "loss": loss}
+
+    return train_step

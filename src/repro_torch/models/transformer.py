@@ -11,10 +11,15 @@ stacked the same way, ``[L, batch, ...]``, and are written in place.
 
 API:
     init_params(cfg, seed, device)              -> params
-    forward(params, cfg, tokens)                -> logits [B, T, V]
+    forward(params, cfg, tokens, return_aux)    -> logits [B, T, V] (, aux)
+    final_hidden(params, cfg, tokens)           -> (x [B, T, d], aux)
     init_cache(cfg, batch, max_len, dtype, device) -> cache
     prefill(params, cfg, tokens, cache, ...)    -> (logits, cache)
     decode_step(params, cfg, token, position, cache, ...) -> (logits, cache)
+
+`forward` and `final_hidden` are the training entry points: they record
+autograd's graph when the parameters require grad. `prefill` and
+`decode_step` serve, under `torch.inference_mode()`.
 """
 from __future__ import annotations
 
@@ -166,29 +171,34 @@ def param_device(params: dict) -> torch.device:
 # Trunk
 # ---------------------------------------------------------------------------
 
-def _layer(tree: dict, i: int) -> dict:
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+def _layers(tree: dict, n: int) -> list:
+    """The `n` per-layer views of a stacked group, one `torch.unbind` per
+    leaf: autograd then stacks each leaf's per-layer gradients once,
+    where indexing ``w[i]`` layer by layer would add a zero-filled
+    full-size gradient per layer."""
+    split = {k: (_layers(v, n) if isinstance(v, dict) else torch.unbind(v))
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
            cache_offset: int = 0, decode: bool = False, position=None,
            pages=None, paged_kernel=None):
     """Pre-norm blocks over each stacked layer group in order (attention or
-    MLA, then the dense MLP or the MoE FFN). Returns (x, cache)."""
+    MLA, then the dense MLP or the MoE FFN). Returns (x, cache, aux): aux
+    is the fp32 sum of the MoE layers' load-balance losses (0 for dense)."""
     ac = attn_config(cfg)
     mc = moe_config(cfg) if cfg.moe else None
     if cfg.mla:
         fwd, dec = attn_lib.mla_forward, attn_lib.mla_decode
     else:
         fwd, dec = attn_lib.gqa_forward, attn_lib.gqa_decode
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, L in _group_sizes(cfg).items():
         if not L:
             continue
-        blocks = params["blocks"][kind]
         stacked = cache[kind] if cache is not None else None
-        for i in range(L):
-            p = _layer(blocks, i)
+        for i, p in enumerate(_layers(params["blocks"][kind], L)):
             c = (None if stacked is None
                  else {name: leaf[i] for name, leaf in stacked.items()})
             h = rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -201,11 +211,12 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
             x = x + y
             h = rms_norm(x, p["norm2"], cfg.norm_eps)
             if kind == "moe":
-                y, _ = ffn_lib.moe_forward(p["moe"], mc, h)
+                y, aux = ffn_lib.moe_forward(p["moe"], mc, h)
+                aux_sum = aux_sum + aux
             else:
                 y = ffn_lib.mlp_forward(p["mlp"], h)
             x = x + y
-    return x, cache
+    return x, cache, aux_sum
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -221,13 +232,25 @@ def _logits(params, cfg: ModelConfig, x):
 # Public entry points
 # ---------------------------------------------------------------------------
 
-@torch.inference_mode()
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward. tokens [B, T] -> fp32 logits [B, T, V]."""
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            return_aux: bool = False):
+    """Full-sequence forward (training). tokens [B, T] -> fp32 logits
+    [B, T, V], and with `return_aux` also the MoE aux-loss sum."""
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _ = _trunk(params, cfg, x, positions)
-    return _logits(params, cfg, x)
+    x, _, aux = _trunk(params, cfg, x, positions)
+    logits = _logits(params, cfg, x)
+    return (logits, aux) if return_aux else logits
+
+
+def final_hidden(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """The trunk and the final norm, without the unembedding: tokens
+    [B, T] -> (x [B, T, d] in the compute type, MoE aux-loss sum). The
+    Stage-2 loss fuses the unembedding with its reductions."""
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, _, aux = _trunk(params, cfg, x, positions)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 @torch.inference_mode()
@@ -243,7 +266,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     x = _embed(params, cfg, tokens)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None, :] + cache_offset
-    x, cache = _trunk(params, cfg, x, positions, cache=cache,
+    x, cache, _ = _trunk(params, cfg, x, positions, cache=cache,
                       cache_offset=cache_offset, pages=pages)
     if last_index is not None:
         idx = torch.as_tensor(last_index, device=x.device).long()
@@ -265,7 +288,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, position,
     if token.dim() == 1:
         token = token[:, None]
     x = _embed(params, cfg, token)
-    x, cache = _trunk(params, cfg, x, None, cache=cache, decode=True,
+    x, cache, _ = _trunk(params, cfg, x, None, cache=cache, decode=True,
                       position=position, pages=pages,
                       paged_kernel=paged_kernel)
     return _logits(params, cfg, x)[:, 0, :], cache

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import gatekeeper_loss as gk
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 
 pytestmark = pytest.mark.requires_cuda
@@ -62,6 +64,20 @@ def test_decode_kernel_matches_plain(cuda, shape, q_dtype, kv_dtype):
     atol = 1e-4 if q_dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
     assert out[-1].abs().max() == 0
+
+
+def test_decode_kernel_exact_under_active_prefix_slice(cuda):
+    """Cutting the page table to the blocks the positions reach leaves the
+    kernel's output bit-identical: it never visits the blocks cut away."""
+    q, kp, vp, tables, pos = _case(cuda, 8, 16, 8, 128, 16, torch.float32,
+                                   torch.bfloat16)
+    need = int((pos.max() // 16) + 1)
+    wide = torch.cat([tables, torch.zeros_like(tables)], dim=1).contiguous()
+    full = pa.paged_flash_decode_gqa(q, kp, vp, wide, pos)
+    cut = pa.paged_flash_decode_gqa(q, kp, vp, wide[:, :need].contiguous(),
+                                    pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cut, full, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("leaf_dtype", [torch.bfloat16, torch.float32])
@@ -135,6 +151,84 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
             torch.zeros((4, 1, 4, 1024), device=cuda), qr, big, kr,
             torch.zeros(1024, device=cuda), tables, pos, scale=0.1)
     assert pa.paged_flash_decode_mla.launches == n
+    x, table, tgt = _loss_case(cuda, 16, 32, 100)
+    n = gk.gatekeeper_loss_tokens.launches
+    with pytest.raises(ValueError, match="int32"):
+        gk.gatekeeper_loss_tokens(x, table, tgt.long())
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        gk.gatekeeper_loss_tokens(x.half(), table, tgt)
+    with pytest.raises(ValueError, match="d=30"):
+        gk.gatekeeper_loss_tokens(x[:, :30], table[:, :30], tgt)
+    with pytest.raises(ValueError, match=r"\[T, d\]"):
+        gk.gatekeeper_loss_tokens(x, table[:, :16], tgt)
+    assert gk.gatekeeper_loss_tokens.launches == n
+
+
+def _loss_case(cuda, T, d, V, x_dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((T, d), generator=g, device=cuda).to(x_dtype)
+    table = torch.randn((V, d), generator=g, device=cuda) * (2.0 / d ** 0.5)
+    tgt = torch.randint(0, V, (T,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    logits = x.float() @ table.t()
+    hit = torch.rand(T, generator=g, device=cuda) < 0.5
+    tgt = torch.where(hit, logits.argmax(-1).int(), tgt).contiguous()
+    return x, table, tgt
+
+
+def _top2_gap(x, table):
+    top2 = torch.topk(x.float() @ table.t(), 2, dim=-1).values
+    return top2[:, 0] - top2[:, 1]
+
+
+@pytest.mark.parametrize("T,d,V", [(37, 32, 300), (200, 64, 1000),
+                                   (512, 256, 9000)],
+                         ids=["tiny", "ragged", "vocab-tail"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_gatekeeper_kernel_matches_plain(cuda, T, d, V, x_dtype):
+    """ce, kl, entropy and lse to atol 1e-4 (fp32 logits summed in other
+    orders); `correct` equal on every row whose top-2 gap exceeds 1e-4.
+    T and V are no multiples of the 128-wide tiles."""
+    x, table, tgt = _loss_case(cuda, T, d, V, x_dtype)
+    n = gk.gatekeeper_loss_tokens.launches
+    got = gk.gatekeeper_loss_tokens(x, table, tgt, return_lse=True)
+    want = gk.gatekeeper_loss_tokens_plain(x, table, tgt, return_lse=True)
+    torch.cuda.synchronize()
+    assert gk.gatekeeper_loss_tokens.launches == n + 1
+    for i in (0, 1, 3, 4):
+        torch.testing.assert_close(got[i], want[i], atol=1e-4, rtol=0)
+    clear = _top2_gap(x, table) > 1e-4
+    assert torch.equal(got[2][clear], want[2][clear])
+    assert 0 < float(want[2].mean()) < 1
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all-valid", "valid"])
+def test_gatekeeper_fused_gradients_match_plain_autograd(cuda, masked):
+    """dx (in x's bf16) and dtable of `gatekeeper_loss_fused` (kernel
+    forward, chunked backward, which launches nothing) against autograd
+    through the plain version: atol 1e-4 relative to the largest entry."""
+    x, table, tgt = _loss_case(cuda, 300, 128, 5000, torch.bfloat16)
+    valid = ((torch.arange(300, device=cuda) % 4) != 0).float() if masked \
+        else None
+    xk, tk = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    n = gk.gatekeeper_loss_tokens.launches
+    loss_k, aux = ops.gatekeeper_loss_fused(xk, tk, tgt, valid, alpha=0.3)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    assert gk.gatekeeper_loss_tokens.launches == n + 1
+    xp, tp = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    ce, kl, corr, _ = gk.gatekeeper_loss_tokens_plain(xp, tp, tgt)
+    v = torch.ones_like(ce) if valid is None else valid
+    corr = corr.detach()
+    denom = v.sum().clamp(min=1)
+    loss_p = (0.3 * (ce * corr * v).sum()
+              + 0.7 * (kl * (1 - corr) * v).sum()) / denom
+    loss_p.backward()
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-4
+    assert xk.grad.dtype == torch.bfloat16
+    for a, b in ((xk.grad.float(), xp.grad.float()), (tk.grad, tp.grad)):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                                   rtol=2e-2)
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-236b"])

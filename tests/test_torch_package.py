@@ -16,6 +16,12 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
+# modules of the training slice, named so that the checks below cannot
+# pass by missing them
+TRAINING_MODULES = ("core.gatekeeper", "data.pipeline",
+                    "kernels.gatekeeper_loss", "launch.steps",
+                    "launch.train", "training.checkpoint", "training.loop",
+                    "training.optim")
 
 
 def _imported_roots(path: Path):
@@ -38,6 +44,12 @@ def test_port_file_imports_neither_jax_nor_repro(path):
     assert not set(_imported_roots(path)) & FORBIDDEN
 
 
+def test_import_check_covers_the_training_slice():
+    src = REPO / "src" / "repro_torch"
+    for mod in TRAINING_MODULES:
+        assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+
+
 def test_port_modules_load_without_jax():
     code = ("import sys, importlib, pkgutil, repro_torch\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
@@ -45,7 +57,11 @@ def test_port_modules_load_without_jax():
             "    importlib.import_module(m.name)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            f"want = {TRAINING_MODULES!r}\n"
+            "missing = [m for m in want if 'repro_torch.' + m not in "
+            "sys.modules]\n"
+            "assert not missing, missing\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           env={"PYTHONPATH": str(REPO / "src"),
                                "PATH": "/usr/bin:/bin"},
@@ -56,7 +72,7 @@ def test_port_modules_load_without_jax():
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from repro_torch.configs import get_config, reduced
     from repro_torch.convert import params_from_jax
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import transformer as tfm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_config("internlm2-1.8b"))
@@ -64,7 +80,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
                  lambda: tfm.init_cache(cfg, 1, 4),
                  lambda: params_from_jax({}),
                  lambda: serve.build_ladder("internlm2-1.8b", 0, 2),
-                 lambda: serve.main(["--requests", "2"])):
+                 lambda: serve.main(["--requests", "2"]),
+                 lambda: train.main(["--reduced", "--stage1-steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert tfm.init_params(cfg, device="cpu")["embedding"].device.type == "cpu"
