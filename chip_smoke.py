@@ -18,19 +18,48 @@ non-zero:
   3b. The same for the MLA decode kernel at the full-width DeepSeek-V2
      decode shapes (8 rows, 128 heads, kv_lora 512, rope 64, block 16):
      bf16 q, pages and norm weight (the main path's types), and all fp32.
+  3c. The deferral-signal kernel `deferral_entropy` against its plain
+     version at the engine's shapes (8 x 92544 and 8 x 102400 fp32
+     logits) and the evaluation's (2048 x 92544), with a row of equal
+     logits, a row with an exact top tie and a vocabulary tail no span
+     divides; timed beside its bytes bound (no single PyTorch call
+     computes the triple, so no library time).
+  3d. The prefill kernel `flash_attention` against its plain version at
+     the full-width internlm2-1.8b prefill chunk (8 rows, 128 queries,
+     16/8 heads of 128, a 288-position view, q_offset 0, 48 and 128), bf16
+     and all fp32, plus a reduced sliding-window case; timed beside its
+     operations bound and SDPA with the same boolean mask.
   4. The first main path: a full-width internlm2-1.8b M_S -> M_L cascade
      on the paged backend with the kernels on, through `build_ladder`,
      `ContinuousCascadeEngine.calibrate` and `.run`, with the launch
-     counters reset just before and checked just after; plus one
+     counters reset just before and checked just after (the paged kernels
+     per decode step; `deferral_entropy` per decode step, per seeding
+     prefill dispatch and per M_L or calibration generate step and
+     prefill; `flash_attention` per layer of each prefill); plus one
      full-width decode step, kernel path against plain path, by logits
      (a row whose MoE top-k expert set differs between the paths is
-     reported apart), and a profiled decode step.
+     reported apart), one full-width paged prefill, flash kernel against
+     `_attend` (fp32 activations and cache, and the main path's bf16
+     under a guard),
+     and a profiled decode step with its signal.
+  8. The paper's cascade evaluation on phase 4's models at full width:
+     `core.cascade.Cascade` with the eq.-8 sequence signal over 16 x 128
+     tokens (`calibrate_tau` for deferral 0.3, `predict_dense` equal to
+     `predict_sparse` up to M_L's batch-to-batch bf16 roundings on
+     deferred rows, `metrics.summarize_deferral`), one
+     `deferral_entropy` per model's logits and 24 or 4 `flash_attention`
+     per forward; then `launch.steps.make_prefill` and one
+     `make_serve_step` step through the kernels against the plain
+     `fused_confidence` of the same hidden states.
   6. The second main path, the same way: DeepSeek-V2 (MLA + MoE) at its
      published widths, M_S cut to 2 layers (one dense, one MoE layer with
      all 160 routed experts), M_L `build_ladder`'s 4-layer large tier.
      Freed before phase 5.
-  5. The reduced fp32 fixtures of both architectures, kernel path against
-     plain path (identical greedy tokens per request), and
+  5. The reduced fp32 fixtures of both architectures, every kernel of the
+     path switched together by the engine's `paged_kernel`, at a
+     calibrated tau: identical deferral masks and greedy tokens per
+     request (a request whose confidence lies within 1e-5 of tau is
+     reported, not held), and
      `launch.serve.main()` with defaults.
   7. Training, after the serving ladders are freed:
      7a. The fused Gatekeeper-loss kernel against its plain version at the
@@ -65,6 +94,7 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
 
 # main-path configurations (full width, one card)
 ARCH = "internlm2-1.8b"
@@ -97,6 +127,21 @@ MAX_ROUTE_FLIPS = N_SLOTS // 2  # bf16 step: rows whose top-k expert set may
                         # the fp32 step allows none
 L2_BYTES = 50e6
 
+# phases 3c, 3d and 8: the deferral signal, prefill attention, evaluation
+SIGNAL_ATOL = 1e-4      # neg_entropy / max_prob: fp32 sums over the
+                        # vocabulary in other orders, then exp/log
+FLASH_ATOL = 1e-4       # fp32 online softmax against a one-shot softmax
+FLASH_BF16_RTOL = 2 ** -7  # bf16 outputs, on top of FLASH_ATOL: both sides
+                        # round nearly equal fp32 values to bf16, at most
+                        # one bf16 step (<= 2^-7 of the value) apart
+CONF_NEAR_TAU = 1e-5    # reduced fixtures: a request this close to tau
+                        # may defer on one path only; reported, not held
+EVAL_SEQS, EVAL_LEN, EVAL_DEFERRAL = 16, 128, 0.3
+# (rows, vocabulary): the engine's internlm2-1.8b and DeepSeek-V2 decode
+# logits, then the evaluation's [EVAL_SEQS * EVAL_LEN, V]
+SIGNAL_SHAPES = ((N_SLOTS, 92544), (N_SLOTS, 102400),
+                 (EVAL_SEQS * EVAL_LEN, 92544))
+
 # phase 7: training
 TRAIN_BATCH, TRAIN_SEQ, STAGE1_STEPS, STAGE2_STEPS = 16, 128, 2, 3
 LOSS_T = TRAIN_BATCH * TRAIN_SEQ  # Stage-2 tokens per step
@@ -109,6 +154,11 @@ DX_RTOL_OF_MAX = 1e-2   # bf16 dx: both sides round nearly equal fp32
                         # (up to 2^-7 of the largest entry) apart
 DTABLE_RTOL_OF_MAX = 1e-4  # fp32 dtable, the same sums in other orders
 REDUCED_GRAD_RTOL_OF_MAX = 1e-4  # reduced fp32 step, kernel vs chunked loss
+
+
+def phase(name: str, t_start: float) -> None:
+    """Mark the start of a phase with the script's elapsed seconds."""
+    print(f"[time] {time.perf_counter() - t_start:7.1f} s  phase {name}")
 
 
 def _fail_early(msg: str) -> None:
@@ -136,9 +186,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float,
+          flops_per_s: float = H100_FP32_FLOPS):
+    """Least milliseconds for the work: bytes over the memory rate or
+    operations over the peak rate of their inputs' type, the larger."""
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -347,19 +400,170 @@ def check_mla_kernel(torch, pa, c, name, smi) -> dict:
                + qa.numel() * qa.element_size() + qr.numel() * qr.element_size()
                + w.numel() * w.element_size() + out.numel() * 4
                + 4 * c["table_entries"] + 4 * pos.numel())
-    # per valid position: scores 2H(r+dr), values 2Hr, the rms-norm 4r
+    # per valid position: scores 2H(r+dr), values 2Hr, the rms-norm 4r;
+    # all-bf16 operands at the tensor cores' bf16 rate
     flops = c["valid_tokens"] * (2 * H * (r + dr) + 2 * H * r + 4 * r)
-    bound_ms, bound_by = bound(n_bytes, flops)
+    bf16 = ckv.dtype == torch.bfloat16
+    rate = H100_BF16_FLOPS if bf16 else H100_FP32_FLOPS
+    bound_ms, bound_by = bound(n_bytes, flops, rate)
     print(f"[kernel] paged_flash_decode_mla {name}: max|err| {err:.3g} "
           f"(atol {DECODE_ATOL}), all-trash row exact 0; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, sdpa(gathered, normed) {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {flops} fp32 "
-          f"flop; {len(c['pages'])} page copies) on {smi}")
+          f"bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {flops} "
+          f"{'bf16' if bf16 else 'fp32'} flop; {len(c['pages'])} page "
+          f"copies) on {smi}")
     return dict(name="paged_flash_decode_mla", route="cuda",
                 source="src/repro_torch/kernels/csrc/mla_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:198",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms)
+
+
+def signal_case(torch, T: int, V: int):
+    """Logits [T, V] fp32 of std 3 with row 0 all equal, row 1 an exact
+    top tie at two far columns, row 2 at two neighbouring columns. Returns
+    (logits, top-2 gap per row)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + T + V)
+    x = torch.randn((T, V), generator=g, device=DEV) * 3
+    x[0] = 0.25
+    x[1, 7] = x[1, V - 5] = x[1].max() + 1
+    x[2, V // 3] = x[2, V // 3 + 1] = x[2].max() + 1
+    top2 = torch.topk(x, 2, dim=-1).values
+    return x, top2[:, 0] - top2[:, 1]
+
+
+def check_deferral_kernel(torch, de, smi) -> dict:
+    """deferral_entropy against its plain version at the engine's and the
+    evaluation's shapes; times both. Returns the kernel's record at the
+    engine's internlm2-1.8b shape (the decode steps' call)."""
+    rec = None
+    for T, V in SIGNAL_SHAPES:
+        x, gap = signal_case(torch, T, V)
+        got = de.deferral_entropy(x)
+        want = de.deferral_entropy_plain(x)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got[:2],
+                                                              want[:2]))
+        clear = gap > TIE_GAP
+        ties = gap == 0
+        flips = int((got[2][clear | ties] != want[2][clear | ties]).sum())
+        first = got[2][:3].tolist() == [0, 7, V // 3]
+        print(f"[kernel] deferral_entropy {T} x {V} fp32: max|err| "
+              f"neg_entropy/max_prob {err:.3g} (atol {SIGNAL_ATOL}); argmax "
+              f"differs on {flips} rows with a top-2 gap > {TIE_GAP} or an "
+              f"exact tie ({int((~clear & ~ties).sum())} rows under the gap "
+              f"not held); ties to the lowest index: {first}")
+        if not (err <= SIGNAL_ATOL and flips == 0 and first
+                and all(bool(torch.isfinite(t).all()) for t in got[:2])):
+            raise AssertionError(f"deferral_entropy {T} x {V}: err {err}, "
+                                 f"{flips} flips, first index {first}")
+        iters = 20 if T == N_SLOTS else 5
+        ms = time_ms(lambda: de.deferral_entropy(x), iters=iters)
+        plain_ms = time_ms(lambda: de.deferral_entropy_plain(x), iters=iters)
+        n_bytes = x.numel() * 4 + 3 * 4 * T
+        # one exp, a compare and two multiply-adds per logit
+        bound_ms, bound_by = bound(n_bytes, 4 * x.numel())
+        print(f"[kernel] deferral_entropy {T} x {V}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {n_bytes} B); library — (no single PyTorch "
+              f"call computes (neg_entropy, max_prob, argmax)) on {smi}")
+        if rec is None:
+            rec = dict(name="deferral_entropy", route="cuda",
+                       source="src/repro_torch/kernels/csrc/"
+                              "deferral_entropy.cu",
+                       replaces="src/repro/kernels/deferral_entropy.py:63",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                       shape=[T, V])
+        rec.setdefault("by_shape", {})[f"{T}x{V}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err)
+        del x, got, want
+    return rec
+
+
+def check_flash_kernel(torch, fa, smi) -> dict:
+    """flash_attention against its plain version at the full-width
+    internlm2-1.8b prefill chunk, bf16 (the main path's type) and fp32,
+    at q_offset 0, 48 and 128; times kernel, plain version and SDPA with
+    the same mask (bf16). The bound counts bf16 products at the tensor
+    cores' bf16 rate (exact in fp32 accumulation), fp32 ones at the SIMT
+    rate. Returns the record at q_offset 128 in bf16."""
+    B, T, H, KV, hd = N_SLOTS, CHUNK, 16, 8, 128
+    S = math.ceil((RAGGED[1] + MAX_NEW) / BLOCK) * BLOCK     # 288
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    base = [torch.randn(shape, generator=g, device=DEV) for shape in
+            ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    rec = None
+    for name, dtype, rtol, rate in (
+            ("bf16", torch.bfloat16, FLASH_BF16_RTOL, H100_BF16_FLOPS),
+            ("fp32", torch.float32, 0.0, H100_FP32_FLOPS)):
+        q, k, v = (t.to(dtype) for t in base)
+        tol = f"atol {FLASH_ATOL}" + (f" + {rtol:.3g}|ref|" if rtol else "")
+        for off in (0, 48, 128):
+            out = fa.flash_attention(q, k, v, causal=True, q_offset=off)
+            ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=off)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max())
+            # the largest error as a share of its element's tolerance
+            share = float((diff / (FLASH_ATOL + rtol * ref.float().abs()))
+                          .max())
+            if not (out.dtype == dtype and torch.isfinite(out).all()
+                    and share <= 1.0):
+                raise AssertionError(f"flash_attention {name} q_offset {off}:"
+                                     f" max|err| {err}, {share:.3g} of {tol}")
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                    q_offset=off))
+            plain_ms = time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, q_offset=off), iters=5)
+            mask = fa.visible_mask(T, S, q_offset=off, device=DEV)
+            visible = int(mask.sum()) * B
+            lib_ms = None
+            if name == "bf16":
+                # yardstick only, never called by the port: SDPA over the
+                # same mask, K/V heads expanded to the query heads first
+                qs = q.transpose(1, 2)
+                ks, vs = (t.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+                          .contiguous() for t in (k, v))
+                lib_ms = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=mask))
+            n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+            bound_ms, bound_by = bound(n_bytes, 4 * visible * H * hd, rate)
+            print(f"[kernel] flash_attention {name} B {B} T {T} S {S} "
+                  f"16/8x128 q_offset {off}: max|err| {err:.3g}, at most "
+                  f"{share:.3g} of ({tol}); "
+                  f"kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, sdpa "
+                  + (f"{lib_ms:.4f} ms" if lib_ms is not None else "—")
+                  + f", bound {bound_ms:.5f} ms ({bound_by}: {visible} "
+                  f"visible pairs per head at {rate / 1e12:.0f} TFLOP/s, "
+                  f"{n_bytes} B) on {smi}")
+            if name == "bf16":
+                rec = rec or dict(name="flash_attention", route="cuda",
+                                  source="src/repro_torch/kernels/csrc/"
+                                         "flash_attention.cu",
+                                  replaces="src/repro/kernels/"
+                                           "flash_attention.py:72")
+                rec.setdefault("by_q_offset", {})[off] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, max_abs_err=err)
+                if off == 128:
+                    rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=lib_ms, q_offset=off)
+    # reduced sliding-window case (the kernel's option; no main path uses it)
+    q, k, v = (torch.randn((2, 100, n, 128), generator=g, device=DEV)
+               for n in (4, 2, 2))
+    out = fa.flash_attention(q, k, v, causal=True, window=24)
+    ref = fa.flash_attention_plain(q, k, v, causal=True, window=24)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    print(f"[kernel] flash_attention fp32 window 24 (2 x 100, 4/2 heads): "
+          f"max|err| {err:.3g} (atol {FLASH_ATOL})")
+    if err > FLASH_ATOL:
+        raise AssertionError(f"flash_attention window: max|err| {err}")
+    return rec
 
 
 def describe_ladder(torch, small, large, t_init: float) -> None:
@@ -411,27 +615,90 @@ def check_one_step(torch, tfm, small, rng, guard: float) -> None:
                                  f"in rows {flipped}")
 
 
+def check_prefill_paths(torch, tfm, small) -> None:
+    """One full-width paged prefill of 8 ragged prompts (one chunk each, up
+    to 256 tokens), flash kernel against `_attend`, by last-token logits:
+    with fp32 activations over an fp32 cache (isolates the kernel: over a
+    bf16 cache a last-bit difference in one layer's K/V can flip its bf16
+    rounding, and every later layer reads it) and with the main path's
+    bf16 activations and cache, where `_attend` also rounds the
+    probabilities to bf16 before P @ V and the kernel keeps them fp32."""
+    import numpy as np
+    cfg = small.cfg
+    for label, pcfg, cache_dtype, tol in (
+            ("fp32 activations and cache", cfg.replace(
+                compute_dtype="float32"), torch.float32, STEP_LOGIT_ATOL),
+            (f"{cfg.compute_dtype} activations, bf16 cache", cfg,
+             torch.bfloat16, STEP_LOGIT_GUARD)):
+        out = {}
+        for kernel in (True, False):
+            d = prepare_decode(torch, tfm, small.params, pcfg,
+                               np.random.default_rng(SEED + 12),
+                               paged_kernel=kernel, cache_dtype=cache_dtype)
+            out[kernel] = d["logits"]
+        torch.cuda.synchronize()
+        err = float((out[True] - out[False]).abs().max())
+        agree = float((out[True].argmax(-1) == out[False].argmax(-1))
+                      .float().mean())
+        print(f"[main] full-width paged prefill, flash kernel vs _attend, "
+              f"{label}: max|dlogit| {err:.4g} (atol {tol}; logit std "
+              f"{float(out[False].std()):.3g}), argmax agreement {agree:.3f}")
+        if not (torch.isfinite(out[True]).all() and err <= tol):
+            raise AssertionError(f"full-width prefill ({label}): logits "
+                                 f"differ by {err} > {tol}")
+
+
 def report_profile(torch, tfm, small, rng, smi) -> None:
-    wall_ms, busy_ms, top = profile_decode(torch, tfm, small.params,
-                                           small.cfg, rng)
+    wall_ms, busy_ms, ranked = profile_decode(torch, tfm, small.params,
+                                              small.cfg, rng)
     busy = ("not measured (profiler saw no device time)" if busy_ms is None
             else f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}, "
                  f"idle {1 - busy_ms / wall_ms:.1%})")
-    print(f"[main] full-width decode step (8 rows, kernels on): host "
-          f"wall {wall_ms:.3f} ms, {busy} on {smi}")
-    for name, ms in top:
+    print(f"[main] full-width decode step (8 rows, kernels on, with its "
+          f"deferral signal): host wall {wall_ms:.3f} ms, {busy} on {smi}")
+    for name, ms in ranked[:6] + [(n, ms) for n, ms in ranked[6:]
+                                  if n.startswith("de_")]:
         print(f"[main]   {ms:.4f} ms/step  {name[:90]}")
 
 
 KERNELS = ("paged_flash_decode_gqa", "paged_flash_decode_mla",
-           "paged_write_token")
+           "paged_write_token", "deferral_entropy", "flash_attention")
 
 
-def serve_main_path(torch, pa, small, large, per_step: dict, smi) -> dict:
+def launch_counters():
+    """{kernel name: its wrapper}, each wrapper carrying `.launches`."""
+    from repro_torch.kernels import deferral_entropy as de
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    return {"paged_flash_decode_gqa": pa.paged_flash_decode_gqa,
+            "paged_flash_decode_mla": pa.paged_flash_decode_mla,
+            "paged_write_token": pa.paged_write_token,
+            "deferral_entropy": de.deferral_entropy,
+            "flash_attention": fa.flash_attention}
+
+
+def reset_counts() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def flash_layers(cfg) -> int:
+    """flash_attention launches per prefill: one per GQA layer (MLA
+    prefill stays plain)."""
+    return 0 if cfg.mla is not None else cfg.n_layers
+
+
+def serve_main_path(torch, small, large, per_step: dict, smi) -> dict:
     """Calibrate and run the cascade on the paged backend with the kernels
     on; every kernel's counter is set to 0 just before and read just after.
-    Checks that kernel k launched per_step[k] times per decode step (and
-    the others never). Returns the counts."""
+    Checks that paged kernel k launched per_step[k] times per decode step,
+    and the signal and prefill kernels as the run's steps, prefill
+    dispatches and M_L batches give them (and the others never). Returns
+    the counts."""
     import numpy as np
     from repro_torch.data.synthetic import (make_lm_stream,
                                             make_ragged_lm_stream)
@@ -450,15 +717,14 @@ def serve_main_path(torch, pa, small, large, per_step: dict, smi) -> dict:
     live = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
                                  cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        getattr(pa, k).launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     tau = engine.calibrate(cal, cal_len, MAX_NEW, DEFERRAL)
     torch.cuda.synchronize()
     t_cal = time.perf_counter() - t0
     res = engine.run(make_requests(live, MAX_NEW), MAX_NEW)
     torch.cuda.synchronize()
-    launches = {k: getattr(pa, k).launches for k in KERNELS}
+    launches = read_counts()
     st = res.stats
     print(f"[main] calibrated tau {tau:.4f} for deferral {DEFERRAL} in "
           f"{t_cal:.2f} s; served {N_REQUESTS} requests (prompts "
@@ -480,17 +746,175 @@ def serve_main_path(torch, pa, small, large, per_step: dict, smi) -> dict:
             res.confidence).all():
         raise AssertionError("malformed serving result")
     want = {k: per_step.get(k, 0) * res.steps for k in KERNELS}
+    # calibration: one M_S generate (prefill + MAX_NEW - 1 steps); run:
+    # decode steps, seeding prefill dispatches, M_L generates per batch
+    n_ml = st["ml_batches"]
+    want["deferral_entropy"] = (MAX_NEW + res.steps
+                                + st["prefill_seed_dispatches"]
+                                + MAX_NEW * n_ml)
+    want["flash_attention"] = (flash_layers(cfg)
+                               * (1 + st["prefill_dispatches"])
+                               + flash_layers(large.cfg) * n_ml)
     print(f"[main] kernel launches {launches}, expected {want} ("
           + ", ".join(f"{n} {k}" for k, n in per_step.items())
-          + " per decode step)")
+          + f" per decode step; deferral_entropy {MAX_NEW} (calibration) + "
+          f"{res.steps} steps + {st['prefill_seed_dispatches']} seeding "
+          f"prefill dispatches + {MAX_NEW} x {n_ml} M_L batches; "
+          f"flash_attention {flash_layers(cfg)} x (1 + "
+          f"{st['prefill_dispatches']} prefill dispatches) + "
+          f"{flash_layers(large.cfg)} x {n_ml})")
     if launches != want or res.steps == 0:
         raise AssertionError(f"launch counts {launches} != {want}")
     return launches
 
 
+def evaluate_cascade(torch, small, large, smi) -> dict:
+    """The paper's offline evaluation at full width: `Cascade` over M_S
+    and M_L with the eq.-8 sequence signal on EVAL_SEQS x EVAL_LEN tokens,
+    counters set to 0 before each call and checked after it; then
+    make_prefill and one make_serve_step step against `fused_confidence`.
+    Returns the launch counts of the whole phase."""
+    import numpy as np
+    from repro_torch.core import metrics
+    from repro_torch.core.cascade import Cascade
+    from repro_torch.data.synthetic import make_lm_stream
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    cfg, lcfg = small.cfg, large.cfg
+    toks = torch.from_numpy(make_lm_stream(
+        [SEED, 4], EVAL_SEQS, EVAL_LEN, cfg.vocab_size).astype(np.int64)
+        ).to(DEV)
+    cascade = Cascade(lambda p, x: tfm.forward(p, cfg, x),
+                      lambda p, x: tfm.forward(p, lcfg, x),
+                      small.params, large.params, signal="seq_neg_entropy")
+    fs, fl = flash_layers(cfg), flash_layers(lcfg)
+    total = dict.fromkeys(KERNELS, 0)
+
+    def counted(label, fn, want):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        for k, n in got.items():
+            total[k] += n
+        want = {k: want.get(k, 0) for k in KERNELS}
+        print(f"[eval] {label}: {time.perf_counter() - t0:.3f} s, launches "
+              f"deferral_entropy {got['deferral_entropy']}, flash_attention "
+              f"{got['flash_attention']} (expected {want['deferral_entropy']}"
+              f", {want['flash_attention']})")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != {want}")
+        return out
+
+    tau = counted("calibrate_tau(deferral_ratio=0.3)",
+                  lambda: cascade.calibrate_tau(
+                      toks, deferral_ratio=EVAL_DEFERRAL),
+                  {"deferral_entropy": 1, "flash_attention": fs})
+    dense = counted("predict_dense", lambda: cascade.predict_dense(toks),
+                    {"deferral_entropy": 2, "flash_attention": fs + fl})
+    n_def = int(dense.deferred.sum())
+    sparse = counted("predict_sparse", lambda: cascade.predict_sparse(toks),
+                     {"deferral_entropy": 1 + (n_def > 0),
+                      "flash_attention": fs + fl * (n_def > 0)})
+    for name in ("deferred", "small_predictions", "confidence"):
+        if not np.array_equal(getattr(dense, name), getattr(sparse, name)):
+            raise AssertionError(f"predict_dense and predict_sparse differ "
+                                 f"in {name}")
+    keep = ~dense.deferred
+    if not (dense.predictions.shape == (EVAL_SEQS, EVAL_LEN)
+            and np.isfinite(dense.confidence).all()
+            and np.array_equal(dense.predictions[keep],
+                               sparse.predictions[keep])):
+        raise AssertionError("malformed cascade evaluation")
+    # M_L sees all 16 sequences in predict_dense and the deferred ones in
+    # predict_sparse: cuBLAS picks its GEMM by shape, so with bf16
+    # activations the two batches' logits differ by roundings. A deferred
+    # position may take another argmax only where M_L's top-2 gap is within
+    # twice that batch-to-batch logit difference.
+    idx = torch.from_numpy(np.nonzero(dense.deferred)[0]).to(DEV)
+    flips = flips_unexplained = 0
+    drift_max = 0.0
+    if idx.numel():
+        l_all = tfm.forward(large.params, lcfg, toks)[idx]
+        l_sub = tfm.forward(large.params, lcfg, toks[idx])
+        drift = (l_all - l_sub).abs().amax(-1)
+        top2 = torch.topk(l_all, 2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        del l_all, l_sub
+        d = np.nonzero(dense.deferred)[0]
+        diff = torch.from_numpy(dense.predictions[d]
+                                != sparse.predictions[d]).to(DEV)
+        flips = int(diff.sum())
+        flips_unexplained = int((diff & (gap > 2 * drift)).sum())
+        drift_max = float(drift.max())
+    print(f"[eval] predict_dense vs predict_sparse: deferred mask, M_S "
+          f"tokens, confidence and the kept rows' predictions equal; M_L "
+          f"argmax differs at {flips} of {int(idx.numel()) * EVAL_LEN} "
+          f"deferred positions, {flips_unexplained} with a top-2 gap above "
+          f"twice the batch-to-batch logit difference (max {drift_max:.3g})")
+    if flips_unexplained:
+        raise AssertionError(f"predict_sparse: {flips_unexplained} M_L "
+                             f"predictions differ beyond rounding")
+    # random weights: M_S counts as correct on the half of the sequences
+    # where its token agreement with M_L is highest, M_L as always correct.
+    # That shows the path runs, not how good a tuned cascade is
+    agree = (dense.small_predictions == dense.large_predictions).mean(-1)
+    small_ok = np.zeros(EVAL_SEQS)
+    small_ok[np.argsort(agree, kind="stable")[EVAL_SEQS // 2:]] = 1.0
+    summ = metrics.summarize_deferral(dense.confidence, small_ok,
+                                      np.ones_like(small_ok))
+    print(f"[eval] {cfg.name} -> {lcfg.name} on {EVAL_SEQS} x {EVAL_LEN} "
+          f"tokens, seq_neg_entropy: tau {tau:.5f}, deferral ratio "
+          f"{dense.deferral_ratio:.4f} ({n_def} of {EVAL_SEQS}), compute cost "
+          f"{dense.compute_cost:.3f}; "
+          f"summarize_deferral (random weights, M_S correct on the half of "
+          f"the sequences where it agrees most with M_L: the values only "
+          f"show the path runs): s_d "
+          f"{summ['s_d']:.4g}, s_o {summ['s_o']:.4g}, auroc "
+          f"{summ['auroc']:.4g}, acc_small {summ['acc_small']:.4g}")
+
+    # make_prefill + one make_serve_step step through the kernels, against
+    # the plain fused_confidence of the same decode state
+    B, P = N_SLOTS, 64
+    prompts = toks[:B, :P]
+    cache = tfm.init_cache(cfg, B, P + 1, device=DEV)
+    tok, nent0, cache = counted(
+        "make_prefill", lambda: steps.make_prefill(cfg)(
+            small.params, cache, {"tokens": prompts}),
+        {"deferral_entropy": 1, "flash_attention": fs})
+    twin = {kind: {k: v.clone() for k, v in leaves.items()}
+            for kind, leaves in cache.items()}
+    nxt, conf, defer, _ = counted(
+        "make_serve_step", lambda: steps.make_serve_step(cfg, tau=-1.0)(
+            small.params, cache, tok, P), {"deferral_entropy": 1})
+    x, _ = steps._decode_hidden(small.params, cfg, tok, P, twin,
+                                paged_kernel=False)
+    table = small.params.get("unembed", small.params["embedding"])
+    ref_nent, _, ref_tok = steps.fused_confidence(x, table)
+    top2 = torch.topk(x.float() @ table.float().t(), 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > TIE_GAP
+    err = float((conf - ref_nent).abs().max())
+    flips = int((nxt[clear] != ref_tok[clear]).sum())
+    print(f"[eval] make_serve_step at full width ({B} rows, position {P}): "
+          f"tokens equal to fused_confidence's on {int(clear.sum())} rows "
+          f"with a top-2 gap > {TIE_GAP} ({flips} differ), max|d neg_entropy|"
+          f" {err:.3g} (atol {SIGNAL_ATOL}); defer at tau -1: "
+          f"{defer.int().tolist()}; prefill confidence "
+          f"{[round(float(c), 4) for c in nent0]}")
+    if flips or err > SIGNAL_ATOL or not torch.equal(defer, conf < -1.0):
+        raise AssertionError(f"make_serve_step: {flips} token flips, "
+                             f"neg_entropy err {err}")
+    return total
+
+
 def reduced_fixture(torch, serve, arch) -> None:
-    """Reduced fp32 `arch`, kernel path against plain path on the paged
-    engine: identical greedy tokens per request."""
+    """Reduced fp32 `arch` on the paged engine, every kernel of the path
+    switched together by the engine's `paged_kernel` (which reaches the
+    runners' generate: calibration and M_L), at a tau between the plain path's
+    4th and 5th of 8 confidences: identical deferral masks and greedy
+    tokens per request. A request whose confidence lies within
+    CONF_NEAR_TAU of tau is reported and held to neither."""
     import numpy as np
     from repro_torch.data.synthetic import make_ragged_lm_stream
     from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
@@ -499,23 +923,43 @@ def reduced_fixture(torch, serve, arch) -> None:
     small, large = serve.build_ladder(arch, SEED, 2, device=DEV)
     prompts = make_ragged_lm_stream([SEED, 3], 8, 4, 24,
                                     small.cfg.vocab_size)
-    runs = {}
-    for kernel in (True, False):
+    runs, counts = {}, {}
+
+    def run(kernel: bool, tau: float):
         eng = ContinuousCascadeEngine(
-            CascadeSpec.two_tier(small, large, tau=-1e9),
+            CascadeSpec.two_tier(small, large, tau=tau),
             EngineConfig(n_slots=3, early_exit=False, backend="paged",
                          paged=PagedConfig(block_size=4, prefill_chunk=4,
                                            paged_kernel=kernel)))
-        runs[kernel] = eng.run(make_requests(prompts, 6), 6)
-    for a, b in zip(runs[True].requests, runs[False].requests):
-        if not np.array_equal(a.tokens, b.tokens):
+        reset_counts()
+        res = eng.run(make_requests(prompts, 6), 6)
+        torch.cuda.synchronize()
+        return res, read_counts()
+    conf = np.sort(run(False, -1e9)[0].confidence)
+    tau = float(0.5 * (conf[3] + conf[4]))
+    for kernel in (False, True):
+        runs[kernel], counts[kernel] = run(kernel, tau)
+    if any(counts[False].values()) or not counts[True]["deferral_entropy"]:
+        raise AssertionError(f"reduced {arch}: kernel switch leaked: "
+                             f"{counts}")
+    k_run, p_run = runs[True], runs[False]
+    near = np.abs(p_run.confidence - tau) <= CONF_NEAR_TAU
+    held = ~near
+    if not np.array_equal(k_run.deferred[held], p_run.deferred[held]):
+        raise AssertionError(f"reduced {arch}: deferral masks differ: "
+                             f"{k_run.deferred} vs {p_run.deferred}")
+    for a, b, h in zip(k_run.requests, p_run.requests, held):
+        if h and not np.array_equal(a.tokens, b.tokens):
             raise AssertionError(f"reduced {arch} rid {a.rid}: kernel "
                                  f"tokens {a.tokens} != plain {b.tokens}")
-    conf_err = float(np.abs(runs[True].confidence
-                            - runs[False].confidence).max())
-    print(f"[reduced] {small.cfg.name} fp32 fixture, kernel vs plain path: "
-          f"identical greedy tokens for {len(prompts)} requests, max|dconf| "
-          f"{conf_err:.3g}")
+    conf_err = float(np.abs(k_run.confidence - p_run.confidence).max())
+    mask = p_run.deferred.astype(int).tolist()
+    print(f"[reduced] {small.cfg.name} fp32 fixture, every kernel vs plain "
+          f"path at tau {tau:.5f}: deferral masks {mask} (equal), "
+          f"identical greedy tokens for "
+          f"{int(held.sum())} of {len(prompts)} requests ({int(near.sum())} "
+          f"within {CONF_NEAR_TAU} of tau, reported), max|dconf| "
+          f"{conf_err:.3g}; kernel-path launches {counts[True]}")
 
 
 def loss_case(torch, x_dtype, V: int, d: int, seed: int):
@@ -698,13 +1142,13 @@ def profile_train_step(torch, train, params, args, smi) -> None:
     def run():
         step(params, opt, batch)
         torch.cuda.synchronize()
-    wall_ms, busy_ms, top = profile_steps(torch, run, 1, top_n=8)
+    wall_ms, busy_ms, ranked = profile_steps(torch, run, 1)
     busy = ("not measured (profiler saw no device time)" if busy_ms is None
             else f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}, "
                  f"idle {1 - busy_ms / wall_ms:.1%})")
     print(f"[train] full-width Stage-2 step ({TRAIN_BATCH} x {TRAIN_SEQ} "
           f"tokens): host wall {wall_ms:.1f} ms, {busy} on {smi}")
-    for name, ms in top:
+    for name, ms in ranked[:8]:
         print(f"[train]   {ms:.3f} ms/step  {name[:90]}")
 
 
@@ -780,6 +1224,8 @@ def main() -> int:
                     "needs an NVIDIA GPU")
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import deferral_entropy as de
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 matmuls in fp32
@@ -809,6 +1255,7 @@ def main() -> int:
     records = {}
     with torch.inference_mode():
         # -- 3. GQA decode and paged write against their plain versions -----
+        phase("3", t_start)
         for kv_name, kv_dtype in (("bf16", torch.bfloat16),
                                   ("fp32", torch.float32)):
             case = decode_case(torch, kv_dtype, rng)
@@ -819,6 +1266,7 @@ def main() -> int:
                 records["paged_write_token"] = rec_w
             del case
         # -- 3b. MLA decode against its plain version -----------------------
+        phase("3b", t_start)
         for name, dtype in (("all bf16", torch.bfloat16),
                             ("all fp32", torch.float32)):
             case = mla_case(torch, dtype, rng)
@@ -827,6 +1275,13 @@ def main() -> int:
                 records["paged_flash_decode_mla"] = rec
             del case
         torch.cuda.empty_cache()
+        # -- 3c. the deferral signal against its plain version --------------
+        phase("3c", t_start)
+        records["deferral_entropy"] = check_deferral_kernel(torch, de, smi)
+        # -- 3d. prefill attention against its plain version ----------------
+        phase("3d", t_start)
+        records["flash_attention"] = check_flash_kernel(torch, fa, smi)
+        torch.cuda.empty_cache()
 
         from repro_torch.configs import get_config
         from repro_torch.launch import serve
@@ -834,21 +1289,28 @@ def main() -> int:
         by_path = {}
 
         # -- 4. internlm2-1.8b at full width --------------------------------
+        phase("4", t_start)
         t0 = time.perf_counter()
         small, large = serve.build_ladder(ARCH, SEED, 2, reduce=False,
                                           device=DEV)
         torch.cuda.synchronize()
         describe_ladder(torch, small, large, time.perf_counter() - t0)
         check_one_step(torch, tfm, small, rng, STEP_LOGIT_GUARD)
+        check_prefill_paths(torch, tfm, small)
         report_profile(torch, tfm, small, rng, smi)
         L = small.cfg.n_layers
         by_path[ARCH] = serve_main_path(
-            torch, pa, small, large,
+            torch, small, large,
             {"paged_flash_decode_gqa": L, "paged_write_token": 2 * L}, smi)
+        torch.cuda.empty_cache()
+        # -- 8. the paper's cascade evaluation on the same models -----------
+        phase("8", t_start)
+        by_path["evaluation"] = evaluate_cascade(torch, small, large, smi)
         del small, large
         torch.cuda.empty_cache()
 
         # -- 6. DeepSeek-V2 (MLA + MoE) at full width -----------------------
+        phase("6", t_start)
         t0 = time.perf_counter()
         small, large = serve.ladder_from_config(
             get_config(MLA_ARCH).replace(n_layers=MLA_SMALL_LAYERS), SEED,
@@ -859,12 +1321,13 @@ def main() -> int:
         report_profile(torch, tfm, small, rng, smi)
         L = small.cfg.n_layers
         by_path[MLA_ARCH] = serve_main_path(
-            torch, pa, small, large,
+            torch, small, large,
             {"paged_flash_decode_mla": L, "paged_write_token": 2 * L}, smi)
         del small, large
         torch.cuda.empty_cache()
 
-        # -- 5. reduced fp32 fixtures: kernel path == plain path ------------
+        # -- 5. reduced fp32 fixtures: kernel paths == plain paths ----------
+        phase("5", t_start)
         for arch in (ARCH, MLA_ARCH):
             reduced_fixture(torch, serve, arch)
         from repro_torch.serving.request import DONE
@@ -872,6 +1335,11 @@ def main() -> int:
         if not all(r.state == DONE for r in res.requests):
             raise AssertionError("serve.main() left requests unfinished")
 
+    missing = [k for k in KERNELS
+               if not sum(counts[k] for counts in by_path.values())]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: "
+                             f"{missing}")
     for name, rec in records.items():
         rec["launches"] = sum(counts[name] for counts in by_path.values())
         rec["launches_by_path"] = {arch: counts[name]
@@ -879,6 +1347,7 @@ def main() -> int:
                                    if counts[name]}
 
     # -- 7. training ---------------------------------------------------------
+    phase("7", t_start)
     from repro_torch.kernels import gatekeeper_loss as gk
     from repro_torch.launch import train
     torch.cuda.empty_cache()
@@ -891,8 +1360,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     reduced_training_fixture(torch, train)
 
-    print(json.dumps({"kernels": [records[k] for k in KERNELS] + [rec]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [records[k] for k in KERNELS] + [rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -907,9 +1376,12 @@ def _leaves(tree):
             yield v
 
 
-def prepare_decode(torch, tfm, params, cfg, rng) -> dict:
-    """Prefill 8 ragged full-width prompts into a bf16 paged cache: the
-    state of one decode step of the main path."""
+def prepare_decode(torch, tfm, params, cfg, rng, paged_kernel=None,
+                   cache_dtype=None) -> dict:
+    """Prefill 8 ragged full-width prompts into a paged cache (bf16 unless
+    `cache_dtype` says otherwise): the state of one decode step of the
+    main path (`paged_kernel` picks the prefill attention; None: the
+    kernel, on the card)."""
     lens = rng.integers(RAGGED[0], RAGGED[1] + 1, size=N_SLOTS)
     per_row = math.ceil((RAGGED[1] + MAX_NEW) / BLOCK)
     tables = torch.zeros((N_SLOTS, per_row + 1), dtype=torch.int32)
@@ -922,10 +1394,11 @@ def prepare_decode(torch, tfm, params, cfg, rng) -> dict:
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(N_SLOTS, int(lens.max())))).to(DEV)
     cache = tfm.init_cache(cfg, N_SLOTS * per_row + 1, BLOCK,
-                           dtype=torch.bfloat16, device=DEV)
+                           dtype=cache_dtype or torch.bfloat16, device=DEV)
     logits, cache = tfm.prefill(params, cfg, toks, cache, pages=tables,
-                                last_index=torch.from_numpy(lens - 1).to(DEV))
-    return dict(tables=tables, cache=cache,
+                                last_index=torch.from_numpy(lens - 1).to(DEV),
+                                paged_kernel=paged_kernel)
+    return dict(tables=tables, cache=cache, logits=logits[:, 0],
                 tok=torch.argmax(logits[:, 0], -1).to(torch.int32),
                 pos=torch.from_numpy(lens.astype("int32")).to(DEV))
 
@@ -972,24 +1445,28 @@ def decode_step_check(torch, tfm, params, cfg, rng):
 
 
 def profile_decode(torch, tfm, params, cfg, rng, steps: int = 5):
-    """Main-path decode steps (kernels on) timed on the host clock, then
-    again under torch.profiler for the device-busy time. Returns (wall ms
-    per step, device-busy ms per step or None, [(kernel, ms per step)])."""
+    """Main-path decode steps (kernels on, each with its deferral signal)
+    timed on the host clock, then again under torch.profiler for the
+    device-busy time. Returns (wall ms per step, device-busy ms per step
+    or None, [(kernel, ms per step)])."""
+    from repro_torch.kernels import ops as kernel_ops
     d = prepare_decode(torch, tfm, params, cfg, rng)
 
     def run():
         for _ in range(steps):
-            tfm.decode_step(params, cfg, d["tok"], d["pos"], d["cache"],
-                            pages=d["tables"], paged_kernel=True)
+            logits, _ = tfm.decode_step(params, cfg, d["tok"], d["pos"],
+                                        d["cache"], pages=d["tables"],
+                                        paged_kernel=True)
+            kernel_ops.deferral_signal(logits)
         torch.cuda.synchronize()
     return profile_steps(torch, run, steps)
 
 
-def profile_steps(torch, run, steps: int, top_n: int = 6):
+def profile_steps(torch, run, steps: int):
     """`run()` (which runs `steps` steps and synchronises) once to warm
     up, once on the host clock, once under torch.profiler. Returns (wall
-    ms per step, device-busy ms per step or None, the top_n [(kernel, ms
-    per step)])."""
+    ms per step, device-busy ms per step or None, [(kernel, ms per step)]
+    from the largest)."""
     from torch.profiler import ProfilerActivity, profile
     run()                                             # warm-up
     t0 = time.perf_counter()
@@ -1004,8 +1481,7 @@ def profile_steps(torch, run, steps: int, top_n: int = 6):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / steps)
     busy = sum(by_name.values()) or None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
-    return wall_ms, busy, top
+    return wall_ms, busy, sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
 if __name__ == "__main__":

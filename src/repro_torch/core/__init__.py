@@ -1,1 +1,2 @@
-"""Deferral signals, calibration and the cascade spec (JAX-free copies)."""
+"""Deferral signals, calibration, the cascade and its evaluation metrics,
+baselines, the Gatekeeper loss and the cascade spec (JAX-free copies)."""

@@ -1,8 +1,10 @@
 """Threshold calibration for the cascade gate (paper Stage 3).
 
-JAX-free copy of `repro.core.calibration` for generation ladders:
-`calibrate_edges` picks each edge's tau as the target quantile of the
-validation confidences, with the repo-wide ``deferred = conf < tau``
+JAX-free copy of `repro.core.calibration`: tau for a target deferral
+ratio or a target joint accuracy. `calibrate_edges` is the one
+calibration surface for the classifier `core.cascade.Cascade` and for
+generation ladders: it picks each edge's tau as the target quantile of
+the validation confidences, with the repo-wide ``deferred = conf < tau``
 convention (ratio<=0 -> below-min tau, never defer; ratio>=1 ->
 above-max tau, always defer).
 """
@@ -23,6 +25,36 @@ def threshold_for_deferral_ratio(confidence: np.ndarray, ratio: float) -> float:
     if ratio >= 1.0:
         return float(conf.max() + 1.0)
     return float(np.quantile(conf, ratio))
+
+
+def threshold_for_accuracy(confidence: np.ndarray,
+                           small_correct: np.ndarray,
+                           large_correct: np.ndarray,
+                           target_accuracy: float) -> Optional[float]:
+    """Smallest-deferral tau whose joint accuracy >= target on validation.
+
+    Returns None when the target exceeds what full deferral achieves.
+    """
+    conf = np.asarray(confidence, np.float64).ravel()
+    sc = np.asarray(small_correct, np.float64).ravel()
+    lc = np.asarray(large_correct, np.float64).ravel()
+    n = conf.size
+    order = np.argsort(conf)                       # least confident first
+    sc_s, lc_s = sc[order], lc[order]
+    prefix_lc = np.concatenate([[0.0], np.cumsum(lc_s)])
+    prefix_sc = np.concatenate([[0.0], np.cumsum(sc_s)])
+    total_sc = prefix_sc[-1]
+    joint = (prefix_lc + (total_sc - prefix_sc)) / n   # joint acc deferring k
+    ok = np.nonzero(joint >= target_accuracy)[0]
+    if ok.size == 0:
+        return None
+    k = int(ok[0])
+    if k == 0:
+        return float(conf.min() - 1.0)
+    if k >= n:
+        return float(conf.max() + 1.0)
+    sorted_conf = conf[order]
+    return float(0.5 * (sorted_conf[k - 1] + sorted_conf[k]))
 
 
 def expected_compute_cost(deferral_ratio: float,
@@ -55,12 +87,29 @@ def _per_edge_ratios(n_edges: int,
     return [float(deferral_ratio)] * n_edges
 
 
-def calibrate_edges(spec, val_prompts, *, max_new: int,
+def calibrate_edges(spec, val_prompts, *, max_new: Optional[int] = None,
                     deferral_ratio: Union[float, Sequence[float]] = 0.2,
-                    prompt_len: Optional[int] = None) -> List[float]:
-    """Calibrate every edge threshold of a `CascadeSpec` from one
-    validation batch; sets the taus in place and returns them. Edge i
-    calibrates on the prompts the edges before it would defer that far."""
+                    prompt_len: Optional[int] = None,
+                    valid_mask=None,
+                    paged_kernel: Optional[bool] = None) -> List[float]:
+    """Calibrate every edge threshold of a cascade from one validation
+    batch; sets the taus in place and returns them (edge order).
+
+    `spec` is a `CascadeSpec` (tier i's runner generates on the prompts
+    the edges before it would defer that far; needs `max_new`;
+    `paged_kernel` goes to each runner's `generate`) or a
+    `core.cascade.Cascade` (classifier: the configured logit signal on
+    the small model, one edge; `valid_mask` feeds its signal)."""
+    if hasattr(spec, "small_apply"):
+        ratios = _per_edge_ratios(1, deferral_ratio)
+        logits = spec.small_apply(spec.small_params, val_prompts)
+        conf = spec.confidence(logits, valid_mask)
+        spec.tau = threshold_for_deferral_ratio(
+            conf.detach().cpu().numpy(), ratios[0])
+        return [spec.tau]
+    if max_new is None:
+        raise ValueError("calibrate_edges needs max_new for a generation "
+                         "ladder")
     ratios = _per_edge_ratios(len(spec.edges), deferral_ratio)
     prompts = np.asarray(val_prompts, np.int32)
     if prompt_len is None:
@@ -77,7 +126,8 @@ def calibrate_edges(spec, val_prompts, *, max_new: int,
                 f"cannot calibrate edge {i}: tier {i} "
                 f"({spec.tiers[i].name!r}) has no local runner")
         sub = prompts[reach]
-        tokens, mean_conf = runner.generate(sub, prompt_len, max_new)
+        tokens, mean_conf = runner.generate(sub, prompt_len, max_new,
+                                            paged_kernel=paged_kernel)
         sig = edge.signal
         if sig.supports_running:
             conf = np.asarray(mean_conf, np.float64)

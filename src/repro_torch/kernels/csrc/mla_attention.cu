@@ -18,7 +18,8 @@
 //   Bound: operations. All H query heads share one latent per position, so
 //   each cached element read feeds every head: 2*H*(r+dr) + 2*H*r flops per
 //   position against (r+dr) elements, above the card's fp32 ops-per-byte
-//   balance at H = 128.
+//   balance at H = 128. With bf16 operands at the tensor cores' bf16 rate
+//   the bytes bound instead; this kernel computes in fp32 SIMT.
 //   The TPU kernel keeps an [H, r] fp32 accumulator (256 KiB at H=128,
 //   r=512) in VMEM for the whole row. That exceeds a CTA's shared memory, so
 //   here the grid is (head group of kHeads, row): each CTA walks its row's

@@ -1,0 +1,134 @@
+"""Flash attention for prefill: CUDA launch wrapper and plain version.
+
+Counterpart of `repro.kernels.flash_attention.flash_attention` (Pallas,
+TPU). The kernel is CUDA C++ for Hopper in `csrc/flash_attention.cu`;
+its source note says what bounds it and what its design does about that.
+
+  * `flash_attention` — causal (optionally sliding-window) GQA attention,
+    q [B,T,H,hd] over k, v [B,S,KV,hd] (kv head = q head // (H / KV)),
+    fp32 scores, online softmax and P @ V; the output has q's type. Query
+    t sits at position ``q_offset + t``: key s is visible when s < S and,
+    if causal, s <= q_offset + t, and, with ``window`` w > 0,
+    s > q_offset + t - w. With q_offset = 0 this is the TPU kernel's
+    function; a prefill chunk at absolute offset q_offset over a cache
+    view of S positions passes q_offset. Key tiles the mask hides from a
+    whole query tile are skipped.
+  * `flash_attention_plain` — the same function as
+    `repro.kernels.ref.flash_attention_ref` (fp32 scores, probabilities
+    and P @ V), with the output in q's type and zeros for a query that
+    sees no key (the kernels' contract; the reference never has one).
+
+The wrapper takes the plain version only for CPU tensors; for a CUDA
+tensor it launches the kernel or raises. `flash_attention.launches`
+counts kernel launches (never plain calls). There is no backward: the
+trainer keeps the plain attention of `models.attention._attend`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.models.common import make_causal_mask
+
+NEG = -1e30
+HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+
+
+def visible_mask(T: int, S: int, *, causal: bool = True, window: int = 0,
+                 q_offset: int = 0, device=None) -> torch.Tensor:
+    """[T, S] bool: True where query t (at position q_offset + t) sees
+    key s: `make_causal_mask` when causal, and only keys less than
+    `window` positions back."""
+    mask = (make_causal_mask(T, S, q_offset, device=device) if causal
+            else torch.ones((T, S), dtype=torch.bool, device=device))
+    if window:
+        mask &= ~make_causal_mask(T, S, q_offset - window, device=device)
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None,
+                          q_offset: int = 0) -> torch.Tensor:
+    """The kernel's function in one fp32 softmax: q [B,T,H,hd]; k, v
+    [B,S,KV,hd]. Returns [B,T,H,hd] in q's type."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    scale = scale or 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, T, KV, H // KV, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k.float()) * scale
+    mask = visible_mask(T, S, causal=causal, window=window,
+                        q_offset=q_offset, device=q.device)
+    probs = torch.softmax(torch.where(mask, scores, NEG), dim=-1)
+    probs = torch.where(mask.any(dim=-1)[:, None], probs, 0.0)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, v.float())
+    return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention.argtypes = [vp] * 4 + [ci] * 6 + [
+        ctypes.c_float] + [ci] * 4 + [vp]
+    lib.flash_attention.restype = ci
+    return lib
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous with its data on a 16-byte boundary (the kernel's
+    vector loads), copied if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q [B,T,H,hd]; k, v [B,S,KV,hd], all fp32 or all bf16 (hd in
+    HEAD_DIMS, H a multiple of KV). Returns [B,T,H,hd] in q's type."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, q_offset=q_offset)
+    _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
+             f"q must be [B,T,H,hd] and k, v [B,S,KV,hd]; got "
+             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    _require(k.shape[0] == B and k.shape[3] == hd and KV > 0 and H % KV == 0,
+             f"q heads {H}x{hd} do not fit k/v KV={KV} hd={k.shape[3]}")
+    _require(hd in HEAD_DIMS, f"hd={hd}: the kernel takes {HEAD_DIMS}")
+    _require(T > 0 and S > 0, "empty q or k")
+    _require(q_offset >= 0 and window >= 0,
+             f"q_offset {q_offset} and window {window} must be >= 0")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.device == q.device, f"{name} must be on {q.device}")
+        _require(t.dtype in (torch.float32, torch.bfloat16),
+                 f"{name} must be fp32 or bf16")
+        _require(t.dtype == q.dtype, "q, k and v must share one type")
+    qc, kc, vc = (_aligned(t) for t in (q, k, v))
+    scale = scale or 1.0 / math.sqrt(hd)
+    out = torch.empty_like(qc)
+    err = _lib().flash_attention(
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+        B, T, S, H, KV, hd, float(scale), int(bool(causal)), int(window),
+        int(q_offset), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

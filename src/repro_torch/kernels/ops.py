@@ -1,6 +1,8 @@
-"""Public kernel entry points and the paged-kernel switch.
+"""Public kernel entry points and the kernel switch.
 
-Counterpart of `repro.kernels.ops` for the kernels the port has.
+Counterpart of `repro.kernels.ops` for the kernels the port has. Each
+entry point runs its CUDA kernel on CUDA tensors and its plain PyTorch
+version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -9,21 +11,27 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.deferral_entropy import deferral_entropy
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gatekeeper_loss import (gatekeeper_loss_fused,
                                                  gatekeeper_loss_tokens)
 from repro_torch.kernels.paged_attention import (paged_flash_decode_gqa,
                                                  paged_flash_decode_mla,
                                                  paged_write_token)
 
-__all__ = ["gatekeeper_loss_fused", "gatekeeper_loss_tokens",
-           "paged_flash_decode_gqa", "paged_flash_decode_mla",
-           "paged_kernel_enabled", "paged_write_token"]
+__all__ = ["deferral_signal", "flash_attention", "gatekeeper_loss_fused",
+           "gatekeeper_loss_tokens", "paged_flash_decode_gqa",
+           "paged_flash_decode_mla", "paged_kernel_enabled",
+           "paged_write_token"]
 
 
 def paged_kernel_enabled(override: Optional[bool] = None,
                          device: Optional[torch.device] = None) -> bool:
-    """Should paged decode go through the paged kernels' wrappers?
+    """Should the serving path go through the kernels' wrappers?
 
+    The switch keeps its JAX name but covers every kernel of the serving
+    path: the paged decode and write, the eq.-8 deferral signal
+    (`deferral_signal`) and prefill attention (`flash_attention`).
     Resolution order, as in the JAX package: an explicit `override`
     (engine config / function argument) > the REPRO_PAGED_KERNEL env var >
     the default, which is on exactly when the tensors live on CUDA. On CPU
@@ -35,3 +43,12 @@ def paged_kernel_enabled(override: Optional[bool] = None,
     if env is not None:
         return env not in ("0", "false", "False")
     return device is not None and torch.device(device).type == "cuda"
+
+
+def deferral_signal(logits: torch.Tensor):
+    """(neg_entropy, max_prob, argmax) per row of logits [..., V] (eqs.
+    7-8), each shaped like logits without its last axis: one
+    `deferral_entropy` launch over the rows flattened to [T, V]."""
+    lead = logits.shape[:-1]
+    nent, mprob, amax = deferral_entropy(logits.reshape(-1, logits.shape[-1]))
+    return nent.reshape(lead), mprob.reshape(lead), amax.reshape(lead)

@@ -148,8 +148,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = whole prompt in one chunk)")
     ap.add_argument("--paged-kernel", choices=("auto", "on", "off"),
                     default="auto",
-                    help="paged backend: route decode through the CUDA "
-                         "paged kernels (auto = on for CUDA tensors; env "
+                    help="paged backend: route decode, prefill "
+                         "attention and the deferral signal through the "
+                         "CUDA kernels (auto = on for CUDA tensors; env "
                          "REPRO_PAGED_KERNEL overrides auto)")
     ap.add_argument("--serial-prefill", action="store_true",
                     help="paged backend: disable batched same-offset "

@@ -1,8 +1,20 @@
-"""The Stage-2 train step: Gatekeeper token loss fused with the
-unembedding, AdamW, gradient accumulation.
+"""Step builders shared by the trainer and the server.
 
-Counterpart of the training half of `repro.launch.steps`. The loss over
-the vocabulary comes in two implementations of the same function:
+Counterpart of `repro.launch.steps`:
+
+  * `make_train_step` — the Stage-2 Gatekeeper fine-tune step (token loss
+    fused with the unembedding, AdamW, gradient accumulation).
+  * `make_prefill` — prompt processing; returns the last position's greedy
+    token and eq.-8 confidence with the filled cache.
+  * `make_serve_step` — one-token decode returning (next token,
+    confidence, defer mask, cache); the confidence is the paper's negative
+    predictive entropy computed with the step (eq. 8).
+
+The encoder-decoder branches of the JAX builders are not ported (they
+raise, naming ROADMAP.md).
+
+The loss over the vocabulary comes in two implementations of the same
+function:
 
   * `chunked_gatekeeper_loss` — plain PyTorch, the JAX package's
     two-pass vocabulary-chunked algorithm (pass 1: max, log-sum-exp and
@@ -12,8 +24,16 @@ the vocabulary comes in two implementations of the same function:
     `gatekeeper_loss_tokens` in the forward, a chunked plain backward.
 
 `make_train_step(loss_kernel=None)` takes the kernel exactly when the
-parameters live on CUDA; True or False force one. `fused_confidence`,
-`make_prefill` and `make_serve_step` are not ported yet (ROADMAP.md).
+parameters live on CUDA; True or False force one.
+
+The serving signal likewise: `fused_confidence` is the JAX package's
+plain vocabulary-chunked (neg_entropy, max_prob, argmax) of the final
+hidden states, which never holds [T, V] logits; on the kernel path
+(`kernels.ops.paged_kernel_enabled`: an explicit `paged_kernel`, then
+REPRO_PAGED_KERNEL, then on for CUDA) `make_serve_step` unembeds the
+[B, d] decode states and takes the triple from one `deferral_signal`
+launch, and `make_prefill` does the same for the prompts' last tokens
+(their prefill attention through the flash kernel).
 """
 from __future__ import annotations
 
@@ -25,7 +45,9 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core.gatekeeper import GatekeeperConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import rms_norm, unembed
 from repro_torch.training import optim
 
 
@@ -113,6 +135,46 @@ def fused_gatekeeper_loss(x_final: torch.Tensor, table: torch.Tensor,
                   "mean_entropy": (a["entropy"] * v).sum() / denom}
 
 
+def fused_confidence(x_final: torch.Tensor, table: torch.Tensor,
+                     n_chunks: int = 8):
+    """Deferral signal at decode from final hidden states, vocabulary-
+    chunked (eqs. 7-8 fused with the unembedding; plain PyTorch): x_final
+    [T, d], table [V, d] -> (neg_entropy fp32 [T], max_prob fp32 [T],
+    argmax int32 [T]). `n_chunks` halves until it divides V. Two passes:
+    max, log-sum-exp and first-index argmax, then the entropy."""
+    T, d = x_final.shape
+    V = table.shape[0]
+    while V % n_chunks != 0:
+        n_chunks //= 2
+    Vc = V // n_chunks
+    x2 = x_final.float()
+
+    def chunk_logits(i):
+        return x2 @ table[i * Vc:(i + 1) * Vc].float().t()
+
+    m = torch.full((T,), -math.inf, device=x2.device)
+    lse_acc = torch.zeros(T, device=x2.device)
+    amax_val = torch.full((T,), -math.inf, device=x2.device)
+    amax_idx = torch.zeros(T, dtype=torch.int32, device=x2.device)
+    for i in range(n_chunks):                    # pass 1
+        logits = chunk_logits(i)
+        cmax = logits.amax(-1)
+        new_m = torch.maximum(m, cmax)
+        lse_acc = lse_acc * torch.exp(m - new_m) + torch.exp(
+            torch.logsumexp(logits, dim=-1) - new_m)
+        m = new_m
+        better = cmax > amax_val
+        amax_val = torch.where(better, cmax, amax_val)
+        amax_idx = torch.where(
+            better, logits.argmax(-1).to(torch.int32) + i * Vc, amax_idx)
+    lse = m + torch.log(lse_acc)
+    entropy = torch.zeros(T, device=x2.device)
+    for i in range(n_chunks):                    # pass 2
+        logp = chunk_logits(i) - lse[:, None]
+        entropy = entropy - torch.sum(torch.exp(logp) * logp, dim=-1)
+    return -entropy, torch.exp(amax_val - lse), amax_idx
+
+
 def _final_hidden(params, cfg: ModelConfig, batch):
     """(x_final [B, T, d], MoE aux-loss sum, loss mask or None)."""
     if cfg.family not in ("dense", "moe"):
@@ -191,3 +253,72 @@ def make_train_step(cfg: ModelConfig,
         return params, opt_state, {**aux, **om, "loss": loss}
 
     return train_step
+
+
+def _no_encdec(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "the encoder-decoder serve steps are not ported (the whisper "
+            "family waits; see ROADMAP.md)")
+
+
+def make_prefill(cfg: ModelConfig, paged_kernel: Optional[bool] = None):
+    """prefill_fn(params, cache, batch) -> (greedy token int32 [B], eq.-8
+    negative entropy fp32 [B] of the last prompt position, cache).
+    `batch["tokens"]` [B, T] fills `cache` (from `tfm.init_cache`) in
+    place; `paged_kernel` picks the kernel path (None: on for CUDA)."""
+    _no_encdec(cfg)
+
+    def prefill_fn(params, cache, batch):
+        if batch.get("patches") is not None:
+            raise NotImplementedError("VLM patch inputs are not ported "
+                                      "(see ROADMAP.md)")
+        use_kernel = kernel_ops.paged_kernel_enabled(
+            paged_kernel, tfm.param_device(params))
+        logits, cache = tfm.prefill(params, cfg, batch["tokens"], cache,
+                                    last_only=True, paged_kernel=use_kernel)
+        signal = (kernel_ops.deferral_signal if use_kernel
+                  else deferral_entropy_plain)
+        neg_ent, _, tok = signal(logits[:, -1, :])
+        return tok, neg_ent, cache
+
+    return prefill_fn
+
+
+def make_serve_step(cfg: ModelConfig, tau: float = -1.0,
+                    paged_kernel: Optional[bool] = None):
+    """One-token decode with the deferral signal:
+    serve_step(params, cache, token, position) -> (next token int32 [B],
+    confidence fp32 [B], defer [B] bool, cache). The plain path is
+    `fused_confidence`; the kernel path unembeds and takes one
+    `deferral_signal` launch (None: on for CUDA)."""
+    _no_encdec(cfg)
+
+    @torch.inference_mode()
+    def serve_step(params, cache, token, position):
+        use_kernel = kernel_ops.paged_kernel_enabled(
+            paged_kernel, tfm.param_device(params))
+        x, cache = _decode_hidden(params, cfg, token, position, cache,
+                                  paged_kernel=use_kernel)
+        table = params.get("unembed", params["embedding"])
+        if use_kernel:
+            neg_ent, _, nxt = kernel_ops.deferral_signal(unembed(x, table))
+        else:
+            neg_ent, _, nxt = fused_confidence(x, table)
+        defer = neg_ent < tau          # eq. (6): route to M_L
+        return nxt, neg_ent, defer, cache
+
+    return serve_step
+
+
+def _decode_hidden(params, cfg: ModelConfig, token, position, cache,
+                   paged_kernel: Optional[bool] = None):
+    """One decode step's final hidden states [B, d] (after the final norm,
+    before the unembedding), the cache written in place."""
+    if token.dim() == 1:
+        token = token[:, None]
+    x = tfm._embed(params, cfg, token)
+    x, cache, _ = tfm._trunk(params, cfg, x, None, cache=cache, decode=True,
+                             position=position, paged_kernel=paged_kernel)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x[:, 0, :], cache

@@ -23,8 +23,18 @@ them, so no copy of a cache leaf is made per step.
 Paged decode has two implementations of the same masked softmax: the
 plain path (`_paged_write` + `gather_blocks` + `_attend`) and the kernel
 path (`kernels.ops.paged_write_token` + `paged_flash_decode_gqa` or
-`paged_flash_decode_mla`, CUDA on the card). `paged_kernel` picks one; None defers to
-`kernels.ops.paged_kernel_enabled` (on exactly for CUDA tensors).
+`paged_flash_decode_mla`, CUDA on the card). GQA prefill likewise: the
+plain `_attend` over the causal mask, or the `kernels.ops.flash_attention`
+kernel with ``q_offset = cache_offset`` (the same mask), on the slot
+cache, the gathered paged view, and, when autograd records nothing, the
+cacheless in-sequence branch; training keeps `_attend`, since the kernel
+has no backward. `paged_kernel` picks the path; None defers to
+`kernels.ops.paged_kernel_enabled` (on exactly for CUDA tensors). The
+kernel path keeps the probabilities in fp32 where `_attend` rounds them to
+v's type before P @ V, so with bf16 activations the two paths differ by
+about one bf16 rounding. MLA prefill stays plain: its value width (128)
+differs from its query/key width (192), and the kernel takes one head
+width.
 """
 from __future__ import annotations
 
@@ -117,38 +127,56 @@ def _out_proj(params: dict, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return einsum("bthk,hkd->btd", out, params["wo"]).to(x.dtype)
 
 
+def _causal_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_offset: int, scale: float, kernel: bool) -> torch.Tensor:
+    """Causal attention of q [B,T,H,hd] (query t at position q_offset +
+    t) over k, v [B,S,KV,hd], both in q's type: the flash kernel, or
+    `_attend` over `make_causal_mask`."""
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    if kernel:
+        return kernel_ops.flash_attention(q, k, v, causal=True, window=0,
+                                          scale=scale, q_offset=q_offset)
+    mask = make_causal_mask(q.shape[1], k.shape[1], q_offset, q.device)
+    return _attend(q, k, v, mask, scale)
+
+
 def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict] = None,
-                cache_offset: int = 0, pages: Optional[torch.Tensor] = None
+                cache_offset: int = 0, pages: Optional[torch.Tensor] = None,
+                paged_kernel: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence self-attention (training / prefill).
 
     With `cache`, writes K/V at [cache_offset, cache_offset+T) and attends
     over the cache (prefill, possibly one chunk of it); with `pages` the
-    cache is block-paged and attention runs over the gathered view."""
+    cache is block-paged and attention runs over the gathered view.
+    `paged_kernel` picks the flash kernel over `_attend` (None: on for
+    CUDA); without a cache it is taken only when autograd records
+    nothing."""
     B, T, _ = x.shape
     q, k, v = _qkv(params, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    kernel = kernel_ops.paged_kernel_enabled(paged_kernel, x.device)
     if pages is not None:
         tpos = cache_offset + torch.arange(T, device=x.device)
         ck = _paged_write(cache["k"], pages, tpos, k)
         cv = _paged_write(cache["v"], pages, tpos, v)
-        kk, vv = gather_blocks(ck, pages), gather_blocks(cv, pages)
-        mask = make_causal_mask(T, kk.shape[1], cache_offset, x.device)
-        out = _attend(q, kk.to(q.dtype), vv.to(q.dtype), mask, scale)
+        out = _causal_attend(q, gather_blocks(ck, pages),
+                             gather_blocks(cv, pages), cache_offset, scale,
+                             kernel)
         new_cache = {"k": ck, "v": cv}
     elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         ck[:, cache_offset:cache_offset + T] = k.to(ck.dtype)
         cv[:, cache_offset:cache_offset + T] = v.to(cv.dtype)
-        mask = make_causal_mask(T, ck.shape[1], cache_offset, x.device)
-        out = _attend(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale)
+        out = _causal_attend(q, ck, cv, cache_offset, scale, kernel)
         new_cache = {"k": ck, "v": cv}
     else:
-        mask = make_causal_mask(T, T, 0, x.device)
-        out = _attend(q, k, v, mask, scale)
+        recording = torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)
+        out = _causal_attend(q, k, v, 0, scale, kernel and not recording)
         new_cache = None
     return _out_proj(params, out, x), new_cache
 
@@ -235,7 +263,7 @@ def mla_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
     """Training / prefill: materializes per-head K/V from the latent; the
     cache stores only (ckv, kr). With `cache`, writes them at
     [cache_offset, cache_offset+T) (through the page table with `pages`)
-    and attends over the cache."""
+    and attends over the cache. Always plain (see the module docstring)."""
     B, T, _ = x.shape
     q_nope, q_rope = _mla_qkr(params, cfg, x, positions)
     ckv, kr = _mla_latent(params, cfg, x, positions)

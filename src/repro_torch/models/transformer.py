@@ -189,10 +189,12 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
     is the fp32 sum of the MoE layers' load-balance losses (0 for dense)."""
     ac = attn_config(cfg)
     mc = moe_config(cfg) if cfg.moe else None
-    if cfg.mla:
+    if cfg.mla:          # MLA prefill has no kernel: no switch to pass
         fwd, dec = attn_lib.mla_forward, attn_lib.mla_decode
+        fwd_kw = {}
     else:
         fwd, dec = attn_lib.gqa_forward, attn_lib.gqa_decode
+        fwd_kw = {"paged_kernel": paged_kernel}
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, L in _group_sizes(cfg).items():
         if not L:
@@ -207,7 +209,7 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
                            paged_kernel=paged_kernel)
             else:
                 y, _ = fwd(p["attn"], ac, h, positions, c, cache_offset,
-                           pages=pages)
+                           pages=pages, **fwd_kw)
             x = x + y
             h = rms_norm(x, p["norm2"], cfg.norm_eps)
             if kind == "moe":
@@ -257,17 +259,20 @@ def final_hidden(params, cfg: ModelConfig, tokens: torch.Tensor):
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
             last_only: bool = False, cache_offset: int = 0,
             pages: Optional[torch.Tensor] = None,
-            last_index: Optional[torch.Tensor] = None):
+            last_index: Optional[torch.Tensor] = None,
+            paged_kernel: Optional[bool] = None):
     """Process a prompt (or one chunk of it at absolute offset
     `cache_offset`), filling `cache` in place. `pages` [B, M] routes the
     cache through a page table; `last_index` ([B]) unembeds that position
-    instead of the last one; `last_only` unembeds only the last position.
-    Returns (logits, cache)."""
+    instead of the last one; `last_only` unembeds only the last position;
+    `paged_kernel` picks the flash-attention kernel for GQA layers over
+    the plain attention (None: on for CUDA). Returns (logits, cache)."""
     x = _embed(params, cfg, tokens)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None, :] + cache_offset
     x, cache, _ = _trunk(params, cfg, x, positions, cache=cache,
-                      cache_offset=cache_offset, pages=pages)
+                      cache_offset=cache_offset, pages=pages,
+                      paged_kernel=paged_kernel)
     if last_index is not None:
         idx = torch.as_tensor(last_index, device=x.device).long()
         x = x[torch.arange(B, device=x.device), idx.expand(B)][:, None, :]

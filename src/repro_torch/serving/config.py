@@ -19,9 +19,12 @@ class PagedConfig:
     block_size     — tokens per cache block.
     n_blocks       — physical block budget (None: worst case, always fits).
     prefill_chunk  — prefill chunk tokens (None: whole prompt in one chunk).
-    paged_kernel   — True: the CUDA paged decode kernels; False: the plain
-                     gather path; None: REPRO_PAGED_KERNEL, else on exactly
-                     when the model lives on CUDA.
+    paged_kernel   — True: the CUDA kernels of the serving path (paged
+                     decode and write, the deferral signal, flash prefill
+                     attention); False: their plain versions; None:
+                     REPRO_PAGED_KERNEL, else on exactly when the model
+                     lives on CUDA. The slot backend reads it too, for the
+                     kernels it runs (signal and prefill).
     batch_prefill  — pack same-offset prefill chunks of all mid-prefill
                      requests into one dispatch.
     prefix_sharing — copy-on-write prompt-prefix sharing through the

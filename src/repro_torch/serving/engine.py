@@ -21,6 +21,15 @@ evicts it in flight, and it is regenerated on M_L. On the paged backend
 requests, prompt prefixes are shared copy-on-write, and decode goes
 through the CUDA paged kernels when `paged_kernel` resolves on.
 
+The same switch (`kernel_ops.paged_kernel_enabled`: the engine's
+`paged_kernel`, then REPRO_PAGED_KERNEL, then on exactly for CUDA) picks
+the kernel path for the rest of the serving path on either backend: every
+M_S decode step and prefill seed takes its greedy token and eq.-8
+confidence from one `deferral_signal` launch, and GQA prefill runs the
+`flash_attention` kernel. The continuous engine passes its `paged_kernel`
+to `ModelRunner.generate` for M_S calibration and for M_L behind its
+backend. The plain path is `deferral_entropy_plain` and `_attend`.
+
 What the port does not run yet is rejected (see ROADMAP.md): ladders of
 more than two tiers, backends other than "sync", memory pressure,
 recalibration and overload control.
@@ -45,8 +54,9 @@ from repro_torch.core.calibration import (calibrate_edges,
                                           expected_compute_cost,
                                           ladder_compute_cost)
 from repro_torch.core.cascade_spec import CascadeSpec
-from repro_torch.core.deferral import SignalObservation, negative_entropy
+from repro_torch.core.deferral import SignalObservation
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.cache_pool import SlotCachePool, scatter_rows
 from repro_torch.serving.config import EngineConfig
@@ -59,8 +69,14 @@ from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.telemetry import ServingTelemetry
 
 
-def _argmax(logits: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _signal(logits: torch.Tensor, use_kernel: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(greedy token int32 [k], eq.-8 negative entropy fp32 [k]) of
+    logits [k, V]: one `deferral_signal` launch on the kernel path."""
+    signal = (kernel_ops.deferral_signal if use_kernel
+              else deferral_entropy_plain)
+    neg_ent, _, tok = signal(logits)
+    return tok, neg_ent
 
 
 def _to_host(ints: torch.Tensor, floats: torch.Tensor
@@ -96,26 +112,30 @@ class ModelRunner:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, prompt_len: int,
-                 max_new: int) -> Tuple[np.ndarray, np.ndarray]:
+                 max_new: int, paged_kernel: Optional[bool] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
         """Greedy generation. prompts [B, prompt_len]. Returns (tokens
-        [B, max_new], mean_neg_entropy [B]) in one device->host copy."""
+        [B, max_new], mean_neg_entropy [B]) in one device->host copy.
+        `paged_kernel` is the kernel switch's override (None: resolved
+        from REPRO_PAGED_KERNEL, then the device)."""
         cfg, params = self.cfg, self.params
+        use_kernel = kernel_ops.paged_kernel_enabled(paged_kernel,
+                                                     self.device)
         toks = torch.from_numpy(np.ascontiguousarray(prompts, np.int64)
                                 ).to(self.device)
         B = toks.shape[0]
         cache = tfm.init_cache(cfg, B, prompt_len + max_new,
                                device=self.device)
-        logits, cache = tfm.prefill(params, cfg, toks, cache, last_only=True)
-        last = logits[:, -1, :]
-        tok = _argmax(last)
-        conf_sum = negative_entropy(last)
+        logits, cache = tfm.prefill(params, cfg, toks, cache, last_only=True,
+                                    paged_kernel=use_kernel)
+        tok, conf_sum = _signal(logits[:, -1, :], use_kernel)
         buf = torch.zeros((B, max_new), dtype=torch.int32, device=self.device)
         buf[:, 0] = tok
         for i in range(max_new - 1):
             step_logits, cache = tfm.decode_step(params, cfg, tok,
                                                  prompt_len + i, cache)
-            tok = _argmax(step_logits)
-            conf_sum = conf_sum + negative_entropy(step_logits)
+            tok, neg_ent = _signal(step_logits, use_kernel)
+            conf_sum = conf_sum + neg_ent
             buf[:, i + 1] = tok
         tokens, conf = _to_host(buf, conf_sum / max_new)
         return tokens, conf[:, 0]
@@ -236,23 +256,24 @@ class ContinuousCascadeEngine:
         """Calibrate the edge's tau on a uniform validation batch."""
         return calibrate_edges(self.spec, val_prompts, max_new=max_new,
                                deferral_ratio=deferral_ratio,
-                               prompt_len=prompt_len)[0]
+                               prompt_len=prompt_len,
+                               paged_kernel=self.config.paged.paged_kernel)[0]
 
     # -- device programs -----------------------------------------------------
     def _decode_body(self, cache, state, pages, max_new: int,
-                     paged_kernel: Optional[bool] = None) -> dict:
+                     paged_kernel: bool = False) -> dict:
         """One decode step over ALL slots at per-slot positions. Inactive
         slots compute but their state is untouched; in paged mode their
         page-table rows are masked to the trash block, so a stale `pos`
-        can never write into a block that now belongs to someone else."""
+        can never write into a block that now belongs to someone else.
+        `paged_kernel` is the engine's resolved kernel switch."""
         small = self.small
         if pages is not None:
             pages = torch.where(state["active"][:, None], pages, 0)
         logits, _ = tfm.decode_step(small.params, small.cfg,
                                     state["last_tok"], state["pos"], cache,
                                     pages=pages, paged_kernel=paged_kernel)
-        tok = _argmax(logits)
-        neg_ent = negative_entropy(logits)
+        tok, neg_ent = _signal(logits, paged_kernel)
         act = state["active"]
         inc = act.to(torch.int32)
         rows = torch.arange(act.shape[0], device=act.device)
@@ -271,20 +292,21 @@ class ContinuousCascadeEngine:
         }
 
     @staticmethod
-    def _seed_slots(state, slots, logits, budgets, prompt_lens,
+    def _seed_slots(state, slots, tok0, neg_ent0, budgets, prompt_lens,
                     max_new: int) -> None:
-        """Start decode in `slots` from their last-prompt-token logits
-        [k, V] (in place): first token, confidence seed, position."""
-        tok0 = _argmax(logits)
+        """Start decode in `slots` (in place) from the signal of their
+        last prompt token: first token tok0 [k], confidence seed neg_ent0
+        [k], position."""
+        dev = tok0.device
         row0 = torch.zeros((len(slots), max_new), dtype=torch.int32,
-                           device=logits.device)
+                           device=dev)
         row0[:, 0] = tok0
-        budgets = budgets.to(logits.device)
+        budgets = budgets.to(dev)
         state["last_tok"][slots] = tok0
-        state["pos"][slots] = prompt_lens.to(logits.device)
+        state["pos"][slots] = prompt_lens.to(dev)
         state["n_gen"][slots] = 1
         state["budget"][slots] = budgets
-        state["conf_sum"][slots] = negative_entropy(logits)
+        state["conf_sum"][slots] = neg_ent0
         state["active"][slots] = budgets > 1
         state["tokens"][slots] = row0
 
@@ -310,7 +332,7 @@ class ContinuousCascadeEngine:
         max_len = max(r.prompt_len + r.max_new for r in requests)
         paged = ecfg.backend == "paged"
         pc = ecfg.paged
-        use_kernel = False
+        use_kernel = kernel_ops.paged_kernel_enabled(pc.paged_kernel, dev)
         if paged:
             bs = pc.block_size
             n_blocks = (pc.n_blocks if pc.n_blocks is not None
@@ -323,7 +345,6 @@ class ContinuousCascadeEngine:
                     f"({biggest} blocks of {bs}); raise n_blocks")
             pool = PagedCachePool(cfg, ecfg.n_slots, n_blocks, bs, max_len,
                                   dev)
-            use_kernel = kernel_ops.paged_kernel_enabled(pc.paged_kernel, dev)
         else:
             pool = SlotCachePool(cfg, ecfg.n_slots, max_len, dev)
 
@@ -355,12 +376,14 @@ class ContinuousCascadeEngine:
             n_steps = 0
             n_prefill_chunks = 0
             n_prefill_dispatches = 0
+            n_seed_dispatches = 0
             n_prefill_tokens = 0
             n_shared_tokens = 0
             peak_active = 0
             n_deferrals = 0
             ml = SyncLocalBackend(self.large, max_new, ecfg.ml.large_batch,
-                                  ecfg.ml.max_wait, registry=tel.registry)
+                                  ecfg.ml.max_wait, registry=tel.registry,
+                                  paged_kernel=use_kernel)
             by_rid = {r.rid: r for r in requests}
             ml_depths: List[int] = []
             reg = tel.registry
@@ -501,11 +524,12 @@ class ContinuousCascadeEngine:
                     fresh = tfm.init_cache(cfg, len(group), pool.max_len,
                                            device=dev)
                     logits, fresh = tfm.prefill(small.params, cfg, prompts,
-                                                fresh, last_only=True)
+                                                fresh, last_only=True,
+                                                paged_kernel=use_kernel)
                     scatter_rows(pool.cache, fresh,
                                  torch.tensor(slots, device=dev))
                     self._seed_slots(
-                        state, slots, logits[:, -1, :],
+                        state, slots, *_signal(logits[:, -1, :], use_kernel),
                         torch.tensor([r.max_new for _, r in group],
                                      dtype=torch.int32),
                         torch.full((len(group),), P, dtype=torch.int32),
@@ -524,7 +548,7 @@ class ContinuousCascadeEngine:
                 write-private first (CoW) and the rows' writable blocks
                 are checked pairwise disjoint."""
                 nonlocal n_prefill_chunks, n_prefill_dispatches, \
-                    n_prefill_tokens
+                    n_prefill_tokens, n_seed_dispatches
                 head_req, _, off0 = prefilling[0]
                 C = pc.prefill_chunk or (head_req.prompt_len - off0)
                 if pc.batch_prefill:
@@ -554,20 +578,30 @@ class ContinuousCascadeEngine:
                     small.params, cfg, torch.from_numpy(chunks).to(dev),
                     pool.cache, cache_offset=off0,
                     pages=torch.from_numpy(tbl).to(dev),
-                    last_index=torch.from_numpy(last_idx).to(dev))
+                    last_index=torch.from_numpy(last_idx).to(dev),
+                    paged_kernel=use_kernel)
                 if dev_timer.enabled:
                     t_dev = tel.now
                     dev_timer.block(dev)
                     tel.phase_add("prefill", 0.0, tel.now - t_dev)
                 n_prefill_dispatches += 1
                 n_prefill_chunks += k
+                # one signal over the rows whose prompt this chunk finishes
+                final = [i for i, (req, _, off) in enumerate(group)
+                         if off + C >= req.prompt_len]
+                if final:
+                    n_seed_dispatches += 1
+                    tok0, nent0 = _signal(
+                        logits[torch.tensor(final, device=dev), 0, :],
+                        use_kernel)
                 seeded: List[Tuple[int, Request]] = []
                 for i, entry in enumerate(group):
                     req, slot, off = entry
                     if off + C >= req.prompt_len:            # final chunk
                         prefilling.remove(entry)
+                        j = final.index(i)
                         self._seed_slots(
-                            state, [slot], logits[i:i + 1, 0, :],
+                            state, [slot], tok0[j:j + 1], nent0[j:j + 1],
                             torch.tensor([req.max_new], dtype=torch.int32),
                             torch.tensor([req.prompt_len], dtype=torch.int32),
                             max_new)
@@ -677,7 +711,7 @@ class ContinuousCascadeEngine:
                         for _ in range(ecfg.steps_per_sync):
                             state = self._decode_body(
                                 pool.cache, state, tables, max_new,
-                                paged_kernel=use_kernel if paged else None)
+                                paged_kernel=use_kernel)
                         dec_dev = 0.0
                         if dev_timer.enabled:
                             t_dev = tel.now
@@ -775,6 +809,7 @@ class ContinuousCascadeEngine:
                          peak_blocks=pool.peak_mapped,
                          prefill_chunks=n_prefill_chunks,
                          prefill_dispatches=n_prefill_dispatches,
+                         prefill_seed_dispatches=n_seed_dispatches,
                          prefill_tokens=n_prefill_tokens,
                          prefix_sharing=pc.prefix_sharing,
                          shared_tokens=n_shared_tokens,

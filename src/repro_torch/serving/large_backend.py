@@ -9,6 +9,7 @@ remote backends are not ported yet (see ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Protocol, Tuple
@@ -200,15 +201,17 @@ class SyncLocalBackend:
     `flush_large` behavior, extracted).  `submit` runs any batch the
     policy releases immediately — blocking M_S decode — and `drain`
     flushes the leftovers.  Zero concurrency, maximal determinism: the
-    parity reference for the other backends."""
+    parity reference for the other backends. `paged_kernel` goes to the
+    runner's `generate` (the engine's kernel switch)."""
 
     name = "sync"
 
     def __init__(self, runner, max_new: int,
                  large_batch: Optional[int] = None,
                  max_wait: Optional[float] = None,
-                 registry=None):
-        self._generate = runner.generate
+                 registry=None, paged_kernel: Optional[bool] = None):
+        self._generate = functools.partial(runner.generate,
+                                           paged_kernel=paged_kernel)
         self.max_new = max_new
         self._policy = BatchPolicy(large_batch, max_wait)
         self._results: List[LargeResult] = []

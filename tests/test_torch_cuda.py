@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import deferral_entropy as de
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gatekeeper_loss as gk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -249,3 +251,143 @@ def test_engine_kernel_path_matches_plain_path(cuda, arch):
         runs[kernel] = eng.run(make_requests(prompts, 5), 5)
     np.testing.assert_array_equal(runs[True].tokens, runs[False].tokens)
     assert runs[True].stats["paged_kernel"]
+
+
+# ---------------------------------------------------------------------------
+# deferral_entropy and flash_attention
+# ---------------------------------------------------------------------------
+
+def _signal_logits(cuda, T, V, dtype, seed=0):
+    """Normal logits of std 3 with an all-equal row, a top tie at two far
+    columns and a top tie at neighbouring columns."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((T, V), generator=g, device=cuda) * 3
+    x[0] = 0.25
+    x[1, 5] = x[1, V - 3] = x[1].max() + 1
+    x[2, V // 2] = x[2, V // 2 + 1] = x[2].max() + 1
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("T,V", [(3, 50), (8, 1003), (8, 92544), (8, 102400),
+                                 (300, 4096), (2048, 92544)],
+                         ids=["tiny", "vocab-tail", "internlm2", "deepseek",
+                              "ragged", "evaluation"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deferral_kernel_matches_plain(cuda, T, V, dtype):
+    """neg_entropy and max_prob to atol 1e-4 (fp32 sums in other orders);
+    argmax equal on every row, the ties to the lowest index."""
+    x = _signal_logits(cuda, T, V, dtype)
+    n = de.deferral_entropy.launches
+    got = de.deferral_entropy(x)
+    want = de.deferral_entropy_plain(x)
+    torch.cuda.synchronize()
+    assert de.deferral_entropy.launches == n + 1
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    assert torch.equal(got[2], want[2])
+    assert got[2][:3].tolist() == [0, 5, V // 2]
+
+
+def test_deferral_wrapper_raises_on_refused_launch(cuda, monkeypatch):
+    x = _signal_logits(cuda, 4, 64, torch.float32)
+    n = de.deferral_entropy.launches
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        de.deferral_entropy(x.half())
+    with pytest.raises(ValueError, match=r"\[T, V\]"):
+        de.deferral_entropy(x[None])
+    monkeypatch.setattr(de, "vocab_split", lambda T, V, n_sms: (8, 70000))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        de.deferral_entropy(x)
+    assert de.deferral_entropy.launches == n
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,off,win", [
+    (2, 13, 13, 4, 2, 16, 0, 0),
+    (1, 70, 90, 4, 4, 32, 20, 0),
+    (2, 65, 200, 8, 2, 64, 128, 0),
+    (8, 128, 288, 16, 8, 128, 0, 0),
+    (8, 128, 288, 16, 8, 128, 48, 0),
+    (8, 128, 288, 16, 8, 128, 128, 0),
+    (2, 100, 100, 4, 2, 128, 0, 24),
+], ids=["tiny", "offset", "tail-offset", "full-0", "full-48", "full-128",
+        "window"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, B, T, S, H, KV, hd, off, win,
+                                    dtype):
+    """atol 1e-4 in fp32 (fp32 online softmax against a one-shot softmax);
+    bf16 outputs also rtol 2^-7 (both sides round nearly equal fp32 values
+    to bf16, at most one bf16 step apart)."""
+    g = torch.Generator(device=cuda).manual_seed(B * T + off)
+    q = torch.randn((B, T, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=cuda).to(dtype)
+    n = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True, window=win, q_offset=off)
+    ref = fa.flash_attention_plain(q, k, v, causal=True, window=win,
+                                   q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1 and out.dtype == dtype
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
+                               rtol=rtol)
+
+
+def test_flash_kernel_non_causal_and_blind_rows(cuda):
+    """Bidirectional attention, and queries past the keys under a window:
+    rows that see no key are exact zeros."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g, device=cuda) for s in
+               ((1, 40, 2, 32), (1, 30, 1, 32), (1, 30, 1, 32)))
+    for kw in (dict(causal=False), dict(causal=True, window=4, q_offset=28)):
+        out = fa.flash_attention(q, k, v, **kw)
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert out[0, 5:].abs().max() == 0 and out[0, :5].abs().max() > 0
+
+
+def test_flash_wrapper_raises_instead_of_falling_back(cuda):
+    q = torch.zeros((1, 4, 2, 48), device=cuda)
+    n = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="hd=48"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 4, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="one type"):
+        fa.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    big = torch.zeros((1, 1, 65536, 16), device=cuda)
+    kv = torch.zeros((1, 2, 1, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention(big, kv, kv)
+    assert fa.flash_attention.launches == n
+
+
+def test_engine_switch_covers_signal_and_prefill_kernels(cuda, monkeypatch):
+    """On the slot backend the engine's switch alone picks the deferral and
+    flash kernels, calibration included, over a REPRO_PAGED_KERNEL that
+    says the opposite: on, both launch (one signal per decode step); off,
+    neither; greedy tokens equal."""
+    from repro_torch.launch import serve
+    from repro_torch.data.synthetic import make_lm_stream
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, PagedConfig, make_requests)
+    small, large = serve.build_ladder("internlm2-1.8b", 0, 2, device=cuda)
+    prompts = make_lm_stream(3, 6, 8, small.cfg.vocab_size)
+    runs, counts = {}, {}
+    for kernel in (True, False):
+        monkeypatch.setenv("REPRO_PAGED_KERNEL", "0" if kernel else "1")
+        de.deferral_entropy.launches = fa.flash_attention.launches = 0
+        eng = ContinuousCascadeEngine(
+            CascadeSpec.two_tier(small, large),
+            EngineConfig(n_slots=3, early_exit=False,
+                         paged=PagedConfig(paged_kernel=kernel)))
+        eng.calibrate(prompts, prompts.shape[1], 5, deferral_ratio=0.5)
+        eng.tau = -1e9
+        runs[kernel] = eng.run(make_requests(prompts, 5), 5)
+        torch.cuda.synchronize()
+        counts[kernel] = (de.deferral_entropy.launches,
+                          fa.flash_attention.launches)
+    np.testing.assert_array_equal(runs[True].tokens, runs[False].tokens)
+    assert counts[False] == (0, 0)
+    assert counts[True][0] >= runs[True].steps > 0 and counts[True][1] > 0

@@ -1,0 +1,239 @@
+"""Port's prefill attention on the CPU against the JAX package: the
+`flash_attention` kernel's plain version against the Pallas kernel
+(interpret mode) and `flash_attention_ref` with GQA, causal or not, a
+sliding window and ragged tiles; `q_offset > 0` against JAX `_attend`
+over `make_causal_mask(T, S, off)`; and the model's slot and paged
+prefill with the kernel path forced on CPU tensors (the wrapper then runs
+its plain version) against JAX `prefill`. Inputs come from numpy seeds;
+JAX weights come over through `convert.py`."""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.configs import get_config, reduced
+from repro.kernels import ops as jops
+from repro.kernels.ref import flash_attention_ref
+from repro.models import transformer as jtfm
+from repro.models.attention import _attend as j_attend
+from repro.models.common import make_causal_mask as j_causal_mask
+from repro.sharding import ParallelContext
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import reduced as t_reduced
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as tattn
+from repro_torch.models import transformer as ttfm
+
+torch.set_num_threads(1)
+CTX = ParallelContext()
+F32_ATOL = 1e-5       # fp32 softmax attention, sums in other orders
+BF16_TOL = 2e-2       # tests/test_kernels.py's bf16 flash tolerance
+LOGIT_ATOL = 1e-4     # fp32 end to end through two layers
+
+
+def _qkv(seed, B, T, S, H, KV, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, T, H, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32))
+
+
+def _plain(q, k, v, **kw):
+    return tfa.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), **kw).numpy()
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,causal,win", [
+    (2, 13, 13, 4, 2, 16, True, 0),        # GQA, T and S tails of 8-tiles
+    (1, 21, 21, 4, 4, 32, True, 6),        # sliding window
+    (2, 19, 19, 8, 2, 16, False, 0),       # bidirectional
+    (1, 11, 11, 2, 1, 16, False, 5),       # MQA, window without causality
+], ids=["gqa-causal", "window", "bidirectional", "mqa-window"])
+def test_plain_matches_jax_kernel_and_ref(B, T, S, H, KV, hd, causal, win):
+    q, k, v = _qkv(B * T + H, B, T, S, H, KV, hd)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    jker = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal,
+                                           window=win, qb=8, kb=8,
+                                           interpret=True))
+    jref = np.asarray(flash_attention_ref(jq, jk, jv, causal=causal,
+                                          window=win))
+    out = _plain(q, k, v, causal=causal, window=win)
+    np.testing.assert_allclose(out, jker, atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(out, jref, atol=F32_ATOL, rtol=0)
+
+
+def test_plain_bf16_matches_jax_kernel():
+    """bf16 q/k/v, fp32 inside, bf16 out on both sides."""
+    q, k, v = _qkv(7, 1, 24, 24, 4, 2, 32)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    jker = np.asarray(jops.flash_attention(jq, jk, jv, causal=True, qb=8,
+                                           kb=8, interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = tfa.flash_attention_plain(tq, tk, tv, causal=True)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), jker, atol=BF16_TOL,
+                               rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("off", [0, 3, 9])
+def test_q_offset_matches_jax_attend_over_causal_mask(off):
+    """A chunk of T queries at absolute offset `off` over S cached keys
+    (S > off + T: positions past the chunk are hidden)."""
+    B, T, S, H, KV, hd = 2, 6, 20, 4, 2, 16
+    q, k, v = _qkv(11 + off, B, T, S, H, KV, hd)
+    scale = 1.0 / np.sqrt(hd)
+    ref = np.asarray(j_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              j_causal_mask(T, S, off), scale, CTX))
+    out = _plain(q, k, v, causal=True, q_offset=off)
+    np.testing.assert_allclose(out, ref, atol=F32_ATOL, rtol=0)
+    # the mask helper is make_causal_mask's function
+    np.testing.assert_array_equal(
+        tfa.visible_mask(T, S, q_offset=off).numpy(),
+        np.asarray(j_causal_mask(T, S, off)))
+
+
+def test_query_with_no_visible_key_gives_zeros():
+    """Window 2 and queries placed past the keys: rows that see nothing
+    are exact zeros, rows that see something are finite."""
+    q, k, v = _qkv(3, 1, 4, 5, 2, 1, 16)
+    out = _plain(q, k, v, causal=True, window=2, q_offset=5)
+    assert np.all(out[0, 1:] == 0) and np.isfinite(out).all()
+    assert np.abs(out[0, 0]).max() > 0      # position 5 sees key 4
+
+
+def test_wrapper_takes_plain_on_cpu_and_counts_nothing():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 9, 9, 4, 2, 16))
+    n = tfa.flash_attention.launches
+    out = tops.flash_attention(q, k, v, causal=True, q_offset=0)
+    assert tfa.flash_attention.launches == n
+    torch.testing.assert_close(out, tfa.flash_attention_plain(q, k, v),
+                               atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the model's prefill with the kernel path forced (plain versions on CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def model():
+    cfg = reduced(get_config("internlm2-1.8b"))
+    tcfg = t_reduced(t_get_config("internlm2-1.8b"))
+    jparams = jtfm.init_params(cfg, jax.random.PRNGKey(0))
+    return cfg, tcfg, jparams, params_from_jax(jax.device_get(jparams), "cpu")
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """Counts the model's calls of kernels.ops.flash_attention."""
+    calls = []
+    real = tops.flash_attention
+
+    def wrapper(*a, **kw):
+        calls.append(kw.get("q_offset", 0))
+        return real(*a, **kw)
+    monkeypatch.setattr(tops, "flash_attention", wrapper)
+    return calls
+
+
+def test_slot_prefill_in_two_chunks_matches_jax(model, counted):
+    """Slot-cache prefill of 10 tokens as chunks of 6 and 4 (the second at
+    cache_offset 6) with the kernel path forced: last-position logits of
+    each chunk within 1e-4 of JAX's prefill, and one flash call per layer
+    and chunk at q_offset = the chunk's offset."""
+    cfg, tcfg, jparams, tparams = model
+    prompts = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    jcache = jtfm.init_cache(cfg, 2, 12)
+    tcache = ttfm.init_cache(tcfg, 2, 12, device="cpu")
+    for off, n in ((0, 6), (6, 4)):
+        piece = prompts[:, off:off + n]
+        jl, jcache = jtfm.prefill(jparams, cfg, jnp.asarray(piece), jcache,
+                                  CTX, last_only=True, cache_offset=off)
+        tl, tcache = ttfm.prefill(tparams, tcfg,
+                                  torch.from_numpy(piece.astype(np.int64)),
+                                  tcache, last_only=True, cache_offset=off,
+                                  paged_kernel=True)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_ATOL)
+    L = tcfg.n_layers
+    assert counted == [0] * L + [6] * L
+
+
+def test_paged_prefill_chunks_match_jax(model, counted):
+    """Paged prefill in chunks of 4 (a ragged final chunk) over a page
+    table, kernel path forced: each chunk's last-index logits within 1e-4
+    of JAX's paged prefill; flash runs over the gathered view."""
+    cfg, tcfg, jparams, tparams = model
+    tables = np.asarray([[3, 1, 5, 8, 0], [2, 6, 4, 7, 0]], np.int32)
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    jcache = jtfm.init_cache(cfg, 9, 4, dtype=cfg.cdtype())
+    tcache = ttfm.init_cache(tcfg, 9, 4, device="cpu")
+    for off in range(0, 10, 4):
+        piece = prompts[:, off:off + 4]
+        last = np.full((2,), min(9 - off, piece.shape[1] - 1))
+        jl, jcache = jtfm.prefill(jparams, cfg, jnp.asarray(piece), jcache,
+                                  CTX, cache_offset=off,
+                                  pages=jnp.asarray(tables),
+                                  last_index=jnp.asarray(last))
+        tl, tcache = ttfm.prefill(tparams, tcfg,
+                                  torch.from_numpy(piece.astype(np.int64)),
+                                  tcache, cache_offset=off,
+                                  pages=torch.from_numpy(tables),
+                                  last_index=torch.from_numpy(last),
+                                  paged_kernel=True)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_ATOL)
+    assert counted == sum(([o] * tcfg.n_layers for o in (0, 4, 8)), [])
+
+
+def test_in_sequence_branch_takes_kernel_only_without_autograd(
+        model, counted, monkeypatch):
+    """tfm.forward: under inference mode with the switch forced on, the
+    cacheless branch runs flash (logits within 1e-4 of JAX's forward);
+    recording autograd, it keeps `_attend`."""
+    cfg, tcfg, jparams, tparams = model
+    monkeypatch.setenv("REPRO_PAGED_KERNEL", "1")
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    ref = np.asarray(jtfm.forward(jparams, cfg, jnp.asarray(toks), CTX))
+    with torch.inference_mode():
+        out = ttfm.forward(tparams, tcfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(out.numpy(), ref, atol=LOGIT_ATOL)
+    assert counted == [0] * tcfg.n_layers
+    leaf = {k: v.clone().requires_grad_(True) for k, v in
+            tparams["blocks"]["dense"]["attn"].items()}
+    params = {**tparams, "blocks": {"dense": {
+        **tparams["blocks"]["dense"], "attn": leaf}}}
+    ttfm.forward(params, tcfg, torch.from_numpy(toks)).sum().backward()
+    assert counted == [0] * tcfg.n_layers
+    assert leaf["wq"].grad is not None
+
+
+def test_gqa_forward_kernel_and_plain_paths_agree(model):
+    """One layer's slot prefill at cache_offset 3, both paths: outputs
+    within 1e-5 and the caches bit-identical."""
+    _, tcfg, _, tparams = model
+    p = {k: v[0] for k, v in tparams["blocks"]["dense"]["attn"].items()}
+    ac = ttfm.attn_config(tcfg)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 5, tcfg.d_model))
+                         .astype(np.float32) * 0.3)
+    base = {n: torch.from_numpy(rng.standard_normal(
+        (2, 12, tcfg.n_kv_heads, tcfg.head_dim)).astype(np.float32) * 0.1)
+        for n in ("k", "v")}
+    pos = torch.arange(3, 8)[None, :]
+    out = {}
+    for kernel in (False, True):
+        c = {n: t.clone() for n, t in base.items()}
+        out[kernel] = tattn.gqa_forward(p, ac, x, pos, c, 3,
+                                        paged_kernel=kernel)
+    torch.testing.assert_close(out[True][0], out[False][0], atol=F32_ATOL,
+                               rtol=0)
+    for n in ("k", "v"):
+        torch.testing.assert_close(out[True][1][n], out[False][1][n], atol=0,
+                                   rtol=0)

@@ -16,12 +16,16 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
-# modules of the training slice, named so that the checks below cannot
-# pass by missing them
+# modules of the training slice and of the deferral / prefill slice, named
+# so that the checks below cannot pass by missing them
 TRAINING_MODULES = ("core.gatekeeper", "data.pipeline",
                     "kernels.gatekeeper_loss", "launch.steps",
                     "launch.train", "training.checkpoint", "training.loop",
                     "training.optim")
+SIGNAL_MODULES = ("core.baselines", "core.cascade", "core.deferral",
+                  "core.metrics", "kernels.deferral_entropy",
+                  "kernels.flash_attention", "kernels.ops")
+SLICE_MODULES = TRAINING_MODULES + SIGNAL_MODULES
 
 
 def _imported_roots(path: Path):
@@ -50,6 +54,19 @@ def test_import_check_covers_the_training_slice():
         assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
 
 
+def test_import_check_covers_the_signal_slice():
+    src = REPO / "src" / "repro_torch"
+    for mod in SIGNAL_MODULES:
+        assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+
+
+def test_build_names_every_cuda_source():
+    from repro_torch.kernels import _build
+    found = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sorted(_build.SOURCES) == found
+    assert {"deferral_entropy", "flash_attention"} <= set(found)
+
+
 def test_port_modules_load_without_jax():
     code = ("import sys, importlib, pkgutil, repro_torch\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
@@ -58,7 +75,7 @@ def test_port_modules_load_without_jax():
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
-            f"want = {TRAINING_MODULES!r}\n"
+            f"want = {SLICE_MODULES!r}\n"
             "missing = [m for m in want if 'repro_torch.' + m not in "
             "sys.modules]\n"
             "assert not missing, missing\n")
