@@ -19,8 +19,9 @@ non-zero:
      decode shapes (8 rows, 128 heads, kv_lora 512, rope 64, block 16):
      bf16 q, pages and norm weight (the main path's types), and all fp32.
   3c. The deferral-signal kernel `deferral_entropy` against its plain
-     version at the engine's shapes (8 x 92544 and 8 x 102400 fp32
-     logits) and the evaluation's (2048 x 92544), with a row of equal
+     version at the engine's shapes (8 x 92544, 8 x 102400 and, for
+     rwkv6-3b, 8 x 65536 fp32 logits) and the evaluation's (2048 x
+     92544), with a row of equal
      logits, a row with an exact top tie and a vocabulary tail no span
      divides; timed beside its bytes bound (no single PyTorch call
      computes the triple, so no library time).
@@ -29,6 +30,13 @@ non-zero:
      16/8 heads of 128, a 288-position view, q_offset 0, 48 and 128), bf16
      and all fp32, plus a reduced sliding-window case; timed beside its
      operations bound and SDPA with the same boolean mask.
+  3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
+     algorithms) in both modes: "rwkv" at the full-width rwkv6-3b decode
+     step (8 rows, T 1, 40 heads, K = V = 64) and prefill (T 128 and the
+     prime T 97), "mamba" at zamba2-1.2b's shape (64 heads, scalar decay
+     [B,T,H,1], T 128), atol = rtol = 5e-4, the state written in place;
+     timed beside its bytes bound (no PyTorch call computes the
+     recurrence, so no library time).
   4. The first main path: a full-width internlm2-1.8b M_S -> M_L cascade
      on the paged backend with the kernels on, through `build_ladder`,
      `ContinuousCascadeEngine.calibrate` and `.run`, with the launch
@@ -54,13 +62,24 @@ non-zero:
   6. The second main path, the same way: DeepSeek-V2 (MLA + MoE) at its
      published widths, M_S cut to 2 layers (one dense, one MoE layer with
      all 160 routed experts), M_L `build_ladder`'s 4-layer large tier.
-     Freed before phase 5.
-  5. The reduced fp32 fixtures of both architectures, every kernel of the
-     path switched together by the engine's `paged_kernel`, at a
-     calibrated tau: identical deferral masks and greedy tokens per
-     request (a request whose confidence lies within 1e-5 of tau is
-     reported, not held), and
-     `launch.serve.main()` with defaults.
+     Freed before phase 9.
+  9. The third main path: rwkv6-3b (RWKV6, attention-free) at its
+     published widths and all 32 layers as M_S, M_L `build_ladder`'s
+     4-layer large tier (d 5120), on the slot backend (a recurrent state
+     does not page): one full-width prefill of 8 x 128 tokens and one
+     decode step, `wkv_scan` against the plain recurrence by logits (fp32
+     activations held tight, the config's bf16 layer-0 residual under a
+     stated guard), a profiled decode step with its signal, then
+     `calibrate` and `.run` with the counters reset just before and
+     checked just after (`wkv_scan` once per layer of every prefill group
+     and decode step of either model, `deferral_entropy` once per such
+     step). Freed before phase 5.
+  5. The reduced fp32 fixtures of the three architectures (rwkv6-3b on
+     the slot backend), every kernel of the path switched together by the
+     engine's `paged_kernel`, at a calibrated tau: identical deferral
+     masks and greedy tokens per request (a request whose confidence lies
+     within 1e-5 of tau is reported, not held), and
+     `launch.serve.main()` with defaults and with --arch rwkv6-3b.
   7. Training, after the serving ladders are freed:
      7a. The fused Gatekeeper-loss kernel against its plain version at the
          full-width Stage-2 shapes (T = 16*128 tokens, d 2048, vocab
@@ -139,8 +158,29 @@ CONF_NEAR_TAU = 1e-5    # reduced fixtures: a request this close to tau
 EVAL_SEQS, EVAL_LEN, EVAL_DEFERRAL = 16, 128, 0.3
 # (rows, vocabulary): the engine's internlm2-1.8b and DeepSeek-V2 decode
 # logits, then the evaluation's [EVAL_SEQS * EVAL_LEN, V]
-SIGNAL_SHAPES = ((N_SLOTS, 92544), (N_SLOTS, 102400),
+SIGNAL_SHAPES = ((N_SLOTS, 92544), (N_SLOTS, 102400), (N_SLOTS, 65536),
                  (EVAL_SEQS * EVAL_LEN, 92544))
+
+# phases 3e and 9: the RWKV recurrence and rwkv6-3b serving
+RWKV_ARCH = "rwkv6-3b"
+WKV_ATOL = WKV_RTOL = 5e-4  # as tests/test_kernels.py holds the TPU kernel:
+                        # fp32 sequential recurrence against the chunked
+                        # algebra's exp(cum_t - cum_s) sums
+# (label, mode, B, T, H, K, scalar decay): rwkv6-3b's decode step and
+# prefill (a prime T too), zamba2-1.2b's Mamba2 shape
+WKV_CASES = (("rwkv decode", "rwkv", N_SLOTS, 1, 40, 64, False),
+             ("rwkv prefill", "rwkv", N_SLOTS, CHUNK, 40, 64, False),
+             ("rwkv prefill, prime T", "rwkv", N_SLOTS, 97, 40, 64, False),
+             ("mamba (zamba2)", "mamba", N_SLOTS, CHUNK, 64, 64, True))
+RWKV_PROMPT = CHUNK     # the one-step check's prompt length
+RWKV_LOGIT_GUARD = 1.0  # the same checks in the config's own types: the
+                        # residual stream is bf16 in layer 0 only, where a
+                        # last-bit difference of the recurrence's output can
+                        # flip a bf16 rounding (2^-8 of the value) that 31
+                        # fp32 layers of random weights amplify (the fp32
+                        # prefill already moves by 4.3e-4 from differences
+                        # near 1e-6). A sound prefill reading on an H100 was
+                        # 0.309; the guard is about 3x it
 
 # phase 7: training
 TRAIN_BATCH, TRAIN_SEQ, STAGE1_STEPS, STAGE2_STEPS = 16, 128, 2, 3
@@ -566,6 +606,93 @@ def check_flash_kernel(torch, fa, smi) -> dict:
     return rec
 
 
+def wkv_case(torch, mode, B, T, H, K, scalar, seed):
+    """Inputs of one `wkv_scan` call as the block gives them (fp32, decay
+    logw in [-1, -0.05]), in enough copies to exceed twice the L2: between
+    two visits of one layer's state the main path streams the other
+    layers' weights through it."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def one():
+        q, k, v = (0.5 * torch.randn((B, T, H, K), generator=g, device=DEV)
+                   for _ in range(3))
+        lw = -(0.05 + 0.95 * torch.rand((B, T, H, 1 if scalar else K),
+                                        generator=g, device=DEV))
+        s0 = 0.2 * torch.randn((B, H, K, K), generator=g, device=DEV)
+        return q, k, v, lw, s0
+    first = one()
+    n_bytes = sum(t.numel() * 4 for t in first)
+    copies = [first] + [one() for _ in range(
+        max(0, math.ceil(2 * L2_BYTES / n_bytes) - 1))]
+    u = 0.3 * torch.randn((H, K), generator=g, device=DEV)
+    return copies, u
+
+
+def check_wkv_kernel(torch, wk, smi) -> dict:
+    """wkv_scan against its plain version (the JAX algorithms: chunked
+    when 32 divides T, else the per-step scan) in both modes at the main
+    path's shapes and zamba2's; times kernel and plain version beside the
+    bytes / operations bound (no single PyTorch call computes the
+    recurrence, so no library time). The state goes to `out` in place, as
+    the model's layers write their cache. Returns the record at the
+    rwkv6-3b decode shape (the decode steps' call)."""
+    rec = None
+    for i, (label, mode, B, T, H, K, scalar) in enumerate(WKV_CASES):
+        copies, u = wkv_case(torch, mode, B, T, H, K, scalar, SEED + 20 + i)
+        q, k, v, lw, s0 = copies[0]
+        out = torch.empty_like(s0)
+        y, st = wk.wkv_scan(q, k, v, lw, u, s0, mode=mode, out=out)
+        y_ref, s_ref = wk.wkv_scan_plain(q, k, v, lw, u, s0, mode=mode)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in ((y, y_ref),
+                                                          (st, s_ref)))
+        share = max(float(((a - b).abs() / (WKV_ATOL + WKV_RTOL * b.abs()))
+                          .max()) for a, b in ((y, y_ref), (st, s_ref)))
+        if not (st.data_ptr() == out.data_ptr() and share <= 1.0
+                and torch.isfinite(y).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"wkv_scan {label}: max|err| {err}, "
+                                 f"{share:.3g} of atol {WKV_ATOL} + rtol "
+                                 f"{WKV_RTOL}")
+        rot = Rotation(copies)
+
+        def kernel():
+            q_, k_, v_, lw_, s_ = rot()
+            wk.wkv_scan(q_, k_, v_, lw_, u, s_, mode=mode, out=s_)
+        def plain():
+            q_, k_, v_, lw_, s_ = rot()
+            wk.wkv_scan_plain(q_, k_, v_, lw_, u, s_, mode=mode)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, iters=5)
+        n_bytes = (sum(t.numel() * 4 for t in (q, k, v, lw, s0)) + y.numel()
+                   * 4 + st.numel() * 4 + (u.numel() * 4 if mode == "rwkv"
+                                           else 0))
+        # per token and state entry: kv, then two multiply-adds (rwkv adds
+        # the bonus's third)
+        flops = B * T * H * K * K * (6 if mode == "rwkv" else 4)
+        bound_ms, bound_by = bound(n_bytes, flops)
+        print(f"[kernel] wkv_scan {label} ({mode}, B {B} T {T} H {H} K=V "
+              f"{K}, logw [..., {1 if scalar else K}]): max|err| {err:.3g},"
+              f" at most {share:.3g} of (atol {WKV_ATOL} + rtol "
+              f"{WKV_RTOL}|ref|), state in place; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{n_bytes} B, {flops} fp32 flop; {len(copies)} input copies);"
+              f" library — (no single PyTorch call computes the "
+              f"recurrence) on {smi}")
+        if rec is None:
+            rec = dict(name="wkv_scan", route="cuda",
+                       source="src/repro_torch/kernels/csrc/wkv_scan.cu",
+                       replaces="src/repro/kernels/wkv_scan.py:83",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                       shape=[B, T, H, K])
+        rec.setdefault("by_case", {})[label] = dict(
+            mode=mode, shape=[B, T, H, K], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        del copies, y, st, y_ref, s_ref
+    torch.cuda.empty_cache()
+    return rec
+
+
 def describe_ladder(torch, small, large, t_init: float) -> None:
     cfg, lcfg = small.cfg, large.cfg
     n_params = [sum(t.numel() for t in _leaves(r.params))
@@ -662,7 +789,8 @@ def report_profile(torch, tfm, small, rng, smi) -> None:
 
 
 KERNELS = ("paged_flash_decode_gqa", "paged_flash_decode_mla",
-           "paged_write_token", "deferral_entropy", "flash_attention")
+           "paged_write_token", "deferral_entropy", "flash_attention",
+           "wkv_scan")
 
 
 def launch_counters():
@@ -670,11 +798,13 @@ def launch_counters():
     from repro_torch.kernels import deferral_entropy as de
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv_scan as wk
     return {"paged_flash_decode_gqa": pa.paged_flash_decode_gqa,
             "paged_flash_decode_mla": pa.paged_flash_decode_mla,
             "paged_write_token": pa.paged_write_token,
             "deferral_entropy": de.deferral_entropy,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "wkv_scan": wk.wkv_scan}
 
 
 def reset_counts() -> None:
@@ -909,11 +1039,12 @@ def evaluate_cascade(torch, small, large, smi) -> dict:
 
 
 def reduced_fixture(torch, serve, arch) -> None:
-    """Reduced fp32 `arch` on the paged engine, every kernel of the path
-    switched together by the engine's `paged_kernel` (which reaches the
-    runners' generate: calibration and M_L), at a tau between the plain path's
-    4th and 5th of 8 confidences: identical deferral masks and greedy
-    tokens per request. A request whose confidence lies within
+    """Reduced fp32 `arch` on the paged engine (the slot engine for an
+    RWKV model, whose recurrent state does not page), every kernel of the
+    path switched together by the engine's `paged_kernel` (which reaches
+    the runners' generate: calibration and M_L), at a tau between the
+    plain path's 4th and 5th of 8 confidences: identical deferral masks
+    and greedy tokens per request. A request whose confidence lies within
     CONF_NEAR_TAU of tau is reported and held to neither."""
     import numpy as np
     from repro_torch.data.synthetic import make_ragged_lm_stream
@@ -923,12 +1054,13 @@ def reduced_fixture(torch, serve, arch) -> None:
     small, large = serve.build_ladder(arch, SEED, 2, device=DEV)
     prompts = make_ragged_lm_stream([SEED, 3], 8, 4, 24,
                                     small.cfg.vocab_size)
+    backend = "slot" if small.cfg.attention_free else "paged"
     runs, counts = {}, {}
 
     def run(kernel: bool, tau: float):
         eng = ContinuousCascadeEngine(
             CascadeSpec.two_tier(small, large, tau=tau),
-            EngineConfig(n_slots=3, early_exit=False, backend="paged",
+            EngineConfig(n_slots=3, early_exit=False, backend=backend,
                          paged=PagedConfig(block_size=4, prefill_chunk=4,
                                            paged_kernel=kernel)))
         reset_counts()
@@ -939,7 +1071,8 @@ def reduced_fixture(torch, serve, arch) -> None:
     tau = float(0.5 * (conf[3] + conf[4]))
     for kernel in (False, True):
         runs[kernel], counts[kernel] = run(kernel, tau)
-    if any(counts[False].values()) or not counts[True]["deferral_entropy"]:
+    used = ["deferral_entropy"] + (["wkv_scan"] if backend == "slot" else [])
+    if any(counts[False].values()) or not all(counts[True][k] for k in used):
         raise AssertionError(f"reduced {arch}: kernel switch leaked: "
                              f"{counts}")
     k_run, p_run = runs[True], runs[False]
@@ -954,12 +1087,164 @@ def reduced_fixture(torch, serve, arch) -> None:
                                  f"tokens {a.tokens} != plain {b.tokens}")
     conf_err = float(np.abs(k_run.confidence - p_run.confidence).max())
     mask = p_run.deferred.astype(int).tolist()
-    print(f"[reduced] {small.cfg.name} fp32 fixture, every kernel vs plain "
-          f"path at tau {tau:.5f}: deferral masks {mask} (equal), "
+    print(f"[reduced] {small.cfg.name} fp32 fixture ({backend} backend), "
+          f"every kernel vs plain path at tau {tau:.5f}: deferral masks {mask} (equal), "
           f"identical greedy tokens for "
           f"{int(held.sum())} of {len(prompts)} requests ({int(near.sum())} "
           f"within {CONF_NEAR_TAU} of tau, reported), max|dconf| "
           f"{conf_err:.3g}; kernel-path launches {counts[True]}")
+
+
+def rwkv_prefill(torch, tfm, params, cfg, toks, paged_kernel: bool):
+    """Prefill `toks` into a fresh slot cache (fp32 state, shift rows in
+    the compute type). Returns (last-position logits [B, V], cache)."""
+    cache = tfm.init_cache(cfg, toks.shape[0], toks.shape[1] + 1, device=DEV)
+    logits, cache = tfm.prefill(params, cfg, toks, cache, last_only=True,
+                                paged_kernel=paged_kernel)
+    return logits[:, -1], cache
+
+
+def check_rwkv_paths(torch, tfm, small) -> None:
+    """One full-width prefill of N_SLOTS prompts of RWKV_PROMPT tokens and
+    one decode step from the prefilled state, `wkv_scan` against the plain
+    recurrence, by logits: with fp32 activations (isolates the kernel) and
+    with the config's own types, where layer 0's residual stream is bf16
+    and a last-bit difference of its time-mix output can flip a bf16
+    rounding that the 31 fp32 layers after it carry."""
+    import numpy as np
+    cfg = small.cfg
+    toks = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (N_SLOTS, RWKV_PROMPT))).to(DEV)
+    for label, pcfg, tol in (
+            ("fp32 activations", cfg.replace(compute_dtype="float32"),
+             STEP_LOGIT_ATOL),
+            (f"{cfg.compute_dtype} activations", cfg, RWKV_LOGIT_GUARD)):
+        pre, caches = {}, {}
+        for kernel in (True, False):
+            pre[kernel], caches[kernel] = rwkv_prefill(
+                torch, tfm, small.params, pcfg, toks, kernel)
+        tok = pre[True].argmax(-1)
+        step = {}
+        for kernel in (True, False):
+            c = {kind: {k: v.clone() for k, v in leaves.items()}
+                 for kind, leaves in caches[True].items()}
+            step[kernel], _ = tfm.decode_step(small.params, pcfg, tok,
+                                              RWKV_PROMPT, c,
+                                              paged_kernel=kernel)
+        torch.cuda.synchronize()
+        for what, out in (("prefill", pre), ("decode step", step)):
+            err = float((out[True] - out[False]).abs().max())
+            agree = float((out[True].argmax(-1) == out[False].argmax(-1))
+                          .float().mean())
+            print(f"[rwkv] full-width {what} ({N_SLOTS} x {RWKV_PROMPT} "
+                  f"prompt), wkv_scan vs plain recurrence, {label}: "
+                  f"max|dlogit| {err:.4g} (atol {tol}; logit std "
+                  f"{float(out[False].std()):.3g}), argmax agreement "
+                  f"{agree:.3f}")
+            if not (torch.isfinite(out[True]).all() and err <= tol
+                    and out[True].shape == (N_SLOTS, cfg.vocab_size)):
+                raise AssertionError(f"rwkv {what} ({label}): logits differ "
+                                     f"by {err} > {tol}")
+        s_err = float((caches[True]["rwkv"]["S"]
+                       - caches[False]["rwkv"]["S"]).abs().max())
+        print(f"[rwkv] prefilled state S ({label}): max|dS| {s_err:.3g}")
+        del pre, caches, step
+
+
+def profile_rwkv_decode(torch, tfm, small, smi, steps: int = 3) -> None:
+    """Main-path decode steps of M_S (the kernels on, each with its
+    deferral signal) on the host clock and under torch.profiler."""
+    import numpy as np
+    from repro_torch.kernels import ops as kernel_ops
+    cfg = small.cfg
+    toks = torch.from_numpy(np.random.default_rng(SEED + 22).integers(
+        0, cfg.vocab_size, (N_SLOTS, RWKV_PROMPT))).to(DEV)
+    logits, cache = rwkv_prefill(torch, tfm, small.params, cfg, toks, True)
+    tok = logits.argmax(-1)
+
+    def run():
+        for i in range(steps):
+            step_logits, _ = tfm.decode_step(small.params, cfg, tok,
+                                             RWKV_PROMPT + i, cache,
+                                             paged_kernel=True)
+            kernel_ops.deferral_signal(step_logits)
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, ranked = profile_steps(torch, run, steps)
+    busy = ("not measured (profiler saw no device time)" if busy_ms is None
+            else f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}, "
+                 f"idle {1 - busy_ms / wall_ms:.1%})")
+    print(f"[rwkv] full-width {cfg.name} decode step ({N_SLOTS} rows, "
+          f"{cfg.n_layers} layers, kernels on, with its deferral signal): "
+          f"host wall {wall_ms:.3f} ms, {busy} on {smi}")
+    for name, ms in ranked[:6] + [(n, ms) for n, ms in ranked[6:]
+                                  if "wkv_kernel" in n or n.startswith("de_")]:
+        print(f"[rwkv]   {ms:.4f} ms/step  {name[:90]}")
+
+
+def serve_rwkv_main_path(torch, small, large, smi) -> dict:
+    """Calibrate and run the cascade on the slot backend with the kernels
+    on; every kernel's counter is set to 0 just before and read just
+    after. `wkv_scan` runs once per layer of every prefill and decode
+    step: n_layers per M_S seeding prefill group and decode step and per
+    step of the calibration's M_S generate, M_L's n_layers per step of
+    each M_L generate; `deferral_entropy` once per such step of either
+    model. Returns the counts."""
+    import numpy as np
+    from repro_torch.data.synthetic import (make_lm_stream,
+                                            make_ragged_lm_stream)
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, PagedConfig,
+                                     make_requests)
+    from repro_torch.serving.request import DONE
+    cfg = small.cfg
+    engine = ContinuousCascadeEngine(
+        CascadeSpec.two_tier(small, large),
+        EngineConfig(n_slots=N_SLOTS, backend="slot",
+                     paged=PagedConfig(paged_kernel=True)))
+    cal_len = sum(RAGGED) // 2
+    cal = make_lm_stream([SEED, 1], N_REQUESTS, cal_len, cfg.vocab_size)
+    live = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
+                                 cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tau = engine.calibrate(cal, cal_len, MAX_NEW, DEFERRAL)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    res = engine.run(make_requests(live, MAX_NEW), MAX_NEW)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    st = res.stats
+    seeds, n_ml = st["prefill_seed_dispatches"], st["ml_batches"]
+    print(f"[rwkv] calibrated tau {tau:.4f} for deferral {DEFERRAL} in "
+          f"{t_cal:.2f} s; served {N_REQUESTS} requests (prompts "
+          f"{RAGGED[0]}-{RAGGED[1]} tokens, max_new {MAX_NEW}) on "
+          f"{N_SLOTS} slots (slot backend) in {st['makespan_s']:.3f} s: "
+          f"{st['throughput_tok_s']:.1f} tok/s, M_S "
+          f"{st['small_tok_s']:.1f} tok/s, deferral_ratio "
+          f"{res.deferral_ratio:.3f}, early exits "
+          f"{int(res.early_exited.sum())}, {res.steps} decode steps, "
+          f"{seeds} prefill groups, {n_ml} M_L batches, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    print("[rwkv] phases (host wall s): " + ", ".join(
+        f"{k[6:-2]} {v:.3f}" for k, v in st.items()
+        if k.startswith("phase_")))
+    if not all(r.state == DONE for r in res.requests):
+        raise AssertionError("rwkv: not every request finished")
+    if res.tokens.shape != (N_REQUESTS, MAX_NEW) or not np.isfinite(
+            res.confidence).all():
+        raise AssertionError("rwkv: malformed serving result")
+    L, LL = cfg.n_layers, large.cfg.n_layers
+    want = dict.fromkeys(KERNELS, 0)
+    want["wkv_scan"] = L * (MAX_NEW + res.steps + seeds) + LL * MAX_NEW * n_ml
+    want["deferral_entropy"] = MAX_NEW + res.steps + seeds + MAX_NEW * n_ml
+    print(f"[rwkv] kernel launches {launches}, expected {want} (wkv_scan "
+          f"{L} x ({MAX_NEW} calibration + {res.steps} steps + {seeds} "
+          f"prefill groups) + {LL} x {MAX_NEW} x {n_ml} M_L batches; "
+          f"deferral_entropy once per each of those steps and groups)")
+    if launches != want or res.steps == 0:
+        raise AssertionError(f"rwkv launch counts {launches} != {want}")
+    return launches
 
 
 def loss_case(torch, x_dtype, V: int, d: int, seed: int):
@@ -1227,6 +1512,7 @@ def main() -> int:
     from repro_torch.kernels import deferral_entropy as de
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv_scan as wk
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 matmuls in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1282,6 +1568,9 @@ def main() -> int:
         phase("3d", t_start)
         records["flash_attention"] = check_flash_kernel(torch, fa, smi)
         torch.cuda.empty_cache()
+        # -- 3e. the RWKV / Mamba2 recurrence against its plain version -----
+        phase("3e", t_start)
+        records["wkv_scan"] = check_wkv_kernel(torch, wk, smi)
 
         from repro_torch.configs import get_config
         from repro_torch.launch import serve
@@ -1326,14 +1615,29 @@ def main() -> int:
         del small, large
         torch.cuda.empty_cache()
 
+        # -- 9. rwkv6-3b at full width on the slot backend ------------------
+        phase("9", t_start)
+        t0 = time.perf_counter()
+        small, large = serve.build_ladder(RWKV_ARCH, SEED, 2, reduce=False,
+                                          device=DEV)
+        torch.cuda.synchronize()
+        describe_ladder(torch, small, large, time.perf_counter() - t0)
+        check_rwkv_paths(torch, tfm, small)
+        profile_rwkv_decode(torch, tfm, small, smi)
+        by_path[RWKV_ARCH] = serve_rwkv_main_path(torch, small, large, smi)
+        del small, large
+        torch.cuda.empty_cache()
+
         # -- 5. reduced fp32 fixtures: kernel paths == plain paths ----------
         phase("5", t_start)
-        for arch in (ARCH, MLA_ARCH):
+        for arch in (ARCH, MLA_ARCH, RWKV_ARCH):
             reduced_fixture(torch, serve, arch)
         from repro_torch.serving.request import DONE
-        res = serve.main([])
-        if not all(r.state == DONE for r in res.requests):
-            raise AssertionError("serve.main() left requests unfinished")
+        for argv in ([], ["--arch", RWKV_ARCH]):
+            res = serve.main(argv)
+            if not all(r.state == DONE for r in res.requests):
+                raise AssertionError(f"serve.main({argv}) left requests "
+                                     f"unfinished")
 
     missing = [k for k in KERNELS
                if not sum(counts[k] for counts in by_path.values())]

@@ -1,8 +1,8 @@
 """Model configuration for the port: `ModelConfig`, `get_config`, `reduced`.
 
 Own copy of `repro.configs` for the families the port serves (dense GQA
-decoders and DeepSeek-style MLA/MoE decoders); `pdtype()` and `cdtype()`
-return torch dtypes. Each architecture lives in its own module
+decoders, DeepSeek-style MLA/MoE decoders and the attention-free RWKV6);
+`pdtype()` and `cdtype()` return torch dtypes. Each architecture lives in its own module
 (src/repro_torch/configs/<id>.py) exporting `CONFIG`.
 """
 from __future__ import annotations
@@ -37,7 +37,7 @@ class MLASpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # the port serves "dense" and "moe"
+    family: str                      # the port serves dense | moe | ssm_rwkv
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,6 +56,10 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     source: str = ""                 # citation
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm_rwkv"
+
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
@@ -67,7 +71,8 @@ class ModelConfig:
 
 
 _ALIAS = {"internlm2-1.8b": "internlm2_1_8b",
-          "deepseek-v2-236b": "deepseek_v2_236b"}
+          "deepseek-v2-236b": "deepseek_v2_236b",
+          "rwkv6-3b": "rwkv6_3b"}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -103,4 +108,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
             n_dense_layers=1)
     if cfg.mla is not None:
         kw["mla"] = MLASpec(q_lora=64, kv_lora=32, rope_dim=16, v_head_dim=32)
+    if cfg.family == "ssm_rwkv":
+        kw["d_model"] = 128   # RWKV derives its heads: 4 of head_dim 32
     return cfg.replace(**kw)

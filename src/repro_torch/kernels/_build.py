@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_attention", "mla_attention", "gatekeeper_loss",
-           "deferral_entropy", "flash_attention")
+           "deferral_entropy", "flash_attention", "wkv_scan")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -18,11 +18,12 @@ from repro_torch.kernels.gatekeeper_loss import (gatekeeper_loss_fused,
 from repro_torch.kernels.paged_attention import (paged_flash_decode_gqa,
                                                  paged_flash_decode_mla,
                                                  paged_write_token)
+from repro_torch.kernels.wkv_scan import wkv_scan
 
 __all__ = ["deferral_signal", "flash_attention", "gatekeeper_loss_fused",
            "gatekeeper_loss_tokens", "paged_flash_decode_gqa",
            "paged_flash_decode_mla", "paged_kernel_enabled",
-           "paged_write_token"]
+           "paged_write_token", "wkv"]
 
 
 def paged_kernel_enabled(override: Optional[bool] = None,
@@ -31,7 +32,8 @@ def paged_kernel_enabled(override: Optional[bool] = None,
 
     The switch keeps its JAX name but covers every kernel of the serving
     path: the paged decode and write, the eq.-8 deferral signal
-    (`deferral_signal`) and prefill attention (`flash_attention`).
+    (`deferral_signal`), prefill attention (`flash_attention`) and the
+    RWKV recurrence (`wkv`).
     Resolution order, as in the JAX package: an explicit `override`
     (engine config / function argument) > the REPRO_PAGED_KERNEL env var >
     the default, which is on exactly when the tensors live on CUDA. On CPU
@@ -52,3 +54,9 @@ def deferral_signal(logits: torch.Tensor):
     lead = logits.shape[:-1]
     nent, mprob, amax = deferral_entropy(logits.reshape(-1, logits.shape[-1]))
     return nent.reshape(lead), mprob.reshape(lead), amax.reshape(lead)
+
+
+def wkv(q, k, v, logw, u, state0, *, out=None):
+    """The RWKV6 recurrence (`wkv_scan` in mode "rwkv"), as the JAX
+    package's `ops.wkv`; Mamba2 calls `wkv_scan(mode="mamba")`."""
+    return wkv_scan(q, k, v, logw, u, state0, mode="rwkv", out=out)

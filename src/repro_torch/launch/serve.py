@@ -9,8 +9,9 @@ two tiers, the semantic-agreement signal, online recalibration, the
 thread/stub/socket/pool M_L backends, memory pressure (oversubscription,
 preemption, swap tier), admission overload control, and the /metrics
 endpoint and profiler flags. One flag is new: --device (default: cuda,
-which must exist). `--arch` takes internlm2-1.8b (dense GQA) and
-deepseek-v2-236b (MLA + MoE).
+which must exist). `--arch` takes internlm2-1.8b (dense GQA),
+deepseek-v2-236b (MLA + MoE) and rwkv6-3b (RWKV6, attention-free: slot
+backend only, as in JAX, whose paged pool refuses a recurrent state).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 \\
         --max-new 8 --engine continuous --backend paged --ragged-min 8 \\
@@ -35,6 +36,7 @@ from repro_torch.serving import (CascadeEngine, CascadeSpec, CascadeTier,
 from repro_torch.serving.obs import (Observability, add_obs_args,
                                      obs_config_from_args)
 from repro_torch.serving.obs.config import UNPORTED_FLAGS
+from repro_torch.serving.paged_pool import validate_pageable
 
 # flags of the JAX CLI whose features are not ported yet (dest, flag)
 _UNPORTED = (("recalibrate", "--recalibrate"),
@@ -209,9 +211,15 @@ def main(argv=None):
         ap.error(f"{', '.join(unported)}: not ported to repro_torch yet "
                  f"(see ROADMAP.md)")
     try:
-        tfm.attn_config(get_config(args.arch))
+        arch_cfg = get_config(args.arch)
+        tfm.check_ported(arch_cfg)
     except NotImplementedError as e:
         ap.error(f"--arch {args.arch}: {e}")
+    if args.backend == "paged":
+        try:
+            validate_pageable(arch_cfg, args.prompt_len + args.max_new)
+        except NotImplementedError as e:
+            ap.error(f"--backend paged --arch {args.arch}: {e}")
 
     device = resolve_device(args.device)
     small, large = build_ladder(args.arch, args.seed, 2, device=device)

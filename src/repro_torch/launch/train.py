@@ -142,7 +142,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.preset is None:
         try:
-            tfm.attn_config(get_config(args.arch))
+            tfm.check_ported(get_config(args.arch), training=True)
         except NotImplementedError as e:
             ap.error(f"--arch {args.arch}: {e}")
     return run(args)

@@ -54,6 +54,17 @@ class ParamInit:
     def zeros(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
 
+    def uniform(self, shape: Sequence[int], scale: float) -> torch.Tensor:
+        """Uniform in [-scale, scale), drawn in fp32 (JAX's "uniform")."""
+        u = torch.rand(tuple(shape), generator=self.gen, device=self.device,
+                       dtype=torch.float32)
+        return ((2.0 * u - 1.0) * scale).to(self.dtype)
+
+    def full(self, shape: Sequence[int], value: float) -> torch.Tensor:
+        """Every entry `value` (JAX's "constant")."""
+        return torch.full(tuple(shape), value, dtype=self.dtype,
+                          device=self.device)
+
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """`torch.einsum` with JAX's type promotion: bf16 activations against

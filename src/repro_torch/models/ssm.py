@@ -1,0 +1,182 @@
+"""Attention-free sequence mixer: the RWKV6 ("Finch") block and its state.
+
+Counterpart of the RWKV half of `repro.models.ssm`. The block is a linear
+recurrence over a per-head fp32 state S in R^{K x V},
+
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T,   y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+
+with a data-dependent per-channel decay w_t. The recurrence is the
+`wkv_scan` kernel's function; its plain versions (`linear_attention_scan`,
+`linear_attention_chunked`, `linear_attention_step`, the JAX package's
+linear-attention core) live beside the kernel in `kernels/wkv_scan.py` and
+are re-exported here. `rwkv_block_forward(paged_kernel=True)` runs the
+recurrence through `wkv_scan` (the CUDA kernel on CUDA tensors), otherwise
+through `wkv_scan_plain`. The Mamba2 block waits for its slice (see
+ROADMAP.md).
+
+Types follow the JAX block as JAX's unscanned layer loop runs it (its
+scanned loop refuses a bf16 RWKV model): r/k/v/g/logw are fp32 from the
+fp32 weights, the time-mix output returns to x's type before its residual
+add, the channel-mix residual add promotes x to fp32, and the shift states
+come out in the type of the normed input they were taken from.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.wkv_scan import (linear_attention_chunked,
+                                          linear_attention_scan,
+                                          linear_attention_step, wkv_scan,
+                                          wkv_scan_plain)
+from repro_torch.models.common import ParamInit, rms_norm
+
+__all__ = ["RWKVConfig", "init_rwkv_block", "init_rwkv_state",
+           "linear_attention_chunked", "linear_attention_scan",
+           "linear_attention_step", "rwkv_block_forward"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    d_model: int
+    d_ff: int
+    head_dim: int = 64
+    lora_mix: int = 32
+    lora_decay: int = 64
+    chunk: int = 32
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_model // self.head_dim
+
+
+def init_rwkv_block(pi: ParamInit, cfg: RWKVConfig, L: int) -> dict:
+    """Seeded weights of `L` stacked RWKV6 blocks, with the JAX package's
+    names, shapes, layouts and init rules."""
+    d, H, hd, r = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.lora_mix
+    return {
+        # data-dependent lerp (ddlerp) mixing: 5 streams (r, k, v, g, w)
+        "mu_base": pi.uniform((L, 5, d), 0.5),
+        "mix_A": pi.normal((L, d, 5 * r), fan_in=d),
+        "mix_B": pi.normal((L, 5, r, d), fan_in=r),
+        "wr": pi.normal((L, d, H, hd), fan_in=d),
+        "wk": pi.normal((L, d, H, hd), fan_in=d),
+        "wv": pi.normal((L, d, H, hd), fan_in=d),
+        "wg": pi.normal((L, d, H, hd), fan_in=d),
+        "wo": pi.normal((L, H, hd, d), fan_in=H * hd),
+        # data-dependent decay: logw = -exp(w0 + tanh(x A_w) B_w)
+        "w0": pi.full((L, H, hd), -0.6),
+        "decay_A": pi.normal((L, d, cfg.lora_decay), fan_in=d),
+        "decay_B": pi.normal((L, cfg.lora_decay, H, hd),
+                             fan_in=cfg.lora_decay),
+        "u": pi.uniform((L, H, hd), 0.5),
+        "ln_x": pi.zeros((L, H, hd)),
+        # channel mix
+        "cm_mu": pi.uniform((L, 2, d), 0.5),
+        "cm_wk": pi.normal((L, d, cfg.d_ff), fan_in=d),
+        "cm_wr": pi.normal((L, d, d), fan_in=d),
+        "cm_wv": pi.normal((L, cfg.d_ff, d), fan_in=cfg.d_ff),
+        "norm1": pi.zeros((L, d)),
+        "norm2": pi.zeros((L, d)),
+    }
+
+
+def init_rwkv_state(cfg: RWKVConfig, batch: int, dtype: torch.dtype, L: int,
+                    device) -> dict:
+    """Zeroed stacked state: shift1, shift2 [L, batch, d] in `dtype`; S
+    [L, batch, H, K, V] in fp32 whatever `dtype` is."""
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {"shift1": torch.zeros((L, batch, d), dtype=dtype, device=device),
+            "shift2": torch.zeros((L, batch, d), dtype=dtype, device=device),
+            "S": torch.zeros((L, batch, H, hd, hd), dtype=torch.float32,
+                             device=device)}
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., n] @ w [n, ...] -> [..., *w.shape[1:]] in the promoted type
+    of the two, as `jnp.einsum` computes it."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    out = x.to(dt) @ w.to(dt).reshape(w.shape[0], -1)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """shifted[t] = x[t-1]; shifted[0] = last (carry from the previous
+    segment)."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _rwkv_mix_streams(p: dict, x: torch.Tensor,
+                      shifted: torch.Tensor) -> torch.Tensor:
+    """ddlerp: per-stream mixing coefficients with a low-rank data path.
+    Returns [B, T, 5, d]."""
+    r = p["mix_B"].shape[1]
+    base = torch.tanh(_mm(x, p["mix_A"]))                       # [B,T,5r]
+    base = base.reshape(*base.shape[:-1], 5, r)
+    dt = torch.promote_types(base.dtype, p["mix_B"].dtype)
+    delta = torch.einsum("btsr,srd->btsd", base.to(dt), p["mix_B"].to(dt))
+    mu = p["mu_base"][None, None] + delta                       # [B,T,5,d]
+    xx = shifted - x
+    return x[:, :, None, :] + xx[:, :, None, :] * torch.sigmoid(mu)
+
+
+def _rwkv_time_mix_inputs(p: dict, cfg: RWKVConfig, x: torch.Tensor,
+                          shifted: torch.Tensor):
+    """(r, k, v, g [B,T,H,hd], logw [B,T,H,hd] fp32 and < 0)."""
+    mixed = _rwkv_mix_streams(p, x, shifted)
+    xr, xk, xv, xg, xw = (mixed[:, :, i, :] for i in range(5))
+    rr = _mm(xr, p["wr"])
+    kk = _mm(xk, p["wk"])
+    vv = _mm(xv, p["wv"])
+    gg = F.silu(_mm(xg, p["wg"]))
+    dec = _mm(torch.tanh(_mm(xw, p["decay_A"])), p["decay_B"])
+    logw = -torch.exp(p["w0"][None, None].float() + dec.float())
+    return rr, kk, vv, gg, logw
+
+
+def rwkv_block_forward(p: dict, cfg: RWKVConfig, x: torch.Tensor,
+                       state: Optional[dict] = None,
+                       paged_kernel: bool = False
+                       ) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence RWKV6 block (time mix, then channel mix), pre-norm
+    residual. `state` ({"shift1", "shift2" [B, d], "S" [B, H, K, V] fp32})
+    carries a previous segment; its "S" receives the final state in
+    place. `paged_kernel` runs the recurrence through `wkv_scan`. Returns
+    (x, {"shift1", "shift2", "S"})."""
+    B, T, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    h = rms_norm(x, p["norm1"])
+    last1 = (state["shift1"] if state is not None
+             else torch.zeros((B, d), dtype=x.dtype, device=x.device))
+    shifted = _token_shift(h, last1.to(h.dtype))
+    rr, kk, vv, gg, logw = _rwkv_time_mix_inputs(p, cfg, h, shifted)
+    if state is not None:
+        S0 = out = state["S"]
+    else:
+        S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+        out = None
+    if paged_kernel:
+        y, S = wkv_scan(rr, kk, vv, logw, p["u"], S0, mode="rwkv", out=out)
+    else:
+        y, S = wkv_scan_plain(rr, kk, vv, logw, p["u"], S0, mode="rwkv",
+                              chunk=cfg.chunk, out=out)
+    # per-head group norm, gate, project out
+    y = rms_norm(y.to(x.dtype), p["ln_x"]) * gg
+    x = x + _mm(y.reshape(B, T, H * hd).float(),
+                p["wo"].float().reshape(H * hd, d)).to(x.dtype)
+
+    # channel mix
+    h2 = rms_norm(x, p["norm2"])
+    last2 = (state["shift2"] if state is not None
+             else torch.zeros((B, d), dtype=x.dtype, device=x.device))
+    sh2 = _token_shift(h2, last2.to(h2.dtype))
+    mu = torch.sigmoid(p["cm_mu"])
+    xk2 = h2 + (sh2 - h2) * mu[0]
+    xr2 = h2 + (sh2 - h2) * mu[1]
+    kk2 = torch.square(torch.relu(_mm(xk2, p["cm_wk"])))
+    vv2 = _mm(kk2.float(), p["cm_wv"].float()).to(x.dtype)
+    x = x + torch.sigmoid(_mm(xr2, p["cm_wr"])) * vv2
+    return x, {"shift1": h[:, -1, :], "shift2": h2[:, -1, :], "S": S}

@@ -1,13 +1,17 @@
-"""Decoder LM for ``family="dense"`` and ``family="moe"``: init, caches,
-prefill, one-token decode.
+"""Decoder LM for ``family="dense"``, ``"moe"`` and ``"ssm_rwkv"``: init,
+caches, prefill, one-token decode.
 
 Counterpart of `repro.models.transformer` for dense and MoE decoders with
-GQA or MLA attention. The parameter tree has the JAX package's layout —
-homogeneous layer groups stacked on a leading ``[L, ...]`` axis under
-``params["blocks"]["dense"]`` and ``["moe"]`` (the MoE family's leading
-dense layers, then its MoE layers) — and the layers run as a Python loop
-over each group (the JAX package folds them with `lax.scan`). Caches are
-stacked the same way, ``[L, batch, ...]``, and are written in place.
+GQA or MLA attention and for the attention-free RWKV6. The parameter tree
+has the JAX package's layout — homogeneous layer groups stacked on a
+leading ``[L, ...]`` axis under ``params["blocks"]["dense"]`` and
+``["moe"]`` (the MoE family's leading dense layers, then its MoE layers),
+or ``["rwkv"]`` — and the layers run as a Python loop over each group (the
+JAX package folds them with `lax.scan` unless ``scan_layers=False``; the
+loop follows that unscanned path, the only one JAX defines for a bf16
+RWKV model). Caches are stacked the same way, ``[L, batch, ...]``, and
+are written in place: GQA / MLA K/V, or the RWKV state (token-shift rows
+in the cache type, the recurrence state S in fp32).
 
 API:
     init_params(cfg, seed, device)              -> params
@@ -29,21 +33,34 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ParamInit, embed_tokens, rms_norm,
                                        unembed)
 
-_PORTED_FAMILIES = ("dense", "moe")
+_ATTN_FAMILIES = ("dense", "moe")
+_SERVED_FAMILIES = _ATTN_FAMILIES + ("ssm_rwkv",)
+
+
+def check_ported(cfg: ModelConfig, training: bool = False) -> None:
+    """Raise NotImplementedError, naming ROADMAP.md, unless the port runs
+    `cfg`: full-causal dense and MoE decoders (GQA or MLA) and RWKV6 for
+    serving; dense and MoE only for training."""
+    families = _ATTN_FAMILIES if training else _SERVED_FAMILIES
+    if cfg.family not in families or cfg.sliding_window is not None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} (sliding_window={cfg.sliding_window}) is "
+            f"not ported for {'training' if training else 'serving'}: the "
+            f"port runs families {families} without a sliding window "
+            f"(training RWKV, Mamba2/hybrid, enc-dec, VLM and sliding-window "
+            f"models are queued in ROADMAP.md)")
 
 
 def attn_config(cfg: ModelConfig) -> attn_lib.AttnConfig:
-    if cfg.family not in _PORTED_FAMILIES or cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} (sliding_window={cfg.sliding_window}) is "
-            f"not ported: the port runs full-causal dense and MoE decoders "
-            f"with GQA or MLA attention (SSM, hybrid, enc-dec, VLM and "
-            f"sliding-window models are queued in ROADMAP.md)")
+    """The attention of a dense or MoE decoder (an RWKV model has none)."""
+    check_ported(cfg, training=True)
     mla = cfg.mla
     return attn_lib.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -53,6 +70,11 @@ def attn_config(cfg: ModelConfig) -> attn_lib.AttnConfig:
         kv_lora=mla.kv_lora if mla else 0,
         rope_dim=mla.rope_dim if mla else 64,
         v_head_dim=mla.v_head_dim if mla else 0)
+
+
+def rwkv_config(cfg: ModelConfig) -> ssm_lib.RWKVConfig:
+    return ssm_lib.RWKVConfig(cfg.d_model, cfg.d_ff, head_dim=cfg.head_dim
+                              if cfg.head_dim <= cfg.d_model else 64)
 
 
 def moe_config(cfg: ModelConfig) -> ffn_lib.MoEConfig:
@@ -68,6 +90,8 @@ def _group_sizes(cfg: ModelConfig) -> Dict[str, int]:
     if cfg.family == "moe":
         nd = cfg.moe.n_dense_layers
         return {"dense": nd, "moe": cfg.n_layers - nd}
+    if cfg.family == "ssm_rwkv":
+        return {"rwkv": cfg.n_layers}
     return {"dense": cfg.n_layers}
 
 
@@ -108,7 +132,7 @@ def _init_mlp(pi: ParamInit, L: int, d: int, f: int) -> dict:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Seeded random weights with the JAX package's shapes and layout (the
     MoE router in fp32 whatever the parameter type, as in JAX)."""
-    attn_config(cfg)
+    check_ported(cfg)
     pi = ParamInit(seed, cfg.pdtype(), resolve_device(device))
     d, V = cfg.d_model, cfg.vocab_size
     params: Dict[str, Any] = {
@@ -120,6 +144,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     blocks: Dict[str, Any] = {}
     for kind, L in _group_sizes(cfg).items():
         if not L:
+            continue
+        if kind == "rwkv":
+            blocks[kind] = ssm_lib.init_rwkv_block(pi, rwkv_config(cfg), L)
             continue
         b = {"norm1": pi.zeros((L, d)), "attn": _init_attn(pi, cfg, L),
              "norm2": pi.zeros((L, d))}
@@ -145,12 +172,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, device=None) -> dict:
     """Zeroed caches, one per layer group: GQA {"k", "v"} of [L, batch,
     max_len, KV, hd]; MLA {"ckv", "kr"} of [L, batch, max_len, kv_lora |
-    rope_dim]. With batch = n_blocks + 1 and max_len = block_size this is
-    exactly the paged layout (block 0 = trash)."""
+    rope_dim]; RWKV {"shift1", "shift2"} of [L, batch, d] and fp32 {"S"}
+    of [L, batch, H, hd, hd], whatever `max_len` and `dtype` (the shifts
+    take `dtype`). With batch = n_blocks + 1 and max_len = block_size the
+    attention caches are exactly the paged layout (block 0 = trash)."""
     kw = dict(dtype=dtype or cfg.cdtype(), device=resolve_device(device))
     cache = {}
     for kind, L in _group_sizes(cfg).items():
         if not L:
+            continue
+        if kind == "rwkv":
+            cache[kind] = ssm_lib.init_rwkv_state(rwkv_config(cfg), batch,
+                                                  L=L, **kw)
             continue
         lead = (L, batch, max_len)
         if cfg.mla:
@@ -185,8 +218,11 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
            cache_offset: int = 0, decode: bool = False, position=None,
            pages=None, paged_kernel=None):
     """Pre-norm blocks over each stacked layer group in order (attention or
-    MLA, then the dense MLP or the MoE FFN). Returns (x, cache, aux): aux
-    is the fp32 sum of the MoE layers' load-balance losses (0 for dense)."""
+    MLA, then the dense MLP or the MoE FFN; or RWKV6 blocks). Returns (x,
+    cache, aux): aux is the fp32 sum of the MoE layers' load-balance
+    losses (0 for dense and RWKV)."""
+    if cfg.family == "ssm_rwkv":
+        return _rwkv_trunk(params, cfg, x, cache, pages, paged_kernel)
     ac = attn_config(cfg)
     mc = moe_config(cfg) if cfg.moe else None
     if cfg.mla:          # MLA prefill has no kernel: no switch to pass
@@ -219,6 +255,30 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
                 y = ffn_lib.mlp_forward(p["mlp"], h)
             x = x + y
     return x, cache, aux_sum
+
+
+def _rwkv_trunk(params, cfg: ModelConfig, x, cache, pages, paged_kernel):
+    """The RWKV6 layer loop. A cache's rows are this call's carried state,
+    written back in place (the shift rows cast to the cache's type); no
+    cache means a fresh zero state. `paged_kernel` (None: on for CUDA)
+    runs the recurrence through the `wkv_scan` kernel."""
+    if pages is not None:
+        raise NotImplementedError(
+            "an RWKV model keeps a recurrent state, which cannot be paged: "
+            "serve it on the slot backend")
+    rc = rwkv_config(cfg)
+    use_kernel = kernel_ops.paged_kernel_enabled(paged_kernel, x.device)
+    L = _group_sizes(cfg)["rwkv"]
+    stacked = cache["rwkv"] if cache is not None else None
+    for i, p in enumerate(_layers(params["blocks"]["rwkv"], L)):
+        st = (None if stacked is None
+              else {name: leaf[i] for name, leaf in stacked.items()})
+        x, new = ssm_lib.rwkv_block_forward(p, rc, x, st,
+                                            paged_kernel=use_kernel)
+        if st is not None:
+            st["shift1"].copy_(new["shift1"])
+            st["shift2"].copy_(new["shift2"])
+    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _embed(params, cfg: ModelConfig, tokens):

@@ -4,9 +4,11 @@ Counterpart of `repro.serving.cache_pool`. One cache tree is allocated ONCE
 with batch = n_slots and lives for the engine's lifetime; requests borrow
 a slot (one batch row of every leaf) and return it on retirement.
 Admission overwrites the whole row with a freshly prefilled cache, so
-stale K/V from the previous tenant never leaks. Every leaf, GQA
-``[L, batch, max_len, KV, hd]`` or MLA ``[L, batch, max_len, kv_lora |
-rope_dim]``, has its batch axis at 1.
+stale K/V or recurrent state from the previous tenant never leaks. Every
+leaf, GQA ``[L, batch, max_len, KV, hd]``, MLA ``[L, batch, max_len,
+kv_lora | rope_dim]`` or RWKV ``shift1``/``shift2`` ``[L, batch, d]`` and
+``S`` ``[L, batch, H, hd, hd]``, has its batch axis at 1. The RWKV state
+``S`` stays fp32 in the pool whatever the cache type.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from repro_torch.models import transformer as tfm
 def scatter_rows(pool_cache: dict, row_cache: dict,
                  slots: torch.Tensor) -> dict:
     """Write `row_cache` (batch = k) into rows `slots` [k] of `pool_cache`
-    (batch = n_slots), in place."""
+    (batch = n_slots), in place, along axis 1 of every leaf; each row is
+    cast to its pool leaf's type (the RWKV ``S`` leaf is fp32 in both)."""
     for kind, leaves in row_cache.items():
         for name, rows in leaves.items():
             pool_cache[kind][name][:, slots] = rows.to(

@@ -24,7 +24,8 @@ class PagedConfig:
                      attention); False: their plain versions; None:
                      REPRO_PAGED_KERNEL, else on exactly when the model
                      lives on CUDA. The slot backend reads it too, for the
-                     kernels it runs (signal and prefill).
+                     kernels it runs (signal, prefill attention and the
+                     RWKV recurrence).
     batch_prefill  — pack same-offset prefill chunks of all mid-prefill
                      requests into one dispatch.
     prefix_sharing — copy-on-write prompt-prefix sharing through the

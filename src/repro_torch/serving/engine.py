@@ -25,10 +25,14 @@ The same switch (`kernel_ops.paged_kernel_enabled`: the engine's
 `paged_kernel`, then REPRO_PAGED_KERNEL, then on exactly for CUDA) picks
 the kernel path for the rest of the serving path on either backend: every
 M_S decode step and prefill seed takes its greedy token and eq.-8
-confidence from one `deferral_signal` launch, and GQA prefill runs the
-`flash_attention` kernel. The continuous engine passes its `paged_kernel`
-to `ModelRunner.generate` for M_S calibration and for M_L behind its
-backend. The plain path is `deferral_entropy_plain` and `_attend`.
+confidence from one `deferral_signal` launch, GQA prefill runs the
+`flash_attention` kernel, and every RWKV6 layer of a prefill or decode
+step runs the `wkv_scan` kernel (an RWKV model keeps a recurrent state,
+so it serves on the slot backend, whose admission prefills each exact
+prompt length apart: no pad token enters a state). The continuous engine
+passes its `paged_kernel` to `ModelRunner.generate` for M_S calibration
+and for M_L behind its backend. The plain path is
+`deferral_entropy_plain`, `_attend` and `wkv_scan_plain`.
 
 What the port does not run yet is rejected (see ROADMAP.md): ladders of
 more than two tiers, backends other than "sync", memory pressure,
@@ -133,7 +137,8 @@ class ModelRunner:
         buf[:, 0] = tok
         for i in range(max_new - 1):
             step_logits, cache = tfm.decode_step(params, cfg, tok,
-                                                 prompt_len + i, cache)
+                                                 prompt_len + i, cache,
+                                                 paged_kernel=use_kernel)
             tok, neg_ent = _signal(step_logits, use_kernel)
             conf_sum = conf_sum + neg_ent
             buf[:, i + 1] = tok
@@ -513,7 +518,9 @@ class ContinuousCascadeEngine:
 
             def admit_slot_groups(admitted):
                 """Slot backend: batched prefill per distinct prompt
-                length, each group's rows scattered into its slots."""
+                length, each group's rows scattered into its slots and
+                seeded from one signal launch (a seeding dispatch)."""
+                nonlocal n_seed_dispatches
                 by_len: Dict[int, List[Tuple[int, Request]]] = {}
                 for s, r in admitted:
                     by_len.setdefault(r.prompt_len, []).append((s, r))
@@ -534,6 +541,7 @@ class ContinuousCascadeEngine:
                                      dtype=torch.int32),
                         torch.full((len(group),), P, dtype=torch.int32),
                         max_new)
+                    n_seed_dispatches += 1
                 now = tel.now
                 for _, r in admitted:
                     r.t_prefill_done = now
@@ -803,13 +811,13 @@ class ContinuousCascadeEngine:
         stats["edge_signal"] = [sig0.name]
         stats["tier_reach"] = reach
         stats["compute_cost"] = ladder_compute_cost(reach, self.spec.costs)
+        stats["prefill_seed_dispatches"] = n_seed_dispatches
         if paged:
             stats.update(block_size=pc.block_size,
                          n_blocks=pool.n_blocks,
                          peak_blocks=pool.peak_mapped,
                          prefill_chunks=n_prefill_chunks,
                          prefill_dispatches=n_prefill_dispatches,
-                         prefill_seed_dispatches=n_seed_dispatches,
                          prefill_tokens=n_prefill_tokens,
                          prefix_sharing=pc.prefix_sharing,
                          shared_tokens=n_shared_tokens,

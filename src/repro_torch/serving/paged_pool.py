@@ -79,6 +79,23 @@ def prefix_block_keys(tokens: np.ndarray, block_size: int) -> List[bytes]:
     return out
 
 
+def validate_pageable(cfg: ModelConfig, max_len: int) -> None:
+    """Raise NotImplementedError unless every cache leaf of `cfg` is a
+    full-length attention cache, as the JAX pool's check does: recurrent
+    state (RWKV, Mamba) and windowed ring caches go to the slot backend."""
+    if cfg.attention_free:
+        raise NotImplementedError(
+            f"paged KV cache requires attention caches only; family "
+            f"{cfg.family!r} keeps a recurrent state, which cannot be paged "
+            f"— use the slot backend")
+    window = cfg.sliding_window
+    if window is not None and window < max_len:
+        raise NotImplementedError(
+            f"paged KV cache does not support windowed/ring caches (leaf "
+            f"seq {window} != max_len {max_len}); use the slot backend")
+    tfm.attn_config(cfg)            # the port's full-causal attention caches
+
+
 class PagedCachePool:
     """Block-paged per-slot cache + slot/block/reservation bookkeeping.
 
@@ -96,7 +113,7 @@ class PagedCachePool:
             raise ValueError("n_slots must be >= 1")
         if block_size < 1 or n_blocks < 1:
             raise ValueError("block_size and n_blocks must be >= 1")
-        tfm.attn_config(cfg)           # only full-causal caches page
+        validate_pageable(cfg, max_len)
         self.cfg = cfg
         self.n_slots = n_slots
         self.n_blocks = n_blocks

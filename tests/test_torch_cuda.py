@@ -16,6 +16,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gatekeeper_loss as gk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import wkv_scan as wk
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -391,3 +392,83 @@ def test_engine_switch_covers_signal_and_prefill_kernels(cuda, monkeypatch):
     np.testing.assert_array_equal(runs[True].tokens, runs[False].tokens)
     assert counts[False] == (0, 0)
     assert counts[True][0] >= runs[True].steps > 0 and counts[True][1] > 0
+
+
+# ---------------------------------------------------------------------------
+# wkv_scan (the RWKV6 / Mamba2 recurrence)
+# ---------------------------------------------------------------------------
+
+def _wkv_case(cuda, B, T, H, K, V, scalar, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (0.5 * torch.randn((B, T, H, K), generator=g, device=cuda)
+            for _ in range(2))
+    v = 0.5 * torch.randn((B, T, H, V), generator=g, device=cuda)
+    logw = -(0.05 + 0.95 * torch.rand((B, T, H, 1 if scalar else K),
+                                      generator=g, device=cuda))
+    u = 0.3 * torch.randn((H, K), generator=g, device=cuda)
+    s0 = 0.2 * torch.randn((B, H, K, V), generator=g, device=cuda)
+    return q, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("T", [1, 97, 128])
+@pytest.mark.parametrize("mode,H,K,V", [
+    ("rwkv", 40, 64, 64), ("rwkv", 4, 32, 32), ("rwkv", 3, 128, 96),
+    ("mamba", 64, 64, 64), ("mamba", 2, 16, 8)],
+    ids=["rwkv6-3b", "rwkv-reduced", "rwkv-widest", "zamba2", "mamba-small"])
+def test_wkv_kernel_matches_plain(cuda, mode, H, K, V, T):
+    """y and the final state within atol = rtol = 5e-4 of the plain version
+    (as tests/test_kernels.py holds the TPU kernel), the state written in
+    place into `out`; the Mamba2 cases take the scalar decay [B,T,H,1]."""
+    scalar = mode == "mamba"
+    q, k, v, logw, u, s0 = _wkv_case(cuda, 2, T, H, K, V, scalar)
+    ref_y, ref_s = wk.wkv_scan_plain(q, k, v, logw, u, s0, mode=mode)
+    out = s0.clone()
+    n = wk.wkv_scan.launches
+    y, st = wk.wkv_scan(q, k, v, logw, u, out, mode=mode, out=out)
+    torch.cuda.synchronize()
+    assert wk.wkv_scan.launches == n + 1 and st.data_ptr() == out.data_ptr()
+    torch.testing.assert_close(y, ref_y, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(st, ref_s, atol=5e-4, rtol=5e-4)
+
+
+def test_wkv_wrapper_raises_instead_of_falling_back(cuda):
+    q, k, v, logw, u, s0 = _wkv_case(cuda, 2, 5, 2, 16, 16, False)
+    n = wk.wkv_scan.launches
+    big = torch.zeros((2, 5, 2, 160), device=cuda)
+    with pytest.raises(ValueError, match="K, V <= 128"):
+        wk.wkv_scan(big, big, v, big, torch.zeros((2, 160), device=cuda),
+                    torch.zeros((2, 2, 160, 16), device=cuda))
+    with pytest.raises(ValueError, match="u"):
+        wk.wkv_scan(q, k, v, logw, None, s0, mode="rwkv")
+    with pytest.raises(ValueError, match="out"):
+        wk.wkv_scan(q, k, v, logw, u, s0, out=s0.double())
+    with pytest.raises(ValueError, match="device"):
+        wk.wkv_scan(q, k, v, logw, u, s0.cpu())
+    assert wk.wkv_scan.launches == n
+
+
+def test_rwkv_decode_step_kernel_matches_plain(cuda):
+    """One reduced fp32 RWKV prefill and decode step, wkv_scan against the
+    plain recurrence, from the same prefilled state: logits within 1e-4
+    (fp32 recurrences summed in other orders), one launch per layer."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tfm
+    cfg = reduced(get_config("rwkv6-3b"))
+    params = tfm.init_params(cfg, 0, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 37))).to(cuda)
+    cache = tfm.init_cache(cfg, 3, 38, device=cuda)
+    n = wk.wkv_scan.launches
+    logits, cache = tfm.prefill(params, cfg, toks, cache, last_only=True,
+                                paged_kernel=True)
+    assert wk.wkv_scan.launches == n + cfg.n_layers
+    tok = logits[:, -1].argmax(-1)
+    out = {}
+    for kernel in (True, False):
+        c = {kind: {k: t.clone() for k, t in leaves.items()}
+             for kind, leaves in cache.items()}
+        out[kernel], _ = tfm.decode_step(params, cfg, tok, 37, c,
+                                         paged_kernel=kernel)
+    torch.cuda.synchronize()
+    assert wk.wkv_scan.launches == n + 2 * cfg.n_layers
+    torch.testing.assert_close(out[True], out[False], atol=1e-4, rtol=0)

@@ -1,5 +1,6 @@
 """The port stands alone: no file of src/repro_torch, and not chip_smoke.py,
-imports `jax` or the JAX package `repro`; its entry points run on CUDA
+imports `jax` or the JAX package `repro` (the SSM slice's modules named
+among them); its entry points run on CUDA
 unless told otherwise and raise without it; its CLI rejects by name what
 is not ported yet; chip_smoke.py refuses to run without a card or outside
 a checkout."""
@@ -25,7 +26,8 @@ TRAINING_MODULES = ("core.gatekeeper", "data.pipeline",
 SIGNAL_MODULES = ("core.baselines", "core.cascade", "core.deferral",
                   "core.metrics", "kernels.deferral_entropy",
                   "kernels.flash_attention", "kernels.ops")
-SLICE_MODULES = TRAINING_MODULES + SIGNAL_MODULES
+SSM_MODULES = ("kernels.wkv_scan", "models.ssm", "configs.rwkv6_3b")
+SLICE_MODULES = TRAINING_MODULES + SIGNAL_MODULES + SSM_MODULES
 
 
 def _imported_roots(path: Path):
@@ -58,6 +60,15 @@ def test_import_check_covers_the_signal_slice():
     src = REPO / "src" / "repro_torch"
     for mod in SIGNAL_MODULES:
         assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+
+
+def test_import_check_covers_the_ssm_slice():
+    src = REPO / "src" / "repro_torch"
+    for mod in SSM_MODULES:
+        assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+    from repro_torch.kernels import _build
+    assert (_build.CSRC / "wkv_scan.cu").exists()
+    assert "wkv_scan" in _build.SOURCES
 
 
 def test_build_names_every_cuda_source():
@@ -112,7 +123,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     ["--backend", "paged", "--blocks", "8", "--oversubscribe", "2"],
     ["--max-queue", "4"],
     ["--metrics-port", "0"],
-    ["--arch", "rwkv6-3b"],
+    ["--arch", "zamba2-1.2b"],
 ], ids=lambda a: a[0] if a[0] != "--backend" else a[-2])
 def test_cli_rejects_unported_features_by_name(argv, capsys):
     from repro_torch.launch import serve
