@@ -14,7 +14,8 @@ non-zero:
      rows, 16/8/128 heads, block 16, fp32 q, bf16 pages, ragged positions,
      one all-trash row; plus fp32 pages), and time kernel, plain version
      and a PyTorch library call with CUDA events, beside the bytes /
-     operations bound.
+     operations bound; the same for the decode at a 4,096-token cache (8
+     full rows) and at llama3-405b's 128/8 heads (group 16).
   3b. The same for the MLA decode kernel at the full-width DeepSeek-V2
      decode shapes (8 rows, 128 heads, kv_lora 512, rope 64, block 16):
      bf16 q, pages and norm weight (the main path's types), and all fp32.
@@ -29,14 +30,16 @@ non-zero:
      the full-width internlm2-1.8b prefill chunk (8 rows, 128 queries,
      16/8 heads of 128, a 288-position view, q_offset 0, 48 and 128), bf16
      and all fp32, plus a reduced sliding-window case; timed beside its
-     operations bound and SDPA with the same boolean mask.
+     operations bound and SDPA with the same boolean mask. Then the head
+     dims past the old instantiations at the same chunk: phi-3-vision's 96
+     (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows.
   3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
      algorithms) in both modes: "rwkv" at the full-width rwkv6-3b decode
      step (8 rows, T 1, 40 heads, K = V = 64) and prefill (T 128 and the
      prime T 97), "mamba" at zamba2-1.2b's shape (64 heads, scalar decay
-     [B,T,H,1], T 128), atol = rtol = 5e-4, the state written in place;
-     timed beside its bytes bound (no PyTorch call computes the
-     recurrence, so no library time).
+     [B,T,H,1], T 128), and K = V = 256 in both modes (8 heads, T 128),
+     atol = rtol = 5e-4, the state written in place; timed beside its bytes
+     bound (no PyTorch call computes the recurrence, so no library time).
   4. The first main path: a full-width internlm2-1.8b M_S -> M_L cascade
      on the paged backend with the kernels on, through `build_ladder`,
      `ContinuousCascadeEngine.calibrate` and `.run`, with the launch
@@ -145,6 +148,7 @@ MAX_ROUTE_FLIPS = N_SLOTS // 2  # bf16 step: rows whose top-k expert set may
                         # spread, so it is reported and held to no bound;
                         # the fp32 step allows none
 L2_BYTES = 50e6
+LONG_CACHE = 4096       # phase 3: tokens per row of the long-cache decode
 
 # phases 3c, 3d and 8: the deferral signal, prefill attention, evaluation
 SIGNAL_ATOL = 1e-4      # neg_entropy / max_prob: fp32 sums over the
@@ -171,7 +175,9 @@ WKV_ATOL = WKV_RTOL = 5e-4  # as tests/test_kernels.py holds the TPU kernel:
 WKV_CASES = (("rwkv decode", "rwkv", N_SLOTS, 1, 40, 64, False),
              ("rwkv prefill", "rwkv", N_SLOTS, CHUNK, 40, 64, False),
              ("rwkv prefill, prime T", "rwkv", N_SLOTS, 97, 40, 64, False),
-             ("mamba (zamba2)", "mamba", N_SLOTS, CHUNK, 64, 64, True))
+             ("mamba (zamba2)", "mamba", N_SLOTS, CHUNK, 64, 64, True),
+             ("rwkv K=V=256", "rwkv", N_SLOTS, CHUNK, 8, 256, False),
+             ("mamba K=V=256", "mamba", N_SLOTS, CHUNK, 8, 256, True))
 RWKV_PROMPT = CHUNK     # the one-step check's prompt length
 RWKV_LOGIT_GUARD = 1.0  # the same checks in the config's own types: the
                         # residual stream is bf16 in layer 0 only, where a
@@ -235,15 +241,21 @@ def bound(bytes_moved: float, flops: float,
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def case_tables(torch, rng) -> dict:
+def case_tables(torch, rng, pos=None) -> dict:
     """The main path's decode state at its widest: 8 rows, a table as wide
     as the widest active prefix, ragged positions with one row at the last
-    position the main path reaches, and row 7 unmapped (all trash)."""
+    position the main path reaches, and row 7 unmapped (all trash). Given
+    `pos`, every row is mapped up to its position instead."""
     B, bs = N_SLOTS, BLOCK
-    M = math.ceil((RAGGED[1] + MAX_NEW) / bs)        # 18 blocks per row
-    pos = [70, RAGGED[1] + MAX_NEW - 1, 130, 200, 96, 180, 240, 150]
+    trash = pos is None
+    if trash:
+        M = math.ceil((RAGGED[1] + MAX_NEW) / bs)    # 18 blocks per row
+        pos = [70, RAGGED[1] + MAX_NEW - 1, 130, 200, 96, 180, 240, 150]
+    else:
+        M = math.ceil((max(pos) + 1) / bs)
     n_map = [math.ceil((p + 1) / bs) for p in pos]
-    n_map[-1] = 0                                    # the all-trash row
+    if trash:
+        n_map[-1] = 0                                # the all-trash row
     N = N_SLOTS * M
     perm = rng.permutation(N) + 1
     tables = torch.zeros((B, M), dtype=torch.int32)
@@ -257,22 +269,22 @@ def case_tables(torch, rng) -> dict:
     return dict(tables=tables.to(DEV),
                 pos=torch.tensor(pos, dtype=torch.int32, device=DEV),
                 valid_tokens=valid_tokens, table_entries=table_entries,
-                B=B, M=M, N=N)
+                B=B, M=M, N=N, trash_row=trash)
 
 
-def decode_case(torch, kv_dtype, rng):
-    """Full-width GQA decode inputs on `case_tables`. `R` rotating page
-    copies exceed the 50 MB L2, so timed launches read their pages from
-    device memory as the decode loop does (24 layers of weights pass
-    through L2 between two visits of one layer's cache)."""
-    c = case_tables(torch, rng)
-    H, KV, hd = 16, 8, 128
+def decode_case(torch, kv_dtype, rng, H=16, KV=8, pos=None, copies=8):
+    """Full-width GQA decode inputs on `case_tables` (internlm2-1.8b's
+    16/8 heads of 128 by default). The rotating page copies exceed the
+    50 MB L2, so timed launches read their pages from device memory as the
+    decode loop does (24 layers of weights pass through L2 between two
+    visits of one layer's cache)."""
+    c = case_tables(torch, rng, pos)
+    hd = 128
     q = torch.randn((c["B"], 1, H, hd), device=DEV)
-    R = 8
     c["pages"] = [
         (torch.randn((c["N"] + 1, BLOCK, KV, hd), device=DEV).to(kv_dtype),
          torch.randn((c["N"] + 1, BLOCK, KV, hd), device=DEV).to(kv_dtype))
-        for _ in range(R)]
+        for _ in range(copies)]
     c.update(q=q, H=H, KV=KV, hd=hd)
     return c
 
@@ -308,7 +320,7 @@ class Rotation:
         return self.items[self.i]
 
 
-def check_decode_kernel(torch, pa, c, kv_name, smi) -> dict:
+def check_decode_kernel(torch, pa, c, label, smi) -> dict:
     """paged_flash_decode_gqa against its plain version; times both and
     SDPA. Returns the kernel's record."""
     q, tables, pos = c["q"], c["tables"], c["pos"]
@@ -318,9 +330,9 @@ def check_decode_kernel(torch, pa, c, kv_name, smi) -> dict:
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     if not (torch.isfinite(out).all() and err <= DECODE_ATOL):
-        raise AssertionError(f"paged_flash_decode_gqa ({kv_name} pages) "
+        raise AssertionError(f"paged_flash_decode_gqa ({label}) "
                              f"max |err| {err} > {DECODE_ATOL}")
-    if out[-1].abs().max() != 0:
+    if c["trash_row"] and out[-1].abs().max() != 0:
         raise AssertionError("all-trash row is not exact zeros")
     pages = Rotation(c["pages"])
     ms = time_ms(lambda: pa.paged_flash_decode_gqa(q, *pages(), tables, pos))
@@ -344,11 +356,13 @@ def check_decode_kernel(torch, pa, c, kv_name, smi) -> dict:
                + 4 * pos.numel())
     flops = 4 * c["valid_tokens"] * c["H"] * c["hd"]
     bound_ms, bound_by = bound(n_bytes, flops)
-    print(f"[kernel] paged_flash_decode_gqa q fp32, pages {kv_name}: "
-          f"max|err| {err:.3g} (atol {DECODE_ATOL}), all-trash row exact 0; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa(gathered) "
+    print(f"[kernel] paged_flash_decode_gqa q fp32, {label} ({c['B']} rows,"
+          f" {c['H']}/{c['KV']} heads, {c['valid_tokens']} valid tokens, "
+          f"table {c['M']} blocks): max|err| {err:.3g} (atol {DECODE_ATOL})"
+          + (", all-trash row exact 0" if c["trash_row"] else "")
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa(gathered) "
           f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B,"
-          f" {flops} fp32 flop) on {smi}")
+          f" {flops} fp32 flop; {len(c['pages'])} page copies) on {smi}")
     return dict(name="paged_flash_decode_gqa", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:106",
@@ -603,6 +617,36 @@ def check_flash_kernel(torch, fa, smi) -> dict:
           f"max|err| {err:.3g} (atol {FLASH_ATOL})")
     if err > FLASH_ATOL:
         raise AssertionError(f"flash_attention window: max|err| {err}")
+    # head dims of other configs, past the old 16/32/64/128 instantiations,
+    # at the same chunk (q_offset 48)
+    for label, Bh, Hh, KVh, hdh in (("phi-3-vision hd 96", B, 32, 32, 96),
+                                    ("kimi-k2 hd 112", B, 64, 8, 112),
+                                    ("hd 256", 2, 4, 2, 256)):
+        for name, dtype, rtol in (("bf16", torch.bfloat16, FLASH_BF16_RTOL),
+                                  ("fp32", torch.float32, 0.0)):
+            q, k, v = (torch.randn(shape, generator=g, device=DEV).to(dtype)
+                       for shape in ((Bh, T, Hh, hdh), (Bh, S, KVh, hdh),
+                                     (Bh, S, KVh, hdh)))
+            out = fa.flash_attention(q, k, v, causal=True, q_offset=48)
+            ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=48)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max())
+            share = float((diff / (FLASH_ATOL + rtol * ref.float().abs()))
+                          .max())
+            if not (out.dtype == dtype and torch.isfinite(out).all()
+                    and share <= 1.0):
+                raise AssertionError(f"flash_attention {label} {name}: "
+                                     f"max|err| {err}, {share:.3g} of tol")
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                    q_offset=48))
+            print(f"[kernel] flash_attention {name} {label} (B {Bh} T {T} S "
+                  f"{S}, {Hh}/{KVh} heads, q_offset 48): max|err| {err:.3g},"
+                  f" at most {share:.3g} of (atol {FLASH_ATOL}"
+                  + (f" + {rtol:.3g}|ref|" if rtol else "")
+                  + f"); kernel {ms:.4f} ms on {smi}")
+            rec.setdefault("by_head_dim", {})[f"{label} {name}"] = dict(
+                ms=ms, max_abs_err=err)
     return rec
 
 
@@ -784,7 +828,7 @@ def report_profile(torch, tfm, small, rng, smi) -> None:
     print(f"[main] full-width decode step (8 rows, kernels on, with its "
           f"deferral signal): host wall {wall_ms:.3f} ms, {busy} on {smi}")
     for name, ms in ranked[:6] + [(n, ms) for n, ms in ranked[6:]
-                                  if n.startswith("de_")]:
+                                  if n.startswith("de_") or "gqa_" in n]:
         print(f"[main]   {ms:.4f} ms/step  {name[:90]}")
 
 
@@ -1545,12 +1589,27 @@ def main() -> int:
         for kv_name, kv_dtype in (("bf16", torch.bfloat16),
                                   ("fp32", torch.float32)):
             case = decode_case(torch, kv_dtype, rng)
-            rec_d = check_decode_kernel(torch, pa, case, kv_name, smi)
+            rec_d = check_decode_kernel(torch, pa, case, f"pages {kv_name}",
+                                        smi)
             rec_w = check_write_kernel(torch, pa, case, kv_name, kv_dtype, smi)
             if kv_name == "bf16":                # the main path's types
                 records["paged_flash_decode_gqa"] = rec_d
                 records["paged_write_token"] = rec_w
             del case
+        # the decode beyond the main path's shape: a long cache, group 16
+        rng3 = np.random.default_rng(SEED + 30)
+        for key, label, kw in (
+                ("long_cache", f"pages bf16, {LONG_CACHE}-token cache",
+                 dict(pos=[LONG_CACHE - 1] * N_SLOTS, copies=2)),
+                ("group16", "pages bf16, llama3-405b heads (group 16)",
+                 dict(H=128, KV=8))):
+            case = decode_case(torch, torch.bfloat16, rng3, **kw)
+            rec = check_decode_kernel(torch, pa, case, label, smi)
+            records["paged_flash_decode_gqa"][key] = {
+                k: rec[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "max_abs_err")}
+            del case
+        torch.cuda.empty_cache()
         # -- 3b. MLA decode against its plain version -----------------------
         phase("3b", t_start)
         for name, dtype in (("all bf16", torch.bfloat16),

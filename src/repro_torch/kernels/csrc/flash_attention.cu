@@ -38,9 +38,16 @@
 //     window reaches to the last the causal bound reaches. The TPU kernel
 //     visits every tile and masks.
 //   * K and V share one buffer, so shared memory is 85 KB at hd 128 and two
-//     CTAs fit an SM; above 48 KB it is dynamic, with the limit raised once
-//     per instantiation. Row strides are padded by 4 floats, which keeps
-//     the float4 reads of a half-warp on distinct banks.
+//     CTAs fit an SM (147 KB and one CTA at hd 256); above 48 KB it is
+//     dynamic, with the limit raised once per instantiation. Row strides
+//     are padded by 4 floats, which keeps the float4 reads of a half-warp
+//     on distinct banks.
+//   * Any hd up to 256: the kernel is instantiated at the tile widths HD
+//     that the supported configs use (16 and 32 reduced, 64 whisper / zamba2
+//     / rwkv6, 96 phi-3-vision, 112 kimi-k2, 128 the rest) and at 256, and a
+//     call takes the smallest HD >= hd. Columns past hd are staged as zeros,
+//     so they add nothing to the scores, and are never stored; rows whose
+//     hd is not a multiple of 4 are staged element by element.
 //   * bf16 inputs are widened to fp32 while they are staged. Tensor-core
 //     (wgmma) tiles, TMA loads and double buffering are later work; the
 //     TPU kernel computes in fp32, and an fp32 product has no tensor-core
@@ -87,17 +94,35 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
-// rows r0 .. r0+63 of a [n_rows, HD] matrix whose rows lie row_stride
-// elements apart -> dst [64][HD + 4] fp32; rows past n_rows are zeros
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// rows r0 .. r0+63 of a [n_rows, hd] matrix whose rows lie row_stride
+// elements apart -> dst [64][HD + 4] fp32; rows past n_rows and columns
+// past hd are zeros. Vector loads when hd is a multiple of 4 (the rows are
+// then 8- or 16-byte aligned), else one element at a time.
 template <typename IT, int HD>
 __device__ __forceinline__ void stage(float* __restrict__ dst,
                                       const IT* __restrict__ src, int r0,
-                                      int n_rows, size_t row_stride) {
+                                      int n_rows, size_t row_stride, int hd) {
   constexpr int G = HD / 4;
+  const bool vec = (hd & 3) == 0;
   for (int i = threadIdx.x; i < 64 * G; i += kThreads) {
     const int r = i / G, g = i % G;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n_rows) v = load4(src + (size_t)(r0 + r) * row_stride + g * 4);
+    if (r0 + r < n_rows && g * 4 < hd) {
+      const IT* row = src + (size_t)(r0 + r) * row_stride + g * 4;
+      if (vec) {
+        v = load4(row);
+      } else {
+        float e[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) e[j] = g * 4 + j < hd ? to_f32(row[j]) : 0.f;
+        v = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
     *reinterpret_cast<float4*>(dst + r * Layout<HD>::RS + g * 4) = v;
   }
 }
@@ -122,12 +147,13 @@ __device__ __forceinline__ int out_col(int tx, int c) {
   else return tx * (HD / 16) + c;
 }
 
-// grid (ceil(T / QB), H, B), block kThreads, dynamic smem Layout<HD>::bytes
+// grid (ceil(T / QB), H, B), block kThreads, dynamic smem Layout<HD>::bytes;
+// hd <= HD is the inputs' head dim
 template <typename IT, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, HD <= 128 ? 2 : 1)
 flash_fwd_kernel(const IT* __restrict__ q, const IT* __restrict__ k,
                  const IT* __restrict__ v, IT* __restrict__ out, int T, int S,
-                 int H, int KV, float scale, int causal, int window,
+                 int H, int KV, int hd, float scale, int causal, int window,
                  int q_offset) {
   using L = Layout<HD>;
   constexpr int RS = L::RS, PS = L::PS, CPT = L::CPT;
@@ -139,10 +165,10 @@ flash_fwd_kernel(const IT* __restrict__ q, const IT* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int t0 = blockIdx.x * QB, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KV);
-  const size_t q_rows = (size_t)H * HD, kv_rows = (size_t)KV * HD;
-  const IT* qb = q + ((size_t)b * T * H + h) * HD;
-  const IT* kb = k + ((size_t)b * S * KV + kh) * HD;
-  const IT* vb = v + ((size_t)b * S * KV + kh) * HD;
+  const size_t q_rows = (size_t)H * hd, kv_rows = (size_t)KV * hd;
+  const IT* qb = q + ((size_t)b * T * H + h) * hd;
+  const IT* kb = k + ((size_t)b * S * KV + kh) * hd;
+  const IT* vb = v + ((size_t)b * S * KV + kh) * hd;
 
   // keys any query of this tile can see
   const int p_lo = q_offset + t0;
@@ -150,7 +176,7 @@ flash_fwd_kernel(const IT* __restrict__ q, const IT* __restrict__ k,
   const int s_end = causal ? min(S, p_hi + 1) : S;
   const int s_begin = window > 0 ? max(0, p_lo - window + 1) / KB * KB : 0;
 
-  stage<IT, HD>(q_s, qb, t0, T, q_rows);
+  stage<IT, HD>(q_s, qb, t0, T, q_rows, hd);
 
   float o[4][CPT];
   float m_r[4], l_r[4];
@@ -164,7 +190,7 @@ flash_fwd_kernel(const IT* __restrict__ q, const IT* __restrict__ k,
 
   for (int s0 = s_begin; s0 < s_end; s0 += KB) {
     __syncthreads();                 // the previous tile's V and P are read
-    stage<IT, HD>(kv_s, kb, s0, S, kv_rows);
+    stage<IT, HD>(kv_s, kb, s0, S, kv_rows, hd);
     __syncthreads();
 
     float sc[4][4];
@@ -227,7 +253,7 @@ flash_fwd_kernel(const IT* __restrict__ q, const IT* __restrict__ k,
       for (int j = 0; j < 4; ++j) p_s[(ty * 4 + i) * PS + tx + 16 * j] = sc[i][j];
     }
     __syncthreads();                 // every thread is done with K
-    stage<IT, HD>(kv_s, vb, s0, S, kv_rows);
+    stage<IT, HD>(kv_s, vb, s0, S, kv_rows, hd);
     __syncthreads();
 
 #pragma unroll 2
@@ -261,23 +287,25 @@ flash_fwd_kernel(const IT* __restrict__ q, const IT* __restrict__ k,
     }
   }
 
-  IT* ob = out + ((size_t)b * T * H + h) * HD;
+  IT* ob = out + ((size_t)b * T * H + h) * hd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = t0 + ty * 4 + i;
     if (t >= T) continue;
     const float denom = fmaxf(l_r[i], 1e-30f);   // no visible key -> 0
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      ob[(size_t)t * q_rows + out_col<HD>(tx, c)] =
-          from_f32<IT>(o[i][c] / denom);
+    for (int c = 0; c < CPT; ++c) {
+      const int col = out_col<HD>(tx, c);
+      if (col < hd)
+        ob[(size_t)t * q_rows + col] = from_f32<IT>(o[i][c] / denom);
+    }
   }
 }
 
 template <typename IT, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int T, int S, int H, int KV, float scale, int causal, int window,
-           int q_offset, cudaStream_t st) {
+           int T, int S, int H, int KV, int hd, float scale, int causal,
+           int window, int q_offset, cudaStream_t st) {
   auto kernel = flash_fwd_kernel<IT, HD>;
   // raised once per instantiation; a failure is kept and returned by
   // every later launch
@@ -288,39 +316,42 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((T + QB - 1) / QB, H, B);
   kernel<<<grid, kThreads, Layout<HD>::bytes, st>>>(
       static_cast<const IT*>(q), static_cast<const IT*>(k),
-      static_cast<const IT*>(v), static_cast<IT*>(out), T, S, H, KV, scale,
-      causal, window, q_offset);
+      static_cast<const IT*>(v), static_cast<IT*>(out), T, S, H, KV, hd,
+      scale, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
 
+// the smallest instantiated tile width HD >= hd
 template <typename IT>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 void* out, int B, int T, int S, int H, int KV, float scale,
                 int causal, int window, int q_offset, cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch<IT, 16>(q, k, v, out, B, T, S, H, KV, scale,
-                                   causal, window, q_offset, st);
-    case 32: return launch<IT, 32>(q, k, v, out, B, T, S, H, KV, scale,
-                                   causal, window, q_offset, st);
-    case 64: return launch<IT, 64>(q, k, v, out, B, T, S, H, KV, scale,
-                                   causal, window, q_offset, st);
-    case 128: return launch<IT, 128>(q, k, v, out, B, T, S, H, KV, scale,
-                                     causal, window, q_offset, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_HD(W)                                                          \
+  if (hd <= W)                                                               \
+  return launch<IT, W>(q, k, v, out, B, T, S, H, KV, hd, scale, causal,      \
+                       window, q_offset, st)
+  FLASH_HD(16);
+  FLASH_HD(32);
+  FLASH_HD(64);
+  FLASH_HD(96);
+  FLASH_HD(112);
+  FLASH_HD(128);
+  FLASH_HD(256);
+#undef FLASH_HD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q [B,T,H,hd], k and v [B,S,KV,hd], out [B,T,H,hd], all contiguous and of
-// one type: fp32 (bf16 = 0) or bf16 (bf16 = 1). hd in {16, 32, 64, 128};
-// H a multiple of KV. Returns the CUDA error of the launch (0 on success).
+// one type: fp32 (bf16 = 0) or bf16 (bf16 = 1). 1 <= hd <= 256; H a
+// multiple of KV. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int T, int S, int H, int KV,
                                int hd, float scale, int causal, int window,
                                int q_offset, int bf16, void* stream) {
   if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0 || H > 65535 ||
-      B > 65535 || q_offset < 0 || window < 0)
+      B > 65535 || q_offset < 0 || window < 0 || hd < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)

@@ -36,7 +36,7 @@ from repro_torch.kernels import _build
 from repro_torch.models.common import make_causal_mask
 
 NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
+MAX_HEAD_DIM = 256     # the widest tile the kernel is built for
 
 
 def visible_mask(T: int, S: int, *, causal: bool = True, window: int = 0,
@@ -96,8 +96,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """q [B,T,H,hd]; k, v [B,S,KV,hd], all fp32 or all bf16 (hd in
-    HEAD_DIMS, H a multiple of KV). Returns [B,T,H,hd] in q's type."""
+    """q [B,T,H,hd]; k, v [B,S,KV,hd], all fp32 or all bf16 (hd <=
+    MAX_HEAD_DIM, H a multiple of KV). Returns [B,T,H,hd] in q's type."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_offset=q_offset)
@@ -108,7 +108,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S, KV = k.shape[1], k.shape[2]
     _require(k.shape[0] == B and k.shape[3] == hd and KV > 0 and H % KV == 0,
              f"q heads {H}x{hd} do not fit k/v KV={KV} hd={k.shape[3]}")
-    _require(hd in HEAD_DIMS, f"hd={hd}: the kernel takes {HEAD_DIMS}")
+    _require(1 <= hd <= MAX_HEAD_DIM,
+             f"hd={hd}: the kernel takes hd <= {MAX_HEAD_DIM}")
     _require(T > 0 and S > 0, "empty q or k")
     _require(q_offset >= 0 and window >= 0,
              f"q_offset {q_offset} and window {window} must be >= 0")

@@ -9,7 +9,9 @@ replaces, what bounds it and what its design does about that.
     valid prefix ``idx <= pos``, read straight from the block-paged cache
     through the page table: no dense ``[B, M*bs, ...]`` view is built.
     Pages with id 0 (the trash block) and pages wholly past ``pos`` are
-    skipped; a row whose table is all zeros returns exact zeros.
+    skipped; a row whose table is all zeros returns exact zeros. Any group
+    (H / KV) and head_dim; the kernel splits each row's tokens at fixed
+    token indices (`split_span`) and merges the splits in a fixed order.
   * `paged_flash_decode_mla` — weight-absorbed MLA decode over the
     compressed cache: each valid ckv page block is rms-normed in fp32 with
     ``(1 + kv_norm)``; the score is ``(q_abs . ckv_n + q_rope . kr) *
@@ -22,7 +24,8 @@ replaces, what bounds it and what its design does about that.
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises. `<wrapper>.launches` counts
-kernel launches (never plain calls).
+the calls that launched (never plain calls; the GQA decode's split and
+merge kernels count once).
 """
 from __future__ import annotations
 
@@ -37,10 +40,7 @@ from repro_torch.kernels import _build
 
 NEG = -1e30
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
-_MAX_SMEM = 48 * 1024
-# launch geometry of csrc/paged_attention.cu (kMaxGroup, kDecodeWarps)
-_MAX_GROUP = 8
-_DECODE_WARPS = 8
+SPLIT_TOKENS = 64      # a decode split spans about this many tokens
 # limits of csrc/mla_attention.cu (kMaxR, kMaxDr, kMaxBs)
 _MLA_MAX_R, _MLA_MAX_DR, _MLA_MAX_BS = 512, 64, 32
 
@@ -131,8 +131,8 @@ def paged_write_token_plain(leaf: torch.Tensor, tables: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.paged_flash_decode_gqa.argtypes = [vp] * 6 + [ci] * 6 + [
-        ctypes.c_float, ci, ci, vp]
+    lib.paged_flash_decode_gqa.argtypes = [vp] * 8 + [ci] * 6 + [
+        ctypes.c_float] + [ci] * 3 + [vp]
     lib.paged_flash_decode_gqa.restype = ci
     lib.paged_write_token.argtypes = [vp] * 4 + [ci] * 3 + [
         ctypes.c_int64, ci, ci, vp]
@@ -175,13 +175,26 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def split_span(bs: int) -> int:
+    """Tokens per decode split: whole pages, about SPLIT_TOKENS of them.
+    Split s of a row covers tokens [s * span, (s + 1) * span), so where a
+    split starts and ends depends on the block size and the token index
+    only, never on the table's width."""
+    return bs * max(1, SPLIT_TOKENS // bs)
+
+
 def paged_flash_decode_gqa(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, tables: torch.Tensor,
                            positions: torch.Tensor, *,
                            scale: Optional[float] = None) -> torch.Tensor:
     """q [B,1,H,hd]; k/v_pages [N+1, bs, KV, hd]; tables [B, M] int32
     (0 = unmapped); positions [B] int32. Returns [B,1,H,hd] in q's type.
-    q and the pages may each be float32 or bfloat16."""
+    q and the pages may each be float32 or bfloat16; any H a multiple of
+    KV. A row's tokens are cut into splits of `split_span(bs)` tokens,
+    whose partials a second launch merges in a fixed order; the kernel
+    plans the rest of the launch itself and refuses (RuntimeError) a shape
+    it cannot take: more than 4,096 splits in a table, or a head_dim so
+    wide that one 32-token stage of one head overflows shared memory."""
     if not q.is_cuda:
         return paged_flash_decode_gqa_plain(q, k_pages, v_pages, tables,
                                             positions, scale=scale)
@@ -190,7 +203,7 @@ def paged_flash_decode_gqa(q: torch.Tensor, k_pages: torch.Tensor,
     _require(k_pages.dim() == 4 and v_pages.shape == k_pages.shape,
              "k/v pages must both be [N+1, bs, KV, hd]")
     _, bs, KV, hd_k = k_pages.shape
-    _require(hd_k == hd and H % KV == 0,
+    _require(hd_k == hd and KV > 0 and H % KV == 0,
              f"q heads {H}x{hd} do not fit pages KV={KV} hd={hd_k}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         _require(t.device == q.device, f"{name} must be on {q.device}")
@@ -198,20 +211,26 @@ def paged_flash_decode_gqa(q: torch.Tensor, k_pages: torch.Tensor,
         _require(t.is_contiguous(), f"{name} must be contiguous")
     _require(k_pages.dtype == v_pages.dtype, "k/v pages differ in type")
     _check_index(tables, positions, B, q.device)
+    M = tables.shape[1]
+    _require(M >= 1, "tables must have at least one column")
     group = H // KV
-    _require(group <= _MAX_GROUP,
-             f"{group} query heads per KV head; the kernel takes <= {_MAX_GROUP}")
-    smem = 4 * group * (hd * (1 + _DECODE_WARPS) + 2 * _DECODE_WARPS)
-    _require(smem <= _MAX_SMEM, f"group*hd too large for shared memory "
-                                f"({smem} bytes)")
+    span = split_span(bs)
+    n_split = -(-M * bs // span)
     scale = scale or 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
+    ws_acc = ws_ml = None
+    if n_split > 1:
+        ws_acc = torch.empty((B, KV, n_split, group, hd),
+                             dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((B, KV, n_split, group, 2),
+                            dtype=torch.float32, device=q.device)
     err = _lib().paged_flash_decode_gqa(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        B, tables.shape[1], bs, KV, group, hd, float(scale),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
-        _stream(q.device))
+        None if ws_acc is None else ws_acc.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(),
+        B, M, bs, KV, group, hd, float(scale), span, _bf16(q),
+        _bf16(k_pages), _stream(q.device))
     if err:
         raise RuntimeError(f"paged_flash_decode_gqa launch failed: CUDA "
                            f"error {err}")

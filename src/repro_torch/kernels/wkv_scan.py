@@ -12,8 +12,9 @@ re-exports them. Per (batch, head) stream, with an fp32 [K, V] state:
     mode="mamba": y_t = q_t^T S_t                              (Mamba2 / SSD)
 
   * `wkv_scan` — the CUDA kernel `csrc/wkv_scan.cu` on CUDA tensors (one
-    CTA per stream walks the tokens in order with the state on chip), the
-    plain version on CPU tensors. `out` takes the final state in place.
+    CTA per stream and block of value columns walks the tokens in order
+    with the state on chip; K <= 512, any V), the plain version on CPU
+    tensors. `out` takes the final state in place.
   * `wkv_scan_plain` — the JAX package's own algorithms, chosen by the
     JAX RWKV block's rule: `linear_attention_chunked` when `chunk` divides
     T, else `linear_attention_scan`.
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_DIM = 128          # largest K and V the kernel takes
+MAX_K = 512            # largest K the kernel takes (any V)
 MODES = ("rwkv", "mamba")
 
 
@@ -196,8 +197,8 @@ def wkv_scan(q, k, v, logw, u, state0, *, mode: str = "rwkv",
     _require(v.shape == (B, T, H, V), f"v must be [B,T,H,V], got "
                                       f"{tuple(v.shape)}")
     _require(B >= 1 and T >= 1 and H >= 1, f"empty input {tuple(q.shape)}")
-    _require(1 <= K <= MAX_DIM and 1 <= V <= MAX_DIM,
-             f"the kernel takes K, V <= {MAX_DIM}, got K {K}, V {V}")
+    _require(1 <= K <= MAX_K and V >= 1,
+             f"the kernel takes K <= {MAX_K}, got K {K}, V {V}")
     _require(logw.dim() == 4 and logw.shape[-1] in (1, K),
              f"logw must be [..., K] or [..., 1], got {tuple(logw.shape)}")
     _require(state0.shape == (B, H, K, V), f"state0 must be [B,H,K,V], got "

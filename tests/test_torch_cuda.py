@@ -29,9 +29,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(cuda, B, H, KV, hd, bs, q_dtype, kv_dtype, seed=0):
+def _case(cuda, B, H, KV, hd, bs, q_dtype, kv_dtype, seed=0, max_pos=None):
+    """Decode inputs: ragged positions below `max_pos` (8 blocks by
+    default), disjoint shuffled pages per row, the last row all trash."""
     rng = np.random.default_rng(seed)
-    pos = rng.integers(0, 8 * bs, size=B)
+    max_pos = max_pos or 8 * bs
+    pos = rng.integers(max(0, max_pos - 8 * bs * 4), max_pos, size=B)
     n_map = [math.ceil((int(p) + 1) / bs) for p in pos]
     n_map[-1] = 0                               # one all-trash row
     M = max(n_map)
@@ -50,15 +53,31 @@ def _case(cuda, B, H, KV, hd, bs, q_dtype, kv_dtype, seed=0):
             torch.from_numpy(pos.astype(np.int32)).to(cuda))
 
 
-@pytest.mark.parametrize("shape", [(4, 4, 2, 16, 4), (8, 16, 8, 128, 16)],
-                         ids=["reduced", "full-width"])
-@pytest.mark.parametrize("q_dtype,kv_dtype", [
+DECODE_SHAPES = {   # (B, H, KV, hd, bs, positions below)
+    "reduced": (4, 4, 2, 16, 4, None),
+    "full-width": (8, 16, 8, 128, 16, None),
+    "llama3-405b": (8, 128, 8, 128, 16, 300),      # group 16
+    "kimi-hd112": (8, 64, 8, 112, 16, 300),
+    "mha": (8, 20, 20, 128, 16, 300),              # qwen1.5-4b, group 1
+    "odd-hd": (4, 6, 2, 50, 5, 200),               # scalar load path
+    "wide-hd": (2, 4, 2, 640, 16, 100),            # two column blocks
+    "long-cache": (8, 16, 8, 128, 16, 4096),
+    "mqa-group128": (2, 128, 1, 128, 16, 300),     # 8 head chunks
+}
+DECODE_TYPES = [
     (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
-    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES.values()),
+                         ids=list(DECODE_SHAPES))
+@pytest.mark.parametrize("q_dtype,kv_dtype", DECODE_TYPES)
 def test_decode_kernel_matches_plain(cuda, shape, q_dtype, kv_dtype):
     """atol 1e-4 for fp32 output (both accumulate in fp32, in different
     orders); 2e-2 for a bf16 output (one bf16 rounding of the result)."""
-    q, kp, vp, tables, pos = _case(cuda, *shape, q_dtype, kv_dtype)
+    *shape, max_pos = shape
+    q, kp, vp, tables, pos = _case(cuda, *shape, q_dtype, kv_dtype,
+                                   max_pos=max_pos)
     n = pa.paged_flash_decode_gqa.launches
     out = pa.paged_flash_decode_gqa(q, kp, vp, tables, pos)
     ref = pa.paged_flash_decode_gqa_plain(q, kp, vp, tables, pos)
@@ -67,6 +86,20 @@ def test_decode_kernel_matches_plain(cuda, shape, q_dtype, kv_dtype):
     atol = 1e-4 if q_dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
     assert out[-1].abs().max() == 0
+
+
+@pytest.mark.parametrize("shape", ["full-width", "llama3-405b", "odd-hd",
+                                   "long-cache"])
+def test_decode_kernel_two_calls_bit_equal(cuda, shape):
+    """The splits' partials are merged in split order, with no atomics:
+    two calls on the same inputs give the same bits."""
+    *shape, max_pos = DECODE_SHAPES[shape]
+    q, kp, vp, tables, pos = _case(cuda, *shape, torch.float32,
+                                   torch.bfloat16, max_pos=max_pos)
+    first = pa.paged_flash_decode_gqa(q, kp, vp, tables, pos)
+    second = pa.paged_flash_decode_gqa(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_decode_kernel_exact_under_active_prefix_slice(cuda):
@@ -81,6 +114,47 @@ def test_decode_kernel_exact_under_active_prefix_slice(cuda):
                                     pos)
     torch.cuda.synchronize()
     torch.testing.assert_close(cut, full, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("max_pos,width", [(300, 32), (300, 64), (700, 64)])
+def test_decode_kernel_exact_when_the_cut_changes_the_split_count(
+        cuda, max_pos, width):
+    """Rows of 3 to 10 active splits, in a table cut to the active prefix
+    and in one widened to `width` blocks, whose launch has 8 or 16 splits:
+    the same bits. The merge sums a row's splits in an order set by
+    the row's own active splits, never by the launch's split count."""
+    q, kp, vp, tables, pos = _case(cuda, 8, 16, 8, 128, 16, torch.float32,
+                                   torch.bfloat16, max_pos=max_pos)
+    need = int((pos.max() // 16) + 1)
+    assert need * 16 > 2 * pa.split_span(16) and width > need
+    wide = torch.zeros((8, width), dtype=torch.int32, device=cuda)
+    wide[:, :tables.shape[1]] = tables
+    cut = pa.paged_flash_decode_gqa(q, kp, vp, wide[:, :need].contiguous(),
+                                    pos)
+    full = pa.paged_flash_decode_gqa(q, kp, vp, wide, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cut, full, atol=0, rtol=0)
+
+
+def test_decode_wrapper_raises_on_a_shape_the_kernel_refuses(cuda):
+    """The kernel plans its own launch and refuses, launching nothing, a
+    head_dim whose one-head 32-token stage overflows shared memory and a
+    table of more than 4,096 splits; the wrapper raises, never falls
+    back."""
+    n = pa.paged_flash_decode_gqa.launches
+    q = torch.zeros((1, 1, 1, 2048), device=cuda)
+    kp = torch.zeros((2, 16, 1, 2048), device=cuda)
+    one = torch.ones((1, 4), dtype=torch.int32, device=cuda)
+    pos = torch.full((1,), 10, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pa.paged_flash_decode_gqa(q, kp, kp, one, pos)
+    q = torch.zeros((1, 1, 2, 128), device=cuda)
+    kp = torch.zeros((2, 64, 1, 128), device=cuda, dtype=torch.bfloat16)
+    wide = torch.zeros((1, 5000), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pa.paged_flash_decode_gqa(q, kp, kp, wide, pos)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode_gqa.launches == n
 
 
 @pytest.mark.parametrize("leaf_dtype", [torch.bfloat16, torch.float32])
@@ -310,8 +384,12 @@ def test_deferral_wrapper_raises_on_refused_launch(cuda, monkeypatch):
     (8, 128, 288, 16, 8, 128, 48, 0),
     (8, 128, 288, 16, 8, 128, 128, 0),
     (2, 100, 100, 4, 2, 128, 0, 24),
+    (2, 70, 90, 4, 2, 96, 20, 0),
+    (2, 65, 200, 8, 2, 112, 128, 0),
+    (1, 70, 90, 4, 4, 256, 0, 0),
+    (1, 33, 40, 2, 1, 50, 0, 0),
 ], ids=["tiny", "offset", "tail-offset", "full-0", "full-48", "full-128",
-        "window"])
+        "window", "hd96", "hd112", "hd256", "hd50"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, T, S, H, KV, hd, off, win,
                                     dtype):
@@ -348,9 +426,9 @@ def test_flash_kernel_non_causal_and_blind_rows(cuda):
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(cuda):
-    q = torch.zeros((1, 4, 2, 48), device=cuda)
+    q = torch.zeros((1, 4, 2, 320), device=cuda)
     n = fa.flash_attention.launches
-    with pytest.raises(ValueError, match="hd=48"):
+    with pytest.raises(ValueError, match="hd=320"):
         fa.flash_attention(q, q, q)
     q = torch.zeros((1, 4, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="one type"):
@@ -413,8 +491,10 @@ def _wkv_case(cuda, B, T, H, K, V, scalar, seed=0):
 @pytest.mark.parametrize("T", [1, 97, 128])
 @pytest.mark.parametrize("mode,H,K,V", [
     ("rwkv", 40, 64, 64), ("rwkv", 4, 32, 32), ("rwkv", 3, 128, 96),
-    ("mamba", 64, 64, 64), ("mamba", 2, 16, 8)],
-    ids=["rwkv6-3b", "rwkv-reduced", "rwkv-widest", "zamba2", "mamba-small"])
+    ("mamba", 64, 64, 64), ("mamba", 2, 16, 8), ("rwkv", 2, 256, 256),
+    ("mamba", 2, 256, 256), ("rwkv", 1, 200, 300), ("mamba", 1, 512, 40)],
+    ids=["rwkv6-3b", "rwkv-reduced", "rwkv-widest", "zamba2", "mamba-small",
+         "rwkv-256", "mamba-256", "rwkv-v-blocks", "mamba-k512"])
 def test_wkv_kernel_matches_plain(cuda, mode, H, K, V, T):
     """y and the final state within atol = rtol = 5e-4 of the plain version
     (as tests/test_kernels.py holds the TPU kernel), the state written in
@@ -434,10 +514,10 @@ def test_wkv_kernel_matches_plain(cuda, mode, H, K, V, T):
 def test_wkv_wrapper_raises_instead_of_falling_back(cuda):
     q, k, v, logw, u, s0 = _wkv_case(cuda, 2, 5, 2, 16, 16, False)
     n = wk.wkv_scan.launches
-    big = torch.zeros((2, 5, 2, 160), device=cuda)
-    with pytest.raises(ValueError, match="K, V <= 128"):
-        wk.wkv_scan(big, big, v, big, torch.zeros((2, 160), device=cuda),
-                    torch.zeros((2, 2, 160, 16), device=cuda))
+    big = torch.zeros((2, 5, 2, 600), device=cuda)
+    with pytest.raises(ValueError, match="K <= 512"):
+        wk.wkv_scan(big, big, v, big, torch.zeros((2, 600), device=cuda),
+                    torch.zeros((2, 2, 600, 16), device=cuda))
     with pytest.raises(ValueError, match="u"):
         wk.wkv_scan(q, k, v, logw, None, s0, mode="rwkv")
     with pytest.raises(ValueError, match="out"):

@@ -52,7 +52,10 @@ def _plain(q, k, v, **kw):
     (1, 21, 21, 4, 4, 32, True, 6),        # sliding window
     (2, 19, 19, 8, 2, 16, False, 0),       # bidirectional
     (1, 11, 11, 2, 1, 16, False, 5),       # MQA, window without causality
-], ids=["gqa-causal", "window", "bidirectional", "mqa-window"])
+    (1, 13, 13, 4, 2, 96, True, 0),        # phi-3-vision's head_dim
+    (1, 11, 11, 2, 1, 112, True, 0),       # kimi-k2's head_dim
+], ids=["gqa-causal", "window", "bidirectional", "mqa-window", "hd96",
+        "hd112"])
 def test_plain_matches_jax_kernel_and_ref(B, T, S, H, KV, hd, causal, win):
     q, k, v = _qkv(B * T + H, B, T, S, H, KV, hd)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))

@@ -64,6 +64,51 @@ def test_plain_decode_skips_unmapped_pages_inside_prefix():
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("H,KV,hd", [(32, 2, 112), (4, 4, 32), (6, 2, 50)],
+                         ids=["group16-hd112", "mha", "group3-hd50"])
+def test_plain_decode_matches_jax_kernel_at_any_group_and_hd(H, KV, hd):
+    """The shapes the CUDA kernel no longer refuses: llama3-405b's group
+    16 at kimi-k2's head_dim 112, group 1 (qwen1.5's MHA) and an odd
+    head_dim. atol 1e-5: fp32 softmax on both sides, in different
+    orders."""
+    rng = np.random.default_rng(H * 1000 + hd)
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    kp, vp = (rng.standard_normal((N, BS, KV, hd)).astype(np.float32)
+              for _ in range(2))
+    ref = np.asarray(jops.paged_flash_decode_gqa(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(TABLES), jnp.asarray(POS), interpret=True))
+    out = tpa.paged_flash_decode_gqa_plain(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(TABLES), torch.from_numpy(POS)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(out[3], np.zeros_like(out[3]))
+
+
+@pytest.mark.parametrize("bs", [1, 4, 5, 16, 48, 128])
+def test_decode_split_plan_depends_on_position_and_block_only(bs):
+    """The kernel's split s of a row covers tokens [s*span, (s+1)*span)
+    below n_tok = min(M*bs, pos+1). For every table at least as wide as
+    the row's active prefix, the spans a row uses are the same. The merge
+    sums them in an order set by their count alone, so cutting the table
+    to the active prefix leaves the output's bits as they were
+    (test_torch_cuda.py holds the kernel to that on the card)."""
+    def row_splits(pos, M):
+        span = tpa.split_span(bs)
+        n_tok = min(M * bs, pos + 1)
+        return [(s * span, min((s + 1) * span, n_tok))
+                for s in range(-(-n_tok // span))]
+
+    span = tpa.split_span(bs)
+    assert span % bs == 0 and (span <= tpa.SPLIT_TOKENS or span == bs)
+    for pos in (0, bs - 1, 63, 64, 200, 1000, 4095):
+        need = pos // bs + 1
+        want = row_splits(pos, need)
+        assert want[0][0] == 0 and want[-1][1] == pos + 1
+        for M in (need + 1, 2 * need, need + 300):
+            assert row_splits(pos, M) == want
+
+
 @pytest.mark.parametrize("rest,leaf_dtype", [
     ((KV, HD), "float32"),
     ((7,), "float32"),                    # MLA-shaped leaf

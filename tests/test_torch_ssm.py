@@ -88,6 +88,22 @@ def test_wkv_mamba_matches_jax_kernel(dim, T):
     _close(ts, js, KERNEL_TOL, KERNEL_TOL)
 
 
+@pytest.mark.parametrize("T", [1, 64])
+@pytest.mark.parametrize("mode", ["rwkv", "mamba"])
+def test_wkv_matches_jax_kernel_at_k_v_256(mode, T):
+    """K = V = 256, past the CUDA kernel's old 128 limit, both modes
+    (mamba with the scalar decay broadcast over K for the JAX kernel)."""
+    scalar = mode == "mamba"
+    q, k, v, logw, u, s0 = _kernel_inputs(256 + T, 1, T, 2, 256,
+                                          scalar=scalar)
+    jq, jk, jv, jlw, ju, js0 = _j((q, k, v, logw, u, s0))
+    jy, js = j_wkv_scan(jq, jk, jv, jnp.broadcast_to(jlw, jq.shape), ju, js0,
+                        chunk=32, interpret=True, mode=mode)
+    ty, ts = wk.wkv_scan(*_t((q, k, v, logw, u, s0)), mode=mode)
+    _close(ty, jy, KERNEL_TOL, KERNEL_TOL)
+    _close(ts, js, KERNEL_TOL, KERNEL_TOL)
+
+
 def test_wkv_takes_bf16_inputs_and_writes_out_in_place():
     q, k, v, logw, u, s0 = _t(_kernel_inputs(5, 2, 33, 3, 16))
     ref_y, ref_s = wk.wkv_scan_plain(q, k, v, logw, u, s0, mode="rwkv")
