@@ -29,8 +29,10 @@ non-zero:
   3d. The prefill kernel `flash_attention` against its plain version at
      the full-width internlm2-1.8b prefill chunk (8 rows, 128 queries,
      16/8 heads of 128, a 288-position view, q_offset 0, 48 and 128), bf16
-     and all fp32, plus a reduced sliding-window case; timed beside its
-     operations bound and SDPA with the same boolean mask. Then the head
+     (the tensor-core kernel) and all fp32 (the SIMT kernel), two calls
+     bit-equal, plus a reduced sliding-window case; timed beside its bound
+     and SDPA with the same boolean mask, and the two kernels' times side
+     by side at each q_offset. Then the head
      dims past the old instantiations at the same chunk: phi-3-vision's 96
      (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows.
   3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
@@ -537,17 +539,19 @@ def check_deferral_kernel(torch, de, smi) -> dict:
 
 def check_flash_kernel(torch, fa, smi) -> dict:
     """flash_attention against its plain version at the full-width
-    internlm2-1.8b prefill chunk, bf16 (the main path's type) and fp32,
-    at q_offset 0, 48 and 128; times kernel, plain version and SDPA with
-    the same mask (bf16). The bound counts bf16 products at the tensor
-    cores' bf16 rate (exact in fp32 accumulation), fp32 ones at the SIMT
-    rate. Returns the record at q_offset 128 in bf16."""
+    internlm2-1.8b prefill chunk, bf16 (the main path's type, the
+    tensor-core kernel) and fp32 (the SIMT kernel), at q_offset 0, 48 and
+    128, each twice and bit-equal; times kernel, plain version and SDPA
+    with the same mask (bf16). The bound counts bf16 products at the
+    tensor cores' bf16 rate (exact in fp32 accumulation), fp32 ones at the
+    SIMT rate. Returns the record at q_offset 128 in bf16."""
     B, T, H, KV, hd = N_SLOTS, CHUNK, 16, 8, 128
     S = math.ceil((RAGGED[1] + MAX_NEW) / BLOCK) * BLOCK     # 288
     g = torch.Generator(device=DEV).manual_seed(SEED + 11)
     base = [torch.randn(shape, generator=g, device=DEV) for shape in
             ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
     rec = None
+    kernel_ms = {}
     for name, dtype, rtol, rate in (
             ("bf16", torch.bfloat16, FLASH_BF16_RTOL, H100_BF16_FLOPS),
             ("fp32", torch.float32, 0.0, H100_FP32_FLOPS)):
@@ -555,6 +559,7 @@ def check_flash_kernel(torch, fa, smi) -> dict:
         tol = f"atol {FLASH_ATOL}" + (f" + {rtol:.3g}|ref|" if rtol else "")
         for off in (0, 48, 128):
             out = fa.flash_attention(q, k, v, causal=True, q_offset=off)
+            again = fa.flash_attention(q, k, v, causal=True, q_offset=off)
             ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=off)
             torch.cuda.synchronize()
             diff = (out.float() - ref.float()).abs()
@@ -566,8 +571,12 @@ def check_flash_kernel(torch, fa, smi) -> dict:
                     and share <= 1.0):
                 raise AssertionError(f"flash_attention {name} q_offset {off}:"
                                      f" max|err| {err}, {share:.3g} of {tol}")
+            if not torch.equal(out, again):     # no atomics, fixed sum orders
+                raise AssertionError(f"flash_attention {name} q_offset {off}:"
+                                     f" two calls differ")
             ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
                                                     q_offset=off))
+            kernel_ms[name, off] = ms
             plain_ms = time_ms(lambda: fa.flash_attention_plain(
                 q, k, v, causal=True, q_offset=off), iters=5)
             mask = fa.visible_mask(T, S, q_offset=off, device=DEV)
@@ -606,6 +615,13 @@ def check_flash_kernel(torch, fa, smi) -> dict:
                     rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=lib_ms, q_offset=off)
+    # the two kernels side by side: bf16 on the tensor cores, fp32 on the
+    # SIMT cores
+    for off, r in rec["by_q_offset"].items():
+        r["fp32_ms"] = kernel_ms["fp32", off]
+        print(f"[kernel] flash_attention q_offset {off}: bf16 (tensor cores) "
+              f"{kernel_ms['bf16', off]:.4f} ms, fp32 (SIMT) "
+              f"{kernel_ms['fp32', off]:.4f} ms on {smi}")
     # reduced sliding-window case (the kernel's option; no main path uses it)
     q, k, v = (torch.randn((2, 100, n, 128), generator=g, device=DEV)
                for n in (4, 2, 2))
@@ -1578,7 +1594,8 @@ def main() -> int:
           f" in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
                 print(f"[build] {line.strip()}")
 
     rng = np.random.default_rng(SEED)

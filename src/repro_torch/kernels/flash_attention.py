@@ -1,12 +1,18 @@
 """Flash attention for prefill: CUDA launch wrapper and plain version.
 
 Counterpart of `repro.kernels.flash_attention.flash_attention` (Pallas,
-TPU). The kernel is CUDA C++ for Hopper in `csrc/flash_attention.cu`;
-its source note says what bounds it and what its design does about that.
+TPU). The kernels are CUDA C++ for Hopper in `csrc/flash_attention.cu`,
+one C entry point that picks by the inputs' type: bf16 inputs (the
+serving path) run on the tensor cores (`mma.sync` with fp32 accumulation,
+P @ V as two bf16 products of P's high and low halves, so P keeps 16 bits
+and the result the fp32 reference's tolerance), fp32 inputs on the SIMT
+cores. Its source note says what bounds each and what the design does
+about that.
 
   * `flash_attention` — causal (optionally sliding-window) GQA attention,
     q [B,T,H,hd] over k, v [B,S,KV,hd] (kv head = q head // (H / KV)),
-    fp32 scores, online softmax and P @ V; the output has q's type. Query
+    fp32 scores and online softmax, P @ V accumulated in fp32 (P split
+    into bf16 hi + lo for bf16 inputs); the output has q's type. Query
     t sits at position ``q_offset + t``: key s is visible when s < S and,
     if causal, s <= q_offset + t, and, with ``window`` w > 0,
     s > q_offset + t - w. With q_offset = 0 this is the TPU kernel's

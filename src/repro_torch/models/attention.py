@@ -30,9 +30,11 @@ cache, the gathered paged view, and, when autograd records nothing, the
 cacheless in-sequence branch; training keeps `_attend`, since the kernel
 has no backward. `paged_kernel` picks the path; None defers to
 `kernels.ops.paged_kernel_enabled` (on exactly for CUDA tensors). The
-kernel path keeps the probabilities in fp32 where `_attend` rounds them to
-v's type before P @ V, so with bf16 activations the two paths differ by
-about one bf16 rounding. MLA prefill stays plain: its value width (128)
+kernel path keeps the probabilities at fp32 precision in effect (for bf16
+inputs its tensor-core P @ V takes P as two bf16 halves, hi + lo, 16 bits
+in all) where `_attend` rounds them to v's type before P @ V, so with bf16
+activations the two paths differ by about one bf16 rounding. MLA prefill
+stays plain: its value width (128)
 differs from its query/key width (192), and the kernel takes one head
 width.
 """

@@ -411,6 +411,50 @@ def test_flash_kernel_matches_plain(cuda, B, T, S, H, KV, hd, off, win,
                                rtol=rtol)
 
 
+def _flash_inputs(cuda, B, T, S, H, KV, hd, dtype, q_scale=1.0, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, T, H, hd), generator=g, device=cuda) * q_scale
+    k = torch.randn((B, S, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, S, KV, hd), generator=g, device=cuda)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,off,q_scale,dtype", [
+    (8, 128, 288, 16, 8, 128, 128, 8.0, torch.bfloat16),
+    (8, 128, 288, 16, 8, 128, 128, 0.0, torch.bfloat16),
+    (2, 77, 131, 4, 2, 128, 54, 1.0, torch.bfloat16),
+    (2, 77, 131, 4, 2, 128, 54, 1.0, torch.float32),
+    (2, 128, 288, 128, 8, 128, 48, 1.0, torch.bfloat16),
+    (2, 128, 288, 128, 8, 128, 48, 1.0, torch.float32),
+], ids=["peaked-bf16", "flat-bf16", "tile-edges-bf16", "tile-edges-fp32",
+        "llama3-405b-group16-bf16", "llama3-405b-group16-fp32"])
+def test_flash_kernel_matches_plain_on_hard_inputs(cuda, B, T, S, H, KV, hd,
+                                                   off, q_scale, dtype):
+    """The tolerance of test_flash_kernel_matches_plain on inputs that
+    stress the bf16 kernel: a peaked softmax (q scaled by 8, P near
+    one-hot, so P's low bf16 half carries the difference from 1) and a
+    flat one (q = 0), T and S that no 16- or 64-wide tile divides, and
+    llama3-405b's group 16."""
+    q, k, v = _flash_inputs(cuda, B, T, S, H, KV, hd, dtype, q_scale)
+    n = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=off)
+    ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 1 and out.dtype == dtype
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_two_calls_bit_equal(cuda, dtype):
+    """No atomics and fixed sum orders: the main chunk twice, same bits."""
+    q, k, v = _flash_inputs(cuda, 8, 128, 288, 16, 8, 128, dtype, seed=5)
+    first = fa.flash_attention(q, k, v, causal=True, q_offset=128)
+    second = fa.flash_attention(q, k, v, causal=True, q_offset=128)
+    assert torch.equal(first, second)
+
+
 def test_flash_kernel_non_causal_and_blind_rows(cuda):
     """Bidirectional attention, and queries past the keys under a window:
     rows that see no key are exact zeros."""
@@ -422,6 +466,21 @@ def test_flash_kernel_non_causal_and_blind_rows(cuda):
         ref = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert out[0, 5:].abs().max() == 0 and out[0, :5].abs().max() > 0
+
+
+def test_flash_bf16_kernel_non_causal_and_blind_rows(cuda):
+    """The same two masks through the bf16 tensor-core kernel, to the bf16
+    tolerance: a row that sees nothing adds exactly 0 (its p is zeroed
+    though exp(s - m) = 1 while m = -1e30)."""
+    q, k, v = _flash_inputs(cuda, 1, 40, 30, 2, 1, 32, torch.bfloat16,
+                            seed=3)
+    for kw in (dict(causal=False), dict(causal=True, window=4, q_offset=28)):
+        out = fa.flash_attention(q, k, v, **kw)
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
+                                   rtol=2 ** -7)
     assert out[0, 5:].abs().max() == 0 and out[0, :5].abs().max() > 0
 
 
