@@ -37,11 +37,17 @@ non-zero:
      (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows.
   3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
      algorithms) in both modes: "rwkv" at the full-width rwkv6-3b decode
-     step (8 rows, T 1, 40 heads, K = V = 64) and prefill (T 128 and the
-     prime T 97), "mamba" at zamba2-1.2b's shape (64 heads, scalar decay
-     [B,T,H,1], T 128), and K = V = 256 in both modes (8 heads, T 128),
-     atol = rtol = 5e-4, the state written in place; timed beside its bytes
-     bound (no PyTorch call computes the recurrence, so no library time).
+     step (8 rows, T 1, 40 heads, K = V = 64; the per-token kernel) and
+     prefill (the chunked kernels: T 128, the prime T 97, one row of 256
+     tokens, RWKV6's strong decays down to -20 a token; T 2, 16 and 32
+     about the paths' crossover at 32), "mamba" at zamba2-1.2b's shape (64
+     heads, scalar decay [B,T,H,1], T 128), and K = V = 256 in both modes
+     (8 heads, T 128), atol = rtol = 5e-4, the state written in place; at
+     T > 1 two calls bit-equal and the other path (`wkv_scan_path`)
+     checked and timed beside the one T picks; timed beside its bytes
+     bound (no PyTorch call computes the recurrence, so no library time),
+     and the main prefill case's device time split by kernel of the
+     chunked path (torch.profiler).
   4. The first main path: a full-width internlm2-1.8b M_S -> M_L cascade
      on the paged backend with the kernels on, through `build_ladder`,
      `ContinuousCascadeEngine.calibrate` and `.run`, with the launch
@@ -76,9 +82,11 @@ non-zero:
      activations held tight, the config's bf16 layer-0 residual under a
      stated guard), a profiled decode step with its signal, then
      `calibrate` and `.run` with the counters reset just before and
-     checked just after (`wkv_scan` once per layer of every prefill group
-     and decode step of either model, `deferral_entropy` once per such
-     step). Freed before phase 5.
+     checked just after, per path: the chunked `wkv_scan` once per layer
+     of every prefill (each M_S prefill group, the calibration's prefill,
+     each M_L batch's), the per-token one once per layer of every decode
+     step of either model, `deferral_entropy` once per such step). Freed
+     before phase 5.
   5. The reduced fp32 fixtures of the three architectures (rwkv6-3b on
      the slot backend), every kernel of the path switched together by the
      engine's `paged_kernel`, at a calibrated tau: identical deferral
@@ -108,6 +116,7 @@ when no CUDA device is present or the repository's sources are missing.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -172,14 +181,25 @@ RWKV_ARCH = "rwkv6-3b"
 WKV_ATOL = WKV_RTOL = 5e-4  # as tests/test_kernels.py holds the TPU kernel:
                         # fp32 sequential recurrence against the chunked
                         # algebra's exp(cum_t - cum_s) sums
-# (label, mode, B, T, H, K, scalar decay): rwkv6-3b's decode step and
-# prefill (a prime T too), zamba2-1.2b's Mamba2 shape
-WKV_CASES = (("rwkv decode", "rwkv", N_SLOTS, 1, 40, 64, False),
-             ("rwkv prefill", "rwkv", N_SLOTS, CHUNK, 40, 64, False),
-             ("rwkv prefill, prime T", "rwkv", N_SLOTS, 97, 40, 64, False),
-             ("mamba (zamba2)", "mamba", N_SLOTS, CHUNK, 64, 64, True),
-             ("rwkv K=V=256", "rwkv", N_SLOTS, CHUNK, 8, 256, False),
-             ("mamba K=V=256", "mamba", N_SLOTS, CHUNK, 8, 256, True))
+# (label, mode, B, T, H, K, scalar decay, strong decay): rwkv6-3b's decode
+# step and prefill (a prime T, short segments about the paths' crossover at
+# wkv_scan.CHUNKED_MIN_T, one row of the longest prompt, RWKV6's strong
+# decays down to -20 a token), zamba2-1.2b's Mamba2 shape, K = V = 256 in
+# both modes
+WKV_CASES = (
+    ("rwkv decode", "rwkv", N_SLOTS, 1, 40, 64, False, False),
+    ("rwkv prefill", "rwkv", N_SLOTS, CHUNK, 40, 64, False, False),
+    ("rwkv prefill, prime T", "rwkv", N_SLOTS, 97, 40, 64, False, False),
+    ("rwkv prefill, T 2", "rwkv", N_SLOTS, 2, 40, 64, False, False),
+    ("rwkv prefill, T 16", "rwkv", N_SLOTS, 16, 40, 64, False, False),
+    ("rwkv prefill, T 32", "rwkv", N_SLOTS, 32, 40, 64, False, False),
+    ("rwkv prefill, one row", "rwkv", 1, RAGGED[1], 40, 64, False, False),
+    ("rwkv prefill, strong decay", "rwkv", N_SLOTS, CHUNK, 40, 64, False,
+     True),
+    ("mamba (zamba2)", "mamba", N_SLOTS, CHUNK, 64, 64, True, False),
+    ("rwkv K=V=256", "rwkv", N_SLOTS, CHUNK, 8, 256, False, False),
+    ("mamba K=V=256", "mamba", N_SLOTS, CHUNK, 8, 256, True, False))
+WKV_PROFILE_CALLS = 10  # calls of the main prefill case under the profiler
 RWKV_PROMPT = CHUNK     # the one-step check's prompt length
 RWKV_LOGIT_GUARD = 1.0  # the same checks in the config's own types: the
                         # residual stream is bf16 in layer 0 only, where a
@@ -666,18 +686,19 @@ def check_flash_kernel(torch, fa, smi) -> dict:
     return rec
 
 
-def wkv_case(torch, mode, B, T, H, K, scalar, seed):
+def wkv_case(torch, mode, B, T, H, K, scalar, strong, seed):
     """Inputs of one `wkv_scan` call as the block gives them (fp32, decay
-    logw in [-1, -0.05]), in enough copies to exceed twice the L2: between
-    two visits of one layer's state the main path streams the other
-    layers' weights through it."""
+    logw in [-1, -0.05], or -exp(U(-3, 3)) when `strong`), in enough
+    copies to exceed twice the L2: between two visits of one layer's state
+    the main path streams the other layers' weights through it."""
     g = torch.Generator(device=DEV).manual_seed(seed)
 
     def one():
         q, k, v = (0.5 * torch.randn((B, T, H, K), generator=g, device=DEV)
                    for _ in range(3))
-        lw = -(0.05 + 0.95 * torch.rand((B, T, H, 1 if scalar else K),
-                                        generator=g, device=DEV))
+        r = torch.rand((B, T, H, 1 if scalar else K), generator=g,
+                       device=DEV)
+        lw = -torch.exp(6 * r - 3) if strong else -(0.05 + 0.95 * r)
         s0 = 0.2 * torch.randn((B, H, K, K), generator=g, device=DEV)
         return q, k, v, lw, s0
     first = one()
@@ -688,40 +709,70 @@ def wkv_case(torch, mode, B, T, H, K, scalar, seed):
     return copies, u
 
 
+def wkv_share(y, st, y_ref, s_ref):
+    """(max |err|, largest share of atol + rtol |ref|) over y and state."""
+    pairs = ((y, y_ref), (st, s_ref))
+    return (max(float((a - b).abs().max()) for a, b in pairs),
+            max(float(((a - b).abs() / (WKV_ATOL + WKV_RTOL * b.abs()))
+                      .max()) for a, b in pairs))
+
+
 def check_wkv_kernel(torch, wk, smi) -> dict:
     """wkv_scan against its plain version (the JAX algorithms: chunked
     when 32 divides T, else the per-step scan) in both modes at the main
     path's shapes and zamba2's; times kernel and plain version beside the
     bytes / operations bound (no single PyTorch call computes the
     recurrence, so no library time). The state goes to `out` in place, as
-    the model's layers write their cache. Returns the record at the
-    rwkv6-3b decode shape (the decode steps' call)."""
-    rec = None
-    for i, (label, mode, B, T, H, K, scalar) in enumerate(WKV_CASES):
-        copies, u = wkv_case(torch, mode, B, T, H, K, scalar, SEED + 20 + i)
+    the model's layers write their cache. The path T picks must have run;
+    at T > 1 two calls must give the same bits, and the other path
+    (`wkv_scan_path`) is checked and timed beside it. Returns the records
+    of the two paths: "wkv_scan" (the per-token kernel) at the rwkv6-3b
+    decode shape and "wkv_scan_chunked" at its prefill."""
+    recs = {}
+    for i, (label, mode, B, T, H, K, scalar, strong) in enumerate(WKV_CASES):
+        copies, u = wkv_case(torch, mode, B, T, H, K, scalar, strong,
+                             SEED + 20 + i)
         q, k, v, lw, s0 = copies[0]
+        chunked = T >= wk.CHUNKED_MIN_T
+        n_chunked = wk.wkv_scan.launches_chunked
         out = torch.empty_like(s0)
         y, st = wk.wkv_scan(q, k, v, lw, u, s0, mode=mode, out=out)
+        ran_chunked = wk.wkv_scan.launches_chunked - n_chunked
         y_ref, s_ref = wk.wkv_scan_plain(q, k, v, lw, u, s0, mode=mode)
         torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in ((y, y_ref),
-                                                          (st, s_ref)))
-        share = max(float(((a - b).abs() / (WKV_ATOL + WKV_RTOL * b.abs()))
-                          .max()) for a, b in ((y, y_ref), (st, s_ref)))
-        if not (st.data_ptr() == out.data_ptr() and share <= 1.0
-                and torch.isfinite(y).all() and torch.isfinite(st).all()):
-            raise AssertionError(f"wkv_scan {label}: max|err| {err}, "
-                                 f"{share:.3g} of atol {WKV_ATOL} + rtol "
-                                 f"{WKV_RTOL}")
+        err, share = wkv_share(y, st, y_ref, s_ref)
+        ok = (st.data_ptr() == out.data_ptr() and share <= 1.0
+              and ran_chunked == int(chunked)
+              and torch.isfinite(y).all() and torch.isfinite(st).all())
+        other_share = None
+        if T > 1:
+            y2, st2 = wk.wkv_scan(q, k, v, lw, u, s0, mode=mode)
+            yo, sto = wk.wkv_scan_path(q, k, v, lw, u, s0,
+                                       chunked=not chunked, mode=mode)
+            torch.cuda.synchronize()
+            other_share = wkv_share(yo, sto, y_ref, s_ref)[1]
+            ok = (ok and torch.equal(y, y2) and torch.equal(st, st2)
+                  and other_share <= 1.0)
+        if not ok:
+            raise AssertionError(
+                f"wkv_scan {label}: max|err| {err}, {share:.3g} of atol "
+                f"{WKV_ATOL} + rtol {WKV_RTOL} (other path {other_share}), "
+                f"chunked launches {ran_chunked} for T {T}, or two calls "
+                f"differ")
         rot = Rotation(copies)
 
         def kernel():
             q_, k_, v_, lw_, s_ = rot()
             wk.wkv_scan(q_, k_, v_, lw_, u, s_, mode=mode, out=s_)
+        def other():
+            q_, k_, v_, lw_, s_ = rot()
+            wk.wkv_scan_path(q_, k_, v_, lw_, u, s_, chunked=not chunked,
+                             mode=mode, out=s_)
         def plain():
             q_, k_, v_, lw_, s_ = rot()
             wk.wkv_scan_plain(q_, k_, v_, lw_, u, s_, mode=mode)
         ms = time_ms(kernel)
+        other_ms = time_ms(other) if T > 1 else None
         plain_ms = time_ms(plain, iters=5)
         n_bytes = (sum(t.numel() * 4 for t in (q, k, v, lw, s0)) + y.numel()
                    * 4 + st.numel() * 4 + (u.numel() * 4 if mode == "rwkv"
@@ -730,27 +781,54 @@ def check_wkv_kernel(torch, wk, smi) -> dict:
         # the bonus's third)
         flops = B * T * H * K * K * (6 if mode == "rwkv" else 4)
         bound_ms, bound_by = bound(n_bytes, flops)
+        path, other_path = (("chunked", "per-token") if chunked
+                            else ("per-token", "chunked"))
         print(f"[kernel] wkv_scan {label} ({mode}, B {B} T {T} H {H} K=V "
-              f"{K}, logw [..., {1 if scalar else K}]): max|err| {err:.3g},"
-              f" at most {share:.3g} of (atol {WKV_ATOL} + rtol "
-              f"{WKV_RTOL}|ref|), state in place; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-              f"{n_bytes} B, {flops} fp32 flop; {len(copies)} input copies);"
-              f" library — (no single PyTorch call computes the "
-              f"recurrence) on {smi}")
-        if rec is None:
-            rec = dict(name="wkv_scan", route="cuda",
-                       source="src/repro_torch/kernels/csrc/wkv_scan.cu",
-                       replaces="src/repro/kernels/wkv_scan.py:83",
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                       shape=[B, T, H, K])
-        rec.setdefault("by_case", {})[label] = dict(
-            mode=mode, shape=[B, T, H, K], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+              f"{K}, logw [..., {1 if scalar else K}]"
+              + (", strong decay" if strong else "")
+              + f"): {path} path, max|err| {err:.3g}, at most {share:.3g} "
+              f"of (atol {WKV_ATOL} + rtol {WKV_RTOL}|ref|), state in place"
+              + (f", two calls bit-equal, {other_path} path at most "
+                 f"{other_share:.3g}" if T > 1 else "")
+              + f"; kernel {ms:.4f} ms"
+              + (f" ({other_path} path {other_ms:.4f} ms, "
+                 f"{other_ms / ms:.2f}x)" if T > 1 else "")
+              + f", plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {n_bytes} B, {flops} fp32 flop; {len(copies)} "
+              f"input copies); library — (no single PyTorch call computes "
+              f"the recurrence) on {smi}")
+        name = "wkv_scan_chunked" if chunked else "wkv_scan"
+        if chunked and name not in recs:
+            # the main prefill case's device time by kernel of the path
+            def calls():
+                for _ in range(WKV_PROFILE_CALLS):
+                    kernel()
+                torch.cuda.synchronize()
+            ranked = profile_steps(torch, calls, WKV_PROFILE_CALLS)[2]
+            by_kernel = {re.search(r"wkv_chunk_(\w+?)_kernel", n).group(1):
+                         round(t, 5) for n, t in ranked if "wkv_chunk_" in n}
+            print(f"[kernel] wkv_scan {label}, chunked path by kernel "
+                  f"(torch.profiler, {WKV_PROFILE_CALLS} calls): "
+                  + ", ".join(f"{k} {t:.4f} ms" for k, t in by_kernel.items())
+                  + f" on {smi}")
+        case = dict(mode=mode, shape=[B, T, H, K], path=path, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    max_abs_err=err)
+        if T > 1:
+            case[f"{other_path}_ms"] = other_ms
+        if name not in recs:
+            recs[name] = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/wkv_scan.cu",
+                replaces="src/repro/kernels/wkv_scan.py:83",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, shape=[B, T, H, K])
+            if chunked:
+                recs[name]["by_kernel_ms"] = by_kernel
+        recs[name].setdefault("by_case", {})[label] = case
         del copies, y, st, y_ref, s_ref
     torch.cuda.empty_cache()
-    return rec
+    return recs
 
 
 def describe_ladder(torch, small, large, t_init: float) -> None:
@@ -850,30 +928,38 @@ def report_profile(torch, tfm, small, rng, smi) -> None:
 
 KERNELS = ("paged_flash_decode_gqa", "paged_flash_decode_mla",
            "paged_write_token", "deferral_entropy", "flash_attention",
-           "wkv_scan")
+           "wkv_scan", "wkv_scan_chunked")
 
 
-def launch_counters():
-    """{kernel name: its wrapper}, each wrapper carrying `.launches`."""
+def _wrappers() -> list:
+    """The kernel wrappers, each carrying `.launches`."""
     from repro_torch.kernels import deferral_entropy as de
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import wkv_scan as wk
-    return {"paged_flash_decode_gqa": pa.paged_flash_decode_gqa,
-            "paged_flash_decode_mla": pa.paged_flash_decode_mla,
-            "paged_write_token": pa.paged_write_token,
-            "deferral_entropy": de.deferral_entropy,
-            "flash_attention": fa.flash_attention,
-            "wkv_scan": wk.wkv_scan}
+    return [pa.paged_flash_decode_gqa, pa.paged_flash_decode_mla,
+            pa.paged_write_token, de.deferral_entropy, fa.flash_attention,
+            wk.wkv_scan]
 
 
 def reset_counts() -> None:
-    for fn in launch_counters().values():
+    for fn in _wrappers():
         fn.launches = 0
+    _wrappers()[-1].launches_chunked = 0
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in launch_counters().items()}
+    """{kernel name: launches since the last reset}; `wkv_scan`'s two
+    paths apart: "wkv_scan" the per-token kernel (T = 1, decode),
+    "wkv_scan_chunked" the chunked kernels (T >= 2, prefill)."""
+    gqa, mla, write, de, fa, wk = _wrappers()
+    return {"paged_flash_decode_gqa": gqa.launches,
+            "paged_flash_decode_mla": mla.launches,
+            "paged_write_token": write.launches,
+            "deferral_entropy": de.launches,
+            "flash_attention": fa.launches,
+            "wkv_scan": wk.launches - wk.launches_chunked,
+            "wkv_scan_chunked": wk.launches_chunked}
 
 
 def flash_layers(cfg) -> int:
@@ -1131,6 +1217,7 @@ def reduced_fixture(torch, serve, arch) -> None:
     tau = float(0.5 * (conf[3] + conf[4]))
     for kernel in (False, True):
         runs[kernel], counts[kernel] = run(kernel, tau)
+    # prompts of 4-24 tokens: every prefill below wkv_scan's chunked path
     used = ["deferral_entropy"] + (["wkv_scan"] if backend == "slot" else [])
     if any(counts[False].values()) or not all(counts[True][k] for k in used):
         raise AssertionError(f"reduced {arch}: kernel switch leaked: "
@@ -1296,12 +1383,19 @@ def serve_rwkv_main_path(torch, small, large, smi) -> dict:
         raise AssertionError("rwkv: malformed serving result")
     L, LL = cfg.n_layers, large.cfg.n_layers
     want = dict.fromkeys(KERNELS, 0)
-    want["wkv_scan"] = L * (MAX_NEW + res.steps + seeds) + LL * MAX_NEW * n_ml
+    # a generate call prefills once (its prompt, T >= CHUNKED_MIN_T:
+    # chunked) and decodes max_new - 1 steps (T = 1); the engine prefills
+    # each group and decodes its steps
+    want["wkv_scan_chunked"] = L * (1 + seeds) + LL * n_ml
+    want["wkv_scan"] = (L * (MAX_NEW - 1 + res.steps)
+                        + LL * (MAX_NEW - 1) * n_ml)
     want["deferral_entropy"] = MAX_NEW + res.steps + seeds + MAX_NEW * n_ml
-    print(f"[rwkv] kernel launches {launches}, expected {want} (wkv_scan "
-          f"{L} x ({MAX_NEW} calibration + {res.steps} steps + {seeds} "
-          f"prefill groups) + {LL} x {MAX_NEW} x {n_ml} M_L batches; "
-          f"deferral_entropy once per each of those steps and groups)")
+    print(f"[rwkv] kernel launches {launches}, expected {want} "
+          f"(wkv_scan_chunked {L} x (1 calibration prefill + {seeds} "
+          f"prefill groups) + {LL} x {n_ml} M_L prefills; wkv_scan {L} x "
+          f"({MAX_NEW - 1} calibration steps + {res.steps} steps) + {LL} x "
+          f"{MAX_NEW - 1} x {n_ml} M_L steps; deferral_entropy once per "
+          f"each of those steps and groups)")
     if launches != want or res.steps == 0:
         raise AssertionError(f"rwkv launch counts {launches} != {want}")
     return launches
@@ -1646,7 +1740,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         # -- 3e. the RWKV / Mamba2 recurrence against its plain version -----
         phase("3e", t_start)
-        records["wkv_scan"] = check_wkv_kernel(torch, wk, smi)
+        records.update(check_wkv_kernel(torch, wk, smi))
 
         from repro_torch.configs import get_config
         from repro_torch.launch import serve

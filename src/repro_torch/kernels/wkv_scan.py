@@ -11,17 +11,26 @@ re-exports them. Per (batch, head) stream, with an fp32 [K, V] state:
     mode="rwkv":  y_t = q_t^T (S_{t-1} + diag(u) k_t v_t^T)   (RWKV6)
     mode="mamba": y_t = q_t^T S_t                              (Mamba2 / SSD)
 
-  * `wkv_scan` — the CUDA kernel `csrc/wkv_scan.cu` on CUDA tensors (one
-    CTA per stream and block of value columns walks the tokens in order
-    with the state on chip; K <= 512, any V), the plain version on CPU
-    tensors. `out` takes the final state in place.
+  * `wkv_scan` — the CUDA kernels of `csrc/wkv_scan.cu` on CUDA tensors,
+    the plain version on CPU tensors; K <= 512, any V; `out` takes the
+    final state in place. T alone picks the kernel: T < CHUNKED_MIN_T
+    (decode, T = 1, and short segments) runs the per-token kernel (one CTA
+    per stream and block of value columns walks the tokens with the state
+    on chip), longer T (prefill) the chunk-parallel kernels (chunk
+    states, their carry, then the outputs, with the matrix products on
+    the tensor cores as three-product TF32 splits), over a workspace this
+    wrapper allocates.
+  * `wkv_scan_path` — either of those paths at any T, CUDA only: the two
+    are timed and checked side by side with it.
   * `wkv_scan_plain` — the JAX package's own algorithms, chosen by the
     JAX RWKV block's rule: `linear_attention_chunked` when `chunk` divides
     T, else `linear_attention_scan`.
 
 The wrapper takes the plain version only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises, on any shape it refuses too.
-`wkv_scan.launches` counts kernel launches (never plain calls).
+tensor it launches a kernel or raises, on any shape it refuses too.
+`wkv_scan.launches` counts calls that launched (never plain calls), one
+per call whichever path ran; `wkv_scan.launches_chunked` counts those that
+took the chunked path (the rest took the per-token kernel).
 """
 from __future__ import annotations
 
@@ -34,6 +43,10 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_K = 512            # largest K the kernel takes (any V)
+CHUNKED_MIN_T = 32     # T from which wkv_scan takes the chunked kernels
+                       # (csrc kChunkedMinT: the two paths meet near it)
+CHUNK, SUB_CHUNK = 64, 16   # the chunked kernels' tokens per chunk and
+                            # per diagonal block (csrc/wkv_scan.cu)
 MODES = ("rwkv", "mamba")
 
 
@@ -164,8 +177,10 @@ def wkv_scan_plain(q, k, v, logw, u, state0, *, mode: str = "rwkv",
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wkv_scan")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wkv_scan.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+    lib.wkv_scan.argtypes = [vp] * 10 + [ci] * 7 + [vp]
     lib.wkv_scan.restype = ci
+    lib.wkv_scan_path.argtypes = [vp] * 10 + [ci] * 8 + [vp]
+    lib.wkv_scan_path.restype = ci
     return lib
 
 
@@ -178,17 +193,11 @@ def _fp32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def wkv_scan(q, k, v, logw, u, state0, *, mode: str = "rwkv",
-             out: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k [B,T,H,K]; v [B,T,H,V]; logw [B,T,H,K] or [B,T,H,1] (a scalar
-    decay per head), or broadcastable to one of them; u [H,K] (ignored
-    for mode="mamba"); state0 [B,H,K,V]. Any float input type. Returns
-    fp32 (y [B,T,H,V], final state [B,H,K,V]); the state is written into
-    `out` when given (fp32, contiguous, [B,H,K,V]; may be `state0`)."""
+def _kernel_args(q, k, v, logw, u, state0, mode, out):
+    """Checks a CUDA call's shapes; returns the kernels' fp32 contiguous
+    operands (q, k, v, logw, u or None, s0, y, out) and (B, T, H, K, V,
+    scalar decay, rwkv)."""
     _require(mode in MODES, f"mode must be one of {MODES}, got {mode!r}")
-    if not q.is_cuda:
-        return wkv_scan_plain(q, k, v, logw, u, state0, mode=mode, out=out)
     _require(q.dim() == 4 and k.shape == q.shape,
              f"q, k must be [B,T,H,K], got {tuple(q.shape)}, "
              f"{tuple(k.shape)}")
@@ -213,25 +222,83 @@ def wkv_scan(q, k, v, logw, u, state0, *, mode: str = "rwkv",
     _require(all(t.device == dev for t in tensors),
              "every input must lie on q's CUDA device")
     scalar = logw.shape[-1] == 1
-    qf, kf, vf = _fp32(q), _fp32(k), _fp32(v)
-    lw = _fp32(logw.expand(B, T, H, 1 if scalar else K))
-    uf = _fp32(u) if rwkv else None
-    s0 = _fp32(state0)
     if out is None:
         out = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
     _require(out.shape == (B, H, K, V) and out.dtype == torch.float32
              and out.is_contiguous() and out.device == dev,
              "out must be a contiguous fp32 [B,H,K,V] tensor on q's device")
     y = torch.empty((B, T, H, V), dtype=torch.float32, device=dev)
-    err = _lib().wkv_scan(
-        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), lw.data_ptr(),
-        uf.data_ptr() if rwkv else None, s0.data_ptr(), y.data_ptr(),
-        out.data_ptr(), B, T, H, K, V, int(scalar), int(rwkv),
-        torch.cuda.current_stream(dev).cuda_stream)
+    ops = (_fp32(q), _fp32(k), _fp32(v),
+           _fp32(logw.expand(B, T, H, 1 if scalar else K)),
+           _fp32(u) if rwkv else None, _fp32(state0), y, out)
+    return ops, (B, T, H, K, V, int(scalar), int(rwkv))
+
+
+def _workspace(dims, device):
+    """The chunked path's workspace: each chunk's state (then its starting
+    state) [B,H,NC,K,V] and in-chunk decay sums [B,H,NC,CHUNK,Kw]."""
+    B, T, H, K, V, scalar, _ = dims
+    nc = -(-T // CHUNK)
+    return (torch.empty((B, H, nc, K, V), dtype=torch.float32, device=device),
+            torch.empty((B, H, nc, CHUNK, 1 if scalar else K),
+                        dtype=torch.float32, device=device))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, name: str) -> None:
     if err:
-        raise RuntimeError(f"wkv_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def wkv_scan(q, k, v, logw, u, state0, *, mode: str = "rwkv",
+             out: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k [B,T,H,K]; v [B,T,H,V]; logw [B,T,H,K] or [B,T,H,1] (a scalar
+    decay per head), or broadcastable to one of them; u [H,K] (ignored
+    for mode="mamba"); state0 [B,H,K,V]. Any float input type. Returns
+    fp32 (y [B,T,H,V], final state [B,H,K,V]); the state is written into
+    `out` when given (fp32, contiguous, [B,H,K,V]; may be `state0`)."""
+    _require(mode in MODES, f"mode must be one of {MODES}, got {mode!r}")
+    if not q.is_cuda:
+        return wkv_scan_plain(q, k, v, logw, u, state0, mode=mode, out=out)
+    ops, dims = _kernel_args(q, k, v, logw, u, state0, mode, out)
+    chunked = dims[1] >= CHUNKED_MIN_T
+    ws, wc = _workspace(dims, q.device) if chunked else (None, None)
+    *ins, y, out = ops
+    err = _lib().wkv_scan(
+        *(_ptr(t) for t in ins), y.data_ptr(), out.data_ptr(), _ptr(ws),
+        _ptr(wc), *dims, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "wkv_scan")
     wkv_scan.launches += 1
+    wkv_scan.launches_chunked += chunked
     return y, out
 
 
 wkv_scan.launches = 0
+wkv_scan.launches_chunked = 0
+
+
+def wkv_scan_path(q, k, v, logw, u, state0, *, chunked: bool,
+                  mode: str = "rwkv", out: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One of `wkv_scan`'s kernel paths, the chunked one or the per-token
+    one, at any T, on CUDA tensors only, with `wkv_scan`'s arguments and
+    results: the two paths are timed and checked side by side with it.
+    Counts its own launches, never `wkv_scan`'s."""
+    _require(q.is_cuda, "wkv_scan_path runs on CUDA tensors only")
+    ops, dims = _kernel_args(q, k, v, logw, u, state0, mode, out)
+    ws, wc = _workspace(dims, q.device) if chunked else (None, None)
+    *ins, y, out = ops
+    err = _lib().wkv_scan_path(
+        *(_ptr(t) for t in ins), y.data_ptr(), out.data_ptr(), _ptr(ws),
+        _ptr(wc), *dims, int(chunked),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "wkv_scan_path")
+    wkv_scan_path.launches += 1
+    return y, out
+
+
+wkv_scan_path.launches = 0

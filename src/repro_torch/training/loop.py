@@ -2,9 +2,9 @@
 fine-tuning (the paper's two-stage recipe, §3.2) on full logits.
 
 Counterpart of `repro.training.loop.make_train_step` and `train`. The
-``"static_partition"`` loss needs `core/baselines.py` and the classifier
-evaluation needs `models/classifier.py`; neither is ported yet
-(ROADMAP.md).
+``"static_partition"`` loss is ported (`core.baselines`) but not wired
+into these loops, and the classifier evaluation needs
+`models/classifier.py`; neither is ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -33,9 +33,12 @@ def make_loss_fn(apply_fn: Callable, loss_kind: str = "ce",
     holds "inputs", "targets" and optionally "loss_mask". loss_kind:
     "ce" (Stage 1) or "gatekeeper" (Stage 2)."""
     if loss_kind == "static_partition":
-        raise NotImplementedError("loss_kind='static_partition' needs "
-                                  "core/baselines.py, not ported yet (see "
-                                  "ROADMAP.md)")
+        raise NotImplementedError(
+            "loss_kind='static_partition': its loss is ported "
+            "(core.baselines.static_partition_loss), but the training "
+            "wiring of the JAX package's training/loop.py:49-52 (the "
+            "batch's easy_mask, alpha from the Gatekeeper config) is not "
+            "ported yet (see ROADMAP.md)")
     if loss_kind not in ("ce", "gatekeeper"):
         raise ValueError(loss_kind)
 

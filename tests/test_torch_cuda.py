@@ -535,19 +535,27 @@ def test_engine_switch_covers_signal_and_prefill_kernels(cuda, monkeypatch):
 # wkv_scan (the RWKV6 / Mamba2 recurrence)
 # ---------------------------------------------------------------------------
 
-def _wkv_case(cuda, B, T, H, K, V, scalar, seed=0):
+def _wkv_case(cuda, B, T, H, K, V, scalar, seed=0, strong=False):
+    """logw in [-1, -0.05], or -exp(U(-3, 3)) when `strong` (RWKV6's
+    strongly decaying channels, down to -20 a token)."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     q, k = (0.5 * torch.randn((B, T, H, K), generator=g, device=cuda)
             for _ in range(2))
     v = 0.5 * torch.randn((B, T, H, V), generator=g, device=cuda)
-    logw = -(0.05 + 0.95 * torch.rand((B, T, H, 1 if scalar else K),
-                                      generator=g, device=cuda))
+    r = torch.rand((B, T, H, 1 if scalar else K), generator=g, device=cuda)
+    logw = -torch.exp(6 * r - 3) if strong else -(0.05 + 0.95 * r)
     u = 0.3 * torch.randn((H, K), generator=g, device=cuda)
     s0 = 0.2 * torch.randn((B, H, K, V), generator=g, device=cuda)
     return q, k, v, logw, u, s0
 
 
-@pytest.mark.parametrize("T", [1, 97, 128])
+def _wkv_close(y, st, ref_y, ref_s):
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, ref_y, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(st, ref_s, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("T", [1, 2, 16, 17, 97, 128, 256])
 @pytest.mark.parametrize("mode,H,K,V", [
     ("rwkv", 40, 64, 64), ("rwkv", 4, 32, 32), ("rwkv", 3, 128, 96),
     ("mamba", 64, 64, 64), ("mamba", 2, 16, 8), ("rwkv", 2, 256, 256),
@@ -557,17 +565,75 @@ def _wkv_case(cuda, B, T, H, K, V, scalar, seed=0):
 def test_wkv_kernel_matches_plain(cuda, mode, H, K, V, T):
     """y and the final state within atol = rtol = 5e-4 of the plain version
     (as tests/test_kernels.py holds the TPU kernel), the state written in
-    place into `out`; the Mamba2 cases take the scalar decay [B,T,H,1]."""
+    place into `out`, which is `state0`; the Mamba2 cases take the scalar
+    decay [B,T,H,1]. T below `CHUNKED_MIN_T` (T 1, 2, 16, 17) runs the
+    per-token kernel, longer T the chunked one (whose last chunk is
+    partial at T 97)."""
     scalar = mode == "mamba"
     q, k, v, logw, u, s0 = _wkv_case(cuda, 2, T, H, K, V, scalar)
     ref_y, ref_s = wk.wkv_scan_plain(q, k, v, logw, u, s0, mode=mode)
     out = s0.clone()
-    n = wk.wkv_scan.launches
+    n, n_chunked = wk.wkv_scan.launches, wk.wkv_scan.launches_chunked
     y, st = wk.wkv_scan(q, k, v, logw, u, out, mode=mode, out=out)
     torch.cuda.synchronize()
     assert wk.wkv_scan.launches == n + 1 and st.data_ptr() == out.data_ptr()
-    torch.testing.assert_close(y, ref_y, atol=5e-4, rtol=5e-4)
-    torch.testing.assert_close(st, ref_s, atol=5e-4, rtol=5e-4)
+    assert (wk.wkv_scan.launches_chunked - n_chunked
+            == int(T >= wk.CHUNKED_MIN_T))
+    _wkv_close(y, st, ref_y, ref_s)
+
+
+@pytest.mark.parametrize("T", [1, 2, 16, 17, 33, 65])
+@pytest.mark.parametrize("mode,H,K,V", [
+    ("rwkv", 40, 64, 64), ("mamba", 2, 16, 8), ("rwkv", 1, 200, 300)],
+    ids=["rwkv6-3b", "mamba-small", "rwkv-v-blocks"])
+def test_wkv_both_paths_match_plain_at_any_T(cuda, mode, H, K, V, T):
+    """`wkv_scan_path` runs each kernel path at T on either side of the
+    threshold, partial chunks included: both within 5e-4 of the plain
+    version, and neither counted as a `wkv_scan` launch."""
+    scalar = mode == "mamba"
+    q, k, v, logw, u, s0 = _wkv_case(cuda, 2, T, H, K, V, scalar, seed=T)
+    ref_y, ref_s = wk.wkv_scan_plain(q, k, v, logw, u, s0, mode=mode)
+    n = wk.wkv_scan.launches
+    for chunked in (False, True):
+        y, st = wk.wkv_scan_path(q, k, v, logw, u, s0, chunked=chunked,
+                                 mode=mode)
+        torch.cuda.synchronize()
+        _wkv_close(y, st, ref_y, ref_s)
+    assert wk.wkv_scan.launches == n
+
+
+@pytest.mark.parametrize("case", [
+    ("one-row", "rwkv", 1, 256, 40, 64, 64, False, False),
+    ("strong-decay", "rwkv", 2, 128, 8, 64, 64, False, True),
+    ("strong-decay-prime-T", "rwkv", 2, 97, 8, 64, 64, False, True),
+    ("strong-decay-mamba", "mamba", 2, 256, 8, 64, 64, True, True),
+    ("mamba-per-channel", "mamba", 2, 130, 4, 48, 20, False, False),
+    ("rwkv-scalar-decay", "rwkv", 2, 70, 4, 64, 64, True, False),
+    ("odd-widths", "rwkv", 2, 65, 3, 6, 5, False, False)],
+    ids=lambda c: c[0])
+def test_wkv_chunked_kernel_on_hard_inputs(cuda, case):
+    """The chunked path at one row of the longest main-path prompt, under
+    RWKV6's strong decays, with the decay form the models do not use in
+    each mode, and at widths no 16-byte copy takes (4-byte copies): within
+    5e-4 of the plain version, every output finite, two calls bit-equal,
+    the state in place; the per-token kernel agrees within the same
+    tolerance."""
+    _, mode, B, T, H, K, V, scalar, strong = case
+    q, k, v, logw, u, s0 = _wkv_case(cuda, B, T, H, K, V, scalar,
+                                     strong=strong)
+    ref_y, ref_s = wk.wkv_scan_plain(q, k, v, logw, u, s0, mode=mode)
+    out = s0.clone()
+    n = wk.wkv_scan.launches_chunked
+    y, st = wk.wkv_scan(q, k, v, logw, u, out, mode=mode, out=out)
+    y2, st2 = wk.wkv_scan(q, k, v, logw, u, s0, mode=mode)
+    ys, sts = wk.wkv_scan_path(q, k, v, logw, u, s0, chunked=False,
+                               mode=mode)
+    torch.cuda.synchronize()
+    assert wk.wkv_scan.launches_chunked == n + 2
+    assert st.data_ptr() == out.data_ptr()
+    _wkv_close(y, st, ref_y, ref_s)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    _wkv_close(ys, sts, ref_y, ref_s)
 
 
 def test_wkv_wrapper_raises_instead_of_falling_back(cuda):
