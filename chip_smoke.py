@@ -1,6 +1,12 @@
 """Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
     python3 chip_smoke.py          # from the root of a repository checkout
+    python3 chip_smoke.py --kernels 3c,3e [--src DIR]
+
+The second form runs only the named kernel phases (after phases 1 and 2)
+and prints their records with no contract line; `--src` builds and checks
+the `repro_torch` under another source directory (an unpacked parent
+commit, say), so two trees are timed by the same checks in one call.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -24,8 +30,9 @@ non-zero:
      rwkv6-3b, 8 x 65536 fp32 logits) and the evaluation's (2048 x
      92544), with a row of equal
      logits, a row with an exact top tie and a vocabulary tail no span
-     divides; timed beside its bytes bound (no single PyTorch call
-     computes the triple, so no library time).
+     divides, two calls bit-equal; timed beside its bytes bound (no
+     single PyTorch call computes the triple, so no library time), and
+     by kernel under torch.profiler.
   3d. The prefill kernel `flash_attention` against its plain version at
      the full-width internlm2-1.8b prefill chunk (8 rows, 128 queries,
      16/8 heads of 128, a 288-position view, q_offset 0, 48 and 128), bf16
@@ -37,17 +44,19 @@ non-zero:
      (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows.
   3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
      algorithms) in both modes: "rwkv" at the full-width rwkv6-3b decode
-     step (8 rows, T 1, 40 heads, K = V = 64; the per-token kernel) and
-     prefill (the chunked kernels: T 128, the prime T 97, one row of 256
-     tokens, RWKV6's strong decays down to -20 a token; T 2, 16 and 32
-     about the paths' crossover at 32), "mamba" at zamba2-1.2b's shape (64
-     heads, scalar decay [B,T,H,1], T 128), and K = V = 256 in both modes
-     (8 heads, T 128), atol = rtol = 5e-4, the state written in place; at
-     T > 1 two calls bit-equal and the other path (`wkv_scan_path`)
+     step (8 rows, T 1, 40 heads, K = V = 64; the per-token kernel),
+     "mamba" at zamba2-1.2b's decode step (64 heads, scalar decay, T 1),
+     "rwkv" at rwkv6-3b's prefill (the chunked kernels: T 128, the prime
+     T 97, one row of 256 tokens, RWKV6's strong decays down to -20 a
+     token; T 2, 16, 32, 48 and 64 about the paths' crossover), "mamba" at
+     zamba2-1.2b's prefill (64 heads, scalar decay [B,T,H,1], T 128), and
+     K = V = 256 in both modes
+     (8 heads, T 128), atol = rtol = 5e-4, the state written in place,
+     two calls bit-equal; at T > 1 the other path (`wkv_scan_path`)
      checked and timed beside the one T picks; timed beside its bytes
      bound (no PyTorch call computes the recurrence, so no library time),
-     and the main prefill case's device time split by kernel of the
-     chunked path (torch.profiler).
+     and each path's first case's device time split by kernel
+     (torch.profiler).
   4. The first main path: a full-width internlm2-1.8b M_S -> M_L cascade
      on the paged backend with the kernels on, through `build_ladder`,
      `ContinuousCascadeEngine.calibrate` and `.run`, with the launch
@@ -114,6 +123,7 @@ The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is present or the repository's sources are missing.
 """
+import argparse
 import json
 import math
 import re
@@ -181,25 +191,28 @@ RWKV_ARCH = "rwkv6-3b"
 WKV_ATOL = WKV_RTOL = 5e-4  # as tests/test_kernels.py holds the TPU kernel:
                         # fp32 sequential recurrence against the chunked
                         # algebra's exp(cum_t - cum_s) sums
-# (label, mode, B, T, H, K, scalar decay, strong decay): rwkv6-3b's decode
-# step and prefill (a prime T, short segments about the paths' crossover at
-# wkv_scan.CHUNKED_MIN_T, one row of the longest prompt, RWKV6's strong
-# decays down to -20 a token), zamba2-1.2b's Mamba2 shape, K = V = 256 in
-# both modes
+# (label, mode, B, T, H, K, scalar decay, strong decay): rwkv6-3b's and
+# zamba2-1.2b's decode steps, rwkv6-3b's prefill (a prime T, short
+# segments about the paths' crossover at wkv_scan.CHUNKED_MIN_T, one row of
+# the longest prompt, RWKV6's strong decays down to -20 a token),
+# zamba2-1.2b's Mamba2 prefill, K = V = 256 in both modes
 WKV_CASES = (
     ("rwkv decode", "rwkv", N_SLOTS, 1, 40, 64, False, False),
+    ("mamba decode (zamba2)", "mamba", N_SLOTS, 1, 64, 64, True, False),
     ("rwkv prefill", "rwkv", N_SLOTS, CHUNK, 40, 64, False, False),
     ("rwkv prefill, prime T", "rwkv", N_SLOTS, 97, 40, 64, False, False),
     ("rwkv prefill, T 2", "rwkv", N_SLOTS, 2, 40, 64, False, False),
     ("rwkv prefill, T 16", "rwkv", N_SLOTS, 16, 40, 64, False, False),
     ("rwkv prefill, T 32", "rwkv", N_SLOTS, 32, 40, 64, False, False),
+    ("rwkv prefill, T 48", "rwkv", N_SLOTS, 48, 40, 64, False, False),
+    ("rwkv prefill, T 64", "rwkv", N_SLOTS, 64, 40, 64, False, False),
     ("rwkv prefill, one row", "rwkv", 1, RAGGED[1], 40, 64, False, False),
     ("rwkv prefill, strong decay", "rwkv", N_SLOTS, CHUNK, 40, 64, False,
      True),
     ("mamba (zamba2)", "mamba", N_SLOTS, CHUNK, 64, 64, True, False),
     ("rwkv K=V=256", "rwkv", N_SLOTS, CHUNK, 8, 256, False, False),
     ("mamba K=V=256", "mamba", N_SLOTS, CHUNK, 8, 256, True, False))
-WKV_PROFILE_CALLS = 10  # calls of the main prefill case under the profiler
+WKV_PROFILE_CALLS = 10  # calls of each path's first case under the profiler
 RWKV_PROMPT = CHUNK     # the one-step check's prompt length
 RWKV_LOGIT_GUARD = 1.0  # the same checks in the config's own types: the
                         # residual stream is bf16 in layer 0 only, where a
@@ -495,6 +508,24 @@ def check_mla_kernel(torch, pa, c, name, smi) -> dict:
                 bound_by=bound_by, library_ms=lib_ms)
 
 
+def kernel_split(torch, call, calls: int, pattern: str) -> dict:
+    """Device ms per call of each kernel whose name matches `pattern`
+    (keyed by its first group), over `calls` calls of `call` under
+    torch.profiler."""
+    def run():
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    ranked = profile_steps(torch, run, calls)[2]
+    split = {}
+    for name, t in ranked:
+        found = re.search(pattern, name)
+        if found:
+            split[found.group(1)] = round(split.get(found.group(1), 0.0) + t,
+                                          5)
+    return split
+
+
 def signal_case(torch, T: int, V: int):
     """Logits [T, V] fp32 of std 3 with row 0 all equal, row 1 an exact
     top tie at two far columns, row 2 at two neighbouring columns. Returns
@@ -510,16 +541,19 @@ def signal_case(torch, T: int, V: int):
 
 def check_deferral_kernel(torch, de, smi) -> dict:
     """deferral_entropy against its plain version at the engine's and the
-    evaluation's shapes; times both. Returns the kernel's record at the
+    evaluation's shapes, two calls bit-equal; times both, and the kernel
+    by name under torch.profiler. Returns the kernel's record at the
     engine's internlm2-1.8b shape (the decode steps' call)."""
     rec = None
     for T, V in SIGNAL_SHAPES:
         x, gap = signal_case(torch, T, V)
         got = de.deferral_entropy(x)
+        again = de.deferral_entropy(x)
         want = de.deferral_entropy_plain(x)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got[:2],
                                                               want[:2]))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         clear = gap > TIE_GAP
         ties = gap == 0
         flips = int((got[2][clear | ties] != want[2][clear | ties]).sum())
@@ -528,21 +562,33 @@ def check_deferral_kernel(torch, de, smi) -> dict:
               f"neg_entropy/max_prob {err:.3g} (atol {SIGNAL_ATOL}); argmax "
               f"differs on {flips} rows with a top-2 gap > {TIE_GAP} or an "
               f"exact tie ({int((~clear & ~ties).sum())} rows under the gap "
-              f"not held); ties to the lowest index: {first}")
-        if not (err <= SIGNAL_ATOL and flips == 0 and first
+              f"not held); ties to the lowest index: {first}; two calls "
+              f"bit-equal: {same}")
+        if not (err <= SIGNAL_ATOL and flips == 0 and first and same
                 and all(bool(torch.isfinite(t).all()) for t in got[:2])):
             raise AssertionError(f"deferral_entropy {T} x {V}: err {err}, "
-                                 f"{flips} flips, first index {first}")
+                                 f"{flips} flips, first index {first}, "
+                                 f"two calls bit-equal {same}")
         iters = 20 if T == N_SLOTS else 5
         ms = time_ms(lambda: de.deferral_entropy(x), iters=iters)
+        by_kernel = kernel_split(
+            torch, lambda: de.deferral_entropy(x), iters,
+            r"de_(partial|merge|signal)_kernel")
         plain_ms = time_ms(lambda: de.deferral_entropy_plain(x), iters=iters)
+        # a yardstick of one launch that reads the same logits: one PyTorch
+        # row max, not the signal
+        amax_ms = time_ms(lambda: x.amax(dim=1), iters=iters)
         n_bytes = x.numel() * 4 + 3 * 4 * T
         # one exp, a compare and two multiply-adds per logit
         bound_ms, bound_by = bound(n_bytes, 4 * x.numel())
         print(f"[kernel] deferral_entropy {T} x {V}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
               f"({bound_by}: {n_bytes} B); library — (no single PyTorch "
-              f"call computes (neg_entropy, max_prob, argmax)) on {smi}")
+              f"call computes (neg_entropy, max_prob, argmax)); one "
+              f"PyTorch row max over the same logits {amax_ms:.4f} ms; by "
+              f"kernel (torch.profiler, {iters} calls): "
+              + ", ".join(f"{k} {t:.4f} ms" for k, t in by_kernel.items())
+              + f" on {smi}")
         if rec is None:
             rec = dict(name="deferral_entropy", route="cuda",
                        source="src/repro_torch/kernels/csrc/"
@@ -552,7 +598,8 @@ def check_deferral_kernel(torch, de, smi) -> dict:
                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                        shape=[T, V])
         rec.setdefault("by_shape", {})[f"{T}x{V}"] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err)
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
+            by_kernel_ms=by_kernel, row_max_ms=amax_ms)
         del x, got, want
     return rec
 
@@ -723,11 +770,12 @@ def check_wkv_kernel(torch, wk, smi) -> dict:
     path's shapes and zamba2's; times kernel and plain version beside the
     bytes / operations bound (no single PyTorch call computes the
     recurrence, so no library time). The state goes to `out` in place, as
-    the model's layers write their cache. The path T picks must have run;
-    at T > 1 two calls must give the same bits, and the other path
-    (`wkv_scan_path`) is checked and timed beside it. Returns the records
-    of the two paths: "wkv_scan" (the per-token kernel) at the rwkv6-3b
-    decode shape and "wkv_scan_chunked" at its prefill."""
+    the model's layers write their cache. The path T picks must have run,
+    two calls must give the same bits, and at T > 1 the other path
+    (`wkv_scan_path`) is checked and timed beside it. Each path's first
+    case is profiled by kernel. Returns the records of the two paths:
+    "wkv_scan" (the per-token kernel) at the rwkv6-3b decode shape and
+    "wkv_scan_chunked" at its prefill."""
     recs = {}
     for i, (label, mode, B, T, H, K, scalar, strong) in enumerate(WKV_CASES):
         copies, u = wkv_case(torch, mode, B, T, H, K, scalar, strong,
@@ -744,15 +792,16 @@ def check_wkv_kernel(torch, wk, smi) -> dict:
         ok = (st.data_ptr() == out.data_ptr() and share <= 1.0
               and ran_chunked == int(chunked)
               and torch.isfinite(y).all() and torch.isfinite(st).all())
+        y2, st2 = wk.wkv_scan(q, k, v, lw, u, s0, mode=mode)
+        torch.cuda.synchronize()
+        ok = ok and torch.equal(y, y2) and torch.equal(st, st2)
         other_share = None
         if T > 1:
-            y2, st2 = wk.wkv_scan(q, k, v, lw, u, s0, mode=mode)
             yo, sto = wk.wkv_scan_path(q, k, v, lw, u, s0,
                                        chunked=not chunked, mode=mode)
             torch.cuda.synchronize()
             other_share = wkv_share(yo, sto, y_ref, s_ref)[1]
-            ok = (ok and torch.equal(y, y2) and torch.equal(st, st2)
-                  and other_share <= 1.0)
+            ok = ok and other_share <= 1.0
         if not ok:
             raise AssertionError(
                 f"wkv_scan {label}: max|err| {err}, {share:.3g} of atol "
@@ -774,6 +823,15 @@ def check_wkv_kernel(torch, wk, smi) -> dict:
         ms = time_ms(kernel)
         other_ms = time_ms(other) if T > 1 else None
         plain_ms = time_ms(plain, iters=5)
+        copy_ms = None
+        if T == 1:
+            # a yardstick of what moving the state costs in one launch: one
+            # PyTorch copy of it (the same bytes read and written), not the
+            # recurrence
+            def copy():
+                src = rot()[4]
+                rot()[4].copy_(src)
+            copy_ms = time_ms(copy)
         n_bytes = (sum(t.numel() * 4 for t in (q, k, v, lw, s0)) + y.numel()
                    * 4 + st.numel() * 4 + (u.numel() * 4 if mode == "rwkv"
                                            else 0))
@@ -788,26 +846,27 @@ def check_wkv_kernel(torch, wk, smi) -> dict:
               + (", strong decay" if strong else "")
               + f"): {path} path, max|err| {err:.3g}, at most {share:.3g} "
               f"of (atol {WKV_ATOL} + rtol {WKV_RTOL}|ref|), state in place"
-              + (f", two calls bit-equal, {other_path} path at most "
-                 f"{other_share:.3g}" if T > 1 else "")
+              f", two calls bit-equal"
+              + (f", {other_path} path at most {other_share:.3g}" if T > 1
+                 else "")
               + f"; kernel {ms:.4f} ms"
               + (f" ({other_path} path {other_ms:.4f} ms, "
                  f"{other_ms / ms:.2f}x)" if T > 1 else "")
               + f", plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
               f"({bound_by}: {n_bytes} B, {flops} fp32 flop; {len(copies)} "
               f"input copies); library — (no single PyTorch call computes "
-              f"the recurrence) on {smi}")
+              f"the recurrence)"
+              + (f"; one PyTorch copy of the state {copy_ms:.4f} ms"
+                 if T == 1 else "")
+              + f" on {smi}")
         name = "wkv_scan_chunked" if chunked else "wkv_scan"
-        if chunked and name not in recs:
-            # the main prefill case's device time by kernel of the path
-            def calls():
-                for _ in range(WKV_PROFILE_CALLS):
-                    kernel()
-                torch.cuda.synchronize()
-            ranked = profile_steps(torch, calls, WKV_PROFILE_CALLS)[2]
-            by_kernel = {re.search(r"wkv_chunk_(\w+?)_kernel", n).group(1):
-                         round(t, 5) for n, t in ranked if "wkv_chunk_" in n}
-            print(f"[kernel] wkv_scan {label}, chunked path by kernel "
+        if name not in recs:
+            # the path's first case: device time by kernel of the path
+            by_kernel = kernel_split(
+                torch, kernel, WKV_PROFILE_CALLS,
+                r"wkv_chunk_(\w+?)_kernel" if chunked
+                else r"(wkv_(?:decode_)?kernel)")
+            print(f"[kernel] wkv_scan {label}, {path} path by kernel "
                   f"(torch.profiler, {WKV_PROFILE_CALLS} calls): "
                   + ", ".join(f"{k} {t:.4f} ms" for k, t in by_kernel.items())
                   + f" on {smi}")
@@ -816,15 +875,16 @@ def check_wkv_kernel(torch, wk, smi) -> dict:
                     max_abs_err=err)
         if T > 1:
             case[f"{other_path}_ms"] = other_ms
+        else:
+            case["state_copy_ms"] = copy_ms
         if name not in recs:
             recs[name] = dict(
                 name=name, route="cuda",
                 source="src/repro_torch/kernels/csrc/wkv_scan.cu",
                 replaces="src/repro/kernels/wkv_scan.py:83",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, shape=[B, T, H, K])
-            if chunked:
-                recs[name]["by_kernel_ms"] = by_kernel
+                bound_by=bound_by, library_ms=None, shape=[B, T, H, K],
+                by_kernel_ms=by_kernel)
         recs[name].setdefault("by_case", {})[label] = case
         del copies, y, st, y_ref, s_ref
     torch.cuda.empty_cache()
@@ -1323,8 +1383,9 @@ def profile_rwkv_decode(torch, tfm, small, smi, steps: int = 3) -> None:
     print(f"[rwkv] full-width {cfg.name} decode step ({N_SLOTS} rows, "
           f"{cfg.n_layers} layers, kernels on, with its deferral signal): "
           f"host wall {wall_ms:.3f} ms, {busy} on {smi}")
+    ours = r"wkv_(decode_)?kernel|de_(partial|merge|signal)_kernel"
     for name, ms in ranked[:6] + [(n, ms) for n, ms in ranked[6:]
-                                  if "wkv_kernel" in n or n.startswith("de_")]:
+                                  if re.search(ours, n)]:
         print(f"[rwkv]   {ms:.4f} ms/step  {name[:90]}")
 
 
@@ -1652,21 +1713,105 @@ def reduced_training_fixture(torch, train) -> None:
             raise AssertionError("checkpoint round trip differs")
 
 
-def main() -> int:
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        _fail_early(f"no repro_torch sources under {SRC}: run from the "
+KERNEL_PHASES = ("3", "3b", "3c", "3d", "3e")
+
+
+def check_kernels(torch, np, rng, smi, phases, t_start) -> dict:
+    """The kernel phases named in `phases` (of KERNEL_PHASES), each kernel
+    against its plain version and timed. Returns their records by kernel
+    name."""
+    from repro_torch.kernels import deferral_entropy as de
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv_scan as wk
+    records = {}
+    # -- 3. GQA decode and paged write against their plain versions ----------
+    if "3" in phases:
+        phase("3", t_start)
+        for kv_name, kv_dtype in (("bf16", torch.bfloat16),
+                                  ("fp32", torch.float32)):
+            case = decode_case(torch, kv_dtype, rng)
+            rec_d = check_decode_kernel(torch, pa, case, f"pages {kv_name}",
+                                        smi)
+            rec_w = check_write_kernel(torch, pa, case, kv_name, kv_dtype, smi)
+            if kv_name == "bf16":                # the main path's types
+                records["paged_flash_decode_gqa"] = rec_d
+                records["paged_write_token"] = rec_w
+            del case
+        # the decode beyond the main path's shape: a long cache, group 16
+        rng3 = np.random.default_rng(SEED + 30)
+        for key, label, kw in (
+                ("long_cache", f"pages bf16, {LONG_CACHE}-token cache",
+                 dict(pos=[LONG_CACHE - 1] * N_SLOTS, copies=2)),
+                ("group16", "pages bf16, llama3-405b heads (group 16)",
+                 dict(H=128, KV=8))):
+            case = decode_case(torch, torch.bfloat16, rng3, **kw)
+            rec = check_decode_kernel(torch, pa, case, label, smi)
+            records["paged_flash_decode_gqa"][key] = {
+                k: rec[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "max_abs_err")}
+            del case
+        torch.cuda.empty_cache()
+    # -- 3b. MLA decode against its plain version ----------------------------
+    if "3b" in phases:
+        phase("3b", t_start)
+        for name, dtype in (("all bf16", torch.bfloat16),
+                            ("all fp32", torch.float32)):
+            case = mla_case(torch, dtype, rng)
+            rec = check_mla_kernel(torch, pa, case, name, smi)
+            if dtype == torch.bfloat16:          # the main path's types
+                records["paged_flash_decode_mla"] = rec
+            del case
+        torch.cuda.empty_cache()
+    # -- 3c. the deferral signal against its plain version -------------------
+    if "3c" in phases:
+        phase("3c", t_start)
+        records["deferral_entropy"] = check_deferral_kernel(torch, de, smi)
+    # -- 3d. prefill attention against its plain version ---------------------
+    if "3d" in phases:
+        phase("3d", t_start)
+        records["flash_attention"] = check_flash_kernel(torch, fa, smi)
+        torch.cuda.empty_cache()
+    # -- 3e. the RWKV / Mamba2 recurrence against its plain version ----------
+    if "3e" in phases:
+        phase("3e", t_start)
+        records.update(check_wkv_kernel(torch, wk, smi))
+    return records
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Chip smoke test of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the source directory whose repro_torch is built "
+                         "and checked (default: this checkout's src)")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated kernel phases of "
+                         f"{','.join(KERNEL_PHASES)} to run alone after the "
+                         "build: prints their records, no contract line")
+    args = ap.parse_args(argv)
+    if args.kernels is not None:
+        bad = set(args.kernels.split(",")) - set(KERNEL_PHASES)
+        if bad:
+            ap.error(f"unknown kernel phases {sorted(bad)}")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    phases = (KERNEL_PHASES if args.kernels is None
+              else tuple(args.kernels.split(",")))
+    src = args.src.resolve()
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        _fail_early(f"no repro_torch sources under {src}: run from the "
                     f"root of a repository checkout")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         _fail_early("torch.cuda.is_available() is False: this script "
                     "needs an NVIDIA GPU")
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
-    from repro_torch.kernels import deferral_entropy as de
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import wkv_scan as wk
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 matmuls in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1693,54 +1838,12 @@ def main() -> int:
                 print(f"[build] {line.strip()}")
 
     rng = np.random.default_rng(SEED)
-    records = {}
     with torch.inference_mode():
-        # -- 3. GQA decode and paged write against their plain versions -----
-        phase("3", t_start)
-        for kv_name, kv_dtype in (("bf16", torch.bfloat16),
-                                  ("fp32", torch.float32)):
-            case = decode_case(torch, kv_dtype, rng)
-            rec_d = check_decode_kernel(torch, pa, case, f"pages {kv_name}",
-                                        smi)
-            rec_w = check_write_kernel(torch, pa, case, kv_name, kv_dtype, smi)
-            if kv_name == "bf16":                # the main path's types
-                records["paged_flash_decode_gqa"] = rec_d
-                records["paged_write_token"] = rec_w
-            del case
-        # the decode beyond the main path's shape: a long cache, group 16
-        rng3 = np.random.default_rng(SEED + 30)
-        for key, label, kw in (
-                ("long_cache", f"pages bf16, {LONG_CACHE}-token cache",
-                 dict(pos=[LONG_CACHE - 1] * N_SLOTS, copies=2)),
-                ("group16", "pages bf16, llama3-405b heads (group 16)",
-                 dict(H=128, KV=8))):
-            case = decode_case(torch, torch.bfloat16, rng3, **kw)
-            rec = check_decode_kernel(torch, pa, case, label, smi)
-            records["paged_flash_decode_gqa"][key] = {
-                k: rec[k] for k in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "max_abs_err")}
-            del case
-        torch.cuda.empty_cache()
-        # -- 3b. MLA decode against its plain version -----------------------
-        phase("3b", t_start)
-        for name, dtype in (("all bf16", torch.bfloat16),
-                            ("all fp32", torch.float32)):
-            case = mla_case(torch, dtype, rng)
-            rec = check_mla_kernel(torch, pa, case, name, smi)
-            if dtype == torch.bfloat16:          # the main path's types
-                records["paged_flash_decode_mla"] = rec
-            del case
-        torch.cuda.empty_cache()
-        # -- 3c. the deferral signal against its plain version --------------
-        phase("3c", t_start)
-        records["deferral_entropy"] = check_deferral_kernel(torch, de, smi)
-        # -- 3d. prefill attention against its plain version ----------------
-        phase("3d", t_start)
-        records["flash_attention"] = check_flash_kernel(torch, fa, smi)
-        torch.cuda.empty_cache()
-        # -- 3e. the RWKV / Mamba2 recurrence against its plain version -----
-        phase("3e", t_start)
-        records.update(check_wkv_kernel(torch, wk, smi))
+        records = check_kernels(torch, np, rng, smi, phases, t_start)
+        if args.kernels is not None:
+            print(f"[done] {time.perf_counter() - t_start:.1f} s")
+            print(json.dumps({"kernels": list(records.values())}))
+            return 0
 
         from repro_torch.configs import get_config
         from repro_torch.launch import serve

@@ -18,23 +18,34 @@
 // Bound on the card: bytes. Each logit is read once and costs a few flops
 // and one exp: at the serving shape (8 x 92,544 fp32, 2.96 MB) 0.88 us at
 // 3.35 TB/s, at the evaluation shape (2,048 x 92,544, 758 MB) 0.226 ms.
-// The design keeps many 16-byte loads in flight and fills the SMs at both
-// shapes:
+// At the serving shape the call is far shorter than a launch and a load
+// round trip, so what counts is how many dependent steps it takes; the
+// design keeps many 16-byte loads in flight, fills the SMs at both shapes
+// and runs as one launch:
 //
-//   * Kernel 1 (partials). Grid (row, vocabulary split), 256 threads. The
-//     TPU grid has one program per 128 rows and walks the vocabulary in
-//     order; on the card 8 rows would occupy 8 SMs, so the wrapper splits
-//     the vocabulary into spans (a multiple of 8 columns) until the grid
-//     holds about 4 CTAs per SM (46 spans of 2,016 columns at 8 rows; one
-//     span per row at 2,048 rows). Each thread folds 16-byte vectors (4 fp32
-//     or 8 bf16 logits) four at a time into its running stats; its columns
-//     increase, so a strict '>' keeps the first index. A vocabulary whose
-//     rows are not 16-byte aligned (V not a multiple of the vector) is read
-//     one element at a time. Warp shuffles, then shared memory, merge the
-//     CTA's 256 partial stats into one per (split, row).
-//   * Kernel 2 (merge). One thread per row combines its splits. Every merge
-//     takes the lower index on equal maxima, so ties resolve to the lowest
-//     vocabulary index, as jnp.argmax and torch.argmax do.
+//   * Grid (row, vocabulary split), 256 threads. The TPU grid has one
+//     program per 128 rows and walks the vocabulary in order; on the card
+//     8 rows would occupy 8 SMs, so the wrapper splits the vocabulary into
+//     spans (a multiple of 8 columns) until the grid holds about 4 CTAs per
+//     SM (46 spans of 2,016 columns at 8 rows; one span per row at 2,048
+//     rows). Each thread folds 16-byte vectors (4 fp32 or 8 bf16 logits)
+//     four at a time into its running stats; its columns increase, so a
+//     strict '>' keeps the first index. A vocabulary whose rows are not
+//     16-byte aligned (V not a multiple of the vector) is read one element
+//     at a time. Warp shuffles, then shared memory, merge the CTA's 256
+//     stats into one.
+//   * One split a row: that CTA writes the row's three outputs.
+//   * Several: each CTA writes its stats to scratch, fences, and takes a
+//     ticket from the row's counter with one atomicAdd. The CTA that draws
+//     the last ticket merges the row's stats and writes the outputs, then
+//     sets the counter back to 0 for the next call (the wrapper allocates
+//     the counters zeroed, once per device and stream). The merge is
+//     parallel and in a fixed order: thread i folds splits i, i + 256, ...
+//     and the same shuffle and shared-memory tree merges the threads. That
+//     order does not depend on which CTA came last, and the ticket orders
+//     no arithmetic, so two calls give the same bits. Every merge takes the
+//     lower index on equal maxima, so ties resolve to the lowest vocabulary
+//     index, as jnp.argmax and torch.argmax do.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,16 +145,42 @@ __device__ __forceinline__ void warp_merge(Stats& st) {
   for (int off = 16; off > 0; off >>= 1) merge(st, shfl_stats(st, off));
 }
 
+// the CTA's 256 stats merged in a fixed tree; the result is thread 0's
+__device__ __forceinline__ Stats block_merge(Stats st, Stats* warp_stats) {
+  const int tid = threadIdx.x;
+  warp_merge(st);
+  if ((tid & 31) == 0) warp_stats[tid >> 5] = st;
+  __syncthreads();
+  if (tid < 32) {
+    st = tid < kWarps ? warp_stats[tid] : empty_stats();
+    warp_merge(st);
+  }
+  return st;
+}
+
+__device__ __forceinline__ void write_signal(const Stats& st, int row,
+                                             float* neg_ent, float* max_prob,
+                                             int* argmax) {
+  neg_ent[row] = st.w / st.s - logf(st.s);
+  max_prob[row] = 1.f / st.s;
+  argmax[row] = st.idx;
+}
+
 // grid (T, n_splits), block kThreads. Split sp covers columns
 // [sp * span, min(V, (sp + 1) * span)); span is a multiple of Vec<LT>::N.
+// With n_splits > 1, scratch holds 4 * n_splits * T words (partial m, s, w,
+// argmax) and counters T zeros, which the kernel leaves zero.
 template <typename LT>
 __global__ void __launch_bounds__(kThreads)
-de_partial_kernel(const LT* __restrict__ logits, int V, int span, int vec,
-                  float* __restrict__ pm, float* __restrict__ ps,
-                  float* __restrict__ pw, int* __restrict__ pidx) {
+de_signal_kernel(const LT* __restrict__ logits, int V, int span, int vec,
+                 float* scratch, unsigned* counters,
+                 float* __restrict__ neg_ent, float* __restrict__ max_prob,
+                 int* __restrict__ argmax) {
   constexpr int N = Vec<LT>::N;
   __shared__ Stats warp_stats[kWarps];
+  __shared__ bool last;
   const int row = blockIdx.x, sp = blockIdx.y, T = gridDim.x;
+  const int n_splits = gridDim.y;
   const int tid = threadIdx.x;
   const int c0 = sp * span;
   const int c1 = min(V, c0 + span);
@@ -171,81 +208,74 @@ de_partial_kernel(const LT* __restrict__ logits, int V, int span, int vec,
     const float one[1] = {to_f32(x[c])};
     fold(st, one, c);
   }
+  st = block_merge(st, warp_stats);
 
-  warp_merge(st);
-  if ((tid & 31) == 0) warp_stats[tid >> 5] = st;
-  __syncthreads();
-  if (tid < 32) {
-    st = tid < kWarps ? warp_stats[tid] : empty_stats();
-    warp_merge(st);
-    if (tid == 0) {
-      const size_t o = (size_t)sp * T + row;
-      pm[o] = st.m;
-      ps[o] = st.s;
-      pw[o] = st.w;
-      pidx[o] = st.idx;
-    }
+  if (n_splits == 1) {
+    if (tid == 0) write_signal(st, row, neg_ent, max_prob, argmax);
+    return;
   }
-}
-
-__global__ void de_merge_kernel(const float* __restrict__ pm,
-                                const float* __restrict__ ps,
-                                const float* __restrict__ pw,
-                                const int* __restrict__ pidx, int T,
-                                int n_splits, float* __restrict__ neg_ent,
-                                float* __restrict__ max_prob,
-                                int* __restrict__ argmax) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  Stats st = empty_stats();
-  for (int sp = 0; sp < n_splits; ++sp) {
-    const size_t o = (size_t)sp * T + t;
-    merge(st, Stats{pm[o], ps[o], pw[o], pidx[o]});
-  }
-  neg_ent[t] = st.w / st.s - logf(st.s);
-  max_prob[t] = 1.f / st.s;
-  argmax[t] = st.idx;
-}
-
-template <typename LT>
-int launch(const void* logits, float* neg_ent, float* max_prob, int* argmax,
-           float* scratch, int T, int V, int span, int n_splits,
-           cudaStream_t st) {
   const size_t n = (size_t)n_splits * T;
   float* pm = scratch;
   float* ps = scratch + n;
   float* pw = scratch + 2 * n;
   int* pidx = reinterpret_cast<int*>(scratch + 3 * n);
-  const LT* x = static_cast<const LT*>(logits);
+  if (tid == 0) {
+    const size_t o = (size_t)sp * T + row;
+    pm[o] = st.m;
+    ps[o] = st.s;
+    pw[o] = st.w;
+    pidx[o] = st.idx;
+    __threadfence();                  // the stats before the ticket
+    last = atomicAdd(counters + row, 1u) == (unsigned)(n_splits - 1);
+  }
+  __syncthreads();                    // also: warp_stats is free again
+  if (!last) return;
+  __threadfence();                    // the other CTAs' stats after it
+  st = empty_stats();
+  for (int i = tid; i < n_splits; i += kThreads) {
+    const size_t o = (size_t)i * T + row;
+    merge(st, Stats{__ldcg(pm + o), __ldcg(ps + o), __ldcg(pw + o),
+                    __ldcg(pidx + o)});
+  }
+  st = block_merge(st, warp_stats);
+  if (tid == 0) {
+    write_signal(st, row, neg_ent, max_prob, argmax);
+    counters[row] = 0u;               // ready for the next call
+  }
+}
+
+template <typename LT>
+int launch(const void* logits, float* neg_ent, float* max_prob, int* argmax,
+           float* scratch, unsigned* counters, int T, int V, int span,
+           int n_splits, cudaStream_t st) {
   const int vec = (V % Vec<LT>::N == 0) &&
                   (reinterpret_cast<uintptr_t>(logits) % 16 == 0) &&
                   (span % Vec<LT>::N == 0);
-  de_partial_kernel<LT><<<dim3(T, n_splits), kThreads, 0, st>>>(
-      x, V, span, vec, pm, ps, pw, pidx);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  de_merge_kernel<<<(T + 255) / 256, 256, 0, st>>>(pm, ps, pw, pidx, T,
-                                                   n_splits, neg_ent,
-                                                   max_prob, argmax);
+  de_signal_kernel<LT><<<dim3(T, n_splits), kThreads, 0, st>>>(
+      static_cast<const LT*>(logits), V, span, vec, scratch, counters,
+      neg_ent, max_prob, argmax);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // logits [T, V] row-major, fp32 (bf16 = 0) or bf16 (bf16 = 1); outputs
-// [T] each; scratch: 4 * n_splits * T four-byte words (partial m, s, w,
-// argmax). Returns the CUDA error of the launches (0 on success).
+// [T] each. With n_splits > 1: scratch, 4 * n_splits * T four-byte words
+// (partial m, s, w, argmax), and counters, T zeroed unsigned ints that each
+// call leaves zero (both may be null with n_splits = 1). Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int deferral_entropy(const void* logits, float* neg_ent,
                                 float* max_prob, int* argmax, float* scratch,
-                                int T, int V, int span, int n_splits, int bf16,
-                                void* stream) {
+                                unsigned* counters, int T, int V, int span,
+                                int n_splits, int bf16, void* stream) {
   if (T < 1 || V < 1 || span < 1 || n_splits < 1 || n_splits > 65535 ||
-      (long long)span * n_splits < V)
+      (long long)span * n_splits < V ||
+      (n_splits > 1 && (scratch == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch<__nv_bfloat16>(logits, neg_ent, max_prob, argmax, scratch,
-                                 T, V, span, n_splits, st);
-  return launch<float>(logits, neg_ent, max_prob, argmax, scratch, T, V,
-                       span, n_splits, st);
+                                 counters, T, V, span, n_splits, st);
+  return launch<float>(logits, neg_ent, max_prob, argmax, scratch, counters,
+                       T, V, span, n_splits, st);
 }

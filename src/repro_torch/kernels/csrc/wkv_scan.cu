@@ -10,45 +10,57 @@
 //
 // Two paths, chosen by T alone in the C entry point `wkv_scan` (both are
 // kernels of this file; neither stands in for the other on failure):
-// T < kChunkedMinT = 32 (decode, T = 1, and short segments) runs
-// `wkv_kernel`, longer T (prefill) the three chunk-parallel kernels.
+// T < kChunkedMinT = 48 (decode, T = 1, and short segments) runs
+// `wkv_decode_kernel`, longer T (prefill) the three chunk-parallel kernels.
 // `wkv_scan_path` runs either path at any T, so the two can be timed and
 // checked side by side.
 //
 // Bound on the card: bytes. Each token costs 4 K V flops against (3 K + 2 V)
 // * 4 bytes of its own, and the state is read once and written once: at the
 // rwkv6-3b decode shape (8 rows x 40 heads, K = V = 64, T = 1) that is the
-// 5.2 MB state both ways, a few microseconds at 3.35 TB/s.
+// 5.2 MB state both ways, 3.3 us at 3.35 TB/s.
 //
 // The TPU kernel runs a (stream, chunk) grid whose chunk axis is sequential
 // and keeps S in VMEM scratch across chunk steps, with the intra-chunk part
 // as matrix products. On the card blocks run in no order.
 //
-// T < 32: `wkv_kernel`. One CTA owns a stream (and a block of its value
-// columns) and walks all its tokens itself, with S in registers from the
-// first token to the last:
+// T < 48: `wkv_decode_kernel`. At T = 1 the whole cost is moving the state,
+// so the design is about how it moves: many 16-byte accesses in flight at
+// once, on every SM, and little else between the load and the store.
 //
-//   * L adjacent lanes share one value column v of S; lane p holds rows
-//     k = p, p + L, ... (R = ceil(K / L) registers, R a power of two up to
-//     32). L is 4 for K <= 128, 8 for K <= 256 and 16 for K <= 512, so the
-//     state never takes more than 32 registers a lane. y_t[v] is their
-//     partial dot products summed with log2(L) xor shuffles.
-//   * The value columns of S are independent, so a second grid axis splits
-//     V into blocks of 512 / L columns (one CTA of at most 512 threads
-//     each): any V runs. Each block stages its stream's q, k and w itself.
-//   * 16 tokens at a time of q, k, exp(logw) and v are staged in dynamic
-//     shared memory by coalesced loads; u is staged once. Then every thread
-//     steps through the 16 tokens with no barrier between them.
-//   * Any T >= 1 runs, T = 1 (decode) included: the last stage is short,
-//     never a chunk that must divide T.
+//   * A CTA owns one stream and a block of 32 value columns (8 when V is
+//     not a multiple of 4 or a pointer is not 16-byte aligned): the value
+//     columns of S are independent, so y needs no sum across CTAs, and
+//     rwkv6-3b's decode is 640 CTAs of 128 threads, about 5 an SM in one
+//     wave (zamba2's 1024).
+//   * Thread (tx, ty) of the CTA's 8 x RT threads holds 4 neighbouring
+//     columns (one float4) of rows ty, ty + RT, ... (R <= 8 rows; RT = 16
+//     up to K = 128, then 32 and 64): a warp's load covers four whole
+//     128-byte row segments of S. Every thread issues its R float4 loads
+//     of the state first; then the CTA stages the tokens' q, k, exp(logw)
+//     and v columns in shared memory in one coalesced pass (up to 8 tokens
+//     at a time; one token at T = 1), while the state is in flight, and u
+//     is read once. Each thread reading its own rows of q, k and logw from
+//     device memory instead (3 R scalar loads a token) was slower on the
+//     card, at T = 1 and more so at T = 16, where each token then waits a
+//     load round trip.
+//   * y_t = q_t^T S is summed over K in a fixed order: each thread's rows,
+//     then xor shuffles over the warp's four thread rows, then the warps'
+//     sums from shared memory in warp order, no atomics, so two calls give
+//     the same bits. rwkv's bonus q^T diag(u) k v^T is the scalar
+//     (sum_k q_k u_k k_k) times v^T, reduced beside y and added once.
+//   * T > 1 walks the staged tokens with S in registers; the warps' sums
+//     wait in shared memory for the group's tokens, merged after one
+//     barrier.
 //   * logw is [.., K] or, for the scalar per-head decay of Mamba2, [.., 1]
 //     (`w_scalar`), read once per token and used for every row.
-//   * Each CTA reads its slice of s0 before its first token and writes its
-//     slice of s_out after its last, so s_out may be s0 (in place).
+//   * Each thread reads its entries of s0 before its first token and
+//     writes the same entries of s_out after its last, and no other CTA
+//     touches them, so s_out may be s0 (in place).
 //
-// T >= 32: the chunk-parallel path. The per-token kernel's time grows with T
-// (one CTA walks every token in order) and fills 40 of 132 SMs at one row
-// of rwkv6-3b. Here T splits into chunks of kChunk = 64 tokens (the last
+// T >= 48: the chunk-parallel path. The per-token kernel's time grows with T
+// (each CTA walks every token in order) and is 80 CTAs at one row of
+// rwkv6-3b. Here T splits into chunks of kChunk = 64 tokens (the last
 // may be partial: rows past T are zeros with logw = 0), each of four
 // sub-chunks of kSub = 16; cum is the inclusive in-chunk sum of logw in
 // log2 units, ocum = cum - logw (rwkv; the previous token's cum) or cum
@@ -100,156 +112,236 @@
 
 namespace {
 
-constexpr int kStage = 16;      // tokens staged in shared memory at once
-constexpr int kMaxThreads = 512;
 constexpr int kMaxDim = 512;    // largest K (V is split into blocks)
 
-// smem floats: q, k, w [kStage][K], v [kStage][VB], u [K]
-__host__ __device__ constexpr int smem_floats(int K, int VB) {
-  return 3 * kStage * K + kStage * VB + K;
+// ---------------------------------------------------------------------------
+// T < kChunkedMinT: the per-token kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kCT = 8;          // column threads of a CTA
+constexpr int kTokBuf = 8;      // tokens staged at once (4 at K > 256)
+
+// CW neighbouring columns of shared memory
+template <int CW>
+__device__ __forceinline__ void read_cols(const float* p, float (&x)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < CW; ++c) x[c] = p[c];
+  }
 }
 
-// grid (B * H, ceil(V / VB)), block VB * L threads (rounded up to a warp),
-// VB = kMaxThreads / L value columns per block, dynamic shared memory
-// smem_floats(K, VB) floats
-template <int R, int L, bool kRwkv>
-__global__ void __launch_bounds__(kMaxThreads)
-wkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ logw,
-           const float* __restrict__ u, const float* s0, float* __restrict__ y,
-           float* s_out, int T, int H, int K, int V, int w_scalar) {
-  constexpr int VB = kMaxThreads / L;
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sk = sq + kStage * K;
-  float* sw = sk + kStage * K;
-  float* sv = sw + kStage * K;                // [kStage][VB]
-  float* su = sv + kStage * VB;
+// the state passes through once a call: its loads and stores are marked
+// evict-first (.cs), which was faster on the card than plain ones
+template <int CW>
+__device__ __forceinline__ void load_state(const float* p, float (&x)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < CW; ++c) x[c] = __ldcs(p + c);
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void store_state(float* p, const float (&x)[CW]) {
+  if constexpr (CW == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+  } else {
+#pragma unroll
+    for (int c = 0; c < CW; ++c) __stcs(p + c, x[c]);
+  }
+}
+
+// grid (B * H, ceil(V / (kCT * CW))), block kCT * RT threads; R * RT >= K.
+// Thread (tx, ty) = (tid % kCT, tid / kCT) holds rows ty, ty + RT, ... of
+// the CTA's value columns tx * CW .. tx * CW + CW - 1: a warp covers four
+// thread rows of kCT neighbours, each row's kCT * CW columns contiguous
+// (128 bytes at CW = 4).
+template <int R, int RT, int CW, bool kRwkv>
+__global__ void __launch_bounds__(kCT * RT)
+wkv_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ logw,
+                  const float* __restrict__ u, const float* s0,
+                  float* __restrict__ y, float* s_out, int T, int H, int K,
+                  int V, int w_scalar) {
+  constexpr int NT = kCT * RT, NW = NT / 32, VC = kCT * CW, KP = R * RT;
+  constexpr int G = KP <= 256 ? kTokBuf : kTokBuf / 2;  // under 48 KB
+  constexpr int NP = VC + (kRwkv ? 1 : 0);    // a warp's sums (+ bonus)
+  __shared__ float part[G][NW][NP];
+  __shared__ float sq[G][KP], sk[G][KP], sw[G][KP];
+  __shared__ __align__(16) float sv[G][VC];
 
   const int bh = blockIdx.x;                  // stream b * H + h
   const int b = bh / H, h = bh - b * H;
-  const int v0 = blockIdx.y * VB;             // first value column
-  const int vb = min(VB, V - v0);             // columns of this block
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int c = tid / L, lane = tid % L;
-  const int col = v0 + c;
-  const bool active = c < vb;
+  const int tid = threadIdx.x, tx = tid % kCT, ty = tid / kCT;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int v0 = blockIdx.y * VC;             // the CTA's first column
+  const int col = v0 + tx * CW;
+  const bool active = col < V;                // CW = 4: V % 4 == 0
   // token t of the stream is row (b * T + t) * H + h of the [B,T,H,*] inputs
   const size_t row0 = (size_t)b * T * H + h;
-  const int wK = w_scalar ? 1 : K;
 
-  float S[R];
+  float S[R][CW];
   const float* s_in = s0 + (size_t)bh * K * V;
 #pragma unroll
   for (int j = 0; j < R; ++j) {
-    const int r = lane + j * L;
-    S[j] = (active && r < K) ? s_in[(size_t)r * V + col] : 0.f;
-  }
-  if (kRwkv)
-    for (int i = tid; i < K; i += nthreads) su[i] = u[(size_t)h * K + i];
-
-  for (int t0 = 0; t0 < T; t0 += kStage) {
-    const int n = min(kStage, T - t0);
-    __syncthreads();                          // the last stage is consumed
-    for (int i = tid; i < n * K; i += nthreads) {
-      const int tt = i / K, r = i - tt * K;
-      const size_t row = row0 + (size_t)(t0 + tt) * H;
-      sq[i] = q[row * K + r];
-      sk[i] = k[row * K + r];
-      sw[i] = expf(logw[row * wK + (w_scalar ? 0 : r)]);
+    const int r = ty + j * RT;
+    if (active && r < K) {
+      load_state<CW>(s_in + (size_t)r * V + col, S[j]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < CW; ++c) S[j][c] = 0.f;
     }
-    for (int i = tid; i < n * vb; i += nthreads) {
-      const int tt = i / vb, cc = i - tt * vb;
-      sv[tt * VB + cc] = v[(row0 + (size_t)(t0 + tt) * H) * V + v0 + cc];
+  }
+  float ur[kRwkv ? R : 1];
+  if constexpr (kRwkv) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = ty + j * RT;
+      ur[j] = r < K ? __ldg(u + (size_t)h * K + r) : 0.f;
+    }
+  }
+
+  for (int t0 = 0; t0 < T; t0 += G) {
+    const int n = min(G, T - t0);
+    // the group's q, k, exp(logw) and v columns, one coalesced pass
+    for (int i = tid; i < n * KP; i += NT) {
+      const int tt = i / KP, r = i - tt * KP;
+      const size_t row = row0 + (size_t)(t0 + tt) * H;
+      const bool ok = r < K;
+      sq[tt][r] = ok ? __ldg(q + row * K + r) : 0.f;
+      sk[tt][r] = ok ? __ldg(k + row * K + r) : 0.f;
+      sw[tt][r] = ok ? expf(__ldg(logw + (w_scalar ? row : row * K + r)))
+                     : 0.f;
+    }
+    for (int i = tid; i < n * VC; i += NT) {
+      const int tt = i / VC, c = i - tt * VC;
+      sv[tt][c] = v0 + c < V
+                      ? __ldg(v + (row0 + (size_t)(t0 + tt) * H) * V + v0 + c)
+                      : 0.f;
     }
     __syncthreads();
     for (int tt = 0; tt < n; ++tt) {
-      const float* qt = sq + tt * K;
-      const float* kt = sk + tt * K;
-      const float* wt = sw + tt * K;
-      const float vt = active ? sv[tt * VB + c] : 0.f;
-      float acc = 0.f;
+      float vv[CW];
+      read_cols<CW>(&sv[tt][tx * CW], vv);
+      float acc[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[c] = 0.f;
+      float bonus = 0.f;                      // rwkv: sum_k q_k u_k k_k
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const int r = lane + j * L;
-        if (r < K) {
-          const float kv = kt[r] * vt;
-          if (kRwkv) {
-            acc = fmaf(qt[r], fmaf(su[r], kv, S[j]), acc);
-            S[j] = fmaf(wt[r], S[j], kv);
-          } else {
-            S[j] = fmaf(wt[r], S[j], kv);
-            acc = fmaf(qt[r], S[j], acc);
+        const int r = ty + j * RT;
+        const float qj = sq[tt][r], kj = sk[tt][r], w = sw[tt][r];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const float kv = kj * vv[c];
+          if constexpr (kRwkv) {              // y reads S before the token
+            acc[c] = fmaf(qj, S[j][c], acc[c]);
+            S[j][c] = fmaf(w, S[j][c], kv);
+          } else {                            // y reads S after it
+            S[j][c] = fmaf(w, S[j][c], kv);
+            acc[c] = fmaf(qj, S[j][c], acc[c]);
           }
         }
+        if constexpr (kRwkv) bonus = fmaf(qj * ur[j], kj, bonus);
       }
+      // the warp's four thread rows, then one slot per warp in shared
+      // memory: a fixed order, no atomics
 #pragma unroll
-      for (int o = 1; o < L; o <<= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (active && lane == 0)
-        y[(row0 + (size_t)(t0 + tt) * H) * V + col] = acc;
+      for (int o = kCT; o < 32; o <<= 1) {
+#pragma unroll
+        for (int c = 0; c < CW; ++c)
+          acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
+        if constexpr (kRwkv)
+          bonus += __shfl_xor_sync(0xffffffffu, bonus, o);
+      }
+      if (lane < kCT) {
+#pragma unroll
+        for (int c = 0; c < CW; ++c) part[tt][warp][tx * CW + c] = acc[c];
+        if constexpr (kRwkv) {
+          if (lane == 0) part[tt][warp][VC] = bonus;
+        }
+      }
     }
+    __syncthreads();
+    // y of these n tokens, one thread per (token, column): the warps' sums
+    // in warp order, then the rwkv bonus as one scalar times v
+    for (int i = tid; i < n * VC; i += NT) {
+      const int tt = i / VC, c = i - tt * VC;
+      if (v0 + c < V) {
+        float acc = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) acc += part[tt][w][c];
+        if constexpr (kRwkv) {
+          float bonus = 0.f;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) bonus += part[tt][w][VC];
+          acc = fmaf(bonus, sv[tt][c], acc);
+        }
+        y[(row0 + (size_t)(t0 + tt) * H) * V + v0 + c] = acc;
+      }
+    }
+    __syncthreads();                          // the group's buffers refill
   }
-
+  // each thread writes exactly the entries it read: s_out may be s0
   float* s_o = s_out + (size_t)bh * K * V;
 #pragma unroll
   for (int j = 0; j < R; ++j) {
-    const int r = lane + j * L;
-    if (active && r < K) s_o[(size_t)r * V + col] = S[j];
+    const int r = ty + j * RT;
+    if (active && r < K) store_state<CW>(s_o + (size_t)r * V + col, S[j]);
   }
 }
 
-template <int R, int L, bool kRwkv>
-int launch_one(int BH, int K, int V, cudaStream_t st, const float* q,
-               const float* k, const float* v, const float* lw,
-               const float* u, const float* s0, float* y, float* s_out, int T,
-               int H, int w_scalar) {
-  constexpr int VB = kMaxThreads / L;
-  auto kernel = wkv_kernel<R, L, kRwkv>;
-  const size_t smem = sizeof(float) * smem_floats(K, VB);
-  // raised once per instantiation to the most any K takes; a failure is
-  // kept and returned by every later launch
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(float) * smem_floats(kMaxDim, VB)));
-  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
-  const int threads = (((V < VB ? V : VB) * L + 31) / 32) * 32;
-  const dim3 grid(BH, (V + VB - 1) / VB);
-  kernel<<<grid, threads, smem, st>>>(q, k, v, lw, u, s0, y, s_out, T, H, K,
-                                      V, w_scalar);
+template <int R, int RT, int CW, bool kRwkv>
+int launch_decode(int BH, int V, cudaStream_t st, const float* q,
+                  const float* k, const float* v, const float* lw,
+                  const float* u, const float* s0, float* y, float* s_out,
+                  int T, int H, int K, int w_scalar) {
+  const int nvb = (V + kCT * CW - 1) / (kCT * CW);
+  if (nvb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  wkv_decode_kernel<R, RT, CW, kRwkv><<<dim3(BH, nvb), kCT * RT, 0, st>>>(
+      q, k, v, lw, u, s0, y, s_out, T, H, K, V, w_scalar);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int R, int L>
-int launch_r(bool rwkv, int BH, int K, int V, cudaStream_t st,
-             const float* q, const float* k, const float* v, const float* lw,
-             const float* u, const float* s0, float* y, float* s_out, int T,
-             int H, int w_scalar) {
-  if (rwkv)
-    return launch_one<R, L, true>(BH, K, V, st, q, k, v, lw, u, s0, y, s_out,
-                                  T, H, w_scalar);
-  return launch_one<R, L, false>(BH, K, V, st, q, k, v, lw, u, s0, y, s_out,
-                                 T, H, w_scalar);
+template <int R, int RT>
+int launch_bucket(bool rwkv, bool vec, int BH, int V, cudaStream_t st,
+                  const float* q, const float* k, const float* v,
+                  const float* lw, const float* u, const float* s0, float* y,
+                  float* s_out, int T, int H, int K, int w_scalar) {
+#define WKV_DECODE(CW, RK)                                                   \
+  return launch_decode<R, RT, CW, RK>(BH, V, st, q, k, v, lw, u, s0, y,      \
+                                      s_out, T, H, K, w_scalar)
+  if (vec) {
+    if (rwkv) WKV_DECODE(4, true);
+    WKV_DECODE(4, false);
+  }
+  if (rwkv) WKV_DECODE(1, true);
+  WKV_DECODE(1, false);
+#undef WKV_DECODE
 }
 
-
-// the per-token kernel at any T, by K's bucket
+// the per-token kernel at any T, by K's bucket: at most 8 rows a thread,
+// 128 threads up to K = 128, then 256 and 512
 int launch_sequential(int BH, int K, int V, cudaStream_t st, const float* q,
                       const float* k, const float* v, const float* lw,
                       const float* u, const float* s0, float* y,
-                      float* s_out, int T, int H, int w_scalar, bool rk) {
-#define WKV_LAUNCH(R, L)                                                     \
-  return launch_r<R, L>(rk, BH, K, V, st, q, k, v, lw, u, s0, y, s_out, T,   \
-                        H, w_scalar)
-  if (K <= 4) WKV_LAUNCH(1, 4);
-  if (K <= 8) WKV_LAUNCH(2, 4);
-  if (K <= 16) WKV_LAUNCH(4, 4);
-  if (K <= 32) WKV_LAUNCH(8, 4);
-  if (K <= 64) WKV_LAUNCH(16, 4);
-  if (K <= 128) WKV_LAUNCH(32, 4);
-  if (K <= 256) WKV_LAUNCH(32, 8);
-  WKV_LAUNCH(32, 16);
-#undef WKV_LAUNCH
+                      float* s_out, int T, int H, int w_scalar, bool rk,
+                      bool vec) {
+#define WKV_BUCKET(R, RT)                                                    \
+  return launch_bucket<R, RT>(rk, vec, BH, V, st, q, k, v, lw, u, s0, y,     \
+                              s_out, T, H, K, w_scalar)
+  if (K <= 16) WKV_BUCKET(1, 16);
+  if (K <= 32) WKV_BUCKET(2, 16);
+  if (K <= 64) WKV_BUCKET(4, 16);
+  if (K <= 128) WKV_BUCKET(8, 16);
+  if (K <= 256) WKV_BUCKET(8, 32);
+  WKV_BUCKET(8, 64);
+#undef WKV_BUCKET
 }
 
 // ---------------------------------------------------------------------------
@@ -257,9 +349,9 @@ int launch_sequential(int BH, int K, int V, cudaStream_t st, const float* q,
 // ---------------------------------------------------------------------------
 
 // Below this T the per-token kernel is the faster one: at 8 rows of 40
-// heads of K = V = 64 the two meet near T = 32 (chip_smoke.py phase 3e
-// times both paths at T 2, 16 and 32).
-constexpr int kChunkedMinT = 32;
+// heads of K = V = 64 the two meet near T = 48 (chip_smoke.py phase 3e
+// times both paths at T 2, 16, 32, 48 and 64).
+constexpr int kChunkedMinT = 48;
 constexpr int kChunk = 64;          // tokens per chunk
 constexpr int kSub = 16;            // tokens per sub-chunk: a block of A
 constexpr int kThreads1 = 256;      // phase 1: 8 warps
@@ -821,8 +913,11 @@ int run_path(bool chunked, const float* q, const float* k, const float* v,
   const int BH = B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!chunked)
-    return launch_sequential(BH, K, V, st, q, k, v, logw, u, s0, y, s_out, T,
-                             H, w_scalar, rwkv != 0);
+    return launch_sequential(
+        BH, K, V, st, q, k, v, logw, u, s0, y, s_out, T, H, w_scalar,
+        rwkv != 0,
+        V % 4 == 0 && aligned16(v) && aligned16(s0) && aligned16(s_out) &&
+            aligned16(y));
   const int vec = K % 4 == 0 && V % 4 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && (w_scalar || aligned16(logw)) &&
                   aligned16(ws) && aligned16(wc);

@@ -6,7 +6,8 @@ its source note says what bounds it and what its design does about that.
 
   * `deferral_entropy` — per row of logits [T, V] (fp32 or bf16): the
     negative entropy sum p log p, the largest probability and the first
-    index of the largest logit, in one streaming pass over the vocabulary.
+    index of the largest logit, in one streaming pass over the vocabulary
+    and one launch (the last CTA of a row merges its vocabulary splits).
   * `deferral_entropy_plain` — the same function as
     `repro.kernels.ref.deferral_entropy_ref`: `log_softmax` in fp32,
     sum p * log p, `p.max`, first-index `argmax`.
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -46,7 +47,7 @@ def deferral_entropy_plain(logits: torch.Tensor) -> Signal:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("deferral_entropy")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.deferral_entropy.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+    lib.deferral_entropy.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     lib.deferral_entropy.restype = ci
     return lib
 
@@ -67,6 +68,26 @@ def vocab_split(T: int, V: int, n_sms: int) -> Tuple[int, int]:
     return span, -(-V // span)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream handle) -> the kernel's zeroed per-row ticket
+# counters, grown to the most rows seen on that stream; each call leaves
+# them zero, and calls on one stream run in order
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _row_counters(dev: torch.device, stream: int, T: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    counters = _counters.get(key)
+    if counters is None or counters.numel() < T:
+        counters = torch.zeros(T, dtype=torch.int32, device=dev)
+        _counters[key] = counters
+    return counters
+
+
 def deferral_entropy(logits: torch.Tensor) -> Signal:
     """logits [T, V] (fp32 or bf16). Returns fp32 neg_entropy [T], fp32
     max_prob [T] and int32 argmax [T]."""
@@ -79,18 +100,22 @@ def deferral_entropy(logits: torch.Tensor) -> Signal:
     _require(logits.dtype in (torch.float32, torch.bfloat16),
              "logits must be fp32 or bf16")
     x = logits.contiguous()
-    span, n_splits = vocab_split(
-        T, V, torch.cuda.get_device_properties(x.device).multi_processor_count)
     dev = x.device
+    span, n_splits = vocab_split(T, V, _sm_count(dev.index))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     neg_ent = torch.empty(T, dtype=torch.float32, device=dev)
     max_prob = torch.empty(T, dtype=torch.float32, device=dev)
     argmax = torch.empty(T, dtype=torch.int32, device=dev)
-    scratch = torch.empty((4, n_splits, T), dtype=torch.float32, device=dev)
+    scratch = counters = None
+    if n_splits > 1:
+        scratch = torch.empty((4, n_splits, T), dtype=torch.float32,
+                              device=dev)
+        counters = _row_counters(dev, stream, T)
     err = _lib().deferral_entropy(
         x.data_ptr(), neg_ent.data_ptr(), max_prob.data_ptr(),
-        argmax.data_ptr(), scratch.data_ptr(), T, V, span, n_splits,
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        argmax.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        None if counters is None else counters.data_ptr(), T, V, span,
+        n_splits, int(x.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"deferral_entropy launch failed: CUDA error {err}")
     deferral_entropy.launches += 1

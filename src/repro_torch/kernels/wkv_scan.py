@@ -15,8 +15,9 @@ re-exports them. Per (batch, head) stream, with an fp32 [K, V] state:
     the plain version on CPU tensors; K <= 512, any V; `out` takes the
     final state in place. T alone picks the kernel: T < CHUNKED_MIN_T
     (decode, T = 1, and short segments) runs the per-token kernel (one CTA
-    per stream and block of value columns walks the tokens with the state
-    on chip), longer T (prefill) the chunk-parallel kernels (chunk
+    per stream and block of 32 value columns streams its slice of the
+    state as 16-byte vectors and walks the tokens with it in registers),
+    longer T (prefill) the chunk-parallel kernels (chunk
     states, their carry, then the outputs, with the matrix products on
     the tensor cores as three-product TF32 splits), over a workspace this
     wrapper allocates.
@@ -43,7 +44,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_K = 512            # largest K the kernel takes (any V)
-CHUNKED_MIN_T = 32     # T from which wkv_scan takes the chunked kernels
+CHUNKED_MIN_T = 48     # T from which wkv_scan takes the chunked kernels
                        # (csrc kChunkedMinT: the two paths meet near it)
 CHUNK, SUB_CHUNK = 64, 16   # the chunked kernels' tokens per chunk and
                             # per diagonal block (csrc/wkv_scan.cu)

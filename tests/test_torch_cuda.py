@@ -363,6 +363,33 @@ def test_deferral_kernel_matches_plain(cuda, T, V, dtype):
     assert got[2][:3].tolist() == [0, 5, V // 2]
 
 
+def test_deferral_kernel_back_to_back_and_bit_equal(cuda):
+    """Calls at changing T and V, fp32 and bf16, enqueued back to back with
+    no synchronise between them: each row's last CTA leaves its ticket
+    counter at zero for the next call on the stream, so every result
+    matches the plain version (one split a row included: 2048 rows, and
+    a vocabulary under one span) and repeats bit for bit."""
+    shapes = [(8, 92544), (1, 65536), (3, 102400), (8, 92544), (1, 50),
+              (2048, 4096), (5, 1003), (1, 65536)]
+    xs = [_signal_logits(cuda, T, V, dt, seed=i) if T > 2 else
+          (torch.randn((T, V), device=cuda) * 3).to(dt)
+          for i, ((T, V), dt) in enumerate(zip(
+              shapes, [torch.float32, torch.bfloat16] * 4))]
+    n = de.deferral_entropy.launches
+    first = [de.deferral_entropy(x) for x in xs]
+    second = [de.deferral_entropy(x) for x in xs]
+    torch.cuda.synchronize()
+    assert de.deferral_entropy.launches == n + 2 * len(xs)
+    for x, a, b in zip(xs, first, second):
+        want = de.deferral_entropy_plain(x)
+        for got, ref in zip(a[:2], want[:2]):
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+        assert torch.equal(a[2], want[2])
+        assert all(torch.equal(p, r) for p, r in zip(a, b))
+    assert de.vocab_split(2048, 4096, 132)[1] == 1
+    assert de.vocab_split(1, 50, 132)[1] == 1
+
+
 def test_deferral_wrapper_raises_on_refused_launch(cuda, monkeypatch):
     x = _signal_logits(cuda, 4, 64, torch.float32)
     n = de.deferral_entropy.launches
@@ -555,13 +582,16 @@ def _wkv_close(y, st, ref_y, ref_s):
     torch.testing.assert_close(st, ref_s, atol=5e-4, rtol=5e-4)
 
 
-@pytest.mark.parametrize("T", [1, 2, 16, 17, 97, 128, 256])
-@pytest.mark.parametrize("mode,H,K,V", [
+WKV_SHAPES = [
     ("rwkv", 40, 64, 64), ("rwkv", 4, 32, 32), ("rwkv", 3, 128, 96),
     ("mamba", 64, 64, 64), ("mamba", 2, 16, 8), ("rwkv", 2, 256, 256),
-    ("mamba", 2, 256, 256), ("rwkv", 1, 200, 300), ("mamba", 1, 512, 40)],
-    ids=["rwkv6-3b", "rwkv-reduced", "rwkv-widest", "zamba2", "mamba-small",
-         "rwkv-256", "mamba-256", "rwkv-v-blocks", "mamba-k512"])
+    ("mamba", 2, 256, 256), ("rwkv", 1, 200, 300), ("mamba", 1, 512, 40)]
+WKV_IDS = ["rwkv6-3b", "rwkv-reduced", "rwkv-widest", "zamba2", "mamba-small",
+           "rwkv-256", "mamba-256", "rwkv-v-blocks", "mamba-k512"]
+
+
+@pytest.mark.parametrize("T", [1, 2, 16, 17, 97, 128, 256])
+@pytest.mark.parametrize("mode,H,K,V", WKV_SHAPES, ids=WKV_IDS)
 def test_wkv_kernel_matches_plain(cuda, mode, H, K, V, T):
     """y and the final state within atol = rtol = 5e-4 of the plain version
     (as tests/test_kernels.py holds the TPU kernel), the state written in
@@ -634,6 +664,46 @@ def test_wkv_chunked_kernel_on_hard_inputs(cuda, case):
     _wkv_close(y, st, ref_y, ref_s)
     assert torch.equal(y, y2) and torch.equal(st, st2)
     _wkv_close(ys, sts, ref_y, ref_s)
+
+
+@pytest.mark.parametrize("mode,H,K,V", WKV_SHAPES, ids=WKV_IDS)
+def test_wkv_decode_in_place_and_bit_equal(cuda, mode, H, K, V):
+    """T 1 through the per-token kernel with `out` = `state0`, as the
+    models' layers call it: within 5e-4 of the plain version, and two
+    calls from the same state give the same bits (the reductions over K
+    run in a fixed order, without atomics)."""
+    scalar = mode == "mamba"
+    q, k, v, logw, u, s0 = _wkv_case(cuda, 2, 1, H, K, V, scalar, seed=K + V)
+    ref_y, ref_s = wk.wkv_scan_plain(q, k, v, logw, u, s0, mode=mode)
+    outs = []
+    for _ in range(2):
+        state = s0.clone()
+        y, st = wk.wkv_scan(q, k, v, logw, u, state, mode=mode, out=state)
+        assert st.data_ptr() == state.data_ptr()
+        outs.append((y, st))
+    torch.cuda.synchronize()
+    _wkv_close(*outs[0], ref_y, ref_s)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_wkv_zamba2_decode_step(cuda):
+    """zamba2's Mamba2 decode step at the main path's 8 rows (64 heads of K
+    = V = 64, scalar decay [B,1,H,1], T 1): the per-token kernel in place,
+    within 5e-4 of the plain version, through 32 steps from the state it
+    leaves."""
+    q, k, v, logw, u, s0 = _wkv_case(cuda, 8, 32, 64, 64, 64, True)
+    ref_y, ref_s = wk.wkv_scan_plain(q, k, v, logw, u, s0, mode="mamba")
+    state, ys = s0.clone(), []
+    n, n_chunked = wk.wkv_scan.launches, wk.wkv_scan.launches_chunked
+    for t in range(32):
+        y, _ = wk.wkv_scan(*(x[:, t:t + 1] for x in (q, k, v, logw)), u,
+                           state, mode="mamba", out=state)
+        ys.append(y)
+    torch.cuda.synchronize()
+    assert wk.wkv_scan.launches == n + 32
+    assert wk.wkv_scan.launches_chunked == n_chunked
+    _wkv_close(torch.cat(ys, dim=1), state, ref_y, ref_s)
 
 
 def test_wkv_wrapper_raises_instead_of_falling_back(cuda):
