@@ -21,10 +21,14 @@ non-zero:
      one all-trash row; plus fp32 pages), and time kernel, plain version
      and a PyTorch library call with CUDA events, beside the bytes /
      operations bound; the same for the decode at a 4,096-token cache (8
-     full rows) and at llama3-405b's 128/8 heads (group 16).
+     full rows) and at llama3-405b's 128/8 heads (group 16). The write is
+     a decode layer's: K and V into their two leaves in one
+     `paged_write_token_pair` launch, timed beside two `index_put_`.
   3b. The same for the MLA decode kernel at the full-width DeepSeek-V2
      decode shapes (8 rows, 128 heads, kv_lora 512, rope 64, block 16):
-     bf16 q, pages and norm weight (the main path's types), and all fp32.
+     bf16 q, pages and norm weight (the main path's types), all fp32, and
+     all bf16 at a 4,096-token cache (8 full rows); two calls bit-equal,
+     and the device time by kernel (split and merge) under torch.profiler.
   3c. The deferral-signal kernel `deferral_entropy` against its plain
      version at the engine's shapes (8 x 92544, 8 x 102400 and, for
      rwkv6-3b, 8 x 65536 fp32 logits) and the evaluation's (2048 x
@@ -60,8 +64,9 @@ non-zero:
   4. The first main path: a full-width internlm2-1.8b M_S -> M_L cascade
      on the paged backend with the kernels on, through `build_ladder`,
      `ContinuousCascadeEngine.calibrate` and `.run`, with the launch
-     counters reset just before and checked just after (the paged kernels
-     per decode step; `deferral_entropy` per decode step, per seeding
+     counters reset just before and checked just after (the paged decode
+     and the paired write once per layer of each decode step;
+     `deferral_entropy` per decode step, per seeding
      prefill dispatch and per M_L or calibration generate step and
      prefill; `flash_attention` per layer of each prefill); plus one
      full-width decode step, kernel path against plain path, by logits
@@ -169,7 +174,7 @@ MAX_ROUTE_FLIPS = N_SLOTS // 2  # bf16 step: rows whose top-k expert set may
                         # spread, so it is reported and held to no bound;
                         # the fp32 step allows none
 L2_BYTES = 50e6
-LONG_CACHE = 4096       # phase 3: tokens per row of the long-cache decode
+LONG_CACHE = 4096       # phases 3, 3b: tokens per row of the long-cache decode
 
 # phases 3c, 3d and 8: the deferral signal, prefill attention, evaluation
 SIGNAL_ATOL = 1e-4      # neg_entropy / max_prob: fp32 sums over the
@@ -324,12 +329,12 @@ def decode_case(torch, kv_dtype, rng, H=16, KV=8, pos=None, copies=8):
     return c
 
 
-def mla_case(torch, dtype, rng):
-    """Full-width DeepSeek-V2 MLA decode inputs on `case_tables`, every
-    operand in `dtype`. Enough rotating page copies to exceed twice the
-    L2 (between two visits of one layer's cache the main path streams
-    gigabytes of expert weights through it)."""
-    c = case_tables(torch, rng)
+def mla_case(torch, dtype, rng, pos=None):
+    """Full-width DeepSeek-V2 MLA decode inputs on `case_tables` (`pos`
+    as there), every operand in `dtype`. Enough rotating page copies to
+    exceed twice the L2 (between two visits of one layer's cache the main
+    path streams gigabytes of expert weights through it)."""
+    c = case_tables(torch, rng, pos)
     H, r, dr = 128, 512, 64
     copy_bytes = (c["N"] + 1) * BLOCK * (r + dr) * torch.finfo(dtype).bits / 8
     R = math.ceil(2 * L2_BYTES / copy_bytes)
@@ -406,35 +411,54 @@ def check_decode_kernel(torch, pa, c, label, smi) -> dict:
 
 
 def check_write_kernel(torch, pa, c, kv_name, kv_dtype, smi) -> dict:
-    """paged_write_token (fp32 values into the leaf, in place) against its
-    plain version, bit for bit outside the trash block; times both and
-    `index_put_`. Returns the kernel's record."""
+    """The paged write of one decode layer: fp32 K and V values into two
+    leaves, in place, through one `paged_write_token_pair` launch; each
+    leaf bit for bit against its plain version outside the trash block,
+    and the one-leaf `paged_write_token` the same way. Times the layer's two writes, their plain versions and
+    two `index_put_`. Returns the kernel's record."""
     tables, pos = c["tables"], c["pos"]
-    vals = torch.randn((c["B"], c["KV"], c["hd"]), device=DEV)
-    leaves = [pg[0].clone() for pg in c["pages"]]
-    ref = pa.paged_write_token_plain(leaves[0].clone(), tables, pos, vals)
-    got = pa.paged_write_token(leaves[0], tables, pos, vals)
+    vk, vv = (torch.randn((c["B"], c["KV"], c["hd"]), device=DEV)
+              for _ in range(2))
+    pairs = [(pg[0].clone(), pg[1].clone()) for pg in c["pages"]]
+    ka, va = pairs[0]
+    ref_k = pa.paged_write_token_plain(ka.clone(), tables, pos, vk)
+    ref_v = pa.paged_write_token_plain(va.clone(), tables, pos, vv)
+    single = pa.paged_write_token(ka.clone(), tables, pos, vk)
+
+    def write(k, v):
+        return pa.paged_write_token_pair(k, v, tables, pos, vk, vv)
+    got_k, got_v = write(ka, va)
     torch.cuda.synchronize()
-    err = float((got[1:].float() - ref[1:].float()).abs().max())
-    if err != 0:
-        raise AssertionError(f"paged_write_token ({kv_name} leaf) is not "
-                             f"bit-exact outside block 0: {err}")
-    leaf = Rotation(leaves)
-    ms = time_ms(lambda: pa.paged_write_token(leaf(), tables, pos, vals))
-    plain_ms = time_ms(lambda: pa.paged_write_token_plain(
-        leaf(), tables, pos, vals))
+    err = max(float((g[1:].float() - r[1:].float()).abs().max())
+              for g, r in ((got_k, ref_k), (got_v, ref_v), (single, ref_k)))
+    if err != 0 or got_k is not ka or got_v is not va:
+        raise AssertionError(f"paged write ({kv_name} leaves) is not "
+                             f"bit-exact in place outside block 0: {err}")
+    leaves = Rotation(pairs)
+    ms = time_ms(lambda: write(*leaves()))
+
+    def plain(k, v):
+        pa.paged_write_token_plain(k, tables, pos, vk)
+        pa.paged_write_token_plain(v, tables, pos, vv)
+    plain_ms = time_ms(lambda: plain(*leaves()))
     blk = torch.clamp(pos.long() // BLOCK, 0, c["M"] - 1)
     phys = tables.long().gather(1, blk[:, None])[:, 0]
     off = pos.long() % BLOCK
-    vcast = vals.to(kv_dtype)
-    lib_ms = time_ms(lambda: leaf().index_put_((phys, off), vcast))
-    n_bytes = (vals.numel() * (4 + leaves[0].element_size())
-               + 4 * c["B"] + 4 * pos.numel())   # one table entry per row
+    ck, cv = vk.to(kv_dtype), vv.to(kv_dtype)
+
+    def index_put(k, v):
+        k.index_put_((phys, off), ck)
+        v.index_put_((phys, off), cv)
+    lib_ms = time_ms(lambda: index_put(*leaves()))
+    # both leaves' values, one table entry and one position a row
+    n_bytes = (2 * vk.numel() * (4 + ka.element_size()) + 4 * c["B"]
+               + 4 * pos.numel())
     bound_ms, bound_by = bound(n_bytes, 0)
-    print(f"[kernel] paged_write_token fp32 -> {kv_name} leaf: bit-exact "
-          f"outside block 0; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"index_put_ {lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-          f"{n_bytes} B) on {smi}")
+    print(f"[kernel] paged write fp32 K and V -> two {kv_name} leaves "
+          f"(one paged_write_token_pair launch): bit-exact outside block 0, the one-leaf write too; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, 2 x index_put_ "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {n_bytes}"
+          f" B) on {smi}")
     return dict(name="paged_write_token", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:250",
@@ -443,13 +467,16 @@ def check_write_kernel(torch, pa, c, kv_name, kv_dtype, smi) -> dict:
 
 
 def check_mla_kernel(torch, pa, c, name, smi) -> dict:
-    """paged_flash_decode_mla against its plain version; times both and
-    SDPA. Returns the kernel's record."""
+    """paged_flash_decode_mla against its plain version, two calls
+    bit-equal; times both and SDPA, and the kernel's device time by kernel
+    under torch.profiler. Returns the kernel's record."""
     tables, pos, scale = c["tables"], c["pos"], c["scale"]
     qa, qr, w = c["q_abs"], c["q_rope"], c["kv_norm"]
     ckv, kr = c["pages"][0]
     out = pa.paged_flash_decode_mla(qa, qr, ckv, kr, w, tables, pos,
                                     scale=scale)
+    again = pa.paged_flash_decode_mla(qa, qr, ckv, kr, w, tables, pos,
+                                      scale=scale)
     ref = pa.paged_flash_decode_mla_plain(qa, qr, ckv, kr, w, tables, pos,
                                           scale=scale)
     torch.cuda.synchronize()
@@ -458,11 +485,18 @@ def check_mla_kernel(torch, pa, c, name, smi) -> dict:
             and err <= DECODE_ATOL):
         raise AssertionError(f"paged_flash_decode_mla ({name}) max |err| "
                              f"{err} > {DECODE_ATOL}")
-    if out[-1].abs().max() != 0:
+    if not torch.equal(out, again):
+        raise AssertionError(f"paged_flash_decode_mla ({name}): two calls "
+                             f"differ")
+    if c["trash_row"] and out[-1].abs().max() != 0:
         raise AssertionError("MLA all-trash row is not exact zeros")
     pages = Rotation(c["pages"])
     ms = time_ms(lambda: pa.paged_flash_decode_mla(
         qa, qr, *pages(), w, tables, pos, scale=scale))
+    by_kernel = kernel_split(
+        torch, lambda: pa.paged_flash_decode_mla(qa, qr, *pages(), w, tables,
+                                                 pos, scale=scale),
+        20, r"(mla_\w*kernel)")
     plain_ms = time_ms(lambda: pa.paged_flash_decode_mla_plain(
         qa, qr, *pages(), w, tables, pos, scale=scale))
     # yardstick only, never called by the port: one SDPA over the
@@ -495,17 +529,23 @@ def check_mla_kernel(torch, pa, c, name, smi) -> dict:
     bf16 = ckv.dtype == torch.bfloat16
     rate = H100_BF16_FLOPS if bf16 else H100_FP32_FLOPS
     bound_ms, bound_by = bound(n_bytes, flops, rate)
-    print(f"[kernel] paged_flash_decode_mla {name}: max|err| {err:.3g} "
-          f"(atol {DECODE_ATOL}), all-trash row exact 0; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa(gathered, normed) {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {flops} "
-          f"{'bf16' if bf16 else 'fp32'} flop; {len(c['pages'])} page "
-          f"copies) on {smi}")
+    print(f"[kernel] paged_flash_decode_mla {name} ({c['B']} rows, "
+          f"{c['valid_tokens']} valid tokens, table {c['M']} blocks): "
+          f"max|err| {err:.3g} (atol {DECODE_ATOL}), two calls bit-equal"
+          + (", all-trash row exact 0" if c["trash_row"] else "")
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa(gathered, "
+          f"normed) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{n_bytes} B, {flops} {'bf16' if bf16 else 'fp32'} flop; "
+          f"{len(c['pages'])} page copies); by kernel (torch.profiler, 20 "
+          f"calls): " + ", ".join(f"{k} {t:.4f} ms"
+                                  for k, t in by_kernel.items())
+          + f" on {smi}")
     return dict(name="paged_flash_decode_mla", route="cuda",
                 source="src/repro_torch/kernels/csrc/mla_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:198",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                bound_by=bound_by, library_ms=lib_ms,
+                by_kernel_ms=by_kernel)
 
 
 def kernel_split(torch, call, calls: int, pattern: str) -> dict:
@@ -981,8 +1021,10 @@ def report_profile(torch, tfm, small, rng, smi) -> None:
                  f"idle {1 - busy_ms / wall_ms:.1%})")
     print(f"[main] full-width decode step (8 rows, kernels on, with its "
           f"deferral signal): host wall {wall_ms:.3f} ms, {busy} on {smi}")
+    # the top six, then the port's own kernels further down
+    ours = ("::de_", "gqa_", "mla_", "write_tokens_")
     for name, ms in ranked[:6] + [(n, ms) for n, ms in ranked[6:]
-                                  if n.startswith("de_") or "gqa_" in n]:
+                                  if any(k in n for k in ours)]:
         print(f"[main]   {ms:.4f} ms/step  {name[:90]}")
 
 
@@ -1762,6 +1804,16 @@ def check_kernels(torch, np, rng, smi, phases, t_start) -> dict:
             if dtype == torch.bfloat16:          # the main path's types
                 records["paged_flash_decode_mla"] = rec
             del case
+        # beyond the main path's shape: a long cache, many splits a row
+        case = mla_case(torch, torch.bfloat16,
+                        np.random.default_rng(SEED + 31),
+                        pos=[LONG_CACHE - 1] * N_SLOTS)
+        rec = check_mla_kernel(torch, pa, case,
+                               f"all bf16, {LONG_CACHE}-token cache", smi)
+        records["paged_flash_decode_mla"]["long_cache"] = {
+            k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "max_abs_err", "by_kernel_ms")}
+        del case
         torch.cuda.empty_cache()
     # -- 3c. the deferral signal against its plain version -------------------
     if "3c" in phases:
@@ -1863,7 +1915,7 @@ def main(argv=None) -> int:
         L = small.cfg.n_layers
         by_path[ARCH] = serve_main_path(
             torch, small, large,
-            {"paged_flash_decode_gqa": L, "paged_write_token": 2 * L}, smi)
+            {"paged_flash_decode_gqa": L, "paged_write_token": L}, smi)
         torch.cuda.empty_cache()
         # -- 8. the paper's cascade evaluation on the same models -----------
         phase("8", t_start)
@@ -1884,7 +1936,7 @@ def main(argv=None) -> int:
         L = small.cfg.n_layers
         by_path[MLA_ARCH] = serve_main_path(
             torch, small, large,
-            {"paged_flash_decode_mla": L, "paged_write_token": 2 * L}, smi)
+            {"paged_flash_decode_mla": L, "paged_write_token": L}, smi)
         del small, large
         torch.cuda.empty_cache()
 

@@ -1,5 +1,6 @@
 // Paged decode kernels for Hopper (sm_90a): one-token GQA attention read
-// straight from the block-paged KV cache, and the single-token paged write.
+// straight from the block-paged KV cache, and the paged write of a decode
+// layer's new token into its cache leaves.
 //
 // Plain C interface (no PyTorch headers), built with nvcc into a shared
 // library and called through ctypes by repro_torch/kernels/paged_attention.py.
@@ -55,12 +56,17 @@
 //   Tokens in unmapped pages (id 0) or past the row's position are never
 //   read; an all-trash row gives exact zeros.
 //
-// paged_write_token replaces the Pallas TPU kernel
+// paged_write_tokens replaces the Pallas TPU kernel
 // src/repro/kernels/paged_attention.py::paged_write_token (_write_kernel).
-//   Bound: bytes (one token row of KV * hd elements per batch row). One CTA
-//   per row writes in place into the physical block selected through the
-//   page table; nothing else of the cache moves (the TPU version aliases
-//   input and output for the same reason).
+//   Bound: bytes (one token row of KV * hd elements per batch row and
+//   leaf), but at a decode step's 8 rows of at most 2 KB a launch costs far
+//   more than its bytes: what bounds it is the launch. So one launch writes
+//   a decode layer's two leaves (K and V, or MLA's ckv and kr), which share
+//   the page table and the positions: grid (B, leaves), CTA (b, leaf)
+//   writes row b of that leaf in place into the physical block selected
+//   through the page table; nothing else of the cache moves (the TPU
+//   version aliases input and output for the same reason). Each leaf has
+//   its own width, block size and types.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -508,22 +514,44 @@ gqa_merge_kernel(const float* __restrict__ ws_acc,
   }
 }
 
-// grid (B,): row b writes values[b, :F] into leaf[phys, pos % bs, :F].
+// One leaf of a paged write: leaf [N+1, bs, F] written in place from
+// vals [B, F]; *_bf16: 0 = float32, 1 = bfloat16.
+struct WriteLeaf {
+  void* leaf;
+  const void* vals;
+  int64_t F;
+  int bs, leaf_bf16, val_bf16;
+};
+
+// row b of `w`: values[b, :F] into leaf[phys, pos % bs, :F], where phys is
+// tables[b, clip(pos // bs, 0, M - 1)]
 template <typename LT, typename VT>
-__global__ void write_token_kernel(LT* __restrict__ leaf,
-                                   const VT* __restrict__ vals,
-                                   const int32_t* __restrict__ tables,
-                                   const int32_t* __restrict__ pos, int M,
-                                   int bs, int64_t F) {
-  const int b = blockIdx.x;
-  const int p = pos[b];
+__device__ __forceinline__ void write_row(const WriteLeaf& w, int b,
+                                          const int32_t* __restrict__ tables,
+                                          const int32_t* __restrict__ pos,
+                                          int M) {
+  const int p = pos[b], bs = w.bs;
   const int blk = min(max(floor_div(p, bs), 0), M - 1);
   const int phys = tables[(size_t)b * M + blk];
   const int off = p - floor_div(p, bs) * bs;
-  LT* dst = leaf + ((int64_t)phys * bs + off) * F;
-  const VT* src = vals + (int64_t)b * F;
-  for (int64_t i = threadIdx.x; i < F; i += blockDim.x)
+  LT* dst = static_cast<LT*>(w.leaf) + ((int64_t)phys * bs + off) * w.F;
+  const VT* src = static_cast<const VT*>(w.vals) + (int64_t)b * w.F;
+  for (int64_t i = threadIdx.x; i < w.F; i += blockDim.x)
     dst[i] = from_f32<LT>(to_f32(src[i]));
+}
+
+// grid (B, n_leaves): CTA (b, j) writes row b of leaf j (la, then lb)
+__global__ void write_tokens_kernel(WriteLeaf la, WriteLeaf lb,
+                                    const int32_t* __restrict__ tables,
+                                    const int32_t* __restrict__ pos, int M) {
+  const WriteLeaf w = blockIdx.y == 0 ? la : lb;
+  const int b = blockIdx.x;
+  switch (2 * w.leaf_bf16 + w.val_bf16) {
+    case 0: write_row<float, float>(w, b, tables, pos, M); break;
+    case 1: write_row<float, __nv_bfloat16>(w, b, tables, pos, M); break;
+    case 2: write_row<__nv_bfloat16, float>(w, b, tables, pos, M); break;
+    default: write_row<__nv_bfloat16, __nv_bfloat16>(w, b, tables, pos, M);
+  }
 }
 
 constexpr int kWriteThreads = 256;
@@ -622,15 +650,6 @@ int dispatch_gc(const void* q, const void* kp, const void* vp,
   return (int)cudaErrorInvalidValue;  // not reached
 }
 
-template <typename LT, typename VT>
-void launch_write(void* leaf, const void* vals, const int32_t* tables,
-                  const int32_t* pos, int B, int M, int bs, int64_t F,
-                  cudaStream_t stream) {
-  write_token_kernel<LT, VT><<<B, kWriteThreads, 0, stream>>>(
-      static_cast<LT*>(leaf), static_cast<const VT*>(vals), tables, pos, M, bs,
-      F);
-}
-
 }  // namespace
 
 extern "C" {
@@ -672,22 +691,24 @@ int paged_flash_decode_gqa(const void* q, const void* kp, const void* vp,
                                      M, bs, KV, group, hd, scale, pl, s);
 }
 
-// leaf [N+1,bs,F] written in place; vals [B,F]; tables [B,M]; pos [B].
-int paged_write_token(void* leaf, const void* vals, const void* tables,
-                      const void* pos, int B, int M, int bs, int64_t F,
-                      int leaf_bf16, int val_bf16, void* stream) {
-  const int32_t* t = static_cast<const int32_t*>(tables);
-  const int32_t* ps = static_cast<const int32_t*>(pos);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (leaf_bf16 && val_bf16)
-    launch_write<__nv_bfloat16, __nv_bfloat16>(leaf, vals, t, ps, B, M, bs, F,
-                                               s);
-  else if (leaf_bf16)
-    launch_write<__nv_bfloat16, float>(leaf, vals, t, ps, B, M, bs, F, s);
-  else if (val_bf16)
-    launch_write<float, __nv_bfloat16>(leaf, vals, t, ps, B, M, bs, F, s);
-  else
-    launch_write<float, float>(leaf, vals, t, ps, B, M, bs, F, s);
+// A decode layer's paged write in one launch: leaf a [N+1,bs_a,F_a] from
+// vals a [B,F_a] and, when n_leaves == 2, leaf b from vals b, both in place
+// through tables [B,M] and pos [B]. *_bf16: 0 = float32, 1 = bfloat16.
+int paged_write_tokens(void* leaf_a, const void* vals_a, int64_t F_a,
+                       int bs_a, int leaf_a_bf16, int val_a_bf16,
+                       void* leaf_b, const void* vals_b, int64_t F_b,
+                       int bs_b, int leaf_b_bf16, int val_b_bf16,
+                       const void* tables, const void* pos, int B, int M,
+                       int n_leaves, void* stream) {
+  if (B < 1 || M < 1 || n_leaves < 1 || n_leaves > 2 ||
+      bs_a < 1 || (n_leaves == 2 && bs_b < 1))
+    return (int)cudaErrorInvalidValue;
+  const WriteLeaf a{leaf_a, vals_a, F_a, bs_a, leaf_a_bf16, val_a_bf16};
+  const WriteLeaf b{leaf_b, vals_b, F_b, bs_b, leaf_b_bf16, val_b_bf16};
+  write_tokens_kernel<<<dim3(B, n_leaves), kWriteThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a, b, static_cast<const int32_t*>(tables),
+      static_cast<const int32_t*>(pos), M);
   return (int)cudaGetLastError();
 }
 

@@ -17,13 +17,14 @@ from repro_torch.kernels.gatekeeper_loss import (gatekeeper_loss_fused,
                                                  gatekeeper_loss_tokens)
 from repro_torch.kernels.paged_attention import (paged_flash_decode_gqa,
                                                  paged_flash_decode_mla,
-                                                 paged_write_token)
+                                                 paged_write_token,
+                                                 paged_write_token_pair)
 from repro_torch.kernels.wkv_scan import wkv_scan
 
 __all__ = ["deferral_signal", "flash_attention", "gatekeeper_loss_fused",
            "gatekeeper_loss_tokens", "paged_flash_decode_gqa",
            "paged_flash_decode_mla", "paged_kernel_enabled",
-           "paged_write_token", "wkv"]
+           "paged_write_token", "paged_write_token_pair", "wkv"]
 
 
 def paged_kernel_enabled(override: Optional[bool] = None,

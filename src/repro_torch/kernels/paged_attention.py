@@ -17,22 +17,26 @@ replaces, what bounds it and what its design does about that.
     ``(1 + kv_norm)``; the score is ``(q_abs . ckv_n + q_rope . kr) *
     scale`` and the value ``ckv_n``. Returns the fp32 latent context
     ``[B, 1, H, kv_lora]``, with the same page-skipping and all-trash
-    contract as the GQA decode.
+    contract as the GQA decode, and like it split at `split_span` and
+    merged in a fixed order.
   * `paged_write_token` — writes one token per row into block
     ``tables[b, clip(pos // bs, 0, M-1)]`` at offset ``pos % bs``, in
     place. Unmapped targets land in the trash block 0.
+    `paged_write_token_pair` does the same for a decode layer's two leaves
+    (K and V, or ckv and kr) in one launch.
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises. `<wrapper>.launches` counts
-the calls that launched (never plain calls; the GQA decode's split and
-merge kernels count once).
+the calls that launched (never plain calls; a decode's split and merge
+kernels count once; the pair counts into `paged_write_token.launches`, one
+a launch).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +47,7 @@ _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 SPLIT_TOKENS = 64      # a decode split spans about this many tokens
 # limits of csrc/mla_attention.cu (kMaxR, kMaxDr, kMaxBs)
 _MLA_MAX_R, _MLA_MAX_DR, _MLA_MAX_BS = 512, 64, 32
+MLA_MAX_SPLITS = 32    # an MLA decode row takes at most this many splits
 
 
 # ---------------------------------------------------------------------------
@@ -134,9 +139,9 @@ def _lib() -> ctypes.CDLL:
     lib.paged_flash_decode_gqa.argtypes = [vp] * 8 + [ci] * 6 + [
         ctypes.c_float] + [ci] * 3 + [vp]
     lib.paged_flash_decode_gqa.restype = ci
-    lib.paged_write_token.argtypes = [vp] * 4 + [ci] * 3 + [
-        ctypes.c_int64, ci, ci, vp]
-    lib.paged_write_token.restype = ci
+    leaf = [vp, vp, ctypes.c_int64, ci, ci, ci]
+    lib.paged_write_tokens.argtypes = leaf * 2 + [vp, vp, ci, ci, ci, vp]
+    lib.paged_write_tokens.restype = ci
     return lib
 
 
@@ -144,8 +149,8 @@ def _lib() -> ctypes.CDLL:
 def _mla_lib() -> ctypes.CDLL:
     lib = _build.load("mla_attention")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_flash_decode_mla.argtypes = [vp] * 8 + [ci] * 6 + [cf, cf] + [
-        ci] * 4 + [vp]
+    lib.paged_flash_decode_mla.argtypes = [vp] * 10 + [ci] * 7 + [cf, cf] + [
+        ci] * 5 + [vp]
     lib.paged_flash_decode_mla.restype = ci
     return lib
 
@@ -181,6 +186,14 @@ def split_span(bs: int) -> int:
     split starts and ends depends on the block size and the token index
     only, never on the table's width."""
     return bs * max(1, SPLIT_TOKENS // bs)
+
+
+def mla_split_count(M: int, bs: int) -> int:
+    """Splits of an MLA decode launch over a table M blocks wide: one a
+    `split_span(bs)`, at most MLA_MAX_SPLITS. The kernel cuts a row of
+    more spans than that into MLA_MAX_SPLITS longer splits, by the row's
+    own position (`row_span` in `csrc/mla_attention.cu`)."""
+    return min(MLA_MAX_SPLITS, -(-M * bs // split_span(bs)))
 
 
 def paged_flash_decode_gqa(q: torch.Tensor, k_pages: torch.Tensor,
@@ -250,7 +263,14 @@ def paged_flash_decode_mla(q_abs: torch.Tensor, q_rope: torch.Tensor,
     ckv_pages [N+1, bs, r]; kr_pages [N+1, bs, dr]; kv_norm [r]; tables
     [B, M] int32 (0 = unmapped); positions [B] int32. Returns the latent
     context [B,1,H,r] in float32. q_abs, q_rope, the pages and kv_norm may
-    each be float32 or bfloat16 (both page leaves of one type)."""
+    each be float32 or bfloat16 (both page leaves of one type). A row's
+    tokens are cut into splits of `split_span(bs)` tokens, or into
+    MLA_MAX_SPLITS longer splits where the row's position reaches past
+    that many; a second launch merges their partials in a fixed order.
+    Their fp32 workspace, B x mla_split_count(M, bs) x H x (r + 2) floats,
+    is allocated here: at most 8.4 MB a row at H 128, r 512, whatever the
+    cache's length. The kernel plans the rest of the launch itself and
+    refuses (RuntimeError) a shape it cannot take."""
     if not q_abs.is_cuda:
         return paged_flash_decode_mla_plain(q_abs, q_rope, ckv_pages,
                                             kr_pages, kv_norm, tables,
@@ -278,13 +298,25 @@ def paged_flash_decode_mla(q_abs: torch.Tensor, q_rope: torch.Tensor,
              f"the kernel takes r <= {_MLA_MAX_R}, dr <= {_MLA_MAX_DR}, "
              f"block <= {_MLA_MAX_BS}; got {r}, {dr}, {bs}")
     _check_index(tables, positions, B, q_abs.device)
+    M = tables.shape[1]
+    _require(M >= 1, "tables must have at least one column")
+    n_split = mla_split_count(M, bs)
     out = torch.empty((B, 1, H, r), dtype=torch.float32, device=q_abs.device)
+    ws_acc = ws_ml = None
+    if n_split > 1:
+        ws_acc = torch.empty((B, n_split, H, r), dtype=torch.float32,
+                             device=q_abs.device)
+        ws_ml = torch.empty((B, n_split, H, 2), dtype=torch.float32,
+                            device=q_abs.device)
     err = _mla_lib().paged_flash_decode_mla(
         q_abs.data_ptr(), q_rope.data_ptr(), ckv_pages.data_ptr(),
         kr_pages.data_ptr(), kv_norm.data_ptr(), tables.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), B, H, tables.shape[1], bs, r,
-        dr, float(scale), float(eps), _bf16(q_abs), _bf16(q_rope),
-        _bf16(ckv_pages), _bf16(kv_norm), _stream(q_abs.device))
+        positions.data_ptr(), out.data_ptr(),
+        None if ws_acc is None else ws_acc.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(), n_split, B, H, M, bs, r,
+        dr, float(scale), float(eps), split_span(bs), _bf16(q_abs),
+        _bf16(q_rope), _bf16(ckv_pages), _bf16(kv_norm),
+        _stream(q_abs.device))
     if err:
         raise RuntimeError(f"paged_flash_decode_mla launch failed: CUDA "
                            f"error {err}")
@@ -295,6 +327,39 @@ def paged_flash_decode_mla(q_abs: torch.Tensor, q_rope: torch.Tensor,
 paged_flash_decode_mla.launches = 0
 
 
+def _write(leaves, tables: torch.Tensor, positions: torch.Tensor,
+           name: str) -> None:
+    """One launch writing each (leaf, values) of `leaves` (one or two) in
+    place; counts into `paged_write_token.launches`."""
+    B, M = tables.shape
+    device = leaves[0][0].device
+    args, kept = [], []          # `kept` holds the values until the launch
+    for leaf, values in leaves:
+        F = math.prod(leaf.shape[2:])
+        _require(values.numel() == B * F,
+                 f"values {tuple(values.shape)} do not hold {B} rows of {F}")
+        for what, t in (("leaf", leaf), ("values", values)):
+            _require(t.device == device, f"{what} must be on {device}")
+            _require(t.dtype in _FLOAT_TYPES, f"{what} must be fp32 or bf16")
+        _require(leaf.dim() >= 2 and leaf.is_contiguous(),
+                 "leaf must be [N+1, block_size, ...] and contiguous "
+                 "(written in place)")
+        values = values.contiguous()
+        kept.append(values)
+        args += [leaf.data_ptr(), values.data_ptr(), F, leaf.shape[1],
+                 _bf16(leaf), _bf16(values)]
+    _check_index(tables, positions, B, device)
+    _require(M >= 1, "tables must have at least one column")
+    if len(leaves) == 1:
+        args += args                        # leaf b is not launched
+    err = _lib().paged_write_tokens(*args, tables.data_ptr(),
+                                    positions.data_ptr(), B, M, len(leaves),
+                                    _stream(device))
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    paged_write_token.launches += 1
+
+
 def paged_write_token(leaf: torch.Tensor, tables: torch.Tensor,
                       positions: torch.Tensor,
                       values: torch.Tensor) -> torch.Tensor:
@@ -303,26 +368,25 @@ def paged_write_token(leaf: torch.Tensor, tables: torch.Tensor,
     values [B, ...] (cast to the leaf's type). Returns `leaf`."""
     if not leaf.is_cuda:
         return paged_write_token_plain(leaf, tables, positions, values)
-    B, M = tables.shape
-    bs = leaf.shape[1]
-    F = math.prod(leaf.shape[2:])
-    values = values.contiguous()
-    _require(values.numel() == B * F,
-             f"values {tuple(values.shape)} do not hold {B} rows of {F}")
-    for name, t in (("leaf", leaf), ("values", values)):
-        _require(t.device == leaf.device, f"{name} must be on {leaf.device}")
-        _require(t.dtype in _FLOAT_TYPES, f"{name} must be fp32 or bf16")
-    _require(leaf.is_contiguous(), "leaf must be contiguous (written in place)")
-    _check_index(tables, positions, B, leaf.device)
-    err = _lib().paged_write_token(
-        leaf.data_ptr(), values.data_ptr(), tables.data_ptr(),
-        positions.data_ptr(), B, M, bs, F,
-        int(leaf.dtype == torch.bfloat16), int(values.dtype == torch.bfloat16),
-        _stream(leaf.device))
-    if err:
-        raise RuntimeError(f"paged_write_token launch failed: CUDA error {err}")
-    paged_write_token.launches += 1
+    _write([(leaf, values)], tables, positions, "paged_write_token")
     return leaf
 
 
 paged_write_token.launches = 0
+
+
+def paged_write_token_pair(leaf_a: torch.Tensor, leaf_b: torch.Tensor,
+                           tables: torch.Tensor, positions: torch.Tensor,
+                           values_a: torch.Tensor, values_b: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`paged_write_token` of a decode layer's two leaves (K and V, or ckv
+    and kr) through one table and one set of positions, in one launch.
+    Each leaf keeps its own width and types. Returns (leaf_a, leaf_b)."""
+    if not leaf_a.is_cuda:
+        return (paged_write_token_plain(leaf_a, tables, positions, values_a),
+                paged_write_token_plain(leaf_b, tables, positions, values_b))
+    _require(leaf_a.data_ptr() != leaf_b.data_ptr(),
+             "the two leaves must be distinct tensors")
+    _write([(leaf_a, values_a), (leaf_b, values_b)], tables, positions,
+           "paged_write_token_pair")
+    return leaf_a, leaf_b

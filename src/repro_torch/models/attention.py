@@ -22,8 +22,11 @@ them, so no copy of a cache leaf is made per step.
 
 Paged decode has two implementations of the same masked softmax: the
 plain path (`_paged_write` + `gather_blocks` + `_attend`) and the kernel
-path (`kernels.ops.paged_write_token` + `paged_flash_decode_gqa` or
-`paged_flash_decode_mla`, CUDA on the card). GQA prefill likewise: the
+path (`kernels.ops.paged_write_token_pair`, which writes the layer's two
+cache leaves in one launch, + `paged_flash_decode_gqa` or
+`paged_flash_decode_mla`, CUDA on the card; both decodes split each row's
+cache across CTAs, and the MLA decode takes its products on the tensor
+cores with bf16 hi + lo operands). GQA prefill likewise: the
 plain `_attend` over the causal mask, or the `kernels.ops.flash_attention`
 kernel with ``q_offset = cache_offset`` (the same mask), on the slot
 cache, the gathered paged view, and, when autograd records nothing, the
@@ -208,8 +211,8 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
             # page table, no dense [B, M*bs, ...] view
             tables = pages.to(torch.int32).contiguous()
             pos32 = pos.to(torch.int32).contiguous()
-            ck = kernel_ops.paged_write_token(cache["k"], tables, pos32, k[:, 0])
-            cv = kernel_ops.paged_write_token(cache["v"], tables, pos32, v[:, 0])
+            ck, cv = kernel_ops.paged_write_token_pair(
+                cache["k"], cache["v"], tables, pos32, k[:, 0], v[:, 0])
             out = kernel_ops.paged_flash_decode_gqa(q, ck, cv, tables, pos32,
                                                     scale=scale)
         else:
@@ -325,10 +328,9 @@ def mla_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
         assert per_row, "paged decode needs per-row positions"
         tables = pages.to(torch.int32).contiguous()
         pos32 = pos.to(torch.int32).contiguous()
-        cckv = kernel_ops.paged_write_token(cache["ckv"], tables, pos32,
-                                            ckv_new[:, 0])
-        ckr = kernel_ops.paged_write_token(cache["kr"], tables, pos32,
-                                           kr_new[:, 0])
+        cckv, ckr = kernel_ops.paged_write_token_pair(
+            cache["ckv"], cache["kr"], tables, pos32, ckv_new[:, 0],
+            kr_new[:, 0])
         q_abs = einsum("bthk,rhk->bthr", q_nope, params["wuk"])
         ctx_lat = kernel_ops.paged_flash_decode_mla(
             q_abs.contiguous(), q_rope.contiguous(), cckv, ckr,

@@ -171,10 +171,11 @@ def test_write_kernel_matches_plain_bit_exact(cuda, leaf_dtype, val_dtype):
     torch.testing.assert_close(got[1:], ref[1:], atol=0, rtol=0)
 
 
-def _mla_case(cuda, B, H, r, dr, bs, q_dtype, kv_dtype, seed=0):
+def _mla_case(cuda, B, H, r, dr, bs, q_dtype, kv_dtype, seed=0,
+              max_pos=None):
     """MLA decode inputs on the GQA case's tables and positions."""
     _, _, _, tables, pos = _case(cuda, B, 1, 1, 1, bs, torch.float32,
-                                 torch.float32, seed)
+                                 torch.float32, seed, max_pos=max_pos)
     N = int(tables.max())
     g = torch.Generator(device=cuda).manual_seed(seed + 1)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
@@ -183,15 +184,31 @@ def _mla_case(cuda, B, H, r, dr, bs, q_dtype, kv_dtype, seed=0):
             (0.1 * rnd(r)).to(kv_dtype), tables, pos)
 
 
-@pytest.mark.parametrize("shape", [(4, 4, 32, 16, 4), (8, 128, 512, 64, 16)],
-                         ids=["reduced", "full-width"])
-@pytest.mark.parametrize("q_dtype,kv_dtype", [
+MLA_SHAPES = {   # (B, H, r, dr, bs, positions below)
+    "reduced": (4, 4, 32, 16, 4, None),
+    "full-width": (8, 128, 512, 64, 16, None),
+    "long-cache": (8, 128, 512, 64, 16, 4096),     # 32 splits of 128 tokens
+    "past-the-cap": (2, 128, 512, 64, 16, 20000),  # 32 splits of 640 tokens
+    "h16": (8, 16, 512, 64, 16, 300),              # one head tile, half used
+    "h24": (8, 24, 512, 64, 16, 300),              # H not a multiple of 32
+    "bs4": (8, 128, 512, 64, 4, 200),              # 8 pages a 32-token tile
+    "bs32": (8, 128, 512, 64, 32, 300),
+    "odd-widths": (4, 40, 50, 10, 5, 150),         # element-wise load paths
+}
+MLA_TYPES = [
     (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
-    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("shape", list(MLA_SHAPES.values()),
+                         ids=list(MLA_SHAPES))
+@pytest.mark.parametrize("q_dtype,kv_dtype", MLA_TYPES)
 def test_mla_kernel_matches_plain(cuda, shape, q_dtype, kv_dtype):
-    """fp32 output, accumulated in fp32 by both in different orders: atol
-    1e-4. The all-trash row is exact zeros."""
-    args = _mla_case(cuda, *shape, q_dtype, kv_dtype)
+    """fp32 output, accumulated in fp32 by both in different orders, the
+    kernel's products on bf16 hi + lo halves: atol 1e-4. The all-trash row
+    is exact zeros."""
+    *shape, max_pos = shape
+    args = _mla_case(cuda, *shape, q_dtype, kv_dtype, max_pos=max_pos)
     scale = 1.0 / math.sqrt(128 + shape[3])
     n = pa.paged_flash_decode_mla.launches
     out = pa.paged_flash_decode_mla(*args, scale=scale)
@@ -201,6 +218,84 @@ def test_mla_kernel_matches_plain(cuda, shape, q_dtype, kv_dtype):
     assert out.dtype == torch.float32 and out.shape == ref.shape
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     assert out[-1].abs().max() == 0
+
+
+@pytest.mark.parametrize("shape", ["full-width", "long-cache", "h24",
+                                   "odd-widths"])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [MLA_TYPES[0], MLA_TYPES[2]])
+def test_mla_kernel_two_calls_bit_equal(cuda, shape, q_dtype, kv_dtype):
+    """The splits' partials are merged in split order, with no atomics:
+    two calls on the same inputs give the same bits."""
+    *shape, max_pos = MLA_SHAPES[shape]
+    args = _mla_case(cuda, *shape, q_dtype, kv_dtype, max_pos=max_pos)
+    first = pa.paged_flash_decode_mla(*args, scale=0.07)
+    second = pa.paged_flash_decode_mla(*args, scale=0.07)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_mla_kernel_exact_under_active_prefix_slice(cuda):
+    """Cutting the page table to the blocks the positions reach leaves the
+    MLA kernel's output bit-identical: it never visits the blocks cut
+    away."""
+    *args, tables, pos = _mla_case(cuda, 8, 128, 512, 64, 16, torch.bfloat16,
+                                   torch.bfloat16)
+    need = int((pos.max() // 16) + 1)
+    wide = torch.cat([tables, torch.zeros_like(tables)], dim=1).contiguous()
+    full = pa.paged_flash_decode_mla(*args, wide, pos, scale=0.07)
+    cut = pa.paged_flash_decode_mla(*args, wide[:, :need].contiguous(), pos,
+                                    scale=0.07)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cut, full, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("max_pos,width", [(60, 8), (300, 32), (300, 64),
+                                           (700, 64), (1500, 256),
+                                           (700, 20000)])
+def test_mla_kernel_exact_when_the_cut_changes_the_split_count(
+        cuda, max_pos, width):
+    """Rows of 1 to 24 active splits, in a table cut to the active prefix
+    and in one widened to `width` blocks, whose launch has more splits, up
+    to the cap of 32 (at max_pos 60 the cut has one split, so its kernel
+    writes the output itself, and the wide table's goes through the merge;
+    20,000 blocks are 5,000 base spans, which the launch caps at 32): the
+    same bits. A row's splits, and the merge's order, follow from the
+    row's own position, never from the launch's split count."""
+    *args, tables, pos = _mla_case(cuda, 8, 128, 512, 64, 16, torch.bfloat16,
+                                   torch.bfloat16, max_pos=max_pos)
+    need = int((pos.max() // 16) + 1)
+    assert width > need
+    wide = torch.zeros((8, width), dtype=torch.int32, device=cuda)
+    wide[:, :tables.shape[1]] = tables
+    cut = pa.paged_flash_decode_mla(*args, wide[:, :need].contiguous(), pos,
+                                    scale=0.07)
+    full = pa.paged_flash_decode_mla(*args, wide, pos, scale=0.07)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cut, full, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("type_a", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("type_b", [torch.bfloat16, torch.float32])
+def test_write_pair_matches_two_plain_writes_bit_exact(cuda, type_a, type_b):
+    """One `paged_write_token_pair` launch writes DeepSeek-V2's two leaves
+    (ckv 512 and kr 64 wide, of their own types) as two plain writes do,
+    bit for bit outside the trash block, in place; it counts one launch."""
+    _, _, _, tables, pos = _case(cuda, 8, 1, 1, 1, 16, torch.float32,
+                                 torch.float32)
+    N = int(tables.max()) + 1
+    la = torch.randn((N, 16, 512), device=cuda).to(type_a)
+    lb = torch.randn((N, 16, 64), device=cuda).to(type_b)
+    va = torch.randn((8, 512), device=cuda)
+    vb = torch.randn((8, 64), device=cuda).bfloat16()
+    ref_a = pa.paged_write_token_plain(la.clone(), tables, pos, va)
+    ref_b = pa.paged_write_token_plain(lb.clone(), tables, pos, vb)
+    n = pa.paged_write_token.launches
+    got_a, got_b = pa.paged_write_token_pair(la, lb, tables, pos, va, vb)
+    torch.cuda.synchronize()
+    assert got_a is la and got_b is lb
+    assert pa.paged_write_token.launches == n + 1
+    torch.testing.assert_close(got_a[1:], ref_a[1:], atol=0, rtol=0)
+    torch.testing.assert_close(got_b[1:], ref_b[1:], atol=0, rtol=0)
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -228,6 +323,20 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
             torch.zeros((4, 1, 4, 1024), device=cuda), qr, big, kr,
             torch.zeros(1024, device=cuda), tables, pos, scale=0.1)
     assert pa.paged_flash_decode_mla.launches == n
+    n = pa.paged_write_token.launches
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_write_token_pair(ckv, kr, tables.long(), pos, qa[:, 0, 0],
+                                  qr[:, 0, 0])
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        pa.paged_write_token_pair(ckv, kr, tables, pos, qa[:, 0, 0].half(),
+                                  qr[:, 0, 0])
+    with pytest.raises(ValueError, match="distinct"):
+        pa.paged_write_token_pair(ckv, ckv, tables, pos, qa[:, 0, 0],
+                                  qa[:, 0, 0])
+    with pytest.raises(ValueError, match="do not hold"):
+        pa.paged_write_token_pair(ckv, kr, tables, pos, qa[:, 0, 0],
+                                  qa[:, 0, 0])
+    assert pa.paged_write_token.launches == n
     x, table, tgt = _loss_case(cuda, 16, 32, 100)
     n = gk.gatekeeper_loss_tokens.launches
     with pytest.raises(ValueError, match="int32"):
