@@ -31,8 +31,9 @@ non-zero:
      and the device time by kernel (split and merge) under torch.profiler.
   3c. The deferral-signal kernel `deferral_entropy` against its plain
      version at the engine's shapes (8 x 92544, 8 x 102400 and, for
-     rwkv6-3b, 8 x 65536 fp32 logits) and the evaluation's (2048 x
-     92544), with a row of equal
+     rwkv6-3b, 8 x 65536 fp32 logits), the evaluation's (2048 x
+     92544) and phase 10's classifier logits (1000 x 8, 3000 x 8, and
+     3000 x 10, whose rows take the scalar loads), with a row of equal
      logits, a row with an exact top tie and a vocabulary tail no span
      divides, two calls bit-equal; timed beside its bytes bound (no
      single PyTorch call computes the triple, so no library time), and
@@ -107,6 +108,19 @@ non-zero:
      masks and greedy tokens per request (a request whose confidence lies
      within 1e-5 of tau is reported, not held), and
      `launch.serve.main()` with defaults and with --arch rwkv6-3b.
+  10. The classifier cascade, tests/test_system.py's flow on the port's
+     own draw (seed 0) at that test's sizes: M_S a (64, 64) MLP on 2,000
+     rows for 1,500 steps, M_L a (256, 256) MLP on 12,000 rows for 2,500
+     steps, M_S tuned with the Gatekeeper loss (alpha 0.1, 1,500 steps on
+     a 3,000-row split), acc / s_d / s_o / AUROC before and after tuning
+     on the 3,000-row test split, and `Cascade(signal="max_softmax")`
+     calibrated at deferral 0.3 on 1,000 of those rows and run by
+     `predict_sparse` on the rest; the accuracy gap, s_o down and the
+     cascade beating M_S at cost < 1 held; the wall seconds of each fit,
+     the tuning and the evaluation; `deferral_entropy` counted exactly
+     (one per `evaluate_classifier` batch and per model's logits in
+     `calibrate_tau` / `predict_sparse`) and held against its plain
+     version on every such logits tensor.
   7. Training, after the serving ladders are freed:
      7a. The fused Gatekeeper-loss kernel against its plain version at the
          full-width Stage-2 shapes (T = 16*128 tokens, d 2048, vocab
@@ -187,9 +201,23 @@ CONF_NEAR_TAU = 1e-5    # reduced fixtures: a request this close to tau
                         # may defer on one path only; reported, not held
 EVAL_SEQS, EVAL_LEN, EVAL_DEFERRAL = 16, 128, 0.3
 # (rows, vocabulary): the engine's internlm2-1.8b and DeepSeek-V2 decode
-# logits, then the evaluation's [EVAL_SEQS * EVAL_LEN, V]
+# logits, then the evaluation's [EVAL_SEQS * EVAL_LEN, V], then phase 10's
+# classifier logits (calibration rows, test split) and a class count whose
+# rows are not 16-byte aligned (the kernel's scalar loads)
 SIGNAL_SHAPES = ((N_SLOTS, 92544), (N_SLOTS, 102400), (N_SLOTS, 65536),
-                 (EVAL_SEQS * EVAL_LEN, 92544))
+                 (EVAL_SEQS * EVAL_LEN, 92544), (1000, 8), (3000, 8),
+                 (3000, 10))
+
+# phase 10: the classifier cascade, tests/test_system.py's flow on the
+# port's own draw (seed SEED) at that test's sizes
+CLS_CLASSES, CLS_HARD_FRAC = 8, 0.45
+CLS_SPLITS = {"train": (None, 2000), "train_large": (5, 12000),
+              "cal": (7, 3000), "test": (1, 3000)}   # name: (fold, rows)
+CLS_SMALL, CLS_LARGE = (64, 64), (256, 256)           # hidden widths
+CLS_SMALL_STEPS, CLS_LARGE_STEPS, CLS_TUNE_STEPS = 1500, 2500, 1500
+CLS_BATCH, CLS_ALPHA, CLS_DEFERRAL, CLS_CAL_ROWS = 256, 0.1, 0.3, 1000
+CLS_EVAL_BATCH = 4096   # evaluate_classifier's rows per signal launch
+CLS_PROFILE_STEPS = 20  # steps of each model's step under the profiler
 
 # phases 3e and 9: the RWKV recurrence and rwkv6-3b serving
 RWKV_ARCH = "rwkv6-3b"
@@ -568,25 +596,27 @@ def kernel_split(torch, call, calls: int, pattern: str) -> dict:
 
 def signal_case(torch, T: int, V: int):
     """Logits [T, V] fp32 of std 3 with row 0 all equal, row 1 an exact
-    top tie at two far columns, row 2 at two neighbouring columns. Returns
-    (logits, top-2 gap per row)."""
+    top tie at two far columns (7 and V - 5; 1 and V - 1 for a handful of
+    classes), row 2 at two neighbouring columns. Returns (logits, top-2 gap
+    per row, the first argmax of rows 0-2)."""
     g = torch.Generator(device=DEV).manual_seed(SEED + T + V)
     x = torch.randn((T, V), generator=g, device=DEV) * 3
     x[0] = 0.25
-    x[1, 7] = x[1, V - 5] = x[1].max() + 1
+    far = (7, V - 5) if V > 12 else (1, V - 1)
+    x[1, far[0]] = x[1, far[1]] = x[1].max() + 1
     x[2, V // 3] = x[2, V // 3 + 1] = x[2].max() + 1
     top2 = torch.topk(x, 2, dim=-1).values
-    return x, top2[:, 0] - top2[:, 1]
+    return x, top2[:, 0] - top2[:, 1], [0, far[0], V // 3]
 
 
 def check_deferral_kernel(torch, de, smi) -> dict:
-    """deferral_entropy against its plain version at the engine's and the
-    evaluation's shapes, two calls bit-equal; times both, and the kernel
+    """deferral_entropy against its plain version at the engine's, the
+    evaluation's and the classifier cascade's shapes, two calls bit-equal; times both, and the kernel
     by name under torch.profiler. Returns the kernel's record at the
     engine's internlm2-1.8b shape (the decode steps' call)."""
     rec = None
     for T, V in SIGNAL_SHAPES:
-        x, gap = signal_case(torch, T, V)
+        x, gap, first_want = signal_case(torch, T, V)
         got = de.deferral_entropy(x)
         again = de.deferral_entropy(x)
         want = de.deferral_entropy_plain(x)
@@ -597,7 +627,7 @@ def check_deferral_kernel(torch, de, smi) -> dict:
         clear = gap > TIE_GAP
         ties = gap == 0
         flips = int((got[2][clear | ties] != want[2][clear | ties]).sum())
-        first = got[2][:3].tolist() == [0, 7, V // 3]
+        first = got[2][:3].tolist() == first_want
         print(f"[kernel] deferral_entropy {T} x {V} fp32: max|err| "
               f"neg_entropy/max_prob {err:.3g} (atol {SIGNAL_ATOL}); argmax "
               f"differs on {flips} rows with a top-2 gap > {TIE_GAP} or an "
@@ -609,7 +639,7 @@ def check_deferral_kernel(torch, de, smi) -> dict:
             raise AssertionError(f"deferral_entropy {T} x {V}: err {err}, "
                                  f"{flips} flips, first index {first}, "
                                  f"two calls bit-equal {same}")
-        iters = 20 if T == N_SLOTS else 5
+        iters = 20 if x.numel() < 1 << 26 else 5
         ms = time_ms(lambda: de.deferral_entropy(x), iters=iters)
         by_kernel = kernel_split(
             torch, lambda: de.deferral_entropy(x), iters,
@@ -1284,6 +1314,202 @@ def evaluate_cascade(torch, small, large, smi) -> dict:
         raise AssertionError(f"make_serve_step: {flips} token flips, "
                              f"neg_entropy err {err}")
     return total
+
+
+def profile_step(torch, label, cfg, split, params, loss) -> None:
+    """CLS_PROFILE_STEPS train steps of `cfg` on a copy of `params`, on the
+    host clock and under torch.profiler: wall and device-busy ms a step."""
+    from repro_torch.data.pipeline import BatchIterator
+    from repro_torch.models.classifier import classifier_forward
+    from repro_torch.training import optim
+    from repro_torch.training.loop import make_train_step
+    params = {k: v.clone() for k, v in params.items()}
+    it = BatchIterator({"inputs": split.x, "targets": split.y}, CLS_BATCH,
+                       seed=SEED).forever()
+    step = make_train_step(lambda p, b: classifier_forward(p, cfg,
+                                                           b["inputs"]),
+                           optim.AdamWConfig(total_steps=CLS_PROFILE_STEPS),
+                           **loss)
+    state = optim.adamw_init(params)
+
+    def run():
+        nonlocal state
+        for _ in range(CLS_PROFILE_STEPS):
+            _, state, _ = step(params, state, next(it))
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, ranked = profile_steps(torch, run, CLS_PROFILE_STEPS)
+    busy_ms = busy_ms or 0.0
+    print(f"[cls] {label}, {CLS_PROFILE_STEPS} steps: host wall "
+          f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
+          f"({100 * busy_ms / wall_ms:.1f}%), {len(ranked)} kernel names; "
+          f"top: " + ", ".join(f"{name[:48]} {ms:.4f}"
+                               for name, ms in ranked[:4]))
+
+
+def classifier_cascade(torch, smi) -> dict:
+    """Phase 10: tests/test_system.py's flow on the port's own draw and
+    init. M_S and M_L trained with cross-entropy, M_S tuned with the
+    Gatekeeper loss, both evaluated on the test split before and after,
+    then `Cascade(signal="max_softmax")` calibrated at CLS_DEFERRAL on
+    CLS_CAL_ROWS test rows and run by `predict_sparse` on the rest. The
+    counters are set to 0 before the phase and checked after it: one
+    `deferral_entropy` per `evaluate_classifier` batch and per model's
+    logits in `calibrate_tau` / `predict_sparse`, nothing else; each such
+    logits tensor's (max_prob, argmax) is held against
+    `deferral_entropy_plain` on the same tensor. Returns the counts."""
+    import numpy as np
+    from repro_torch.core import metrics
+    from repro_torch.core.cascade import Cascade
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.data.pipeline import BatchIterator
+    from repro_torch.data.synthetic import make_classification
+    from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
+    from repro_torch.models.classifier import (MLPClassifierConfig,
+                                               classifier_forward,
+                                               init_classifier)
+    from repro_torch.training import optim
+    from repro_torch.training.loop import (evaluate_classifier,
+                                           make_train_step, train)
+    reset_counts()
+    data = {name: make_classification(
+        SEED if fold is None else [SEED, fold], n, n_classes=CLS_CLASSES,
+        hard_frac=CLS_HARD_FRAC) for name, (fold, n) in CLS_SPLITS.items()}
+    test = data["test"]
+    d_in = test.x.shape[1]
+    s_cfg = MLPClassifierConfig(d_in, CLS_CLASSES, CLS_SMALL)
+    l_cfg = MLPClassifierConfig(d_in, CLS_CLASSES, CLS_LARGE)
+
+    def fit(label, cfg, split, params, seed, steps, lr=3e-3, **loss):
+        it = BatchIterator({"inputs": split.x, "targets": split.y},
+                           CLS_BATCH, seed=seed)
+        step = make_train_step(
+            lambda p, b: classifier_forward(p, cfg, b["inputs"]),
+            optim.AdamWConfig(lr=lr, total_steps=steps), **loss)
+        t0 = time.perf_counter()
+        res = train(params, step, it.forever(), steps, log_every=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"[cls] {label}: {steps} steps of {CLS_BATCH} rows in "
+              f"{wall:.3f} s ({wall / steps * 1e3:.3f} ms/step), loss "
+              f"{res.history['loss'][0]:.4f} -> {res.history['loss'][-1]:.4f}")
+        return res.params
+
+    small = fit(f"fit M_S {CLS_SMALL}", s_cfg, data["train"],
+                init_classifier(s_cfg, 1, DEV), 1, CLS_SMALL_STEPS)
+    large = fit(f"fit M_L {CLS_LARGE}", l_cfg, data["train_large"],
+                init_classifier(l_cfg, 2, DEV), 2, CLS_LARGE_STEPS)
+    tuned = fit(f"tune M_S (Gatekeeper, alpha {CLS_ALPHA})", s_cfg,
+                data["cal"], {k: v.clone() for k, v in small.items()}, 7,
+                CLS_TUNE_STEPS, lr=5e-3, loss_kind="gatekeeper",
+                gk_cfg=GatekeeperConfig(alpha=CLS_ALPHA))
+    for label, cfg, split, params, loss in (
+            ("M_S step (Gatekeeper)", s_cfg, data["cal"], tuned,
+             dict(loss_kind="gatekeeper",
+                  gk_cfg=GatekeeperConfig(alpha=CLS_ALPHA))),
+            ("M_L step (ce)", l_cfg, data["train_large"], large, {})):
+        profile_step(torch, label, cfg, split, params, loss)
+    if read_counts()["deferral_entropy"]:
+        raise AssertionError("training launched the deferral signal")
+
+    seen = []       # every logits tensor the signal is taken of, in order
+
+    def recorded(cfg):
+        def apply(p, x):
+            logits = classifier_forward(p, cfg, x)
+            seen.append(logits)
+            return logits
+        return apply
+
+    def hold(label, logits, conf, pred):
+        """The kernel's (max_prob, argmax) against the plain version's on
+        the same logits."""
+        _, want_conf, want_pred = deferral_entropy_plain(logits)
+        err = float(np.abs(conf - want_conf.cpu().numpy()).max())
+        flips = int((pred != want_pred.cpu().numpy()).sum())
+        if not (err <= SIGNAL_ATOL and flips == 0
+                and np.isfinite(conf).all()):
+            raise AssertionError(f"{label}: max_prob err {err}, {flips} "
+                                 f"argmax differ")
+        return err
+
+    n_eval, errs = 0, []
+
+    def evaluate(cfg, params):
+        nonlocal n_eval
+        seen.clear()
+        pred, conf, corr = evaluate_classifier(recorded(cfg), params,
+                                               test.x, test.y, CLS_EVAL_BATCH)
+        n_eval += len(seen)
+        errs.append(hold("evaluate_classifier", torch.cat(seen), conf, pred))
+        if not (pred.shape == (len(test.y),) and corr.dtype == np.float64):
+            raise AssertionError("malformed evaluate_classifier result")
+        return corr, conf
+
+    t0 = time.perf_counter()
+    summ = {}
+    for name, params in (("untuned", small), ("tuned", tuned)):
+        scorr, sconf = evaluate(s_cfg, params)
+        lcorr, _ = evaluate(l_cfg, large)
+        summ[name] = metrics.summarize_deferral(sconf, scorr, lcorr)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    base, gk = summ["untuned"], summ["tuned"]
+    print(f"[cls] evaluation ({n_eval} evaluate_classifier batches of the "
+          f"{len(test.y)}-row test split): {eval_s:.3f} s; " + ", ".join(
+              f"{k} {base[k]:.4f} -> {gk[k]:.4f}"
+              for k in ("acc_small", "acc_large", "s_d", "auroc", "s_o")))
+
+    cascade = Cascade(recorded(s_cfg), recorded(l_cfg), small, large,
+                      signal="max_softmax", cost_small=0.2)
+    x_cal = torch.from_numpy(test.x[:CLS_CAL_ROWS]).to(DEV)
+    x_run = torch.from_numpy(test.x[CLS_CAL_ROWS:]).to(DEV)
+    y_run = test.y[CLS_CAL_ROWS:]
+    t0 = time.perf_counter()
+    seen.clear()
+    tau = cascade.calibrate_tau(x_cal, deferral_ratio=CLS_DEFERRAL)
+    _, cal_conf, _ = deferral_entropy_plain(seen[0])
+    tau_err = abs(tau - float(np.quantile(
+        cal_conf.cpu().numpy().astype(np.float64), CLS_DEFERRAL)))
+    seen.clear()
+    res = cascade.predict_sparse(x_run)
+    torch.cuda.synchronize()
+    cascade_s = time.perf_counter() - t0
+    errs.append(hold("predict_sparse M_S", seen[0], res.confidence,
+                     res.small_predictions))
+    n_def = int(res.deferred.sum())
+    if n_def:
+        errs.append(hold("predict_sparse M_L", seen[1],
+                         deferral_entropy_plain(seen[1])[1].cpu().numpy(),
+                         res.large_predictions))
+    if tau_err > SIGNAL_ATOL or len(seen) != 1 + (n_def > 0):
+        raise AssertionError(f"calibrate_tau: tau off by {tau_err}; "
+                             f"{len(seen)} logits in predict_sparse")
+    acc_joint = float((res.predictions == y_run).mean())
+    acc_small = float((res.small_predictions == y_run).mean())
+    print(f"[cls] cascade (max_softmax, untuned M_S): calibrate_tau on "
+          f"{CLS_CAL_ROWS} rows at deferral {CLS_DEFERRAL} -> tau "
+          f"{tau:.5f}, predict_sparse on {len(y_run)} rows: {cascade_s:.3f} "
+          f"s; joint accuracy {acc_joint:.4f} against M_S {acc_small:.4f}, "
+          f"deferral {res.deferral_ratio:.4f} ({n_def} rows to M_L), cost "
+          f"{res.compute_cost:.4f}")
+    got = read_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want["deferral_entropy"] = n_eval + 1 + 1 + (n_def > 0)
+    print(f"[cls] launches {got['deferral_entropy']} deferral_entropy "
+          f"(expected {want['deferral_entropy']}: {n_eval} evaluation "
+          f"batches, 1 calibration, {1 + (n_def > 0)} predict_sparse); "
+          f"kernel vs plain max|d max_prob| {max(errs):.3g} (atol "
+          f"{SIGNAL_ATOL}), argmax equal on every row, tau off by "
+          f"{tau_err:.3g} on {smi}")
+    if got != want:
+        raise AssertionError(f"classifier cascade: launches {got} != {want}")
+    # the claims with wide margins in tests/test_system.py's run
+    if not (base["acc_large"] > base["acc_small"] + 0.1
+            and gk["s_o"] < base["s_o"] and acc_joint > acc_small
+            and res.compute_cost < 1.0):
+        raise AssertionError("classifier cascade: the headline's claims "
+                             "do not hold")
+    return got
 
 
 def reduced_fixture(torch, serve, arch) -> None:
@@ -1963,6 +2189,11 @@ def main(argv=None) -> int:
             if not all(r.state == DONE for r in res.requests):
                 raise AssertionError(f"serve.main({argv}) left requests "
                                      f"unfinished")
+
+    # -- 10. the classifier cascade (it trains: outside inference mode) -----
+    phase("10", t_start)
+    by_path["classifier"] = classifier_cascade(torch, smi)
+    torch.cuda.empty_cache()
 
     missing = [k for k in KERNELS
                if not sum(counts[k] for counts in by_path.values())]

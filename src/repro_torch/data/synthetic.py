@@ -1,14 +1,15 @@
 """Synthetic workloads, drawn with numpy from an integer seed.
 
-Counterpart of `repro.data.synthetic.make_lm_stream`,
-`make_ragged_lm_stream` and `make_qa`. The JAX stream generators use a
-JAX key only to draw the numpy seed; these take the seed directly (an
-int, or a sequence of ints as `numpy.random.default_rng` accepts), so the
-same seed gives the same tokens on every machine. `make_qa` keeps the
-JAX layout, constants and operation mix but draws its bits with numpy,
-so its sequences differ from JAX's for any key. The classification and
-caption generators serve the classifier and VLM paths and are not ported
-yet (see ROADMAP.md).
+Counterpart of `repro.data.synthetic.make_classification`,
+`make_lm_stream`, `make_ragged_lm_stream` and `make_qa`. The JAX stream
+generators use a JAX key only to draw the numpy seed; these take the seed
+directly (an int, or a sequence of ints as `numpy.random.default_rng`
+accepts), so the same seed gives the same tokens on every machine.
+`make_classification` and `make_qa` keep the JAX layout, constants and
+construction but draw their bits with numpy, so their arrays differ from
+JAX's for any key; where JAX folds an integer into a key
+(``fold_in(key, 5)``), pass the seed ``[seed, 5]``. The caption
+generator serves the VLM path and is not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,6 +21,53 @@ import numpy as np
 # Reserved token ids shared by all synthetic vocabularies
 PAD, TOK_REDUCE_CONF, TOK_ANSWER_N, TOK_N, BOS, SEP = 0, 1, 2, 3, 4, 5
 SYMBOL_BASE = 6
+
+
+@dataclasses.dataclass
+class ClassificationData:
+    x: np.ndarray          # [N, d] fp32
+    y: np.ndarray          # [N] int32
+    is_hard: np.ndarray    # [N] bool — ground-truth difficulty (diagnostics)
+
+
+def make_classification(seed, n: int, n_classes: int = 16,
+                        d_easy: int = 16, factors_per_bit: int = 3,
+                        hard_frac: float = 0.45,
+                        easy_margin: float = 3.0,
+                        noise: float = 1.0,
+                        task_seed: int = 1234) -> ClassificationData:
+    """C-class task with an easy linear subspace and a hard parity one.
+
+    Easy rows: the class mean, separated by `easy_margin`, plus noise in
+    the first `d_easy` dims. Hard rows: those dims are pure noise, and bit
+    j of the class is the sign of the product of `factors_per_bit` hard
+    dims (magnitudes |N(0, 1)| + 0.5). Rows are ``[x_easy | x_hard]``; on
+    easy rows the hard dims are plain N(0, 1). Small MLPs learn the easy
+    tier, larger ones on more data the parity tier too.
+
+    The class means come from `task_seed` alone and the samples from
+    `seed`, so splits drawn with different seeds share one task."""
+    n_bits = int(np.ceil(np.log2(n_classes)))
+    d_hard = n_bits * factors_per_bit
+    means = np.random.default_rng(task_seed).standard_normal(
+        (n_classes, d_easy)) * easy_margin
+
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, n_classes, size=n)
+    hard = rng.random(n) < hard_frac
+    x_easy = means[y] + rng.standard_normal((n, d_easy)) * noise
+    x_easy = np.where(hard[:, None], rng.standard_normal((n, d_easy)) * noise,
+                      x_easy)
+    bits = (y[:, None] >> np.arange(n_bits)[None, :]) & 1        # [n, bits]
+    s = np.sign(rng.standard_normal((n, n_bits, factors_per_bit)))
+    s = s + (s == 0)                                             # no zeros
+    s[:, :, -1] = np.prod(s[:, :, :-1], axis=-1) * (2 * bits - 1)
+    mag = np.abs(rng.standard_normal((n, n_bits, factors_per_bit))) + 0.5
+    x_hard = (s * mag).reshape(n, d_hard)
+    x_hard = np.where(hard[:, None], x_hard,
+                      rng.standard_normal((n, d_hard)))
+    x = np.concatenate([x_easy, x_hard], axis=-1)
+    return ClassificationData(x.astype(np.float32), y.astype(np.int32), hard)
 
 
 def make_lm_stream(seed, n_seqs: int, seq_len: int, vocab: int) -> np.ndarray:

@@ -1,1 +1,1 @@
-"""Model code of the port: dense GQA decoders."""
+"""Model code of the port: the decoders and the MLP classifiers."""

@@ -472,6 +472,34 @@ def test_deferral_kernel_matches_plain(cuda, T, V, dtype):
     assert got[2][:3].tolist() == [0, 5, V // 2]
 
 
+@pytest.mark.parametrize("T,V", [(1000, 8), (3000, 4), (3000, 8),
+                                 (3000, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deferral_kernel_at_classifier_shapes(cuda, T, V, dtype):
+    """The classifier cascade's logits: thousands of rows of 4-10 classes,
+    one CTA a row; V = 10 rows are not 16-byte aligned and take the scalar
+    loads. Ties at columns 1 and V - 1 and at V // 3 and V // 3 + 1 go to
+    the lower index; max_prob to 1e-4, argmax exact, two calls bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(T + V)
+    x = torch.randn((T, V), generator=g, device=cuda) * 3
+    x[0] = 0.25
+    x[1, 1] = x[1, V - 1] = x[1].max() + 1
+    x[2, V // 3] = x[2, V // 3 + 1] = x[2].max() + 1
+    x = x.to(dtype)
+    assert de.vocab_split(T, V, 132)[1] == 1
+    n = de.deferral_entropy.launches
+    got = de.deferral_entropy(x)
+    again = de.deferral_entropy(x)
+    want = de.deferral_entropy_plain(x)
+    torch.cuda.synchronize()
+    assert de.deferral_entropy.launches == n + 2
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    assert torch.equal(got[2], want[2])
+    assert got[2][:3].tolist() == [0, 1, V // 3]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_deferral_kernel_back_to_back_and_bit_equal(cuda):
     """Calls at changing T and V, fp32 and bf16, enqueued back to back with
     no synchronise between them: each row's last CTA leaves its ticket

@@ -1,6 +1,6 @@
 """The port stands alone: no file of src/repro_torch, and not chip_smoke.py,
-imports `jax` or the JAX package `repro` (the SSM slice's modules named
-among them); its entry points run on CUDA
+imports `jax` or the JAX package `repro` (the SSM and classifier slices'
+modules named among them); its entry points run on CUDA
 unless told otherwise and raise without it; its CLI rejects by name what
 is not ported yet; chip_smoke.py refuses to run without a card or outside
 a checkout."""
@@ -27,7 +27,9 @@ SIGNAL_MODULES = ("core.baselines", "core.cascade", "core.deferral",
                   "core.metrics", "kernels.deferral_entropy",
                   "kernels.flash_attention", "kernels.ops")
 SSM_MODULES = ("kernels.wkv_scan", "models.ssm", "configs.rwkv6_3b")
-SLICE_MODULES = TRAINING_MODULES + SIGNAL_MODULES + SSM_MODULES
+CLASSIFIER_MODULES = ("models.classifier", "data.synthetic", "training.loop")
+SLICE_MODULES = (TRAINING_MODULES + SIGNAL_MODULES + SSM_MODULES
+                 + CLASSIFIER_MODULES)
 
 
 def _imported_roots(path: Path):
@@ -69,6 +71,12 @@ def test_import_check_covers_the_ssm_slice():
     from repro_torch.kernels import _build
     assert (_build.CSRC / "wkv_scan.cu").exists()
     assert "wkv_scan" in _build.SOURCES
+
+
+def test_import_check_covers_the_classifier_slice():
+    src = REPO / "src" / "repro_torch"
+    for mod in CLASSIFIER_MODULES:
+        assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
 
 
 def test_build_names_every_cuda_source():

@@ -387,18 +387,3 @@ def test_unported_training_branches_raise():
              "patches": torch.zeros((1, 2, tcfg.d_model))}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_loss_fn(tcfg, TGK())(params, batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.make_train_step(lambda p, b: None, toptim.AdamWConfig(),
-                              loss_kind="static_partition")
-
-
-def test_static_partition_refusal_names_the_missing_wiring():
-    """The refusal sends the reader to what is missing, the loop's wiring,
-    not to `core.baselines`, which is ported."""
-    from repro_torch.core.baselines import static_partition_loss
-    assert callable(static_partition_loss)
-    with pytest.raises(NotImplementedError,
-                       match=r"wiring of the JAX package's "
-                             r"training/loop\.py:49-52.*not ported") as e:
-        tloop.make_loss_fn(lambda p, b: None, loss_kind="static_partition")
-    assert "core/baselines.py, not ported" not in str(e.value)
