@@ -31,7 +31,8 @@ non-zero:
      and the device time by kernel (split and merge) under torch.profiler.
   3c. The deferral-signal kernel `deferral_entropy` against its plain
      version at the engine's shapes (8 x 92544, 8 x 102400 and, for
-     rwkv6-3b, 8 x 65536 fp32 logits), the evaluation's (2048 x
+     rwkv6-3b and zamba2-1.2b, 8 x 65536 and 8 x 32000 fp32 logits), the
+     evaluation's (2048 x
      92544) and phase 10's classifier logits (1000 x 8, 3000 x 8, and
      3000 x 10, whose rows take the scalar loads), with a row of equal
      logits, a row with an exact top tie and a vocabulary tail no span
@@ -44,17 +45,21 @@ non-zero:
      (the tensor-core kernel) and all fp32 (the SIMT kernel), two calls
      bit-equal, plus a reduced sliding-window case; timed beside its bound
      and SDPA with the same boolean mask, and the two kernels' times side
-     by side at each q_offset. Then the head
+     by side at each q_offset. Then zamba2-1.2b's shared block's prefill
+     (8 x 128 queries over a 288-position slot cache, 32/32 heads of 64,
+     bf16, window 288), timed beside its bound and SDPA. Then the head
      dims past the old instantiations at the same chunk: phi-3-vision's 96
      (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows.
   3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
      algorithms) in both modes: "rwkv" at the full-width rwkv6-3b decode
      step (8 rows, T 1, 40 heads, K = V = 64; the per-token kernel),
-     "mamba" at zamba2-1.2b's decode step (64 heads, scalar decay, T 1),
+     "mamba" at zamba2-1.2b's decode step (64 heads, scalar decay, T 1)
+     and its large tier's (128 heads),
      "rwkv" at rwkv6-3b's prefill (the chunked kernels: T 128, the prime
      T 97, one row of 256 tokens, RWKV6's strong decays down to -20 a
      token; T 2, 16, 32, 48 and 64 about the paths' crossover), "mamba" at
-     zamba2-1.2b's prefill (64 heads, scalar decay [B,T,H,1], T 128), and
+     zamba2-1.2b's prefill (64 heads, scalar decay [B,T,H,1], T 128, and
+     the large tier's 128 heads), and
      K = V = 256 in both modes
      (8 heads, T 128), atol = rtol = 5e-4, the state written in place,
      two calls bit-equal; at T > 1 the other path (`wkv_scan_path`)
@@ -101,13 +106,28 @@ non-zero:
      of every prefill (each M_S prefill group, the calibration's prefill,
      each M_L batch's), the per-token one once per layer of every decode
      step of either model, `deferral_entropy` once per such step). Freed
-     before phase 5.
-  5. The reduced fp32 fixtures of the three architectures (rwkv6-3b on
-     the slot backend), every kernel of the path switched together by the
-     engine's `paged_kernel`, at a calibrated tau: identical deferral
-     masks and greedy tokens per request (a request whose confidence lies
-     within 1e-5 of tau is reported, not held), and
-     `launch.serve.main()` with defaults and with --arch rwkv6-3b.
+     before phase 11.
+  11. The fourth main path, the same way on the slot backend: zamba2-1.2b
+     (Mamba2 with one shared attention + MLP block after every 6 layers)
+     at its published widths and all 38 Mamba2 layers as M_S, M_L
+     `build_ladder`'s 4-layer large tier (d 4096, 128 Mamba2 heads; too
+     shallow to call its shared block), fp32 weights and bf16
+     activations: `wkv_scan` (mode "mamba") and the shared block's
+     `flash_attention` against their plain versions by the logits of one
+     prefill and one decode step (fp32 activations held tight, the bf16
+     residual stream under a stated guard), a profiled decode step, then
+     `calibrate` and `.run` with the launches counted exactly: the
+     chunked `wkv_scan` once per Mamba2 layer of every prefill, the
+     per-token one once per layer of every decode step,
+     `flash_attention` 6 times per M_S prefill and never for M_L,
+     `deferral_entropy` as in phase 9. Freed before phase 5.
+  5. The reduced fp32 fixtures of the four architectures (rwkv6-3b and
+     zamba2-1.2b on the slot backend), every kernel of the path switched
+     together by the engine's `paged_kernel`, at a calibrated tau:
+     identical deferral masks and greedy tokens per request (a request
+     whose confidence lies within 1e-5 of tau is reported, not held), and
+     `launch.serve.main()` with defaults, with --arch rwkv6-3b and with
+     --arch zamba2-1.2b.
   10. The classifier cascade, tests/test_system.py's flow on the port's
      own draw (seed 0) at that test's sizes: M_S a (64, 64) MLP on 2,000
      rows for 1,500 steps, M_L a (256, 256) MLP on 12,000 rows for 2,500
@@ -205,8 +225,8 @@ EVAL_SEQS, EVAL_LEN, EVAL_DEFERRAL = 16, 128, 0.3
 # classifier logits (calibration rows, test split) and a class count whose
 # rows are not 16-byte aligned (the kernel's scalar loads)
 SIGNAL_SHAPES = ((N_SLOTS, 92544), (N_SLOTS, 102400), (N_SLOTS, 65536),
-                 (EVAL_SEQS * EVAL_LEN, 92544), (1000, 8), (3000, 8),
-                 (3000, 10))
+                 (N_SLOTS, 32000), (EVAL_SEQS * EVAL_LEN, 92544), (1000, 8),
+                 (3000, 8), (3000, 10))
 
 # phase 10: the classifier cascade, tests/test_system.py's flow on the
 # port's own draw (seed SEED) at that test's sizes
@@ -225,13 +245,16 @@ WKV_ATOL = WKV_RTOL = 5e-4  # as tests/test_kernels.py holds the TPU kernel:
                         # fp32 sequential recurrence against the chunked
                         # algebra's exp(cum_t - cum_s) sums
 # (label, mode, B, T, H, K, scalar decay, strong decay): rwkv6-3b's and
-# zamba2-1.2b's decode steps, rwkv6-3b's prefill (a prime T, short
-# segments about the paths' crossover at wkv_scan.CHUNKED_MIN_T, one row of
-# the longest prompt, RWKV6's strong decays down to -20 a token),
-# zamba2-1.2b's Mamba2 prefill, K = V = 256 in both modes
+# zamba2-1.2b's decode steps (M_S and the large tier), rwkv6-3b's prefill
+# (a prime T, short segments about the paths' crossover at
+# wkv_scan.CHUNKED_MIN_T, one row of the longest prompt, RWKV6's strong
+# decays down to -20 a token), zamba2-1.2b's Mamba2 prefills, K = V = 256
+# in both modes
 WKV_CASES = (
     ("rwkv decode", "rwkv", N_SLOTS, 1, 40, 64, False, False),
     ("mamba decode (zamba2)", "mamba", N_SLOTS, 1, 64, 64, True, False),
+    ("mamba decode (zamba2 M_L)", "mamba", N_SLOTS, 1, 128, 64, True,
+     False),
     ("rwkv prefill", "rwkv", N_SLOTS, CHUNK, 40, 64, False, False),
     ("rwkv prefill, prime T", "rwkv", N_SLOTS, 97, 40, 64, False, False),
     ("rwkv prefill, T 2", "rwkv", N_SLOTS, 2, 40, 64, False, False),
@@ -243,6 +266,7 @@ WKV_CASES = (
     ("rwkv prefill, strong decay", "rwkv", N_SLOTS, CHUNK, 40, 64, False,
      True),
     ("mamba (zamba2)", "mamba", N_SLOTS, CHUNK, 64, 64, True, False),
+    ("mamba (zamba2 M_L)", "mamba", N_SLOTS, CHUNK, 128, 64, True, False),
     ("rwkv K=V=256", "rwkv", N_SLOTS, CHUNK, 8, 256, False, False),
     ("mamba K=V=256", "mamba", N_SLOTS, CHUNK, 8, 256, True, False))
 WKV_PROFILE_CALLS = 10  # calls of each path's first case under the profiler
@@ -255,6 +279,20 @@ RWKV_LOGIT_GUARD = 1.0  # the same checks in the config's own types: the
                         # prefill already moves by 4.3e-4 from differences
                         # near 1e-6). A sound prefill reading on an H100 was
                         # 0.309; the guard is about 3x it
+
+# phase 11: zamba2-1.2b serving (the phase 9 checks on a Mamba2 hybrid)
+ZAMBA_ARCH = "zamba2-1.2b"
+ZAMBA_LOGIT_GUARD = 1.0  # the kernel-vs-plain checks in the config's own
+                        # types: the residual stream stays bf16 through all
+                        # 38 Mamba2 layers and 6 shared-block calls, so a
+                        # last-bit difference of a recurrence's or an
+                        # attention's output can flip a bf16 rounding that
+                        # every later layer carries. Sound readings on an
+                        # H100 were 0.291 (prefill) and 0.080 (decode). The
+                        # guard is as large as a logit's spread (std ~1), so
+                        # it catches only gross failures (NaN, a wrong
+                        # layout); the binding check of this path's kernels
+                        # is the fp32-activation one at STEP_LOGIT_ATOL
 
 # phase 7: training
 TRAIN_BATCH, TRAIN_SEQ, STAGE1_STEPS, STAGE2_STEPS = 16, 128, 2, 3
@@ -675,51 +713,67 @@ def check_deferral_kernel(torch, de, smi) -> dict:
 
 
 def check_flash_kernel(torch, fa, smi) -> dict:
-    """flash_attention against its plain version at the full-width
-    internlm2-1.8b prefill chunk, bf16 (the main path's type, the
-    tensor-core kernel) and fp32 (the SIMT kernel), at q_offset 0, 48 and
-    128, each twice and bit-equal; times kernel, plain version and SDPA
-    with the same mask (bf16). The bound counts bf16 products at the
-    tensor cores' bf16 rate (exact in fp32 accumulation), fp32 ones at the
-    SIMT rate. Returns the record at q_offset 128 in bf16."""
-    B, T, H, KV, hd = N_SLOTS, CHUNK, 16, 8, 128
+    """flash_attention against its plain version, twice and bit-equal, in
+    fp32 (the SIMT kernel) and bf16 (the tensor-core kernel), each case
+    timed beside its plain version, SDPA over the same mask and its bound.
+    The main paths run fp32: their q/k/v come out of fp32 projections
+    (fp32 weights promote the bf16 activations) and `_causal_attend` casts
+    K/V to q's type. The cases: internlm2-1.8b's prefill chunk at
+    q_offset 0, 48 and 128; zamba2-1.2b's shared block as the slot engine
+    gives it (8 prompts of 128 tokens at q_offset 0 over the 288-position
+    slot cache, 32/32 heads of 64, the cache's length as the window);
+    other configs' head dims; a window that cuts (24 over 100 tokens).
+    The bound counts q and the output once, K/V only at the positions
+    some query sees, and the visible pairs' products at the fp32 SIMT or
+    the bf16 tensor-core rate (bf16 is exact in fp32 accumulation).
+    Returns the internlm2 chunk at q_offset 128 in fp32, with every case
+    under "cases" and zamba2's path case under "zamba2_shared"."""
+    B, T = N_SLOTS, CHUNK
     S = math.ceil((RAGGED[1] + MAX_NEW) / BLOCK) * BLOCK     # 288
     g = torch.Generator(device=DEV).manual_seed(SEED + 11)
-    base = [torch.randn(shape, generator=g, device=DEV) for shape in
-            ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
-    rec = None
-    kernel_ms = {}
-    for name, dtype, rtol, rate in (
-            ("bf16", torch.bfloat16, FLASH_BF16_RTOL, H100_BF16_FLOPS),
-            ("fp32", torch.float32, 0.0, H100_FP32_FLOPS)):
-        q, k, v = (t.to(dtype) for t in base)
-        tol = f"atol {FLASH_ATOL}" + (f" + {rtol:.3g}|ref|" if rtol else "")
-        for off in (0, 48, 128):
-            out = fa.flash_attention(q, k, v, causal=True, q_offset=off)
-            again = fa.flash_attention(q, k, v, causal=True, q_offset=off)
-            ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=off)
-            torch.cuda.synchronize()
-            diff = (out.float() - ref.float()).abs()
-            err = float(diff.max())
-            # the largest error as a share of its element's tolerance
-            share = float((diff / (FLASH_ATOL + rtol * ref.float().abs()))
-                          .max())
-            if not (out.dtype == dtype and torch.isfinite(out).all()
-                    and share <= 1.0):
-                raise AssertionError(f"flash_attention {name} q_offset {off}:"
-                                     f" max|err| {err}, {share:.3g} of {tol}")
-            if not torch.equal(out, again):     # no atomics, fixed sum orders
-                raise AssertionError(f"flash_attention {name} q_offset {off}:"
-                                     f" two calls differ")
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                                    q_offset=off))
-            kernel_ms[name, off] = ms
-            plain_ms = time_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True, q_offset=off), iters=5)
-            mask = fa.visible_mask(T, S, q_offset=off, device=DEV)
-            visible = int(mask.sum()) * B
-            lib_ms = None
-            if name == "bf16":
+    # label, B, T, S, H, KV, hd, window, q_offsets, on a main path
+    cases = (("internlm2 chunk", B, T, S, 16, 8, 128, 0, (0, 48, 128), True),
+             ("zamba2 shared block", B, T, S, 32, 32, 64, S, (0,), True),
+             ("phi-3-vision hd 96", B, T, S, 32, 32, 96, 0, (48,), False),
+             ("kimi-k2 hd 112", B, T, S, 64, 8, 112, 0, (48,), False),
+             ("hd 256", 2, T, S, 4, 2, 256, 0, (48,), False),
+             ("window 24", 2, 100, 100, 4, 2, 128, 24, (0,), False))
+    rec = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:72",
+               path_dtype="float32", cases={})
+    for label, Bc, Tc, Sc, H, KV, hd, window, offsets, on_path in cases:
+        base = [torch.randn(shape, generator=g, device=DEV) for shape in
+                ((Bc, Tc, H, hd), (Bc, Sc, KV, hd), (Bc, Sc, KV, hd))]
+        for name, dtype, rtol, rate in (
+                ("fp32", torch.float32, 0.0, H100_FP32_FLOPS),
+                ("bf16", torch.bfloat16, FLASH_BF16_RTOL, H100_BF16_FLOPS)):
+            q, k, v = (t.to(dtype) for t in base)
+            tol = f"atol {FLASH_ATOL}" + (f" + {rtol:.3g}|ref|" if rtol
+                                          else "")
+            for off in offsets:
+                kw = dict(causal=True, window=window, q_offset=off)
+                out = fa.flash_attention(q, k, v, **kw)
+                again = fa.flash_attention(q, k, v, **kw)
+                ref = fa.flash_attention_plain(q, k, v, **kw)
+                torch.cuda.synchronize()
+                diff = (out.float() - ref.float()).abs()
+                err = float(diff.max())
+                # the largest error as a share of its element's tolerance
+                share = float((diff / (FLASH_ATOL + rtol * ref.float().abs()))
+                              .max())
+                what = f"flash_attention {label} {name} q_offset {off}"
+                if not (out.dtype == dtype and torch.isfinite(out).all()
+                        and share <= 1.0):
+                    raise AssertionError(f"{what}: max|err| {err}, "
+                                         f"{share:.3g} of {tol}")
+                if not torch.equal(out, again):  # no atomics, fixed orders
+                    raise AssertionError(f"{what}: two calls differ")
+                ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+                plain_ms = time_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, **kw), iters=5)
+                mask = fa.visible_mask(Tc, Sc, window=window, q_offset=off,
+                                       device=DEV)
                 # yardstick only, never called by the port: SDPA over the
                 # same mask, K/V heads expanded to the query heads first
                 qs = q.transpose(1, 2)
@@ -728,78 +782,38 @@ def check_flash_kernel(torch, fa, smi) -> dict:
                 lib_ms = time_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qs, ks, vs, attn_mask=mask))
-            n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-            bound_ms, bound_by = bound(n_bytes, 4 * visible * H * hd, rate)
-            print(f"[kernel] flash_attention {name} B {B} T {T} S {S} "
-                  f"16/8x128 q_offset {off}: max|err| {err:.3g}, at most "
-                  f"{share:.3g} of ({tol}); "
-                  f"kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, sdpa "
-                  + (f"{lib_ms:.4f} ms" if lib_ms is not None else "—")
-                  + f", bound {bound_ms:.5f} ms ({bound_by}: {visible} "
-                  f"visible pairs per head at {rate / 1e12:.0f} TFLOP/s, "
-                  f"{n_bytes} B) on {smi}")
-            if name == "bf16":
-                rec = rec or dict(name="flash_attention", route="cuda",
-                                  source="src/repro_torch/kernels/csrc/"
-                                         "flash_attention.cu",
-                                  replaces="src/repro/kernels/"
-                                           "flash_attention.py:72")
-                rec.setdefault("by_q_offset", {})[off] = dict(
-                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bound_ms, max_abs_err=err)
-                if off == 128:
-                    rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=lib_ms, q_offset=off)
-    # the two kernels side by side: bf16 on the tensor cores, fp32 on the
-    # SIMT cores
-    for off, r in rec["by_q_offset"].items():
-        r["fp32_ms"] = kernel_ms["fp32", off]
-        print(f"[kernel] flash_attention q_offset {off}: bf16 (tensor cores) "
-              f"{kernel_ms['bf16', off]:.4f} ms, fp32 (SIMT) "
-              f"{kernel_ms['fp32', off]:.4f} ms on {smi}")
-    # reduced sliding-window case (the kernel's option; no main path uses it)
-    q, k, v = (torch.randn((2, 100, n, 128), generator=g, device=DEV)
-               for n in (4, 2, 2))
-    out = fa.flash_attention(q, k, v, causal=True, window=24)
-    ref = fa.flash_attention_plain(q, k, v, causal=True, window=24)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    print(f"[kernel] flash_attention fp32 window 24 (2 x 100, 4/2 heads): "
-          f"max|err| {err:.3g} (atol {FLASH_ATOL})")
-    if err > FLASH_ATOL:
-        raise AssertionError(f"flash_attention window: max|err| {err}")
-    # head dims of other configs, past the old 16/32/64/128 instantiations,
-    # at the same chunk (q_offset 48)
-    for label, Bh, Hh, KVh, hdh in (("phi-3-vision hd 96", B, 32, 32, 96),
-                                    ("kimi-k2 hd 112", B, 64, 8, 112),
-                                    ("hd 256", 2, 4, 2, 256)):
-        for name, dtype, rtol in (("bf16", torch.bfloat16, FLASH_BF16_RTOL),
-                                  ("fp32", torch.float32, 0.0)):
-            q, k, v = (torch.randn(shape, generator=g, device=DEV).to(dtype)
-                       for shape in ((Bh, T, Hh, hdh), (Bh, S, KVh, hdh),
-                                     (Bh, S, KVh, hdh)))
-            out = fa.flash_attention(q, k, v, causal=True, q_offset=48)
-            ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=48)
-            torch.cuda.synchronize()
-            diff = (out.float() - ref.float()).abs()
-            err = float(diff.max())
-            share = float((diff / (FLASH_ATOL + rtol * ref.float().abs()))
-                          .max())
-            if not (out.dtype == dtype and torch.isfinite(out).all()
-                    and share <= 1.0):
-                raise AssertionError(f"flash_attention {label} {name}: "
-                                     f"max|err| {err}, {share:.3g} of tol")
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                                    q_offset=48))
-            print(f"[kernel] flash_attention {name} {label} (B {Bh} T {T} S "
-                  f"{S}, {Hh}/{KVh} heads, q_offset 48): max|err| {err:.3g},"
-                  f" at most {share:.3g} of (atol {FLASH_ATOL}"
-                  + (f" + {rtol:.3g}|ref|" if rtol else "")
-                  + f"); kernel {ms:.4f} ms on {smi}")
-            rec.setdefault("by_head_dim", {})[f"{label} {name}"] = dict(
-                ms=ms, max_abs_err=err)
+                del ks, vs
+                visible = int(mask.sum()) * Bc
+                seen_keys = int(mask.any(0).sum())
+                n_bytes = ((q.numel() + out.numel()) * q.element_size()
+                           + 2 * Bc * seen_keys * KV * hd * k.element_size())
+                bound_ms, bound_by = bound(n_bytes, 4 * visible * H * hd,
+                                           rate)
+                path = ", the main path's" if on_path and dtype == \
+                    torch.float32 else ""
+                print(f"[kernel] {what} (B {Bc} T {Tc} S {Sc}, {H}/{KV}x"
+                      f"{hd}, window {window or '-'}{path}): max|err| {err:.3g}, at most {share:.3g} of ({tol})"
+                      f", two calls bit-equal; kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                      f"{bound_ms:.5f} ms ({bound_by}: {visible} visible "
+                      f"pairs per head at {rate / 1e12:.0f} TFLOP/s, "
+                      f"{seen_keys} of {Sc} key positions seen, {n_bytes} B)"
+                      f" on {smi}")
+                r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=err, on_path=bool(path))
+                rec["cases"][f"{label} {name} q_offset {off}"] = r
+    rec.update(rec["cases"]["internlm2 chunk fp32 q_offset 128"],
+               q_offset=128)
+    rec["zamba2_shared"] = rec["cases"]["zamba2 shared block fp32 q_offset 0"]
+    for off in (0, 48, 128):
+        c = rec["cases"]
+        print(f"[kernel] flash_attention internlm2 chunk q_offset {off}: "
+              f"fp32 (SIMT, the main path's) "
+              f"{c[f'internlm2 chunk fp32 q_offset {off}']['ms']:.4f} ms, "
+              f"bf16 (tensor cores) "
+              f"{c[f'internlm2 chunk bf16 q_offset {off}']['ms']:.4f} ms on "
+              f"{smi}")
     return rec
 
 
@@ -969,6 +983,10 @@ def describe_ladder(torch, small, large, t_init: float) -> None:
     if cfg.mla is not None:
         extra = (f" MLA q_lora {cfg.mla.q_lora} kv_lora {cfg.mla.kv_lora} "
                  f"rope {cfg.mla.rope_dim};")
+    if cfg.family == "hybrid":
+        extra += (f" Mamba2 d_state {cfg.ssm_state} head_dim "
+                  f"{cfg.ssm_head_dim}, a shared attention + MLP block "
+                  f"after every {cfg.shared_attn_every} layers;")
     if cfg.moe is not None:
         extra += (f" MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
                   f"d_ff {cfg.moe.d_ff_expert} + {cfg.moe.n_shared_experts} "
@@ -1514,7 +1532,8 @@ def classifier_cascade(torch, smi) -> dict:
 
 def reduced_fixture(torch, serve, arch) -> None:
     """Reduced fp32 `arch` on the paged engine (the slot engine for an
-    RWKV model, whose recurrent state does not page), every kernel of the
+    RWKV6 or Mamba2 model, whose recurrent state does not page), every
+    kernel of the
     path switched together by the engine's `paged_kernel` (which reaches
     the runners' generate: calibration and M_L), at a tau between the
     plain path's 4th and 5th of 8 confidences: identical deferral masks
@@ -1528,7 +1547,7 @@ def reduced_fixture(torch, serve, arch) -> None:
     small, large = serve.build_ladder(arch, SEED, 2, device=DEV)
     prompts = make_ragged_lm_stream([SEED, 3], 8, 4, 24,
                                     small.cfg.vocab_size)
-    backend = "slot" if small.cfg.attention_free else "paged"
+    backend = "slot" if small.cfg.recurrent else "paged"
     runs, counts = {}, {}
 
     def run(kernel: bool, tau: float):
@@ -1547,6 +1566,7 @@ def reduced_fixture(torch, serve, arch) -> None:
         runs[kernel], counts[kernel] = run(kernel, tau)
     # prompts of 4-24 tokens: every prefill below wkv_scan's chunked path
     used = ["deferral_entropy"] + (["wkv_scan"] if backend == "slot" else [])
+    used += ["flash_attention"] if small.cfg.family == "hybrid" else []
     if any(counts[False].values()) or not all(counts[True][k] for k in used):
         raise AssertionError(f"reduced {arch}: kernel switch leaked: "
                              f"{counts}")
@@ -1570,22 +1590,24 @@ def reduced_fixture(torch, serve, arch) -> None:
           f"{conf_err:.3g}; kernel-path launches {counts[True]}")
 
 
-def rwkv_prefill(torch, tfm, params, cfg, toks, paged_kernel: bool):
-    """Prefill `toks` into a fresh slot cache (fp32 state, shift rows in
-    the compute type). Returns (last-position logits [B, V], cache)."""
+def slot_prefill(torch, tfm, params, cfg, toks, paged_kernel: bool):
+    """Prefill `toks` into a fresh slot cache (fp32 recurrent state, the
+    rest in the compute type). Returns (last-position logits [B, V],
+    cache)."""
     cache = tfm.init_cache(cfg, toks.shape[0], toks.shape[1] + 1, device=DEV)
     logits, cache = tfm.prefill(params, cfg, toks, cache, last_only=True,
                                 paged_kernel=paged_kernel)
     return logits[:, -1], cache
 
 
-def check_rwkv_paths(torch, tfm, small) -> None:
+def check_slot_paths(torch, tfm, small, tag: str, guard: float) -> None:
     """One full-width prefill of N_SLOTS prompts of RWKV_PROMPT tokens and
-    one decode step from the prefilled state, `wkv_scan` against the plain
-    recurrence, by logits: with fp32 activations (isolates the kernel) and
-    with the config's own types, where layer 0's residual stream is bf16
-    and a last-bit difference of its time-mix output can flip a bf16
-    rounding that the 31 fp32 layers after it carry."""
+    one decode step from the prefilled state, the kernels (`wkv_scan`, and
+    the hybrid's shared-block `flash_attention`) against the plain
+    recurrence and attention, by logits: with fp32 activations (isolates
+    the kernels) and with the config's own types, where a bf16 residual
+    stream (RWKV6's layer 0, every layer of the hybrid) can flip a bf16
+    rounding on a last-bit difference, which the layers after it carry."""
     import numpy as np
     cfg = small.cfg
     toks = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
@@ -1593,10 +1615,10 @@ def check_rwkv_paths(torch, tfm, small) -> None:
     for label, pcfg, tol in (
             ("fp32 activations", cfg.replace(compute_dtype="float32"),
              STEP_LOGIT_ATOL),
-            (f"{cfg.compute_dtype} activations", cfg, RWKV_LOGIT_GUARD)):
+            (f"{cfg.compute_dtype} activations", cfg, guard)):
         pre, caches = {}, {}
         for kernel in (True, False):
-            pre[kernel], caches[kernel] = rwkv_prefill(
+            pre[kernel], caches[kernel] = slot_prefill(
                 torch, tfm, small.params, pcfg, toks, kernel)
         tok = pre[True].argmax(-1)
         step = {}
@@ -1611,22 +1633,24 @@ def check_rwkv_paths(torch, tfm, small) -> None:
             err = float((out[True] - out[False]).abs().max())
             agree = float((out[True].argmax(-1) == out[False].argmax(-1))
                           .float().mean())
-            print(f"[rwkv] full-width {what} ({N_SLOTS} x {RWKV_PROMPT} "
-                  f"prompt), wkv_scan vs plain recurrence, {label}: "
+            print(f"[{tag}] full-width {what} ({N_SLOTS} x {RWKV_PROMPT} "
+                  f"prompt), kernels vs plain path, {label}: "
                   f"max|dlogit| {err:.4g} (atol {tol}; logit std "
                   f"{float(out[False].std()):.3g}), argmax agreement "
                   f"{agree:.3f}")
             if not (torch.isfinite(out[True]).all() and err <= tol
                     and out[True].shape == (N_SLOTS, cfg.vocab_size)):
-                raise AssertionError(f"rwkv {what} ({label}): logits differ "
+                raise AssertionError(f"{tag} {what} ({label}): logits differ "
                                      f"by {err} > {tol}")
-        s_err = float((caches[True]["rwkv"]["S"]
-                       - caches[False]["rwkv"]["S"]).abs().max())
-        print(f"[rwkv] prefilled state S ({label}): max|dS| {s_err:.3g}")
+        kind = "rwkv" if "rwkv" in caches[True] else "mamba"
+        s_err = float((caches[True][kind]["S"]
+                       - caches[False][kind]["S"]).abs().max())
+        print(f"[{tag}] prefilled state S ({label}): max|dS| {s_err:.3g}")
         del pre, caches, step
 
 
-def profile_rwkv_decode(torch, tfm, small, smi, steps: int = 3) -> None:
+def profile_slot_decode(torch, tfm, small, smi, tag: str,
+                        steps: int = 3) -> None:
     """Main-path decode steps of M_S (the kernels on, each with its
     deferral signal) on the host clock and under torch.profiler."""
     import numpy as np
@@ -1634,7 +1658,7 @@ def profile_rwkv_decode(torch, tfm, small, smi, steps: int = 3) -> None:
     cfg = small.cfg
     toks = torch.from_numpy(np.random.default_rng(SEED + 22).integers(
         0, cfg.vocab_size, (N_SLOTS, RWKV_PROMPT))).to(DEV)
-    logits, cache = rwkv_prefill(torch, tfm, small.params, cfg, toks, True)
+    logits, cache = slot_prefill(torch, tfm, small.params, cfg, toks, True)
     tok = logits.argmax(-1)
 
     def run():
@@ -1648,26 +1672,30 @@ def profile_rwkv_decode(torch, tfm, small, smi, steps: int = 3) -> None:
     busy = ("not measured (profiler saw no device time)" if busy_ms is None
             else f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}, "
                  f"idle {1 - busy_ms / wall_ms:.1%})")
-    print(f"[rwkv] full-width {cfg.name} decode step ({N_SLOTS} rows, "
+    print(f"[{tag}] full-width {cfg.name} decode step ({N_SLOTS} rows, "
           f"{cfg.n_layers} layers, kernels on, with its deferral signal): "
           f"host wall {wall_ms:.3f} ms, {busy} on {smi}")
     ours = r"wkv_(decode_)?kernel|de_(partial|merge|signal)_kernel"
     for name, ms in ranked[:6] + [(n, ms) for n, ms in ranked[6:]
                                   if re.search(ours, n)]:
-        print(f"[rwkv]   {ms:.4f} ms/step  {name[:90]}")
+        print(f"[{tag}]   {ms:.4f} ms/step  {name[:90]}")
 
 
-def serve_rwkv_main_path(torch, small, large, smi) -> dict:
+def serve_slot_main_path(torch, tfm, small, large, smi, tag: str) -> dict:
     """Calibrate and run the cascade on the slot backend with the kernels
     on; every kernel's counter is set to 0 just before and read just
-    after. `wkv_scan` runs once per layer of every prefill and decode
-    step: n_layers per M_S seeding prefill group and decode step and per
-    step of the calibration's M_S generate, M_L's n_layers per step of
-    each M_L generate; `deferral_entropy` once per such step of either
-    model. Returns the counts."""
+    after. `wkv_scan` runs once per recurrent layer of every prefill and
+    decode step: n_layers per M_S seeding prefill group and decode step
+    and per step of the calibration's M_S generate, M_L's n_layers per
+    step of each M_L generate; every prompt is at least CHUNKED_MIN_T
+    long, so each prefill takes the chunked path. `flash_attention` runs
+    once per shared-block call of every prefill (the hybrid's; decode
+    stays plain) and `deferral_entropy` once per step of either model.
+    Returns the counts."""
     import numpy as np
     from repro_torch.data.synthetic import (make_lm_stream,
                                             make_ragged_lm_stream)
+    from repro_torch.kernels.wkv_scan import CHUNKED_MIN_T
     from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
                                      EngineConfig, PagedConfig,
                                      make_requests)
@@ -1678,6 +1706,7 @@ def serve_rwkv_main_path(torch, small, large, smi) -> dict:
         EngineConfig(n_slots=N_SLOTS, backend="slot",
                      paged=PagedConfig(paged_kernel=True)))
     cal_len = sum(RAGGED) // 2
+    assert RAGGED[0] >= CHUNKED_MIN_T
     cal = make_lm_stream([SEED, 1], N_REQUESTS, cal_len, cfg.vocab_size)
     live = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
                                  cfg.vocab_size)
@@ -1692,7 +1721,7 @@ def serve_rwkv_main_path(torch, small, large, smi) -> dict:
     launches = read_counts()
     st = res.stats
     seeds, n_ml = st["prefill_seed_dispatches"], st["ml_batches"]
-    print(f"[rwkv] calibrated tau {tau:.4f} for deferral {DEFERRAL} in "
+    print(f"[{tag}] calibrated tau {tau:.4f} for deferral {DEFERRAL} in "
           f"{t_cal:.2f} s; served {N_REQUESTS} requests (prompts "
           f"{RAGGED[0]}-{RAGGED[1]} tokens, max_new {MAX_NEW}) on "
           f"{N_SLOTS} slots (slot backend) in {st['makespan_s']:.3f} s: "
@@ -1702,31 +1731,34 @@ def serve_rwkv_main_path(torch, small, large, smi) -> dict:
           f"{int(res.early_exited.sum())}, {res.steps} decode steps, "
           f"{seeds} prefill groups, {n_ml} M_L batches, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
-    print("[rwkv] phases (host wall s): " + ", ".join(
+    print(f"[{tag}] phases (host wall s): " + ", ".join(
         f"{k[6:-2]} {v:.3f}" for k, v in st.items()
         if k.startswith("phase_")))
     if not all(r.state == DONE for r in res.requests):
-        raise AssertionError("rwkv: not every request finished")
+        raise AssertionError(f"{tag}: not every request finished")
     if res.tokens.shape != (N_REQUESTS, MAX_NEW) or not np.isfinite(
             res.confidence).all():
-        raise AssertionError("rwkv: malformed serving result")
+        raise AssertionError(f"{tag}: malformed serving result")
     L, LL = cfg.n_layers, large.cfg.n_layers
+    A, AL = tfm.shared_attn_calls(cfg), tfm.shared_attn_calls(large.cfg)
     want = dict.fromkeys(KERNELS, 0)
-    # a generate call prefills once (its prompt, T >= CHUNKED_MIN_T:
-    # chunked) and decodes max_new - 1 steps (T = 1); the engine prefills
-    # each group and decodes its steps
+    # a generate call prefills once (its prompt: chunked) and decodes
+    # max_new - 1 steps (T = 1); the engine prefills each group and
+    # decodes its steps
     want["wkv_scan_chunked"] = L * (1 + seeds) + LL * n_ml
     want["wkv_scan"] = (L * (MAX_NEW - 1 + res.steps)
                         + LL * (MAX_NEW - 1) * n_ml)
     want["deferral_entropy"] = MAX_NEW + res.steps + seeds + MAX_NEW * n_ml
-    print(f"[rwkv] kernel launches {launches}, expected {want} "
+    want["flash_attention"] = A * (1 + seeds) + AL * n_ml
+    print(f"[{tag}] kernel launches {launches}, expected {want} "
           f"(wkv_scan_chunked {L} x (1 calibration prefill + {seeds} "
           f"prefill groups) + {LL} x {n_ml} M_L prefills; wkv_scan {L} x "
           f"({MAX_NEW - 1} calibration steps + {res.steps} steps) + {LL} x "
-          f"{MAX_NEW - 1} x {n_ml} M_L steps; deferral_entropy once per "
-          f"each of those steps and groups)")
+          f"{MAX_NEW - 1} x {n_ml} M_L steps; flash_attention {A} x (1 + "
+          f"{seeds}) + {AL} x {n_ml} shared-block calls; deferral_entropy "
+          f"once per each of those steps and groups)")
     if launches != want or res.steps == 0:
-        raise AssertionError(f"rwkv launch counts {launches} != {want}")
+        raise AssertionError(f"{tag} launch counts {launches} != {want}")
     return launches
 
 
@@ -2173,18 +2205,33 @@ def main(argv=None) -> int:
                                           device=DEV)
         torch.cuda.synchronize()
         describe_ladder(torch, small, large, time.perf_counter() - t0)
-        check_rwkv_paths(torch, tfm, small)
-        profile_rwkv_decode(torch, tfm, small, smi)
-        by_path[RWKV_ARCH] = serve_rwkv_main_path(torch, small, large, smi)
+        check_slot_paths(torch, tfm, small, "rwkv", RWKV_LOGIT_GUARD)
+        profile_slot_decode(torch, tfm, small, smi, "rwkv")
+        by_path[RWKV_ARCH] = serve_slot_main_path(torch, tfm, small, large,
+                                                  smi, "rwkv")
+        del small, large
+        torch.cuda.empty_cache()
+
+        # -- 11. zamba2-1.2b at full width on the slot backend --------------
+        phase("11", t_start)
+        t0 = time.perf_counter()
+        small, large = serve.build_ladder(ZAMBA_ARCH, SEED, 2, reduce=False,
+                                          device=DEV)
+        torch.cuda.synchronize()
+        describe_ladder(torch, small, large, time.perf_counter() - t0)
+        check_slot_paths(torch, tfm, small, "zamba2", ZAMBA_LOGIT_GUARD)
+        profile_slot_decode(torch, tfm, small, smi, "zamba2")
+        by_path[ZAMBA_ARCH] = serve_slot_main_path(torch, tfm, small, large,
+                                                   smi, "zamba2")
         del small, large
         torch.cuda.empty_cache()
 
         # -- 5. reduced fp32 fixtures: kernel paths == plain paths ----------
         phase("5", t_start)
-        for arch in (ARCH, MLA_ARCH, RWKV_ARCH):
+        for arch in (ARCH, MLA_ARCH, RWKV_ARCH, ZAMBA_ARCH):
             reduced_fixture(torch, serve, arch)
         from repro_torch.serving.request import DONE
-        for argv in ([], ["--arch", RWKV_ARCH]):
+        for argv in ([], ["--arch", RWKV_ARCH], ["--arch", ZAMBA_ARCH]):
             res = serve.main(argv)
             if not all(r.state == DONE for r in res.requests):
                 raise AssertionError(f"serve.main({argv}) left requests "

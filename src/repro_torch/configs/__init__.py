@@ -1,8 +1,9 @@
 """Model configuration for the port: `ModelConfig`, `get_config`, `reduced`.
 
 Own copy of `repro.configs` for the families the port serves (dense GQA
-decoders, DeepSeek-style MLA/MoE decoders and the attention-free RWKV6);
-`pdtype()` and `cdtype()` return torch dtypes. Each architecture lives in its own module
+decoders, DeepSeek-style MLA/MoE decoders, the attention-free RWKV6 and
+the Mamba2 hybrid with its shared attention block); `pdtype()` and
+`cdtype()` return torch dtypes. Each architecture lives in its own module
 (src/repro_torch/configs/<id>.py) exporting `CONFIG`.
 """
 from __future__ import annotations
@@ -37,7 +38,7 @@ class MLASpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # the port serves dense | moe | ssm_rwkv
+    family: str                      # dense | moe | ssm_rwkv | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,6 +52,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoESpec] = None
     mla: Optional[MLASpec] = None
+    ssm_state: int = 64
+    ssm_head_dim: int = 64
+    shared_attn_every: int = 0       # hybrid: shared attn block period
     sliding_window: Optional[int] = None
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -59,6 +63,11 @@ class ModelConfig:
     @property
     def attention_free(self) -> bool:
         return self.family == "ssm_rwkv"
+
+    @property
+    def recurrent(self) -> bool:
+        """Keeps a recurrent state (RWKV6, Mamba2), which cannot page."""
+        return self.family in ("ssm_rwkv", "hybrid")
 
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
@@ -72,7 +81,8 @@ class ModelConfig:
 
 _ALIAS = {"internlm2-1.8b": "internlm2_1_8b",
           "deepseek-v2-236b": "deepseek_v2_236b",
-          "rwkv6-3b": "rwkv6_3b"}
+          "rwkv6-3b": "rwkv6_3b",
+          "zamba2-1.2b": "zamba2_1_2b"}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -108,6 +118,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
             n_dense_layers=1)
     if cfg.mla is not None:
         kw["mla"] = MLASpec(q_lora=64, kv_lora=32, rope_dim=16, v_head_dim=32)
+    if cfg.family == "hybrid":
+        kw["n_layers"] = 4
+        kw["shared_attn_every"] = 2
     if cfg.family == "ssm_rwkv":
         kw["d_model"] = 128   # RWKV derives its heads: 4 of head_dim 32
     return cfg.replace(**kw)

@@ -34,7 +34,7 @@ def paged_kernel_enabled(override: Optional[bool] = None,
     The switch keeps its JAX name but covers every kernel of the serving
     path: the paged decode and write, the eq.-8 deferral signal
     (`deferral_signal`), prefill attention (`flash_attention`) and the
-    RWKV recurrence (`wkv`).
+    RWKV6 and Mamba2 recurrence (`wkv_scan`).
     Resolution order, as in the JAX package: an explicit `override`
     (engine config / function argument) > the REPRO_PAGED_KERNEL env var >
     the default, which is on exactly when the tensors live on CUDA. On CPU

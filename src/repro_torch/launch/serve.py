@@ -10,8 +10,9 @@ thread/stub/socket/pool M_L backends, memory pressure (oversubscription,
 preemption, swap tier), admission overload control, and the /metrics
 endpoint and profiler flags. One flag is new: --device (default: cuda,
 which must exist). `--arch` takes internlm2-1.8b (dense GQA),
-deepseek-v2-236b (MLA + MoE) and rwkv6-3b (RWKV6, attention-free: slot
-backend only, as in JAX, whose paged pool refuses a recurrent state).
+deepseek-v2-236b (MLA + MoE), rwkv6-3b (RWKV6, attention-free) and
+zamba2-1.2b (Mamba2 with a shared attention block): the last two on the
+slot backend only, as in JAX, whose paged pool refuses a recurrent state.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 \\
         --max-new 8 --engine continuous --backend paged --ragged-min 8 \\

@@ -177,10 +177,7 @@ def fused_confidence(x_final: torch.Tensor, table: torch.Tensor,
 
 def _final_hidden(params, cfg: ModelConfig, batch):
     """(x_final [B, T, d], MoE aux-loss sum, loss mask or None)."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"training family {cfg.family!r} is not ported (the encoder-"
-            f"decoder branch waits; see ROADMAP.md)")
+    tfm.check_ported(cfg, training=True)
     if batch.get("patches") is not None:
         raise NotImplementedError("VLM patch inputs are not ported "
                                   "(see ROADMAP.md)")

@@ -1,20 +1,26 @@
-"""Attention blocks: GQA and DeepSeek-style MLA (multi-head latent
-attention: kv_lora compression, decoupled RoPE, weight-absorbed decode),
-each with dense and block-paged caches.
+"""Attention blocks: GQA (optionally sliding-window) and DeepSeek-style
+MLA (multi-head latent attention: kv_lora compression, decoupled RoPE,
+weight-absorbed decode), each with dense and block-paged caches.
 
-Counterpart of `repro.models.attention` (cross- and sliding-window
-attention and MLA's KV-chunked prefill are not ported; see ROADMAP.md).
-Functions take ONE layer's parameters; the caller slices the stacked layer
-axis.
+Counterpart of `repro.models.attention` (cross-attention and MLA's
+KV-chunked prefill are not ported; see ROADMAP.md). Functions take ONE
+layer's parameters; the caller slices the stacked layer axis.
 
 Cache layouts (per layer; GQA leaves end in ``[KV, hd]``, MLA's two
 leaves ``ckv``/``kr`` in ``[kv_lora]``/``[rope_dim]``):
   * dense — [batch, max_len, ...]: writes go to absolute positions,
-    reads mask ``idx <= position``.
+    reads mask ``idx <= position`` (and, with a sliding window w,
+    ``idx > position - w``).
+  * ring (GQA with a sliding window w and a cache of S <= w positions) —
+    [batch, S, ...]: position p lives in slot p % S; a prompt longer than
+    S attends in-sequence under the sliding mask and keeps its last S
+    tokens at their slots; decode masks the slots whose absolute
+    position would be negative.
   * paged — [n_blocks + 1, block_size, ...] plus a page table `pages`
     [B, M] mapping each row's logical block to a physical block (0 is the
     shared trash block). Writes scatter to
-    ``(pages[b, pos // block_size], pos % block_size)``.
+    ``(pages[b, pos // block_size], pos % block_size)``. Ring caches do
+    not page (`serving.paged_pool.validate_pageable` refuses them).
 
 Unlike the JAX package, caches are updated IN PLACE: the functions write
 into the tensors they are given (views of the stacked cache) and return
@@ -30,8 +36,10 @@ cores with bf16 hi + lo operands). GQA prefill likewise: the
 plain `_attend` over the causal mask, or the `kernels.ops.flash_attention`
 kernel with ``q_offset = cache_offset`` (the same mask), on the slot
 cache, the gathered paged view, and, when autograd records nothing, the
-cacheless in-sequence branch; training keeps `_attend`, since the kernel
-has no backward. `paged_kernel` picks the path; None defers to
+cacheless in-sequence branch, each with the sliding window when the
+config has one (the ring branch too); training keeps `_attend`, since the
+kernel has no backward. Slot decode, over a dense or ring cache, stays
+the plain `_attend`, as JAX's slot decode stays XLA. `paged_kernel` picks the path; None defers to
 `kernels.ops.paged_kernel_enabled` (on exactly for CUDA tensors). The
 kernel path keeps the probabilities at fp32 precision in effect (for bf16
 inputs its tensor-core P @ V takes P as two bf16 halves, hi + lo, 16 bits
@@ -51,7 +59,7 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import (apply_rope, einsum, make_causal_mask,
-                                       rms_norm)
+                                       make_sliding_mask, rms_norm)
 
 NEG_INF = -1e30
 
@@ -64,6 +72,7 @@ class AttnConfig:
     head_dim: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    sliding_window: Optional[int] = None     # None = full causal
     # MLA fields (used only by the mla_* functions)
     q_lora: int = 0
     kv_lora: int = 0
@@ -133,15 +142,21 @@ def _out_proj(params: dict, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_offset: int, scale: float, kernel: bool) -> torch.Tensor:
+                   q_offset: int, scale: float, kernel: bool,
+                   window: Optional[int] = None) -> torch.Tensor:
     """Causal attention of q [B,T,H,hd] (query t at position q_offset +
-    t) over k, v [B,S,KV,hd], both in q's type: the flash kernel, or
-    `_attend` over `make_causal_mask`."""
+    t) over k, v [B,S,KV,hd] (key s at position s), both in q's type,
+    each query seeing only keys less than `window` positions back when
+    one is given: the flash kernel, or `_attend` over `make_causal_mask`
+    / `make_sliding_mask`."""
     k, v = k.to(q.dtype), v.to(q.dtype)
     if kernel:
-        return kernel_ops.flash_attention(q, k, v, causal=True, window=0,
-                                          scale=scale, q_offset=q_offset)
-    mask = make_causal_mask(q.shape[1], k.shape[1], q_offset, q.device)
+        return kernel_ops.flash_attention(q, k, v, causal=True,
+                                          window=window or 0, scale=scale,
+                                          q_offset=q_offset)
+    T, S = q.shape[1], k.shape[1]
+    mask = (make_sliding_mask(T, S, q_offset, window, q.device) if window
+            else make_causal_mask(T, S, q_offset, q.device))
     return _attend(q, k, v, mask, scale)
 
 
@@ -154,17 +169,21 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
 
     With `cache`, writes K/V at [cache_offset, cache_offset+T) and attends
     over the cache (prefill, possibly one chunk of it); with `pages` the
-    cache is block-paged and attention runs over the gathered view.
-    `paged_kernel` picks the flash kernel over `_attend` (None: on for
-    CUDA); without a cache it is taken only when autograd records
-    nothing."""
+    cache is block-paged and attention runs over the gathered view. A
+    ring cache shorter than the prompt keeps the prompt's last S tokens
+    at their slots (position p at p % S) and the prompt attends
+    in-sequence under the sliding mask. `paged_kernel` picks the flash
+    kernel over `_attend` (None: on for CUDA); without a cache it is taken
+    only when autograd records nothing."""
     B, T, _ = x.shape
     q, k, v = _qkv(params, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     kernel = kernel_ops.paged_kernel_enabled(paged_kernel, x.device)
+    window = cfg.sliding_window
     if pages is not None:
+        assert window is None, "paged caches take no sliding window"
         tpos = cache_offset + torch.arange(T, device=x.device)
         ck = _paged_write(cache["k"], pages, tpos, k)
         cv = _paged_write(cache["v"], pages, tpos, v)
@@ -172,16 +191,28 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
                              gather_blocks(cv, pages), cache_offset, scale,
                              kernel)
         new_cache = {"k": ck, "v": cv}
+    elif cache is not None and cache["k"].shape[1] < T:
+        # ring cache shorter than the prompt: the last S tokens, rolled so
+        # that position p sits at slot p % S
+        ck, cv = cache["k"], cache["v"]
+        S = ck.shape[1]
+        shift = (T - S) % S
+        ck.copy_(torch.roll(k[:, T - S:].to(ck.dtype), shift, dims=1))
+        cv.copy_(torch.roll(v[:, T - S:].to(cv.dtype), shift, dims=1))
+        out = _causal_attend(q, k, v, cache_offset, scale, kernel,
+                             window or S)
+        new_cache = {"k": ck, "v": cv}
     elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         ck[:, cache_offset:cache_offset + T] = k.to(ck.dtype)
         cv[:, cache_offset:cache_offset + T] = v.to(cv.dtype)
-        out = _causal_attend(q, ck, cv, cache_offset, scale, kernel)
+        out = _causal_attend(q, ck, cv, cache_offset, scale, kernel, window)
         new_cache = {"k": ck, "v": cv}
     else:
         recording = torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)
-        out = _causal_attend(q, k, v, 0, scale, kernel and not recording)
+        out = _causal_attend(q, k, v, 0, scale, kernel and not recording,
+                             window)
         new_cache = None
     return _out_proj(params, out, x), new_cache
 
@@ -194,7 +225,10 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
     """One-token decode. x [B,1,d]; `position` is a scalar (the whole batch
     at one depth) or an int vector [B] of per-row depths. With `pages`
     [B, M] (needs per-row positions) the cache is block-paged and
-    `paged_kernel` picks the kernel path over the plain gather path."""
+    `paged_kernel` picks the kernel path over the plain gather path. With
+    a sliding window w, a cache of S <= w positions is a ring (the token
+    goes to slot position % S; a slot is valid when its absolute position
+    is >= 0) and a longer one masks keys w or more positions back."""
     B, T, _ = x.shape
     assert T == 1
     q, k, v = _qkv(params, cfg, x)
@@ -204,8 +238,10 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
     q = apply_rope(q, pos_bt, cfg.rope_theta)
     k = apply_rope(k, pos_bt, cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    window = cfg.sliding_window
     if pages is not None:
-        assert per_row, "paged decode needs per-row positions"
+        assert per_row and window is None, \
+            "paged decode needs per-row positions and no sliding window"
         if kernel_ops.paged_kernel_enabled(paged_kernel, x.device):
             # kernel path: in-place paged write + flash-decode walking the
             # page table, no dense [B, M*bs, ...] view
@@ -224,17 +260,28 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
             out = _attend(q, kk.to(q.dtype), vv.to(q.dtype), mask, scale)
         return _out_proj(params, out, x), {"k": ck, "v": cv}
     ck, cv = cache["k"], cache["v"]
-    idx = torch.arange(ck.shape[1], device=x.device)
+    S = ck.shape[1]
+    ring = window is not None and S <= window
+    idx = torch.arange(S, device=x.device)
     if per_row:
         rows = torch.arange(B, device=x.device)
-        ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
-        cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
-        mask = (idx[None, :] <= pos[:, None])[:, None, :]      # [B, 1, S]
+        slot = torch.remainder(pos, S) if ring else pos
+        ck[rows, slot.long()] = k[:, 0].to(ck.dtype)
+        cv[rows, slot.long()] = v[:, 0].to(cv.dtype)
+        p = pos[:, None]                                       # [B, 1]
     else:
         p = int(position)
-        ck[:, p] = k[:, 0].to(ck.dtype)
-        cv[:, p] = v[:, 0].to(cv.dtype)
-        mask = (idx <= p)[None, :]                             # [1, S]
+        ck[:, p % S if ring else p] = k[:, 0].to(ck.dtype)
+        cv[:, p % S if ring else p] = v[:, 0].to(cv.dtype)
+    if ring:
+        # slot s holds absolute position p - ((p - s) mod S), valid when
+        # it is >= 0
+        mask = p - torch.remainder(p - idx, S) >= 0
+    else:
+        mask = idx <= p
+        if window:
+            mask = mask & (idx > p - window)
+    mask = mask[:, None, :] if per_row else mask[None, :]   # [B,1,S] / [1,S]
     out = _attend(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale)
     return _out_proj(params, out, x), {"k": ck, "v": cv}
 

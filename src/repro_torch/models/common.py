@@ -21,13 +21,17 @@ class ParamInit:
     seed gives the same weights on every run on the same device type. The
     shapes, the normal std 1/sqrt(fan_in) and the zero norms follow the
     JAX `ParamFactory`; the bits do not (its crc32 key folding is not
-    reproduced — tests carry JAX weights over through `convert.py`)."""
+    reproduced — tests carry JAX weights over through `convert.py`). On
+    the "meta" device it draws nothing: the tree's shapes and types
+    without its memory, as JAX's abstract init gives them."""
 
     def __init__(self, seed: int, dtype: torch.dtype, device: torch.device):
         self.dtype = dtype
         self.device = device
-        self.gen = torch.Generator(device=device)
-        self.gen.manual_seed(int(seed))
+        self.gen = None
+        if torch.device(device).type != "meta":
+            self.gen = torch.Generator(device=device)
+            self.gen.manual_seed(int(seed))
 
     # fp32 draws per step: bounds the init's scratch at 2 GiB. A tensor that
     # fits in one step is drawn in one call, so its bits do not depend on
@@ -135,6 +139,15 @@ def make_causal_mask(q_len: int, kv_len: int, q_offset,
     q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
     kv_pos = torch.arange(kv_len, device=device)[None, :]
     return kv_pos <= q_pos
+
+
+def make_sliding_mask(q_len: int, kv_len: int, q_offset, window: int,
+                      device=None) -> torch.Tensor:
+    """`make_causal_mask` restricted to keys less than `window` positions
+    back from their query."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return (kv_pos <= q_pos) & (kv_pos > q_pos - window)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

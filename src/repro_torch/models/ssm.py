@@ -1,24 +1,32 @@
-"""Attention-free sequence mixer: the RWKV6 ("Finch") block and its state.
+"""Attention-free sequence mixers: the RWKV6 ("Finch") block, the Mamba2
+(SSD) block, and their states.
 
-Counterpart of the RWKV half of `repro.models.ssm`. The block is a linear
-recurrence over a per-head fp32 state S in R^{K x V},
+Counterpart of `repro.models.ssm`. Both blocks are a linear recurrence
+over a per-head fp32 state S in R^{K x V},
 
-    S_t = diag(w_t) S_{t-1} + k_t v_t^T,   y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    RWKV6:  y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T), per-channel decay w_t
+    Mamba2: y_t = C_t^T S_t, a scalar decay per head, B_t / C_t shared by
+            the heads
 
-with a data-dependent per-channel decay w_t. The recurrence is the
-`wkv_scan` kernel's function; its plain versions (`linear_attention_scan`,
-`linear_attention_chunked`, `linear_attention_step`, the JAX package's
-linear-attention core) live beside the kernel in `kernels/wkv_scan.py` and
-are re-exported here. `rwkv_block_forward(paged_kernel=True)` runs the
-recurrence through `wkv_scan` (the CUDA kernel on CUDA tensors), otherwise
-through `wkv_scan_plain`. The Mamba2 block waits for its slice (see
-ROADMAP.md).
+The recurrence is the `wkv_scan` kernel's function; its plain versions
+(`linear_attention_scan`, `linear_attention_chunked`,
+`linear_attention_step`, the JAX package's linear-attention core) live
+beside the kernel in `kernels/wkv_scan.py` and are re-exported here. Each
+block's `paged_kernel=True` runs the recurrence through `wkv_scan` (the
+CUDA kernel on CUDA tensors), otherwise through `wkv_scan_plain` by the
+JAX block's own rule (chunked when the block's chunk, 32 for RWKV6 and 64
+for Mamba2, divides T, else the per-step scan).
 
-Types follow the JAX block as JAX's unscanned layer loop runs it (its
-scanned loop refuses a bf16 RWKV model): r/k/v/g/logw are fp32 from the
-fp32 weights, the time-mix output returns to x's type before its residual
-add, the channel-mix residual add promotes x to fp32, and the shift states
-come out in the type of the normed input they were taken from.
+RWKV6 types follow the JAX block as JAX's unscanned layer loop runs it
+(its scanned loop refuses a bf16 RWKV model): r/k/v/g/logw are fp32 from
+the fp32 weights, the time-mix output returns to x's type before its
+residual add, the channel-mix residual add promotes x to fp32, and the
+shift states come out in the type of the normed input they were taken
+from. Mamba2 types follow the JAX block too: the input projection, the
+convolution and the recurrence run in fp32 from the fp32 weights, and the
+output returns to x's type before its residual add; the convolution's
+carry comes out fp32 (the model writes it into its cache's type).
 """
 from __future__ import annotations
 
@@ -34,9 +42,11 @@ from repro_torch.kernels.wkv_scan import (linear_attention_chunked,
                                           wkv_scan_plain)
 from repro_torch.models.common import ParamInit, rms_norm
 
-__all__ = ["RWKVConfig", "init_rwkv_block", "init_rwkv_state",
+__all__ = ["Mamba2Config", "RWKVConfig", "init_mamba2_block",
+           "init_mamba2_state", "init_rwkv_block", "init_rwkv_state",
            "linear_attention_chunked", "linear_attention_scan",
-           "linear_attention_step", "rwkv_block_forward"]
+           "linear_attention_step", "mamba2_block_forward",
+           "rwkv_block_forward"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,3 +190,118 @@ def rwkv_block_forward(p: dict, cfg: RWKVConfig, x: torch.Tensor,
     vv2 = _mm(kk2.float(), p["cm_wv"].float()).to(x.dtype)
     x = x + torch.sigmoid(_mm(xr2, p["cm_wr"])) * vv2
     return x, {"shift1": h[:, -1, :], "shift2": h2[:, -1, :], "S": S}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Config:
+    d_model: int
+    d_state: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 64
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+def init_mamba2_block(pi: ParamInit, cfg: Mamba2Config, L: int) -> dict:
+    """Seeded weights of `L` stacked Mamba2 blocks, with the JAX package's
+    names, shapes and init rules."""
+    d, di, N, H = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_heads
+    conv_ch = di + 2 * N
+    return {
+        "norm": pi.zeros((L, d)),
+        "in_proj": pi.normal((L, d, 2 * di + 2 * N + H), fan_in=d),
+        "conv_w": pi.normal((L, cfg.conv_width, conv_ch),
+                            fan_in=cfg.conv_width),
+        "conv_b": pi.zeros((L, conv_ch)),
+        "A_log": pi.full((L, H), 0.0),
+        "dt_bias": pi.full((L, H), -1.0),
+        "D": pi.full((L, H), 1.0),
+        "out_norm": pi.zeros((L, di)),
+        "out_proj": pi.normal((L, di, d), fan_in=di),
+    }
+
+
+def init_mamba2_state(cfg: Mamba2Config, batch: int, dtype: torch.dtype,
+                      L: int, device) -> dict:
+    """Zeroed stacked state: the convolution's history conv [L, batch,
+    W-1, d_inner + 2 d_state] in `dtype`; S [L, batch, H, d_state,
+    head_dim] in fp32 whatever `dtype` is."""
+    C = cfg.d_inner + 2 * cfg.d_state
+    return {"conv": torch.zeros((L, batch, cfg.conv_width - 1, C),
+                                dtype=dtype, device=device),
+            "S": torch.zeros((L, batch, cfg.n_heads, cfg.d_state,
+                              cfg.head_dim), dtype=torch.float32,
+                             device=device)}
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 carry: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal convolution. x [B,T,C]; w [W,C]; carry [B,W-1,C],
+    the inputs before x (zeros without one). Returns (y [B,T,C], the new
+    carry: the last W-1 inputs, in x's type)."""
+    W = w.shape[0]
+    B, T, C = x.shape
+    if carry is None:
+        carry = torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([carry.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + T, :] * w[i][None, None, :] for i in range(W))
+    return y + b[None, None, :], xp[:, -(W - 1):, :]
+
+
+def mamba2_block_forward(p: dict, cfg: Mamba2Config, x: torch.Tensor,
+                         state: Optional[dict] = None,
+                         paged_kernel: bool = False
+                         ) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence Mamba2 block, pre-norm residual. `state` ({"conv"
+    [B, W-1, C], "S" [B, H, N, P] fp32}) carries a previous segment; its
+    "S" receives the final state in place. `paged_kernel` runs the
+    recurrence through `wkv_scan` (mode "mamba": q = C and k = B
+    broadcast over the heads, v = x dt, logw = dt A a scalar per head).
+    Returns (x, {"conv", "S"})."""
+    B, T, d = x.shape
+    di, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    h = rms_norm(x, p["norm"])
+    zxbcdt = _mm(h, p["in_proj"])
+    z, xc, Bc, Cc, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
+    conv_in = torch.cat([xc, Bc, Cc], dim=-1)
+    conv_out, new_conv = _causal_conv(
+        conv_in, p["conv_w"], p["conv_b"],
+        state["conv"] if state is not None else None)
+    conv_out = F.silu(conv_out)
+    xc, Bc, Cc = torch.split(conv_out, [di, N, N], dim=-1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None].float())
+    A = -torch.exp(p["A_log"].float())                    # [H] negative
+    logw = (dt * A[None, None, :])[..., None]             # [B,T,H,1]
+    xh = xc.reshape(B, T, H, P)
+    v = xh * dt[..., None]
+    q = Cc[:, :, None, :].expand(B, T, H, N)
+    k = Bc[:, :, None, :].expand(B, T, H, N)
+    if state is not None:
+        S0 = out = state["S"]
+    else:
+        S0 = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+        out = None
+    if paged_kernel:
+        y, S = wkv_scan(q, k, v, logw, None, S0, mode="mamba", out=out)
+    else:
+        y, S = wkv_scan_plain(q, k, v, logw, None, S0, mode="mamba",
+                              chunk=cfg.chunk, out=out)
+    y = y + p["D"][None, None, :, None].float() * xh.float()
+    y = y.reshape(B, T, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["out_norm"])
+    y = _mm(y.float(), p["out_proj"].float()).to(x.dtype)
+    return x + y, {"conv": new_conv, "S": S}

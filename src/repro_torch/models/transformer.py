@@ -1,17 +1,26 @@
-"""Decoder LM for ``family="dense"``, ``"moe"`` and ``"ssm_rwkv"``: init,
-caches, prefill, one-token decode.
+"""Decoder LM for ``family="dense"``, ``"moe"``, ``"ssm_rwkv"`` and
+``"hybrid"``: init, caches, prefill, one-token decode.
 
 Counterpart of `repro.models.transformer` for dense and MoE decoders with
-GQA or MLA attention and for the attention-free RWKV6. The parameter tree
-has the JAX package's layout — homogeneous layer groups stacked on a
-leading ``[L, ...]`` axis under ``params["blocks"]["dense"]`` and
-``["moe"]`` (the MoE family's leading dense layers, then its MoE layers),
-or ``["rwkv"]`` — and the layers run as a Python loop over each group (the
+GQA or MLA attention, for the attention-free RWKV6 and for the Mamba2
+hybrid (zamba2). The parameter tree has the JAX package's layout —
+homogeneous layer groups stacked on a leading ``[L, ...]`` axis under
+``params["blocks"]["dense"]`` and ``["moe"]`` (the MoE family's leading
+dense layers, then its MoE layers), ``["rwkv"]`` or ``["mamba"]``, the
+hybrid's ONE shared attention + MLP block under ``["shared_attn"]`` with
+no layer axis — and the layers run as a Python loop over each group (the
 JAX package folds them with `lax.scan` unless ``scan_layers=False``; the
 loop follows that unscanned path, the only one JAX defines for a bf16
 RWKV model). Caches are stacked the same way, ``[L, batch, ...]``, and
-are written in place: GQA / MLA K/V, or the RWKV state (token-shift rows
-in the cache type, the recurrence state S in fp32).
+are written in place: GQA / MLA K/V, the RWKV state (token-shift rows in
+the cache type, the recurrence state S in fp32), or the Mamba2 state
+(the convolution's history in the cache type, S in fp32) and the shared
+block's K/V, one entry per call of the block, ``[n_calls, batch, ...]``.
+
+A sliding window bounds a GQA cache at ``min(max_len, window)``
+positions, a ring when the window is the shorter (`models.attention`);
+the hybrid's shared block attends over a cache of ``min(kv_len, 4096)``
+positions with that length as its window, as in JAX.
 
 API:
     init_params(cfg, seed, device)              -> params
@@ -27,6 +36,7 @@ autograd's graph when the parameters require grad. `prefill` and
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -41,31 +51,40 @@ from repro_torch.models.common import (ParamInit, embed_tokens, rms_norm,
                                        unembed)
 
 _ATTN_FAMILIES = ("dense", "moe")
-_SERVED_FAMILIES = _ATTN_FAMILIES + ("ssm_rwkv",)
+_SERVED_FAMILIES = _ATTN_FAMILIES + ("ssm_rwkv", "hybrid")
+SHARED_ATTN_MAX_LEN = 4096    # the hybrid's shared block: its longest cache
 
 
 def check_ported(cfg: ModelConfig, training: bool = False) -> None:
     """Raise NotImplementedError, naming ROADMAP.md, unless the port runs
-    `cfg`: full-causal dense and MoE decoders (GQA or MLA) and RWKV6 for
-    serving; dense and MoE only for training."""
+    `cfg`: dense and MoE decoders (GQA or MLA), RWKV6 and the Mamba2
+    hybrid for serving, a sliding window on GQA included (slot backend);
+    full-causal dense and MoE only for training."""
     families = _ATTN_FAMILIES if training else _SERVED_FAMILIES
-    if cfg.family not in families or cfg.sliding_window is not None:
+    windowed = cfg.sliding_window is not None
+    if (cfg.family not in families or (windowed and training)
+            or (windowed and cfg.mla is not None)):
         raise NotImplementedError(
-            f"family {cfg.family!r} (sliding_window={cfg.sliding_window}) is "
-            f"not ported for {'training' if training else 'serving'}: the "
-            f"port runs families {families} without a sliding window "
-            f"(training RWKV, Mamba2/hybrid, enc-dec, VLM and sliding-window "
-            f"models are queued in ROADMAP.md)")
+            f"family {cfg.family!r} (sliding_window={cfg.sliding_window}"
+            f"{', MLA' if cfg.mla else ''}) is not ported for "
+            f"{'training' if training else 'serving'}: the port "
+            f"{'trains' if training else 'serves'} families {families}"
+            f"{' without a sliding window' if training else ''} (training "
+            f"RWKV, Mamba2/hybrid and sliding-window models, a window on "
+            f"MLA, enc-dec and VLM are queued in ROADMAP.md)")
 
 
 def attn_config(cfg: ModelConfig) -> attn_lib.AttnConfig:
-    """The attention of a dense or MoE decoder (an RWKV model has none)."""
-    check_ported(cfg, training=True)
+    """The attention of a dense or MoE decoder, or the hybrid's shared
+    block (an RWKV model has none)."""
+    check_ported(cfg)
+    if cfg.attention_free:
+        raise NotImplementedError(f"family {cfg.family!r} has no attention")
     mla = cfg.mla
     return attn_lib.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
-        rope_theta=cfg.rope_theta,
+        rope_theta=cfg.rope_theta, sliding_window=cfg.sliding_window,
         q_lora=mla.q_lora if mla else 0,
         kv_lora=mla.kv_lora if mla else 0,
         rope_dim=mla.rope_dim if mla else 64,
@@ -75,6 +94,11 @@ def attn_config(cfg: ModelConfig) -> attn_lib.AttnConfig:
 def rwkv_config(cfg: ModelConfig) -> ssm_lib.RWKVConfig:
     return ssm_lib.RWKVConfig(cfg.d_model, cfg.d_ff, head_dim=cfg.head_dim
                               if cfg.head_dim <= cfg.d_model else 64)
+
+
+def mamba_config(cfg: ModelConfig) -> ssm_lib.Mamba2Config:
+    return ssm_lib.Mamba2Config(cfg.d_model, d_state=cfg.ssm_state,
+                                head_dim=cfg.ssm_head_dim)
 
 
 def moe_config(cfg: ModelConfig) -> ffn_lib.MoEConfig:
@@ -92,46 +116,75 @@ def _group_sizes(cfg: ModelConfig) -> Dict[str, int]:
         return {"dense": nd, "moe": cfg.n_layers - nd}
     if cfg.family == "ssm_rwkv":
         return {"rwkv": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"mamba": cfg.n_layers}
     return {"dense": cfg.n_layers}
+
+
+def shared_attn_calls(cfg: ModelConfig) -> int:
+    """How many times the hybrid's trunk calls its shared block: once
+    after every `shared_attn_every` Mamba2 layers (0 for other families,
+    and for a hybrid shallower than its period)."""
+    every = cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    return cfg.n_layers // every if every else 0
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
+def _lead(L: int) -> tuple:
+    """The stacked layer axis of `L` layers; none for L = 0 (JAX's
+    ``stacked=0``: the hybrid's shared block)."""
+    return (L,) if L else ()
+
+
 def _init_attn(pi: ParamInit, cfg: ModelConfig, L: int) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lead = _lead(L)
     if cfg.mla:
         m = cfg.mla
         dr, dv = m.rope_dim, m.v_head_dim or hd
-        return {"wdq": pi.normal((L, d, m.q_lora), fan_in=d),
-                "q_norm": pi.zeros((L, m.q_lora)),
-                "wuq": pi.normal((L, m.q_lora, H, hd + dr), fan_in=m.q_lora),
-                "wdkv": pi.normal((L, d, m.kv_lora), fan_in=d),
-                "kv_norm": pi.zeros((L, m.kv_lora)),
-                "wkr": pi.normal((L, d, dr), fan_in=d),
-                "wuk": pi.normal((L, m.kv_lora, H, hd), fan_in=m.kv_lora),
-                "wuv": pi.normal((L, m.kv_lora, H, dv), fan_in=m.kv_lora),
-                "wo": pi.normal((L, H, dv, d), fan_in=H * dv)}
-    attn = {"wq": pi.normal((L, d, H, hd), fan_in=d),
-            "wk": pi.normal((L, d, KV, hd), fan_in=d),
-            "wv": pi.normal((L, d, KV, hd), fan_in=d),
-            "wo": pi.normal((L, H, hd, d), fan_in=H * hd)}
+        return {"wdq": pi.normal(lead + (d, m.q_lora), fan_in=d),
+                "q_norm": pi.zeros(lead + (m.q_lora,)),
+                "wuq": pi.normal(lead + (m.q_lora, H, hd + dr),
+                                 fan_in=m.q_lora),
+                "wdkv": pi.normal(lead + (d, m.kv_lora), fan_in=d),
+                "kv_norm": pi.zeros(lead + (m.kv_lora,)),
+                "wkr": pi.normal(lead + (d, dr), fan_in=d),
+                "wuk": pi.normal(lead + (m.kv_lora, H, hd), fan_in=m.kv_lora),
+                "wuv": pi.normal(lead + (m.kv_lora, H, dv), fan_in=m.kv_lora),
+                "wo": pi.normal(lead + (H, dv, d), fan_in=H * dv)}
+    attn = {"wq": pi.normal(lead + (d, H, hd), fan_in=d),
+            "wk": pi.normal(lead + (d, KV, hd), fan_in=d),
+            "wv": pi.normal(lead + (d, KV, hd), fan_in=d),
+            "wo": pi.normal(lead + (H, hd, d), fan_in=H * hd)}
     if cfg.qkv_bias:
-        attn.update(bq=pi.zeros((L, H, hd)), bk=pi.zeros((L, KV, hd)),
-                    bv=pi.zeros((L, KV, hd)))
+        attn.update(bq=pi.zeros(lead + (H, hd)), bk=pi.zeros(lead + (KV, hd)),
+                    bv=pi.zeros(lead + (KV, hd)))
     return attn
 
 
 def _init_mlp(pi: ParamInit, L: int, d: int, f: int) -> dict:
-    return {"w_up": pi.normal((L, d, f), fan_in=d),
-            "w_down": pi.normal((L, f, d), fan_in=f),
-            "w_gate": pi.normal((L, d, f), fan_in=d)}
+    lead = _lead(L)
+    return {"w_up": pi.normal(lead + (d, f), fan_in=d),
+            "w_down": pi.normal(lead + (f, d), fan_in=f),
+            "w_gate": pi.normal(lead + (d, f), fan_in=d)}
+
+
+def _init_attn_mlp_block(pi: ParamInit, cfg: ModelConfig, L: int) -> dict:
+    lead = _lead(L)
+    return {"norm1": pi.zeros(lead + (cfg.d_model,)),
+            "attn": _init_attn(pi, cfg, L),
+            "norm2": pi.zeros(lead + (cfg.d_model,)),
+            "mlp": _init_mlp(pi, L, cfg.d_model, cfg.d_ff)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Seeded random weights with the JAX package's shapes and layout (the
-    MoE router in fp32 whatever the parameter type, as in JAX)."""
+    MoE router in fp32 whatever the parameter type, as in JAX; the
+    hybrid's shared block built whenever its period is set, as in JAX,
+    even when the trunk is too shallow to call it)."""
     check_ported(cfg)
     pi = ParamInit(seed, cfg.pdtype(), resolve_device(device))
     d, V = cfg.d_model, cfg.vocab_size
@@ -148,21 +201,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         if kind == "rwkv":
             blocks[kind] = ssm_lib.init_rwkv_block(pi, rwkv_config(cfg), L)
             continue
+        if kind == "mamba":
+            blocks[kind] = ssm_lib.init_mamba2_block(pi, mamba_config(cfg),
+                                                     L)
+            if cfg.shared_attn_every:
+                blocks["shared_attn"] = _init_attn_mlp_block(pi, cfg, 0)
+            continue
+        if kind == "dense":
+            blocks[kind] = _init_attn_mlp_block(pi, cfg, L)
+            continue
         b = {"norm1": pi.zeros((L, d)), "attn": _init_attn(pi, cfg, L),
              "norm2": pi.zeros((L, d))}
-        if kind == "dense":
-            b["mlp"] = _init_mlp(pi, L, d, cfg.d_ff)
-        else:
-            m = cfg.moe
-            E, f = m.n_experts, m.d_ff_expert
-            b["moe"] = {
-                "router": pi.normal((L, d, E), fan_in=d, dtype=torch.float32),
-                "w_gate": pi.normal((L, E, d, f), fan_in=d),
-                "w_up": pi.normal((L, E, d, f), fan_in=d),
-                "w_down": pi.normal((L, E, f, d), fan_in=f)}
-            if m.n_shared_experts > 0:
-                b["moe"]["shared"] = _init_mlp(
-                    pi, L, d, m.shared_d_ff or f * m.n_shared_experts)
+        m = cfg.moe
+        E, f = m.n_experts, m.d_ff_expert
+        b["moe"] = {
+            "router": pi.normal((L, d, E), fan_in=d, dtype=torch.float32),
+            "w_gate": pi.normal((L, E, d, f), fan_in=d),
+            "w_up": pi.normal((L, E, d, f), fan_in=d),
+            "w_down": pi.normal((L, E, f, d), fan_in=f)}
+        if m.n_shared_experts > 0:
+            b["moe"]["shared"] = _init_mlp(
+                pi, L, d, m.shared_d_ff or f * m.n_shared_experts)
         blocks[kind] = b
     params["blocks"] = blocks
     return params
@@ -171,12 +230,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, device=None) -> dict:
     """Zeroed caches, one per layer group: GQA {"k", "v"} of [L, batch,
-    max_len, KV, hd]; MLA {"ckv", "kr"} of [L, batch, max_len, kv_lora |
-    rope_dim]; RWKV {"shift1", "shift2"} of [L, batch, d] and fp32 {"S"}
-    of [L, batch, H, hd, hd], whatever `max_len` and `dtype` (the shifts
-    take `dtype`). With batch = n_blocks + 1 and max_len = block_size the
-    attention caches are exactly the paged layout (block 0 = trash)."""
+    kv_len, KV, hd] (kv_len = max_len, or min(max_len, sliding window));
+    MLA {"ckv", "kr"} of [L, batch, max_len, kv_lora | rope_dim]; RWKV
+    {"shift1", "shift2"} of [L, batch, d] and fp32 {"S"} of [L, batch, H,
+    hd, hd]; Mamba2 {"conv"} of [L, batch, W-1, d_inner + 2 d_state] and
+    fp32 {"S"} of [L, batch, H, d_state, head_dim], whatever `max_len`;
+    the hybrid's shared block {"k", "v"} of [calls, batch, min(kv_len,
+    4096), KV, hd], and no such leaf when the trunk never calls the block
+    (JAX makes one without the calls axis, which no trunk reads). `dtype`
+    types every leaf but the fp32 S. With batch = n_blocks + 1 and
+    max_len = block_size the attention caches are exactly the paged
+    layout (block 0 = trash). Every leaf has its batch at axis 1."""
     kw = dict(dtype=dtype or cfg.cdtype(), device=resolve_device(device))
+    kv_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+              else max_len)
     cache = {}
     for kind, L in _group_sizes(cfg).items():
         if not L:
@@ -185,7 +252,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             cache[kind] = ssm_lib.init_rwkv_state(rwkv_config(cfg), batch,
                                                   L=L, **kw)
             continue
-        lead = (L, batch, max_len)
+        if kind == "mamba":
+            cache[kind] = ssm_lib.init_mamba2_state(mamba_config(cfg), batch,
+                                                    L=L, **kw)
+            n_calls = shared_attn_calls(cfg)
+            if n_calls:
+                shape = (n_calls, batch, min(kv_len, SHARED_ATTN_MAX_LEN),
+                         cfg.n_kv_heads, cfg.head_dim)
+                cache["shared_attn"] = {"k": torch.zeros(shape, **kw),
+                                        "v": torch.zeros(shape, **kw)}
+            continue
+        lead = (L, batch, kv_len)
         if cfg.mla:
             cache[kind] = {"ckv": torch.zeros(lead + (cfg.mla.kv_lora,), **kw),
                            "kr": torch.zeros(lead + (cfg.mla.rope_dim,), **kw)}
@@ -214,23 +291,48 @@ def _layers(tree: dict, n: int) -> list:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
-def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
-           cache_offset: int = 0, decode: bool = False, position=None,
-           pages=None, paged_kernel=None):
-    """Pre-norm blocks over each stacked layer group in order (attention or
-    MLA, then the dense MLP or the MoE FFN; or RWKV6 blocks). Returns (x,
-    cache, aux): aux is the fp32 sum of the MoE layers' load-balance
-    losses (0 for dense and RWKV)."""
-    if cfg.family == "ssm_rwkv":
-        return _rwkv_trunk(params, cfg, x, cache, pages, paged_kernel)
-    ac = attn_config(cfg)
-    mc = moe_config(cfg) if cfg.moe else None
+def _attn_ffn_block(p, cfg: ModelConfig, ac: attn_lib.AttnConfig, x,
+                    positions, c, cache_offset, decode, position, pages,
+                    paged_kernel, mc=None):
+    """One pre-norm block: attention or MLA, then the dense MLP (`p`
+    holds "mlp") or the MoE FFN (`mc`). Returns (x, MoE aux loss or
+    None)."""
     if cfg.mla:          # MLA prefill has no kernel: no switch to pass
         fwd, dec = attn_lib.mla_forward, attn_lib.mla_decode
         fwd_kw = {}
     else:
         fwd, dec = attn_lib.gqa_forward, attn_lib.gqa_decode
         fwd_kw = {"paged_kernel": paged_kernel}
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if decode:
+        y, _ = dec(p["attn"], ac, h, position, c, pages=pages,
+                   paged_kernel=paged_kernel)
+    else:
+        y, _ = fwd(p["attn"], ac, h, positions, c, cache_offset, pages=pages,
+                   **fwd_kw)
+    x = x + y
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if mc is not None:
+        y, aux = ffn_lib.moe_forward(p["moe"], mc, h)
+        return x + y, aux
+    return x + ffn_lib.mlp_forward(p["mlp"], h), None
+
+
+def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
+           cache_offset: int = 0, decode: bool = False, position=None,
+           pages=None, paged_kernel=None):
+    """Pre-norm blocks over each stacked layer group in order (attention or
+    MLA, then the dense MLP or the MoE FFN; or RWKV6 blocks; or Mamba2
+    blocks with the shared block between them). Returns (x, cache, aux):
+    aux is the fp32 sum of the MoE layers' load-balance losses (0 for the
+    other families)."""
+    if cfg.family == "ssm_rwkv":
+        return _rwkv_trunk(params, cfg, x, cache, pages, paged_kernel)
+    if cfg.family == "hybrid":
+        return _hybrid_trunk(params, cfg, x, positions, cache, cache_offset,
+                             decode, position, pages, paged_kernel)
+    ac = attn_config(cfg)
+    mc = moe_config(cfg) if cfg.moe else None
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, L in _group_sizes(cfg).items():
         if not L:
@@ -239,22 +341,25 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
         for i, p in enumerate(_layers(params["blocks"][kind], L)):
             c = (None if stacked is None
                  else {name: leaf[i] for name, leaf in stacked.items()})
-            h = rms_norm(x, p["norm1"], cfg.norm_eps)
-            if decode:
-                y, _ = dec(p["attn"], ac, h, position, c, pages=pages,
-                           paged_kernel=paged_kernel)
-            else:
-                y, _ = fwd(p["attn"], ac, h, positions, c, cache_offset,
-                           pages=pages, **fwd_kw)
-            x = x + y
-            h = rms_norm(x, p["norm2"], cfg.norm_eps)
-            if kind == "moe":
-                y, aux = ffn_lib.moe_forward(p["moe"], mc, h)
+            x, aux = _attn_ffn_block(p, cfg, ac, x, positions, c,
+                                     cache_offset, decode, position, pages,
+                                     paged_kernel,
+                                     mc if kind == "moe" else None)
+            if aux is not None:
                 aux_sum = aux_sum + aux
-            else:
-                y = ffn_lib.mlp_forward(p["mlp"], h)
-            x = x + y
     return x, cache, aux_sum
+
+
+def _recurrent_rows(cache, kind: str, i: int, pages):
+    """Layer `i`'s rows of a recurrent state group (None without a
+    cache); a page table is refused: a state cannot be paged."""
+    if pages is not None:
+        raise NotImplementedError(
+            f"a {kind!r} model keeps a recurrent state, which cannot be "
+            f"paged: serve it on the slot backend")
+    if cache is None:
+        return None
+    return {name: leaf[i] for name, leaf in cache[kind].items()}
 
 
 def _rwkv_trunk(params, cfg: ModelConfig, x, cache, pages, paged_kernel):
@@ -262,22 +367,52 @@ def _rwkv_trunk(params, cfg: ModelConfig, x, cache, pages, paged_kernel):
     written back in place (the shift rows cast to the cache's type); no
     cache means a fresh zero state. `paged_kernel` (None: on for CUDA)
     runs the recurrence through the `wkv_scan` kernel."""
-    if pages is not None:
-        raise NotImplementedError(
-            "an RWKV model keeps a recurrent state, which cannot be paged: "
-            "serve it on the slot backend")
     rc = rwkv_config(cfg)
     use_kernel = kernel_ops.paged_kernel_enabled(paged_kernel, x.device)
     L = _group_sizes(cfg)["rwkv"]
-    stacked = cache["rwkv"] if cache is not None else None
     for i, p in enumerate(_layers(params["blocks"]["rwkv"], L)):
-        st = (None if stacked is None
-              else {name: leaf[i] for name, leaf in stacked.items()})
+        st = _recurrent_rows(cache, "rwkv", i, pages)
         x, new = ssm_lib.rwkv_block_forward(p, rc, x, st,
                                             paged_kernel=use_kernel)
         if st is not None:
             st["shift1"].copy_(new["shift1"])
             st["shift2"].copy_(new["shift2"])
+    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache,
+                  cache_offset, decode, position, pages, paged_kernel):
+    """The Mamba2 layer loop, with the ONE shared attention + MLP block
+    after every `shared_attn_every` layers (zamba2's super-blocks; none
+    when the period is 0). A cache's Mamba2 rows are this call's carried
+    state, written back in place (the convolution's history cast to the
+    cache's type); the shared block's g-th call reads and writes entry g
+    of the "shared_attn" cache, a window of its length (4096 positions
+    without a cache). `paged_kernel` (None: on for CUDA) runs the
+    recurrence through `wkv_scan` and the shared block's prefill through
+    `flash_attention`."""
+    mc = mamba_config(cfg)
+    use_kernel = kernel_ops.paged_kernel_enabled(paged_kernel, x.device)
+    every = cfg.shared_attn_every
+    sa_cache = cache.get("shared_attn") if cache is not None else None
+    if every:
+        window = (sa_cache["k"].shape[2] if sa_cache is not None
+                  else SHARED_ATTN_MAX_LEN)
+        ac = dataclasses.replace(attn_config(cfg), sliding_window=window)
+    L = _group_sizes(cfg)["mamba"]
+    for i, p in enumerate(_layers(params["blocks"]["mamba"], L)):
+        st = _recurrent_rows(cache, "mamba", i, pages)
+        x, new = ssm_lib.mamba2_block_forward(p, mc, x, st,
+                                              paged_kernel=use_kernel)
+        if st is not None:
+            st["conv"].copy_(new["conv"])
+        if every and (i + 1) % every == 0:
+            g = (i + 1) // every - 1
+            c = (None if sa_cache is None
+                 else {name: leaf[g] for name, leaf in sa_cache.items()})
+            x, _ = _attn_ffn_block(params["blocks"]["shared_attn"], cfg, ac,
+                                   x, positions, c, cache_offset, decode,
+                                   position, None, use_kernel)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -5,10 +5,14 @@ with batch = n_slots and lives for the engine's lifetime; requests borrow
 a slot (one batch row of every leaf) and return it on retirement.
 Admission overwrites the whole row with a freshly prefilled cache, so
 stale K/V or recurrent state from the previous tenant never leaks. Every
-leaf, GQA ``[L, batch, max_len, KV, hd]``, MLA ``[L, batch, max_len,
-kv_lora | rope_dim]`` or RWKV ``shift1``/``shift2`` ``[L, batch, d]`` and
-``S`` ``[L, batch, H, hd, hd]``, has its batch axis at 1. The RWKV state
-``S`` stays fp32 in the pool whatever the cache type.
+leaf has its batch axis at 1: GQA ``[L, batch, kv_len, KV, hd]`` (kv_len
+= max_len, or a sliding window's ring), MLA ``[L, batch, max_len,
+kv_lora | rope_dim]``, RWKV ``shift1``/``shift2`` ``[L, batch, d]`` and
+``S`` ``[L, batch, H, hd, hd]``, Mamba2 ``conv`` ``[L, batch, W-1,
+d_inner + 2 d_state]`` and ``S`` ``[L, batch, H, d_state, head_dim]``, and
+the hybrid's shared block ``k``/``v`` ``[calls, batch, min(kv_len,
+4096), KV, hd]`` (absent when the trunk never calls it). The recurrent
+states ``S`` stay fp32 in the pool whatever the cache type.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ def scatter_rows(pool_cache: dict, row_cache: dict,
                  slots: torch.Tensor) -> dict:
     """Write `row_cache` (batch = k) into rows `slots` [k] of `pool_cache`
     (batch = n_slots), in place, along axis 1 of every leaf; each row is
-    cast to its pool leaf's type (the RWKV ``S`` leaf is fp32 in both)."""
+    cast to its pool leaf's type (the recurrent ``S`` leaves are fp32 in
+    both)."""
     for kind, leaves in row_cache.items():
         for name, rows in leaves.items():
             pool_cache[kind][name][:, slots] = rows.to(

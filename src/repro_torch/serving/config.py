@@ -25,7 +25,7 @@ class PagedConfig:
                      REPRO_PAGED_KERNEL, else on exactly when the model
                      lives on CUDA. The slot backend reads it too, for the
                      kernels it runs (signal, prefill attention and the
-                     RWKV recurrence).
+                     RWKV6 / Mamba2 recurrence).
     batch_prefill  — pack same-offset prefill chunks of all mid-prefill
                      requests into one dispatch.
     prefix_sharing — copy-on-write prompt-prefix sharing through the

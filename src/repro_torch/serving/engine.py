@@ -25,11 +25,12 @@ The same switch (`kernel_ops.paged_kernel_enabled`: the engine's
 `paged_kernel`, then REPRO_PAGED_KERNEL, then on exactly for CUDA) picks
 the kernel path for the rest of the serving path on either backend: every
 M_S decode step and prefill seed takes its greedy token and eq.-8
-confidence from one `deferral_signal` launch, GQA prefill runs the
-`flash_attention` kernel, and every RWKV6 layer of a prefill or decode
-step runs the `wkv_scan` kernel (an RWKV model keeps a recurrent state,
-so it serves on the slot backend, whose admission prefills each exact
-prompt length apart: no pad token enters a state). The continuous engine
+confidence from one `deferral_signal` launch, GQA prefill (the hybrid's
+shared block's too) runs the `flash_attention` kernel, and every RWKV6
+or Mamba2 layer of a prefill or decode step runs the `wkv_scan` kernel
+(such a model keeps a recurrent state, so it serves on the slot backend,
+whose admission prefills each exact prompt length apart: no pad token
+enters a state). The continuous engine
 passes its `paged_kernel` to `ModelRunner.generate` for M_S calibration
 and for M_L behind its backend. The plain path is
 `deferral_entropy_plain`, `_attend` and `wkv_scan_plain`.

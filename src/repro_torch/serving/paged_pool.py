@@ -82,18 +82,21 @@ def prefix_block_keys(tokens: np.ndarray, block_size: int) -> List[bytes]:
 def validate_pageable(cfg: ModelConfig, max_len: int) -> None:
     """Raise NotImplementedError unless every cache leaf of `cfg` is a
     full-length attention cache, as the JAX pool's check does: recurrent
-    state (RWKV, Mamba) and windowed ring caches go to the slot backend."""
-    if cfg.attention_free:
+    state (RWKV6, and the Mamba2 hybrid's) and windowed ring caches go to
+    the slot backend. A window no shorter than `max_len` leaves a linear
+    cache, which JAX's check passes and its paged attention then refuses
+    (it asserts no window); the port refuses it here."""
+    if cfg.recurrent:
         raise NotImplementedError(
             f"paged KV cache requires attention caches only; family "
             f"{cfg.family!r} keeps a recurrent state, which cannot be paged "
             f"— use the slot backend")
-    window = cfg.sliding_window
-    if window is not None and window < max_len:
+    if cfg.sliding_window is not None:
         raise NotImplementedError(
-            f"paged KV cache does not support windowed/ring caches (leaf "
-            f"seq {window} != max_len {max_len}); use the slot backend")
-    tfm.attn_config(cfg)            # the port's full-causal attention caches
+            f"paged KV cache takes no sliding window (window "
+            f"{cfg.sliding_window}): windowed/ring caches go to the slot "
+            f"backend")
+    tfm.attn_config(cfg)            # the port's attention caches
 
 
 class PagedCachePool:

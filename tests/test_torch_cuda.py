@@ -453,9 +453,9 @@ def _signal_logits(cuda, T, V, dtype, seed=0):
 
 
 @pytest.mark.parametrize("T,V", [(3, 50), (8, 1003), (8, 92544), (8, 102400),
-                                 (300, 4096), (2048, 92544)],
+                                 (300, 4096), (2048, 92544), (8, 32000)],
                          ids=["tiny", "vocab-tail", "internlm2", "deepseek",
-                              "ragged", "evaluation"])
+                              "ragged", "evaluation", "zamba2"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_deferral_kernel_matches_plain(cuda, T, V, dtype):
     """neg_entropy and max_prob to atol 1e-4 (fp32 sums in other orders);
@@ -552,8 +552,9 @@ def test_deferral_wrapper_raises_on_refused_launch(cuda, monkeypatch):
     (2, 65, 200, 8, 2, 112, 128, 0),
     (1, 70, 90, 4, 4, 256, 0, 0),
     (1, 33, 40, 2, 1, 50, 0, 0),
+    (8, 128, 288, 32, 32, 64, 128, 288),
 ], ids=["tiny", "offset", "tail-offset", "full-0", "full-48", "full-128",
-        "window", "hd96", "hd112", "hd256", "hd50"])
+        "window", "hd96", "hd112", "hd256", "hd50", "zamba2-shared"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, T, S, H, KV, hd, off, win,
                                     dtype):
@@ -722,9 +723,11 @@ def _wkv_close(y, st, ref_y, ref_s):
 WKV_SHAPES = [
     ("rwkv", 40, 64, 64), ("rwkv", 4, 32, 32), ("rwkv", 3, 128, 96),
     ("mamba", 64, 64, 64), ("mamba", 2, 16, 8), ("rwkv", 2, 256, 256),
-    ("mamba", 2, 256, 256), ("rwkv", 1, 200, 300), ("mamba", 1, 512, 40)]
+    ("mamba", 2, 256, 256), ("rwkv", 1, 200, 300), ("mamba", 1, 512, 40),
+    ("mamba", 128, 64, 64)]
 WKV_IDS = ["rwkv6-3b", "rwkv-reduced", "rwkv-widest", "zamba2", "mamba-small",
-           "rwkv-256", "mamba-256", "rwkv-v-blocks", "mamba-k512"]
+           "rwkv-256", "mamba-256", "rwkv-v-blocks", "mamba-k512",
+           "zamba2-large"]
 
 
 @pytest.mark.parametrize("T", [1, 2, 16, 17, 97, 128, 256])
@@ -883,4 +886,46 @@ def test_rwkv_decode_step_kernel_matches_plain(cuda):
                                          paged_kernel=kernel)
     torch.cuda.synchronize()
     assert wk.wkv_scan.launches == n + 2 * cfg.n_layers
+    torch.testing.assert_close(out[True], out[False], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("T", [37, 64])
+def test_zamba2_prefill_and_decode_step_kernel_matches_plain(cuda, T):
+    """Reduced fp32 zamba2 (4 Mamba2 layers, the shared block after layers
+    2 and 4): a prefill of T tokens (T 37: the per-token kernel; 64: the
+    chunked one) and one decode step, the kernels against the plain
+    recurrence and attention: prefill logits within 1e-3 (the kernels'
+    fp32 sums in other orders through four layers, the chunked kernel's
+    split tensor-core products among them; chip_smoke.py holds the
+    full-width fp32 prefill to the same), the decode step's within 1e-4
+    from the same prefilled state; one `wkv_scan` launch per Mamba2 layer
+    and one `flash_attention` per shared-block call of the prefill."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tfm
+    cfg = reduced(get_config("zamba2-1.2b"))
+    params = tfm.init_params(cfg, 0, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, T))).to(cuda)
+    pre, caches = {}, {}
+    n, n_chunked = wk.wkv_scan.launches, wk.wkv_scan.launches_chunked
+    n_fa = fa.flash_attention.launches
+    for kernel in (True, False):
+        c = tfm.init_cache(cfg, 3, T + 1, device=cuda)
+        pre[kernel], caches[kernel] = tfm.prefill(
+            params, cfg, toks, c, last_only=True, paged_kernel=kernel)
+    assert wk.wkv_scan.launches == n + cfg.n_layers
+    assert (wk.wkv_scan.launches_chunked - n_chunked
+            == cfg.n_layers * int(T >= wk.CHUNKED_MIN_T))
+    assert fa.flash_attention.launches == n_fa + tfm.shared_attn_calls(cfg)
+    torch.testing.assert_close(pre[True], pre[False], atol=1e-3, rtol=0)
+    tok = pre[True][:, -1].argmax(-1)
+    out = {}
+    for kernel in (True, False):
+        c = {kind: {k: t.clone() for k, t in leaves.items()}
+             for kind, leaves in caches[True].items()}
+        out[kernel], _ = tfm.decode_step(params, cfg, tok, T, c,
+                                         paged_kernel=kernel)
+    torch.cuda.synchronize()
+    assert wk.wkv_scan.launches == n + 2 * cfg.n_layers
+    assert fa.flash_attention.launches == n_fa + tfm.shared_attn_calls(cfg)
     torch.testing.assert_close(out[True], out[False], atol=1e-4, rtol=0)

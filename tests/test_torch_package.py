@@ -131,7 +131,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     ["--backend", "paged", "--blocks", "8", "--oversubscribe", "2"],
     ["--max-queue", "4"],
     ["--metrics-port", "0"],
-    ["--arch", "zamba2-1.2b"],
+    ["--arch", "whisper-small"],
 ], ids=lambda a: a[0] if a[0] != "--backend" else a[-2])
 def test_cli_rejects_unported_features_by_name(argv, capsys):
     from repro_torch.launch import serve
