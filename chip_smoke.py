@@ -33,8 +33,10 @@ non-zero:
      version at the engine's shapes (8 x 92544, 8 x 102400 and, for
      rwkv6-3b and zamba2-1.2b, 8 x 65536 and 8 x 32000 fp32 logits), the
      evaluation's (2048 x
-     92544) and phase 10's classifier logits (1000 x 8, 3000 x 8, and
-     3000 x 10, whose rows take the scalar loads), with a row of equal
+     92544), phase 10's classifier logits (1000 x 8, 3000 x 8, and
+     3000 x 10, whose rows take the scalar loads) and phase 12's (8 x
+     51865, whisper-small's odd vocabulary on the scalar loads, and 8 x
+     32064, phi-3-vision's), with a row of equal
      logits, a row with an exact top tie and a vocabulary tail no span
      divides, two calls bit-equal; timed beside its bytes bound (no
      single PyTorch call computes the triple, so no library time), and
@@ -49,7 +51,13 @@ non-zero:
      (8 x 128 queries over a 288-position slot cache, 32/32 heads of 64,
      bf16, window 288), timed beside its bound and SDPA. Then the head
      dims past the old instantiations at the same chunk: phi-3-vision's 96
-     (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows.
+     (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows. Then
+     phase 12's five calls: whisper-small's encoder (8 x 1500 frames,
+     non-causal, 12/12 heads of 64), its cross-attention at prefill (16
+     queries) and at a decode step (1 query) over the 1500 encoder
+     states (non-causal), its decoder's causal prefill over the 32-slot
+     cache, and phi-3-vision-4.2b's causal prefill of 576 patches + BOS
+     (32/32 heads of 96).
   3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
      algorithms) in both modes: "rwkv" at the full-width rwkv6-3b decode
      step (8 rows, T 1, 40 heads, K = V = 64; the per-token kernel),
@@ -141,13 +149,40 @@ non-zero:
      (one per `evaluate_classifier` batch and per model's logits in
      `calibrate_tau` / `predict_sparse`) and held against its plain
      version on every such logits tensor.
+  12. The encoder-decoder and vision-language families through
+     `launch.steps` (the JAX engine takes neither frames nor patches):
+     12a. whisper-small at its published widths and all 12 + 12 layers
+         (stub frames [8, 1500, 768] from the seed, a 16-token decoder
+         prompt): the kernel path (`flash_attention` non-causal in the
+         encoder and every cross-attention, causal in the decoder's
+         prefill; `deferral_entropy`) against the plain one by the
+         prefill's and the first step's logits (fp32 activations held to
+         1e-3, the config's bf16 under a stated guard) and by the greedy
+         tokens and defer masks of make_prefill + 16 make_serve_step
+         steps; one profiled serve step; the main path (make_prefill + 16
+         steps, kernels on, tau at the 0.3 quantile of the prefill
+         confidences) with the launches counted exactly (36
+         `flash_attention` per prefill and 12 per step, one
+         `deferral_entropy` per prefill and per step); one full-width
+         Stage-2 make_train_step step (one `gatekeeper_loss_tokens`).
+     12b. phi-3-vision-4.2b the same way at all 32 layers for serving (8
+         `make_captions` rows, their 576 patches [8, 576, 3072] prepended
+         to BOS; 32 `flash_attention` per prefill, none per step), its
+         Stage-2 step cut to 8 layers at its widths (the patch positions
+         out of the loss). Each model is freed before the next.
+     12c. The reduced fp32 configs, kernel path against plain path:
+         identical greedy tokens and defer masks.
   7. Training, after the serving ladders are freed:
      7a. The fused Gatekeeper-loss kernel against its plain version at the
          full-width Stage-2 shapes (T = 16*128 tokens, d 2048, vocab
          92544; bf16 x and fp32 table as the main path gives them, and all
-         fp32), timed beside its bound and cuBLAS's fp32 logits GEMM; and
-         the gradients of `gatekeeper_loss_fused` (kernel forward, chunked
-         backward) against autograd through the plain version.
+         fp32), timed beside its bound and cuBLAS's fp32 logits GEMM; the
+         same at phase 12's Stage-2 shapes (whisper-small: 8 x 16 tokens,
+         d 768, vocab 51865; phi-3-vision: 8 x (576 + 3) positions, d
+         3072, vocab 32064, with `gatekeeper_loss_fused`'s loss under the
+         patch mask held against the plain reduction); and the gradients
+         of `gatekeeper_loss_fused` (kernel forward, chunked backward)
+         against autograd through the plain version.
      7b. The training main path: `launch.train.run` on internlm2-1.8b at
          its published width, 2 Stage-1 (CE) and 3 Stage-2 (Gatekeeper)
          steps of 16 x 128 tokens, with the loss kernel's counter set to 0
@@ -223,10 +258,11 @@ EVAL_SEQS, EVAL_LEN, EVAL_DEFERRAL = 16, 128, 0.3
 # (rows, vocabulary): the engine's internlm2-1.8b and DeepSeek-V2 decode
 # logits, then the evaluation's [EVAL_SEQS * EVAL_LEN, V], then phase 10's
 # classifier logits (calibration rows, test split) and a class count whose
-# rows are not 16-byte aligned (the kernel's scalar loads)
+# rows are not 16-byte aligned (the kernel's scalar loads), then phase 12's
+# whisper-small (an odd vocabulary: scalar loads) and phi-3-vision logits
 SIGNAL_SHAPES = ((N_SLOTS, 92544), (N_SLOTS, 102400), (N_SLOTS, 65536),
                  (N_SLOTS, 32000), (EVAL_SEQS * EVAL_LEN, 92544), (1000, 8),
-                 (3000, 8), (3000, 10))
+                 (3000, 8), (3000, 10), (N_SLOTS, 51865), (N_SLOTS, 32064))
 
 # phase 10: the classifier cascade, tests/test_system.py's flow on the
 # port's own draw (seed SEED) at that test's sizes
@@ -306,6 +342,31 @@ DX_RTOL_OF_MAX = 1e-2   # bf16 dx: both sides round nearly equal fp32
                         # (up to 2^-7 of the largest entry) apart
 DTABLE_RTOL_OF_MAX = 1e-4  # fp32 dtable, the same sums in other orders
 REDUCED_GRAD_RTOL_OF_MAX = 1e-4  # reduced fp32 step, kernel vs chunked loss
+
+# phase 12: the encoder-decoder and VLM families through launch.steps
+WHISPER_ARCH = "whisper-small"
+VLM_ARCH = "phi-3-vision-4.2b"
+ENC_PROMPT = 16         # whisper's decoder prompt (tokens)
+GREEDY_STEPS = 16       # make_serve_step steps after make_prefill
+STEPS_TAU_QUANTILE = 0.3  # tau: this quantile of the prefill confidences
+STEPS_LOGIT_GUARD = 0.3  # kernel vs plain logits with the configs' bf16
+                        # activations: a last-bit difference of an fp32
+                        # attention output can flip a bf16 rounding of the
+                        # residual stream, which every later layer carries
+                        # (whisper's encoder output also feeds every cross
+                        # K/V). Sound readings on an H100 were 0.036
+                        # (whisper's prefill) and 0.096 (phi-3-vision's);
+                        # the guard is about 3x the larger. The binding
+                        # check of the path's kernels is the fp32-activation
+                        # one at STEP_LOGIT_ATOL
+VLM_TRAIN_LAYERS = 8    # phi-3-vision's Stage-2 step: the depth cut. fp32
+                        # weights, gradients and two AdamW moments take 16 B
+                        # a parameter: 57 GiB at all 32 layers before
+                        # activations. At 8 layers (1.103 B parameters, 16.4
+                        # GiB of state) the plain attention's saved scores
+                        # and probabilities (8 x 32 x 579^2 fp32, 0.34 GB
+                        # each, per layer) and the MLP's activations leave
+                        # a wide margin on the 80 GB card
 
 
 def phase(name: str, t_start: float) -> None:
@@ -717,12 +778,19 @@ def check_flash_kernel(torch, fa, smi) -> dict:
     fp32 (the SIMT kernel) and bf16 (the tensor-core kernel), each case
     timed beside its plain version, SDPA over the same mask and its bound.
     The main paths run fp32: their q/k/v come out of fp32 projections
-    (fp32 weights promote the bf16 activations) and `_causal_attend` casts
+    (fp32 weights promote the bf16 activations) and `_prefill_attend` casts
     K/V to q's type. The cases: internlm2-1.8b's prefill chunk at
     q_offset 0, 48 and 128; zamba2-1.2b's shared block as the slot engine
     gives it (8 prompts of 128 tokens at q_offset 0 over the 288-position
     slot cache, 32/32 heads of 64, the cache's length as the window);
-    other configs' head dims; a window that cuts (24 over 100 tokens).
+    other configs' head dims; a window that cuts (24 over 100 tokens);
+    phase 12's five calls: whisper-small's encoder (8 x 1500 frames over
+    themselves, non-causal, 12/12 heads of 64; 1500 is no multiple of the
+    64-key tile), its cross-attention at prefill (16 queries over the 1500
+    encoder states, non-causal) and at a decode step (1 query), its
+    decoder's causal self-attention (16 prompt queries over the 32-slot
+    cache), and phi-3-vision-4.2b's prefill (576 patches + BOS, causal
+    over its 593-slot cache, 32/32 heads of 96).
     The bound counts q and the output once, K/V only at the positions
     some query sees, and the visible pairs' products at the fp32 SIMT or
     the bf16 tensor-core rate (bf16 is exact in fp32 accumulation).
@@ -731,18 +799,33 @@ def check_flash_kernel(torch, fa, smi) -> dict:
     B, T = N_SLOTS, CHUNK
     S = math.ceil((RAGGED[1] + MAX_NEW) / BLOCK) * BLOCK     # 288
     g = torch.Generator(device=DEV).manual_seed(SEED + 11)
-    # label, B, T, S, H, KV, hd, window, q_offsets, on a main path
-    cases = (("internlm2 chunk", B, T, S, 16, 8, 128, 0, (0, 48, 128), True),
-             ("zamba2 shared block", B, T, S, 32, 32, 64, S, (0,), True),
-             ("phi-3-vision hd 96", B, T, S, 32, 32, 96, 0, (48,), False),
-             ("kimi-k2 hd 112", B, T, S, 64, 8, 112, 0, (48,), False),
-             ("hd 256", 2, T, S, 4, 2, 256, 0, (48,), False),
-             ("window 24", 2, 100, 100, 4, 2, 128, 24, (0,), False))
+    F = 1500                                                 # frames
+    P0 = 576 + 1                       # phi-3-vision: patches + BOS
+    # label, B, T, S, H, KV, hd, window, q_offsets, on a main path, causal
+    cases = (("internlm2 chunk", B, T, S, 16, 8, 128, 0, (0, 48, 128), True,
+              True),
+             ("zamba2 shared block", B, T, S, 32, 32, 64, S, (0,), True,
+              True),
+             ("phi-3-vision hd 96", B, T, S, 32, 32, 96, 0, (48,), False,
+              True),
+             ("kimi-k2 hd 112", B, T, S, 64, 8, 112, 0, (48,), False, True),
+             ("hd 256", 2, T, S, 4, 2, 256, 0, (48,), False, True),
+             ("window 24", 2, 100, 100, 4, 2, 128, 24, (0,), False, True),
+             ("whisper encoder", B, F, F, 12, 12, 64, 0, (0,), True, False),
+             ("whisper cross prefill", B, ENC_PROMPT, F, 12, 12, 64, 0, (0,),
+              True, False),
+             ("whisper cross decode", B, 1, F, 12, 12, 64, 0, (0,), True,
+              False),
+             ("whisper decoder self", B, ENC_PROMPT, ENC_PROMPT
+              + GREEDY_STEPS, 12, 12, 64, 0, (0,), True, True),
+             ("phi-3-vision prefill", B, P0, P0 + GREEDY_STEPS, 32, 32, 96, 0,
+              (0,), True, True))
     rec = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:72",
                path_dtype="float32", cases={})
-    for label, Bc, Tc, Sc, H, KV, hd, window, offsets, on_path in cases:
+    for (label, Bc, Tc, Sc, H, KV, hd, window, offsets, on_path,
+         causal) in cases:
         base = [torch.randn(shape, generator=g, device=DEV) for shape in
                 ((Bc, Tc, H, hd), (Bc, Sc, KV, hd), (Bc, Sc, KV, hd))]
         for name, dtype, rtol, rate in (
@@ -752,7 +835,7 @@ def check_flash_kernel(torch, fa, smi) -> dict:
             tol = f"atol {FLASH_ATOL}" + (f" + {rtol:.3g}|ref|" if rtol
                                           else "")
             for off in offsets:
-                kw = dict(causal=True, window=window, q_offset=off)
+                kw = dict(causal=causal, window=window, q_offset=off)
                 out = fa.flash_attention(q, k, v, **kw)
                 again = fa.flash_attention(q, k, v, **kw)
                 ref = fa.flash_attention_plain(q, k, v, **kw)
@@ -772,8 +855,8 @@ def check_flash_kernel(torch, fa, smi) -> dict:
                 ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
                 plain_ms = time_ms(lambda: fa.flash_attention_plain(
                     q, k, v, **kw), iters=5)
-                mask = fa.visible_mask(Tc, Sc, window=window, q_offset=off,
-                                       device=DEV)
+                mask = fa.visible_mask(Tc, Sc, causal=causal, window=window,
+                                       q_offset=off, device=DEV)
                 # yardstick only, never called by the port: SDPA over the
                 # same mask, K/V heads expanded to the query heads first
                 qs = q.transpose(1, 2)
@@ -792,7 +875,9 @@ def check_flash_kernel(torch, fa, smi) -> dict:
                 path = ", the main path's" if on_path and dtype == \
                     torch.float32 else ""
                 print(f"[kernel] {what} (B {Bc} T {Tc} S {Sc}, {H}/{KV}x"
-                      f"{hd}, window {window or '-'}{path}): max|err| {err:.3g}, at most {share:.3g} of ({tol})"
+                      f"{hd}, {'causal' if causal else 'non-causal'}, window "
+                      f"{window or '-'}{path}): max|err| {err:.3g}, at most "
+                      f"{share:.3g} of ({tol})"
                       f", two calls bit-equal; kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                       f"{bound_ms:.5f} ms ({bound_by}: {visible} visible "
@@ -806,6 +891,11 @@ def check_flash_kernel(torch, fa, smi) -> dict:
     rec.update(rec["cases"]["internlm2 chunk fp32 q_offset 128"],
                q_offset=128)
     rec["zamba2_shared"] = rec["cases"]["zamba2 shared block fp32 q_offset 0"]
+    rec["phase12"] = {label: rec["cases"][f"{label} fp32 q_offset 0"]
+                      for label in ("whisper encoder", "whisper cross prefill",
+                                    "whisper cross decode",
+                                    "whisper decoder self",
+                                    "phi-3-vision prefill")}
     for off in (0, 48, 128):
         c = rec["cases"]
         print(f"[kernel] flash_attention internlm2 chunk q_offset {off}: "
@@ -1762,30 +1852,38 @@ def serve_slot_main_path(torch, tfm, small, large, smi, tag: str) -> dict:
     return launches
 
 
-def loss_case(torch, x_dtype, V: int, d: int, seed: int):
-    """Stage-2 loss inputs at the main path's shapes: x [LOSS_T, d] of
-    unit scale (the final rms-norm's output), table [V, d] fp32 of std
-    1/sqrt(d) like the init, targets at the argmax for half the rows."""
+def loss_case(torch, x_dtype, V: int, d: int, seed: int, T: int = LOSS_T):
+    """Stage-2 loss inputs at a main path's shapes: x [T, d] of unit scale
+    (the final rms-norm's output), table [V, d] fp32 of std 1/sqrt(d)
+    like the init, targets at the argmax for half the rows."""
     g = torch.Generator(device=DEV).manual_seed(seed)
-    x = torch.randn((LOSS_T, d), generator=g, device=DEV).to(x_dtype)
+    x = torch.randn((T, d), generator=g, device=DEV).to(x_dtype)
     table = torch.randn((V, d), generator=g, device=DEV) / math.sqrt(d)
     logits = x.float() @ table.t()
     top2 = torch.topk(logits, 2, dim=-1).values
-    tgt = torch.randint(0, V, (LOSS_T,), generator=g, device=DEV,
+    tgt = torch.randint(0, V, (T,), generator=g, device=DEV,
                         dtype=torch.int32)
-    hit = torch.rand(LOSS_T, generator=g, device=DEV) < 0.5
+    hit = torch.rand(T, generator=g, device=DEV) < 0.5
     tgt = torch.where(hit, logits.argmax(-1).int(), tgt).contiguous()
     return x, table, tgt, top2[:, 0] - top2[:, 1]
 
 
-def check_loss_kernel(torch, gk, smi, V: int, d: int) -> dict:
+def check_loss_kernel(torch, gk, smi, V: int, d: int, T: int = LOSS_T,
+                      rows: int = 1, invalid: int = 0,
+                      label: str = "internlm2-1.8b") -> dict:
     """gatekeeper_loss_tokens against its plain version (bf16 x and all
-    fp32); times kernel, plain version and the fp32 cuBLAS GEMM of the
-    logits alone (bf16 x case). Returns the kernel's record."""
+    fp32) at T tokens; times kernel, plain version and the fp32 cuBLAS
+    GEMM of the logits alone (bf16 x case). With `invalid` > 0 the T
+    tokens are `rows` sequences whose first `invalid` positions leave the
+    loss (the VLM's patches), and `gatekeeper_loss_fused`'s masked loss
+    and terms are also held against the plain reduction. Returns the
+    kernel's record."""
     rec = None
+    valid = torch.ones(T, device=DEV)
+    valid.view(rows, T // rows)[:, :invalid] = 0.0
     for name, x_dtype in (("x bf16, table fp32", torch.bfloat16),
                           ("all fp32", torch.float32)):
-        x, table, tgt, gap = loss_case(torch, x_dtype, V, d, SEED + 7)
+        x, table, tgt, gap = loss_case(torch, x_dtype, V, d, SEED + 7, T)
         got = gk.gatekeeper_loss_tokens(x, table, tgt)
         want = gk.gatekeeper_loss_tokens_plain(x, table, tgt)
         torch.cuda.synchronize()
@@ -1795,14 +1893,33 @@ def check_loss_kernel(torch, gk, smi, V: int, d: int) -> dict:
         flips = int((got[2] != want[2]).sum())
         clear_flips = int((got[2][clear] != want[2][clear]).sum())
         ok = all(bool(torch.isfinite(t).all()) for t in got)
-        print(f"[train] gatekeeper_loss_tokens {name}, T {LOSS_T} d {d} V "
-              f"{V}: max|err| ce/kl/entropy {err:.3g} (atol {LOSS_ATOL}); "
+        print(f"[train] gatekeeper_loss_tokens {label} {name}, T {T} d {d} "
+              f"V {V}: max|err| ce/kl/entropy {err:.3g} (atol {LOSS_ATOL}); "
               f"correct differs on {flips} rows, {clear_flips} of them with "
               f"a top-2 gap > {TIE_GAP} ({int((~clear).sum())} rows under "
               f"it); frac correct {float(want[2].mean()):.3f}")
         if not (ok and err <= LOSS_ATOL and clear_flips == 0):
             raise AssertionError(f"gatekeeper_loss_tokens ({name}): err "
                                  f"{err} or {clear_flips} flips on clear rows")
+        if invalid:
+            loss_k, aux = gk.gatekeeper_loss_fused(x, table, tgt, valid,
+                                                   alpha=0.3)
+            ce, kl, corr, _ = want
+            denom = valid.sum()
+            terms = {"l_corr": (ce * corr * valid).sum() / denom,
+                     "l_incorr": (kl * (1 - corr) * valid).sum() / denom}
+            terms["loss"] = 0.3 * terms["l_corr"] + 0.7 * terms["l_incorr"]
+            got_terms = {"loss": loss_k, "l_corr": aux["l_corr"],
+                         "l_incorr": aux["l_incorr"]}
+            t_err = max(abs(float(got_terms[k]) - float(v))
+                        for k, v in terms.items())
+            print(f"[train] gatekeeper_loss_fused {label} {name}: "
+                  f"{int(denom)} of {T} tokens valid (the first {invalid} "
+                  f"of each of {rows} rows masked): max|d| loss / l_corr / "
+                  f"l_incorr {t_err:.3g} (atol {LOSS_ATOL})")
+            if not t_err <= LOSS_ATOL:
+                raise AssertionError(f"masked loss ({label}, {name}): "
+                                     f"{t_err}")
         if rec is None:                     # the main path's types
             ms = time_ms(lambda: gk.gatekeeper_loss_tokens(x, table, tgt),
                          iters=5, warmup=1)
@@ -1813,19 +1930,23 @@ def check_loss_kernel(torch, gk, smi, V: int, d: int) -> dict:
             # of the logits, which computes none of the reductions
             lib_ms = time_ms(lambda: x32 @ table.t(), iters=5, warmup=1)
             n_bytes = (x.numel() * x.element_size() + table.numel() * 4
-                       + tgt.numel() * 4 + 4 * LOSS_T * 4)
-            flops = 2 * LOSS_T * V * d
+                       + tgt.numel() * 4 + 4 * T * 4)
+            flops = 2 * T * V * d
             bound_ms, bound_by = bound(n_bytes, flops)
-            print(f"[kernel] gatekeeper_loss_tokens {name}: kernel {ms:.3f} "
-                  f"ms, plain {plain_ms:.3f} ms, cuBLAS fp32 logits GEMM "
-                  f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
-                  f"{n_bytes} B, {flops} fp32 flop) on {smi}")
+            need = (f"; the loss reads {int(valid.sum())} of these rows, "
+                    f"a bound of {bound(n_bytes, flops * valid.mean())[0]:.4f}"
+                    f" ms for them alone" if invalid else "")
+            print(f"[kernel] gatekeeper_loss_tokens {label} {name}: kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, cuBLAS fp32 logits "
+                  f"GEMM {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                  f"({bound_by}: {n_bytes} B, {flops} fp32 flop){need} on "
+                  f"{smi}")
             rec = dict(name="gatekeeper_loss_tokens", route="cuda",
                        source="src/repro_torch/kernels/csrc/gatekeeper_loss.cu",
                        replaces="src/repro/kernels/gatekeeper_loss.py:99",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=lib_ms)
+                       library_ms=lib_ms, shape=[T, d, V])
         del x, table, tgt, got, want
         torch.cuda.empty_cache()
     return rec
@@ -2011,6 +2132,340 @@ def reduced_training_fixture(torch, train) -> None:
               f"checkpoint restores bit for bit: {same}")
         if not same or checkpoint.checkpoint_step(f"{tmp}/stage2") != 3:
             raise AssertionError("checkpoint round trip differs")
+
+
+def steps_inputs(torch, cfg):
+    """Phase 12's inputs at `cfg`'s widths: (batch, prompt positions,
+    caption data or None). whisper-small: stub frames [8, n_frames, d]
+    drawn from the seed (the JAX frontend is a stub too) and an
+    ENC_PROMPT-token decoder prompt; phi-3-vision: 8 `make_captions` rows
+    (their patches [8, n_patches, d]) and BOS."""
+    import numpy as np
+    from repro_torch.data.synthetic import BOS, make_captions
+    if cfg.family == "encdec":
+        g = torch.Generator(device=DEV).manual_seed(SEED + 40)
+        frames = torch.randn((N_SLOTS, cfg.encoder.n_frames, cfg.d_model),
+                             generator=g, device=DEV)
+        toks = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+            0, cfg.vocab_size, (N_SLOTS, ENC_PROMPT))).to(DEV)
+        return {"frames": frames, "tokens": toks}, ENC_PROMPT, None
+    data = make_captions(SEED + 42, N_SLOTS, n_patches=cfg.vision.n_patches,
+                         d_model=cfg.d_model)
+    toks = torch.full((N_SLOTS, 1), BOS, dtype=torch.long, device=DEV)
+    return ({"patches": torch.from_numpy(data.patches).to(DEV),
+             "tokens": toks}, cfg.vision.n_patches + 1, data)
+
+
+def steps_cache(cfg, max_len: int):
+    """A zeroed cache of N_SLOTS rows for `launch.steps` (the encoder-
+    decoder's with its cross K/V), in the compute type."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    init = encdec.init_cache if cfg.family == "encdec" else tfm.init_cache
+    return init(cfg, N_SLOTS, max_len, device=DEV)
+
+
+def steps_greedy(torch, cfg, params, batch, P0: int, kernel: bool,
+                 tau=None):
+    """`make_prefill`, then GREEDY_STEPS greedy `make_serve_step` steps
+    at positions P0, P0 + 1, ...; tau (None: the STEPS_TAU_QUANTILE
+    quantile of the prefill confidences). Returns (tau, tokens [B, 1 + n],
+    confidences [B, 1 + n], defer masks [B, n])."""
+    from repro_torch.launch import steps
+    cache = steps_cache(cfg, P0 + GREEDY_STEPS)
+    tok, conf, cache = steps.make_prefill(cfg, paged_kernel=kernel)(
+        params, cache, batch)
+    if tau is None:
+        tau = float(torch.quantile(conf, STEPS_TAU_QUANTILE))
+    step = steps.make_serve_step(cfg, tau=tau, paged_kernel=kernel)
+    toks, confs, defers = [tok], [conf], []
+    for i in range(GREEDY_STEPS):
+        tok, conf, defer, cache = step(params, cache, tok, P0 + i)
+        toks.append(tok)
+        confs.append(conf)
+        defers.append(defer)
+    torch.cuda.synchronize()
+    return (tau, torch.stack(toks, 1), torch.stack(confs, 1),
+            torch.stack(defers, 1))
+
+
+def steps_logits(torch, cfg, params, batch, P0: int):
+    """The prefill's last-position logits [B, V] through the kernel path
+    and the plain path, and one decode step's from a copy of the kernel
+    path's cache each, at the kernel path's greedy token: ({True, False}:
+    prefill logits, {True, False}: step logits)."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    pre, caches = {}, {}
+    for kernel in (True, False):
+        cache = steps_cache(cfg, P0 + 1)
+        if cfg.family == "encdec":
+            logits, caches[kernel] = encdec.prefill(
+                params, cfg, batch["frames"], batch["tokens"], cache,
+                last_only=True, paged_kernel=kernel)
+        else:
+            logits, caches[kernel] = tfm.prefill(
+                params, cfg, batch["tokens"], cache, last_only=True,
+                paged_kernel=kernel, extra_embeds=batch.get("patches"))
+        pre[kernel] = logits[:, -1]
+    tok = pre[True].argmax(-1)
+    mod = encdec if cfg.family == "encdec" else tfm
+    step = {}
+    for kernel in (True, False):
+        c = {kind: {k: v.clone() for k, v in leaves.items()}
+             for kind, leaves in caches[True].items()}
+        step[kernel], _ = mod.decode_step(params, cfg, tok, P0, c,
+                                          paged_kernel=kernel)
+    torch.cuda.synchronize()
+    return pre, step
+
+
+def check_steps_paths(torch, cfg, params, batch, P0: int, tag: str) -> None:
+    """Kernel path against plain path (`paged_kernel=False`), with fp32
+    activations (isolates the kernels; held at STEP_LOGIT_ATOL) and with
+    the config's bf16 (held under STEPS_LOGIT_GUARD): the prefill's and
+    the first decode step's logits, with argmax agreement; then the
+    greedy make_prefill + make_serve_step runs of both paths at the plain
+    path's tau: tokens and defer masks, equal in fp32 (a request within
+    CONF_NEAR_TAU of tau at a step may defer on one path only) and
+    reported in bf16."""
+    for label, pcfg, tol, held in (
+            ("fp32 activations", cfg.replace(compute_dtype="float32"),
+             STEP_LOGIT_ATOL, True),
+            (f"{cfg.compute_dtype} activations", cfg, STEPS_LOGIT_GUARD,
+             False)):
+        pre, step = steps_logits(torch, pcfg, params, batch, P0)
+        for what, out in (("prefill", pre), ("first decode step", step)):
+            err = float((out[True] - out[False]).abs().max())
+            agree = float((out[True].argmax(-1) == out[False].argmax(-1))
+                          .float().mean())
+            print(f"[{tag}] full-width {what}, kernels vs plain path, "
+                  f"{label}: max|dlogit| {err:.4g} (atol {tol}; logit std "
+                  f"{float(out[False].std()):.3g}), argmax agreement "
+                  f"{agree:.3f}")
+            if not (torch.isfinite(out[True]).all() and err <= tol
+                    and out[True].shape == (N_SLOTS, cfg.vocab_size)):
+                raise AssertionError(f"{tag} {what} ({label}): logits differ "
+                                     f"by {err} > {tol}")
+        del pre, step
+        tau, p_tok, p_conf, p_def = steps_greedy(torch, pcfg, params, batch,
+                                                 P0, False)
+        _, k_tok, k_conf, k_def = steps_greedy(torch, pcfg, params, batch,
+                                               P0, True, tau)
+        near = (p_conf[:, 1:] - tau).abs() <= CONF_NEAR_TAU
+        same_tok = float((k_tok == p_tok).float().mean())
+        same_def = bool(torch.equal(k_def[~near], p_def[~near]))
+        conf_err = float((k_conf - p_conf).abs().max())
+        print(f"[{tag}] greedy make_prefill + {GREEDY_STEPS} make_serve_step,"
+              f" kernels vs plain path, {label}, tau {tau:.5f}: tokens equal "
+              f"{same_tok:.3f}, defer masks equal {same_def} "
+              f"({int(near.sum())} (row, step) within {CONF_NEAR_TAU} of tau,"
+              f" not held), max|dconf| {conf_err:.3g}, deferral "
+              f"{float(p_def.float().mean()):.3f}"
+              + ("" if held else " (reported, not held)"))
+        if held and not (same_tok == 1.0 and same_def):
+            raise AssertionError(f"{tag} greedy steps ({label}): tokens "
+                                 f"{same_tok}, masks {same_def}")
+
+
+def steps_main_path(torch, cfg, params, batch, P0: int, data, smi,
+                    tag: str) -> dict:
+    """The main path: make_prefill and GREEDY_STEPS make_serve_step steps
+    with the kernels on, every kernel's counter set to 0 just before and
+    read just after: `flash_attention` once per attention layer of the
+    prefill (whisper: the encoder's, the decoder's self- and cross-
+    attention; phi-3-vision: its decoder's) and once per cross-attention
+    layer of each step (none for the VLM, whose slot decode is plain),
+    `deferral_entropy` once per prefill and per step, no other. Returns
+    the counts."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tau, toks, confs, defers = steps_greedy(torch, cfg, params, batch, P0,
+                                            True)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "encdec":
+        per_prefill = cfg.encoder.n_layers + 2 * cfg.n_layers
+        per_step = cfg.n_layers
+    else:
+        per_prefill, per_step = cfg.n_layers, 0
+    want["flash_attention"] = per_prefill + per_step * GREEDY_STEPS
+    want["deferral_entropy"] = 1 + GREEDY_STEPS
+    score = ""
+    if data is not None:
+        from repro_torch.data.synthetic import caption_factuality
+        fact = caption_factuality(toks[:, :2].cpu().numpy(), data)
+        score = (f", caption_factuality of the greedy captions (random "
+                 f"weights, not held) {fact.mean():.3f}")
+    print(f"[{tag}] main path: make_prefill of {N_SLOTS} x {P0} positions "
+          f"and {GREEDY_STEPS} make_serve_step steps in {wall:.3f} s host "
+          f"wall, tau {tau:.4f} (the {STEPS_TAU_QUANTILE} quantile of the "
+          f"prefill confidences), deferral {float(defers.float().mean()):.3f}"
+          f"{score}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    print(f"[{tag}] kernel launches {launches}, expected {want} "
+          f"(flash_attention {per_prefill} per prefill + {per_step} x "
+          f"{GREEDY_STEPS} steps; deferral_entropy 1 + {GREEDY_STEPS})")
+    if toks.shape != (N_SLOTS, 1 + GREEDY_STEPS) or not (
+            torch.isfinite(confs).all() and (toks >= 0).all()
+            and (toks < cfg.vocab_size).all()):
+        raise AssertionError(f"{tag}: malformed steps result")
+    if launches != want:
+        raise AssertionError(f"{tag} launch counts {launches} != {want}")
+    return launches
+
+
+def profile_serve_step(torch, cfg, params, batch, P0: int, smi,
+                       tag: str) -> None:
+    """One main-path make_serve_step step (kernels on, with its deferral
+    signal) on the host clock and under torch.profiler."""
+    from repro_torch.launch import steps
+    cache = steps_cache(cfg, P0 + GREEDY_STEPS)
+    tok, _, cache = steps.make_prefill(cfg, paged_kernel=True)(params, cache,
+                                                               batch)
+    step = steps.make_serve_step(cfg, paged_kernel=True)
+
+    def run():
+        step(params, cache, tok, P0)
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, ranked = profile_steps(torch, run, 1)
+    busy = ("not measured (profiler saw no device time)" if busy_ms is None
+            else f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}, "
+                 f"idle {1 - busy_ms / wall_ms:.1%})")
+    print(f"[{tag}] full-width make_serve_step ({N_SLOTS} rows, "
+          f"{cfg.n_layers} decoder layers, kernels on): host wall "
+          f"{wall_ms:.3f} ms, {busy} on {smi}")
+    ours = r"flash_fwd|de_(partial|merge|signal)_kernel"
+    for name, ms in ranked[:6] + [(n, ms) for n, ms in ranked[6:]
+                                  if re.search(ours, n)]:
+        print(f"[{tag}]   {ms:.4f} ms/step  {name[:90]}")
+
+
+def steps_train_step(torch, cfg, batch, smi, tag: str) -> int:
+    """One Stage-2 `make_train_step` step at `cfg`'s widths (fp32 weights
+    and AdamW moments, the config's bf16 activations; the kernel's
+    forward, a plain backward), the loss kernel's counter set to 0 just
+    before: exactly one launch. Returns it."""
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.kernels import gatekeeper_loss as gk
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optim
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(cfg, SEED + 3, DEV)
+    opt = optim.adamw_init(params)
+    n_params = sum(t.numel() for t in _leaves(params))
+    step = steps.make_train_step(cfg, GatekeeperConfig(alpha=0.3),
+                                 optim.AdamWConfig())
+    gk.gatekeeper_loss_tokens.launches = 0
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = gk.gatekeeper_loss_tokens.launches
+    m = {k: float(v) for k, v in m.items()}
+    print(f"[{tag}] Stage-2 make_train_step, {cfg.n_layers} layers "
+          f"({n_params / 1e9:.3f} B parameters), batch "
+          + ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items())
+          + f": {wall:.3f} s host wall (first call), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss "
+          f"{m['loss']:.5f}, l_corr {m['l_corr']:.5f}, l_incorr "
+          f"{m['l_incorr']:.5f}, frac_correct {m['frac_correct']:.4f}, "
+          f"grad_norm {m['grad_norm']:.5f}; loss kernel launches {n} on "
+          f"{smi}")
+    if n != 1 or not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"{tag} Stage-2 step: {n} loss kernel "
+                             f"launches, metrics {m}")
+    del params, opt
+    return n
+
+
+def steps_families(torch, smi) -> tuple:
+    """Phase 12: whisper-small at all 12 + 12 layers (12a) and
+    phi-3-vision-4.2b at all 32 layers for serving and VLM_TRAIN_LAYERS
+    for its Stage-2 step (12b) through `launch.steps`, then the reduced
+    fp32 configs, kernel against plain (12c). Returns ({arch: serving
+    launch counts}, {arch: Stage-2 loss kernel launches})."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    serving, stage2 = {}, {}
+    for sub, arch in (("12a", WHISPER_ARCH), ("12b", VLM_ARCH)):
+        tag = arch.split("-")[0]
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = tfm.init_params(cfg, SEED, DEV)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        enc = (f" + {cfg.encoder.n_layers}-layer encoder over "
+               f"{cfg.encoder.n_frames} frames" if cfg.encoder else
+               f", {cfg.vision.n_patches} patches prepended")
+        print(f"[{tag}] phase {sub}: {cfg.name} ({cfg.family}): "
+              f"{cfg.n_layers} decoder layers{enc}, d_model {cfg.d_model} "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads hd {cfg.head_dim} d_ff "
+              f"{cfg.d_ff} vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+              f"params; {cfg.param_dtype} weights, {cfg.compute_dtype} "
+              f"activations/cache; init {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        batch, P0, data = steps_inputs(torch, cfg)
+        with torch.inference_mode():
+            check_steps_paths(torch, cfg, params, batch, P0, tag)
+            profile_serve_step(torch, cfg, params, batch, P0, smi, tag)
+            serving[arch] = steps_main_path(torch, cfg, params, batch, P0,
+                                            data, smi, tag)
+        del params
+        torch.cuda.empty_cache()
+        tcfg = cfg
+        if cfg.family == "encdec":
+            g = torch.Generator(device=DEV).manual_seed(SEED + 43)
+            tbatch = {"frames": batch["frames"], "tokens": batch["tokens"],
+                      "targets": torch.randint(
+                          0, cfg.vocab_size, batch["tokens"].shape,
+                          generator=g, device=DEV)}
+        else:
+            tcfg = cfg.replace(n_layers=VLM_TRAIN_LAYERS)
+            tbatch = {"patches": batch["patches"],
+                      "tokens": torch.from_numpy(data.inputs).to(DEV),
+                      "targets": torch.from_numpy(data.targets).to(DEV)}
+        stage2[arch] = steps_train_step(torch, tcfg, tbatch, smi, tag)
+        del batch, tbatch
+        torch.cuda.empty_cache()
+    # -- 12c. the reduced fp32 configs: kernel path == plain path ----------
+    from repro_torch.configs import reduced
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        cfg = reduced(get_config(arch))
+        params = tfm.init_params(cfg, SEED, DEV)
+        batch, P0, _ = steps_inputs(torch, cfg)
+        with torch.inference_mode():
+            reset_counts()
+            tau, p_tok, p_conf, p_def = steps_greedy(torch, cfg, params,
+                                                     batch, P0, False)
+            plain_counts = read_counts()
+            _, k_tok, k_conf, k_def = steps_greedy(torch, cfg, params, batch,
+                                                   P0, True, tau)
+            counts = read_counts()
+        near = ((p_conf[:, 1:] - tau).abs() <= CONF_NEAR_TAU).cpu().numpy()
+        masks_equal = np.array_equal(k_def.cpu().numpy()[~near],
+                                     p_def.cpu().numpy()[~near])
+        tokens_equal = bool(torch.equal(k_tok, p_tok))
+        print(f"[reduced] {cfg.name} fp32 through launch.steps, kernels vs "
+              f"plain path at tau {tau:.5f}: greedy tokens equal "
+              f"{tokens_equal}, defer masks equal {masks_equal} "
+              f"({int(near.sum())} (row, step) within {CONF_NEAR_TAU} of tau,"
+              f" not held), max|dconf| "
+              f"{float((k_conf - p_conf).abs().max()):.3g}; kernel-path "
+              f"launches {counts}")
+        used = ("flash_attention", "deferral_entropy")
+        if (any(plain_counts.values()) or not all(counts[k] for k in used)
+                or not (tokens_equal and masks_equal)):
+            raise AssertionError(f"reduced {arch} through launch.steps: "
+                                 f"tokens {tokens_equal}, masks "
+                                 f"{masks_equal}, counts {plain_counts} / "
+                                 f"{counts}")
+        del params, batch
+    return serving, stage2
 
 
 KERNEL_PHASES = ("3", "3b", "3c", "3d", "3e")
@@ -2242,6 +2697,12 @@ def main(argv=None) -> int:
     by_path["classifier"] = classifier_cascade(torch, smi)
     torch.cuda.empty_cache()
 
+    # -- 12. whisper-small and phi-3-vision-4.2b through launch.steps -------
+    phase("12", t_start)
+    serving, stage2 = steps_families(torch, smi)
+    by_path.update(serving)
+    torch.cuda.empty_cache()
+
     missing = [k for k in KERNELS
                if not sum(counts[k] for counts in by_path.values())]
     if missing:
@@ -2260,10 +2721,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cfg = get_config(ARCH)
     rec = check_loss_kernel(torch, gk, smi, cfg.vocab_size, cfg.d_model)
+    # phase 12's Stage-2 shapes: whisper-small's 8 x 16 decoder tokens, and
+    # phi-3-vision's 8 x (576 + 3) positions with the patches masked
+    rec["by_shape"] = {}
+    for arch, T, invalid in (
+            (WHISPER_ARCH, N_SLOTS * ENC_PROMPT, 0),
+            (VLM_ARCH, N_SLOTS * (get_config(VLM_ARCH).vision.n_patches
+                                  + 3), get_config(VLM_ARCH).vision.n_patches)):
+        c = get_config(arch)
+        r = check_loss_kernel(torch, gk, smi, c.vocab_size, c.d_model, T,
+                              N_SLOTS, invalid, arch)
+        rec["by_shape"][arch] = {k: r[k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}
+        torch.cuda.empty_cache()
     check_loss_gradients(torch, gk, cfg.vocab_size, cfg.d_model)
     torch.cuda.empty_cache()
     n = train_main_path(torch, gk, train, smi)
-    rec.update(launches=n, launches_by_path={"train": n})
+    rec.update(launches=n + sum(stage2.values()),
+               launches_by_path={"train": n, **stage2})
     torch.cuda.empty_cache()
     reduced_training_fixture(torch, train)
 

@@ -1,9 +1,10 @@
 """Model configuration for the port: `ModelConfig`, `get_config`, `reduced`.
 
-Own copy of `repro.configs` for the families the port serves (dense GQA
-decoders, DeepSeek-style MLA/MoE decoders, the attention-free RWKV6 and
-the Mamba2 hybrid with its shared attention block); `pdtype()` and
-`cdtype()` return torch dtypes. Each architecture lives in its own module
+Own copy of `repro.configs` for the families the port runs (dense GQA
+decoders, DeepSeek-style MLA/MoE decoders, the attention-free RWKV6, the
+Mamba2 hybrid with its shared attention block, the encoder-decoder
+whisper and the vision-language decoder with its stub frontend);
+`pdtype()` and `cdtype()` return torch dtypes. Each architecture lives in its own module
 (src/repro_torch/configs/<id>.py) exporting `CONFIG`.
 """
 from __future__ import annotations
@@ -36,9 +37,23 @@ class MLASpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderSpec:
+    """Encoder stack for enc-dec (audio) models. The modality frontend is a
+    stub: callers provide precomputed frame embeddings [B, n_frames, d]."""
+    n_layers: int
+    n_frames: int = 1500
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionSpec:
+    """VLM stub frontend: precomputed patch embeddings [B, n_patches, d]."""
+    n_patches: int = 576
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm_rwkv | hybrid
+    family: str                      # dense | moe | ssm_rwkv | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,6 +70,8 @@ class ModelConfig:
     ssm_state: int = 64
     ssm_head_dim: int = 64
     shared_attn_every: int = 0       # hybrid: shared attn block period
+    encoder: Optional[EncoderSpec] = None
+    vision: Optional[VisionSpec] = None
     sliding_window: Optional[int] = None
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -82,7 +99,9 @@ class ModelConfig:
 _ALIAS = {"internlm2-1.8b": "internlm2_1_8b",
           "deepseek-v2-236b": "deepseek_v2_236b",
           "rwkv6-3b": "rwkv6_3b",
-          "zamba2-1.2b": "zamba2_1_2b"}
+          "zamba2-1.2b": "zamba2_1_2b",
+          "whisper-small": "whisper_small",
+          "phi-3-vision-4.2b": "phi_3_vision_4_2b"}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -118,6 +137,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
             n_dense_layers=1)
     if cfg.mla is not None:
         kw["mla"] = MLASpec(q_lora=64, kv_lora=32, rope_dim=16, v_head_dim=32)
+    if cfg.encoder is not None:
+        kw["encoder"] = EncoderSpec(n_layers=2, n_frames=16)
+    if cfg.vision is not None:
+        kw["vision"] = VisionSpec(n_patches=8)
     if cfg.family == "hybrid":
         kw["n_layers"] = 4
         kw["shared_attn_every"] = 2

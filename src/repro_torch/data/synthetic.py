@@ -1,15 +1,15 @@
 """Synthetic workloads, drawn with numpy from an integer seed.
 
 Counterpart of `repro.data.synthetic.make_classification`,
-`make_lm_stream`, `make_ragged_lm_stream` and `make_qa`. The JAX stream
+`make_lm_stream`, `make_ragged_lm_stream`, `make_qa`, `make_captions` and
+`caption_factuality`. The JAX stream
 generators use a JAX key only to draw the numpy seed; these take the seed
 directly (an int, or a sequence of ints as `numpy.random.default_rng`
 accepts), so the same seed gives the same tokens on every machine.
-`make_classification` and `make_qa` keep the JAX layout, constants and
-construction but draw their bits with numpy, so their arrays differ from
-JAX's for any key; where JAX folds an integer into a key
-(``fold_in(key, 5)``), pass the seed ``[seed, 5]``. The caption
-generator serves the VLM path and is not ported yet (see ROADMAP.md).
+`make_classification`, `make_qa` and `make_captions` keep the JAX
+layout, constants and construction but draw their bits with numpy, so
+their arrays differ from JAX's for any key; where JAX folds an integer
+into a key (``fold_in(key, 5)``), pass the seed ``[seed, 5]``.
 """
 from __future__ import annotations
 
@@ -144,3 +144,66 @@ def make_qa(seed, n: int, n_symbols: int = 16,
     mask = np.zeros((n, toks.shape[1] - 1), np.float32)
     mask[:, answer_pos - 1] = 1.0                  # predict ans from SEP
     return QAData(toks, answer_pos, mask, op, K, SYMBOL_BASE + K + 3)
+
+
+@dataclasses.dataclass
+class CaptionData:
+    patches: np.ndarray      # [N, P, d_model] fp32 stub vision-frontend output
+    tokens: np.ndarray       # [N, T] int32 caption sequence (BOS ...)
+    classes: np.ndarray      # [N] latent scene class
+    attrs: np.ndarray        # [N] latent attribute
+    vocab: int
+
+    @property
+    def inputs(self):
+        return self.tokens[:, :-1]
+
+    @property
+    def targets(self):
+        return self.tokens[:, 1:]
+
+
+def make_captions(seed, n: int, n_patches: int = 8, d_model: int = 64,
+                  n_classes: int = 12, n_attrs: int = 6,
+                  hard_frac: float = 0.4,
+                  task_seed: int = 1234) -> CaptionData:
+    """VLM-style captions: patch embeddings = class embedding + 0.5 x
+    attribute embedding + noise (std 5.0 on "hard" scenes, which make the
+    attribute ambiguous for low-capacity decoders, 0.3 otherwise); the
+    caption is ``[BOS, class_tok, attr_tok, SEP]``.
+
+    The class and attribute embeddings come from `task_seed` alone (the
+    attributes' from ``[task_seed, 1]``, JAX's ``fold_in(tkey, 1)``) and
+    the samples from `seed`, so splits drawn with different seeds share
+    one task."""
+    cls_emb = np.random.default_rng(task_seed).standard_normal(
+        (n_classes, d_model))
+    attr_emb = np.random.default_rng([task_seed, 1]).standard_normal(
+        (n_attrs, d_model))
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, n_classes, size=n)
+    attr = rng.integers(0, n_attrs, size=n)
+    hard = rng.random(n) < hard_frac
+    noise_scale = np.where(hard, 5.0, 0.3)[:, None, None]
+    patches = (cls_emb[cls][:, None, :] + 0.5 * attr_emb[attr][:, None, :]
+               + rng.standard_normal((n, n_patches, d_model)) * noise_scale)
+    toks = np.stack([np.full(n, BOS), SYMBOL_BASE + cls,
+                     SYMBOL_BASE + n_classes + attr, np.full(n, SEP)],
+                    axis=1).astype(np.int32)
+    return CaptionData(patches.astype(np.float32), toks, cls.astype(np.int32),
+                       attr.astype(np.int32), SYMBOL_BASE + n_classes + n_attrs)
+
+
+def caption_factuality(pred_tokens: np.ndarray,
+                       data: CaptionData) -> np.ndarray:
+    """Programmatic stand-in for the paper's factuality judge: a graded
+    score in [0, 1] per caption, 0.7 for the right class token
+    (``pred_tokens[:, 0]``) plus 0.3 for the right attribute token
+    (``pred_tokens[:, 1]``). As in JAX, the attribute tokens' base counts
+    the classes as ``data.classes.max() + 1``, so on a split that lacks
+    the top class it is shifted; the formula is kept so that both
+    packages score the same arrays alike."""
+    cls_ok = pred_tokens[:, 0] == SYMBOL_BASE + data.classes
+    n_classes = int(data.classes.max()) + 1
+    attr_ok = pred_tokens[:, 1] == SYMBOL_BASE + n_classes + data.attrs
+    return 0.7 * cls_ok.astype(np.float64) + 0.3 * attr_ok.astype(np.float64)

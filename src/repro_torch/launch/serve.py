@@ -13,6 +13,9 @@ which must exist). `--arch` takes internlm2-1.8b (dense GQA),
 deepseek-v2-236b (MLA + MoE), rwkv6-3b (RWKV6, attention-free) and
 zamba2-1.2b (Mamba2 with a shared attention block): the last two on the
 slot backend only, as in JAX, whose paged pool refuses a recurrent state.
+whisper-small and phi-3-vision-4.2b take frames or patches, which the
+engine does not take (nor does JAX's): refused at argparse time; they run
+through `launch.steps`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 \\
         --max-new 8 --engine continuous --backend paged --ragged-min 8 \\
@@ -213,7 +216,7 @@ def main(argv=None):
                  f"(see ROADMAP.md)")
     try:
         arch_cfg = get_config(args.arch)
-        tfm.check_ported(arch_cfg)
+        tfm.check_ported(arch_cfg, engine=True)
     except NotImplementedError as e:
         ap.error(f"--arch {args.arch}: {e}")
     if args.backend == "paged":

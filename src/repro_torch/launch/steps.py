@@ -10,8 +10,11 @@ Counterpart of `repro.launch.steps`:
     confidence, defer mask, cache); the confidence is the paper's negative
     predictive entropy computed with the step (eq. 8).
 
-The encoder-decoder branches of the JAX builders are not ported (they
-raise, naming ROADMAP.md).
+Every builder takes the JAX builders' batches: ``batch["tokens"]``, and
+``batch["frames"]`` [B, n_frames, d] for an encoder-decoder (whisper's
+stub frontend) or ``batch["patches"]`` [B, P, d] for a VLM, prepended to
+the tokens (the loss then skips the P patch positions: its targets are
+padded in front and its mask zeroes them).
 
 The loss over the vocabulary comes in two implementations of the same
 function:
@@ -46,6 +49,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.gatekeeper import GatekeeperConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import rms_norm, unembed
 from repro_torch.training import optim
@@ -176,13 +180,23 @@ def fused_confidence(x_final: torch.Tensor, table: torch.Tensor,
 
 
 def _final_hidden(params, cfg: ModelConfig, batch):
-    """(x_final [B, T, d], MoE aux-loss sum, loss mask or None)."""
+    """(x_final [B, T, d], MoE aux-loss sum, loss mask or None). With
+    patches [B, P, d] the sequence is P + T long and the mask is 0 on the
+    P patch positions (times any ``batch["loss_mask"]``)."""
     tfm.check_ported(cfg, training=True)
-    if batch.get("patches") is not None:
-        raise NotImplementedError("VLM patch inputs are not ported "
-                                  "(see ROADMAP.md)")
-    x, aux = tfm.final_hidden(params, cfg, batch["tokens"])
-    return x, aux, batch.get("loss_mask")
+    mask = batch.get("loss_mask")
+    if cfg.family == "encdec":
+        x = encdec_lib.final_hidden(params, cfg, batch["frames"],
+                                    batch["tokens"])
+        return x, torch.zeros((), dtype=torch.float32, device=x.device), mask
+    extra = batch.get("patches")
+    x, aux = tfm.final_hidden(params, cfg, batch["tokens"], extra)
+    if extra is not None:
+        P = extra.shape[1]
+        m = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+        m[:, :P] = 0.0
+        mask = m if mask is None else mask * m
+    return x, aux, mask
 
 
 def _pad_targets(cfg: ModelConfig, batch, T: int):
@@ -252,28 +266,26 @@ def make_train_step(cfg: ModelConfig,
     return train_step
 
 
-def _no_encdec(cfg: ModelConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder serve steps are not ported (the whisper "
-            "family waits; see ROADMAP.md)")
-
-
 def make_prefill(cfg: ModelConfig, paged_kernel: Optional[bool] = None):
     """prefill_fn(params, cache, batch) -> (greedy token int32 [B], eq.-8
     negative entropy fp32 [B] of the last prompt position, cache).
-    `batch["tokens"]` [B, T] fills `cache` (from `tfm.init_cache`) in
-    place; `paged_kernel` picks the kernel path (None: on for CUDA)."""
-    _no_encdec(cfg)
+    `batch["tokens"]` [B, T] (after `batch["patches"]` for a VLM, or
+    with `batch["frames"]` for an encoder-decoder) fills `cache` (from
+    `tfm.init_cache`, or `encdec.init_cache`) in place; `paged_kernel`
+    picks the kernel path (None: on for CUDA)."""
+    tfm.check_ported(cfg)
 
     def prefill_fn(params, cache, batch):
-        if batch.get("patches") is not None:
-            raise NotImplementedError("VLM patch inputs are not ported "
-                                      "(see ROADMAP.md)")
         use_kernel = kernel_ops.paged_kernel_enabled(
             paged_kernel, tfm.param_device(params))
-        logits, cache = tfm.prefill(params, cfg, batch["tokens"], cache,
-                                    last_only=True, paged_kernel=use_kernel)
+        if cfg.family == "encdec":
+            logits, cache = encdec_lib.prefill(
+                params, cfg, batch["frames"], batch["tokens"], cache,
+                last_only=True, paged_kernel=use_kernel)
+        else:
+            logits, cache = tfm.prefill(
+                params, cfg, batch["tokens"], cache, last_only=True,
+                paged_kernel=use_kernel, extra_embeds=batch.get("patches"))
         signal = (kernel_ops.deferral_signal if use_kernel
                   else deferral_entropy_plain)
         neg_ent, _, tok = signal(logits[:, -1, :])
@@ -288,8 +300,9 @@ def make_serve_step(cfg: ModelConfig, tau: float = -1.0,
     serve_step(params, cache, token, position) -> (next token int32 [B],
     confidence fp32 [B], defer [B] bool, cache). The plain path is
     `fused_confidence`; the kernel path unembeds and takes one
-    `deferral_signal` launch (None: on for CUDA)."""
-    _no_encdec(cfg)
+    `deferral_signal` launch (None: on for CUDA). An encoder-decoder's
+    cache holds the cross K/V its prefill wrote."""
+    tfm.check_ported(cfg)
 
     @torch.inference_mode()
     def serve_step(params, cache, token, position):
@@ -312,10 +325,15 @@ def _decode_hidden(params, cfg: ModelConfig, token, position, cache,
                    paged_kernel: Optional[bool] = None):
     """One decode step's final hidden states [B, d] (after the final norm,
     before the unembedding), the cache written in place."""
-    if token.dim() == 1:
-        token = token[:, None]
-    x = tfm._embed(params, cfg, token)
-    x, cache, _ = tfm._trunk(params, cfg, x, None, cache=cache, decode=True,
-                             position=position, paged_kernel=paged_kernel)
+    if cfg.family == "encdec":
+        x = encdec_lib.decode_hidden(params, cfg, token, position, cache,
+                                     paged_kernel=paged_kernel)
+    else:
+        if token.dim() == 1:
+            token = token[:, None]
+        x = tfm._embed(params, cfg, token)
+        x, cache, _ = tfm._trunk(params, cfg, x, None, cache=cache,
+                                 decode=True, position=position,
+                                 paged_kernel=paged_kernel)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, 0, :], cache

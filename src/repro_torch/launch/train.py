@@ -142,7 +142,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.preset is None:
         try:
-            tfm.check_ported(get_config(args.arch), training=True)
+            tfm.check_ported(get_config(args.arch), training=True,
+                             engine=True)
         except NotImplementedError as e:
             ap.error(f"--arch {args.arch}: {e}")
     return run(args)

@@ -1,10 +1,11 @@
-"""Attention blocks: GQA (optionally sliding-window) and DeepSeek-style
+"""Attention blocks: GQA (optionally sliding-window, or bidirectional
+for an encoder), cross-attention over encoder states, and DeepSeek-style
 MLA (multi-head latent attention: kv_lora compression, decoupled RoPE,
 weight-absorbed decode), each with dense and block-paged caches.
 
-Counterpart of `repro.models.attention` (cross-attention and MLA's
-KV-chunked prefill are not ported; see ROADMAP.md). Functions take ONE
-layer's parameters; the caller slices the stacked layer axis.
+Counterpart of `repro.models.attention` (MLA's KV-chunked prefill is not
+ported; see ROADMAP.md). Functions take ONE layer's parameters; the
+caller slices the stacked layer axis.
 
 Cache layouts (per layer; GQA leaves end in ``[KV, hd]``, MLA's two
 leaves ``ckv``/``kr`` in ``[kv_lora]``/``[rope_dim]``):
@@ -37,8 +38,11 @@ plain `_attend` over the causal mask, or the `kernels.ops.flash_attention`
 kernel with ``q_offset = cache_offset`` (the same mask), on the slot
 cache, the gathered paged view, and, when autograd records nothing, the
 cacheless in-sequence branch, each with the sliding window when the
-config has one (the ring branch too); training keeps `_attend`, since the
-kernel has no backward. Slot decode, over a dense or ring cache, stays
+config has one (the ring branch too); an encoder's cacheless
+self-attention (``causal=False``) and cross-attention, in prefill and at
+the decode step, take the kernel with ``causal=False`` or `_attend` over
+an all-true mask; training keeps `_attend`, since the kernel has no
+backward. Slot decode, over a dense or ring cache, stays
 the plain `_attend`, as JAX's slot decode stays XLA. `paged_kernel` picks the path; None defers to
 `kernels.ops.paged_kernel_enabled` (on exactly for CUDA tensors). The
 kernel path keeps the probabilities at fp32 precision in effect (for bf16
@@ -58,8 +62,9 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.common import (apply_rope, einsum, make_causal_mask,
-                                       make_sliding_mask, rms_norm)
+from repro_torch.models.common import (ParamInit, apply_rope, einsum,
+                                       make_causal_mask, make_sliding_mask,
+                                       rms_norm)
 
 NEG_INF = -1e30
 
@@ -73,6 +78,7 @@ class AttnConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     sliding_window: Optional[int] = None     # None = full causal
+    causal: bool = True                      # False for encoder self-attn
     # MLA fields (used only by the mla_* functions)
     q_lora: int = 0
     kv_lora: int = 0
@@ -141,22 +147,28 @@ def _out_proj(params: dict, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return einsum("bthk,hkd->btd", out, params["wo"]).to(x.dtype)
 
 
-def _causal_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_offset: int, scale: float, kernel: bool,
-                   window: Optional[int] = None) -> torch.Tensor:
-    """Causal attention of q [B,T,H,hd] (query t at position q_offset +
-    t) over k, v [B,S,KV,hd] (key s at position s), both in q's type,
+def _prefill_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int, scale: float, kernel: bool,
+                    window: Optional[int] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of q [B,T,H,hd] (query t at position q_offset + t) over
+    k, v [B,S,KV,hd] (key s at position s), both in q's type: causal,
     each query seeing only keys less than `window` positions back when
-    one is given: the flash kernel, or `_attend` over `make_causal_mask`
-    / `make_sliding_mask`."""
+    one is given, or every key when not `causal`. The flash kernel, or
+    `_attend` over the same mask (`make_causal_mask`,
+    `make_sliding_mask` or all true)."""
     k, v = k.to(q.dtype), v.to(q.dtype)
     if kernel:
-        return kernel_ops.flash_attention(q, k, v, causal=True,
+        return kernel_ops.flash_attention(q, k, v, causal=causal,
                                           window=window or 0, scale=scale,
                                           q_offset=q_offset)
     T, S = q.shape[1], k.shape[1]
-    mask = (make_sliding_mask(T, S, q_offset, window, q.device) if window
-            else make_causal_mask(T, S, q_offset, q.device))
+    if not causal:
+        mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    elif window:
+        mask = make_sliding_mask(T, S, q_offset, window, q.device)
+    else:
+        mask = make_causal_mask(T, S, q_offset, q.device)
     return _attend(q, k, v, mask, scale)
 
 
@@ -172,9 +184,11 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
     cache is block-paged and attention runs over the gathered view. A
     ring cache shorter than the prompt keeps the prompt's last S tokens
     at their slots (position p at p % S) and the prompt attends
-    in-sequence under the sliding mask. `paged_kernel` picks the flash
-    kernel over `_attend` (None: on for CUDA); without a cache it is taken
-    only when autograd records nothing."""
+    in-sequence under the sliding mask. Without a cache, attention runs
+    in-sequence, bidirectional when ``cfg.causal`` is False (an encoder).
+    `paged_kernel` picks the flash kernel over `_attend` (None: on for
+    CUDA); without a cache it is taken only when autograd records
+    nothing."""
     B, T, _ = x.shape
     q, k, v = _qkv(params, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -187,9 +201,9 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
         tpos = cache_offset + torch.arange(T, device=x.device)
         ck = _paged_write(cache["k"], pages, tpos, k)
         cv = _paged_write(cache["v"], pages, tpos, v)
-        out = _causal_attend(q, gather_blocks(ck, pages),
-                             gather_blocks(cv, pages), cache_offset, scale,
-                             kernel)
+        out = _prefill_attend(q, gather_blocks(ck, pages),
+                              gather_blocks(cv, pages), cache_offset, scale,
+                              kernel)
         new_cache = {"k": ck, "v": cv}
     elif cache is not None and cache["k"].shape[1] < T:
         # ring cache shorter than the prompt: the last S tokens, rolled so
@@ -199,20 +213,20 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
         shift = (T - S) % S
         ck.copy_(torch.roll(k[:, T - S:].to(ck.dtype), shift, dims=1))
         cv.copy_(torch.roll(v[:, T - S:].to(cv.dtype), shift, dims=1))
-        out = _causal_attend(q, k, v, cache_offset, scale, kernel,
-                             window or S)
+        out = _prefill_attend(q, k, v, cache_offset, scale, kernel,
+                              window or S)
         new_cache = {"k": ck, "v": cv}
     elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         ck[:, cache_offset:cache_offset + T] = k.to(ck.dtype)
         cv[:, cache_offset:cache_offset + T] = v.to(cv.dtype)
-        out = _causal_attend(q, ck, cv, cache_offset, scale, kernel, window)
+        out = _prefill_attend(q, ck, cv, cache_offset, scale, kernel, window)
         new_cache = {"k": ck, "v": cv}
     else:
         recording = torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)
-        out = _causal_attend(q, k, v, 0, scale, kernel and not recording,
-                             window)
+        out = _prefill_attend(q, k, v, 0, scale, kernel and not recording,
+                              window, cfg.causal)
         new_cache = None
     return _out_proj(params, out, x), new_cache
 
@@ -284,6 +298,46 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
     mask = mask[:, None, :] if per_row else mask[None, :]   # [B,1,S] / [1,S]
     out = _attend(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale)
     return _out_proj(params, out, x), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec): K/V computed once from the encoder's output
+# ---------------------------------------------------------------------------
+
+def init_cross_attn(pi: ParamInit, cfg: AttnConfig, L: int) -> dict:
+    """Cross-attention weights stacked over `L` decoder layers, JAX's
+    layout: wq/wk/wv [L, d, H, hd], wo [L, H, hd, d] (H heads, no
+    grouping)."""
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {"wq": pi.normal((L, d, H, hd), fan_in=d),
+            "wk": pi.normal((L, d, H, hd), fan_in=d),
+            "wv": pi.normal((L, d, H, hd), fan_in=d),
+            "wo": pi.normal((L, H, hd, d), fan_in=H * hd)}
+
+
+def cross_attn_kv(params: dict, enc_out: torch.Tensor) -> dict:
+    """One layer's cross K/V of the encoder states [B, S, d]:
+    {"k", "v"} of [B, S, H, hd] (H heads, no grouping)."""
+    return {"k": einsum("bsd,dhk->bshk", enc_out, params["wk"]),
+            "v": einsum("bsd,dhk->bshk", enc_out, params["wv"])}
+
+
+def cross_attn_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
+                       kv: dict, paged_kernel: Optional[bool] = None
+                       ) -> torch.Tensor:
+    """x [B, T, d] attends over every encoder position of `kv` (no RoPE,
+    an all-true mask), T = 1 at a decode step. K/V are cast to q's type.
+    `paged_kernel` picks the flash kernel with ``causal=False`` over
+    `_attend` (None: on for CUDA), taken only when autograd records
+    nothing."""
+    q = einsum("btd,dhk->bthk", x, params["wq"])
+    kernel = kernel_ops.paged_kernel_enabled(paged_kernel, x.device)
+    recording = torch.is_grad_enabled() and (
+        q.requires_grad or kv["k"].requires_grad or kv["v"].requires_grad)
+    out = _prefill_attend(q, kv["k"], kv["v"], 0,
+                          1.0 / math.sqrt(cfg.head_dim),
+                          kernel and not recording, causal=False)
+    return _out_proj(params, out, x)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -113,6 +114,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """[n, d] fp32 sinusoidal positions, ``[sin | cos]`` halves side by
+    side (not interleaved), computed in float64 with numpy and cast once,
+    bit-equal to the JAX package's."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d)
+    emb = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
-"""Feed-forward blocks: the dense SwiGLU MLP and Mixture-of-Experts.
+"""Feed-forward blocks: the dense MLP (SwiGLU or GELU) and
+Mixture-of-Experts.
 
-Counterpart of `repro.models.ffn` for ``activation="swiglu"`` and the
-single-device MoE path (`_moe_local_math`): router in fp32, top-k gates
-renormalised to sum 1, every assignment computed (no token is dropped),
-plus the shared experts. The GELU MLP, the GShard capacity buffer and the
-`shard_map` expert-parallel paths are not ported (see ROADMAP.md).
+Counterpart of `repro.models.ffn`'s dense MLP and single-device MoE path
+(`_moe_local_math`): router in fp32, top-k gates renormalised to sum 1,
+every assignment computed (no token is dropped), plus the shared experts.
+The GELU MLP (whisper's) has biases and takes JAX's default GELU, the
+tanh approximation (`jax.nn.gelu(approximate=True)`). The GShard capacity
+buffer and the `shard_map` expert-parallel paths are not ported (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import einsum, swiglu
 
@@ -26,10 +30,21 @@ class MoEConfig:
     shared_d_ff: Optional[int] = None   # defaults to d_ff * n_shared
 
 
-def mlp_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
-    h = swiglu(einsum("btd,df->btf", x, params["w_gate"]),
-               einsum("btd,df->btf", x, params["w_up"]))
-    return einsum("btf,fd->btd", h, params["w_down"]).to(x.dtype)
+def mlp_forward(params: dict, x: torch.Tensor,
+                activation: str = "swiglu") -> torch.Tensor:
+    """x [B, T, d] -> [B, T, d] in x's type. "swiglu": w_gate, w_up,
+    w_down; "gelu": w_up, b_up, w_down, b_down, the tanh-approximate GELU
+    (JAX's default, which the exact erf GELU misses by up to 5e-4)."""
+    if activation == "swiglu":
+        h = swiglu(einsum("btd,df->btf", x, params["w_gate"]),
+                   einsum("btd,df->btf", x, params["w_up"]))
+        return einsum("btf,fd->btd", h, params["w_down"]).to(x.dtype)
+    if activation != "gelu":
+        raise ValueError(f"activation {activation!r}: swiglu or gelu")
+    h = F.gelu(einsum("btd,df->btf", x, params["w_up"]) + params["b_up"],
+               approximate="tanh")
+    y = einsum("btf,fd->btd", h, params["w_down"]).to(x.dtype)
+    return y + params["b_down"].to(y.dtype)
 
 
 def _route(router_w: torch.Tensor, x2d: torch.Tensor, cfg: MoEConfig):

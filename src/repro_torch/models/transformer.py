@@ -1,9 +1,13 @@
-"""Decoder LM for ``family="dense"``, ``"moe"``, ``"ssm_rwkv"`` and
-``"hybrid"``: init, caches, prefill, one-token decode.
+"""Decoder LM for ``family="dense"``, ``"moe"``, ``"ssm_rwkv"``,
+``"hybrid"`` and ``"vlm"``: init, caches, prefill, one-token decode; and
+the parameters of the ``"encdec"`` family, whose model is
+`models.encdec`.
 
 Counterpart of `repro.models.transformer` for dense and MoE decoders with
-GQA or MLA attention, for the attention-free RWKV6 and for the Mamba2
-hybrid (zamba2). The parameter tree has the JAX package's layout —
+GQA or MLA attention, for the attention-free RWKV6, for the Mamba2
+hybrid (zamba2) and for the VLM decoder, whose stub frontend's patch
+embeddings [B, P, d] (`extra_embeds`) are prepended to the token
+embeddings. The parameter tree has the JAX package's layout —
 homogeneous layer groups stacked on a leading ``[L, ...]`` axis under
 ``params["blocks"]["dense"]`` and ``["moe"]`` (the MoE family's leading
 dense layers, then its MoE layers), ``["rwkv"]`` or ``["mamba"]``, the
@@ -16,6 +20,10 @@ are written in place: GQA / MLA K/V, the RWKV state (token-shift rows in
 the cache type, the recurrence state S in fp32), or the Mamba2 state
 (the convolution's history in the cache type, S in fp32) and the shared
 block's K/V, one entry per call of the block, ``[n_calls, batch, ...]``.
+An encoder-decoder's decoder layers sit under ``["dense"]`` with GELU
+MLPs, and its encoder under ``params["encoder"]``: ``"stack"`` (its
+``[E, ...]`` self-attention + GELU MLP blocks), ``"final_norm"``, and
+``"cross"`` / ``"cross_norm"``, stacked over the decoder's layers.
 
 A sliding window bounds a GQA cache at ``min(max_len, window)``
 positions, a ring when the window is the shorter (`models.attention`);
@@ -24,8 +32,9 @@ positions with that length as its window, as in JAX.
 
 API:
     init_params(cfg, seed, device)              -> params
-    forward(params, cfg, tokens, return_aux)    -> logits [B, T, V] (, aux)
-    final_hidden(params, cfg, tokens)           -> (x [B, T, d], aux)
+    forward(params, cfg, tokens, return_aux, extra_embeds)
+                                                -> logits [B, T, V] (, aux)
+    final_hidden(params, cfg, tokens, extra_embeds) -> (x [B, T, d], aux)
     init_cache(cfg, batch, max_len, dtype, device) -> cache
     prefill(params, cfg, tokens, cache, ...)    -> (logits, cache)
     decode_step(params, cfg, token, position, cache, ...) -> (logits, cache)
@@ -52,15 +61,36 @@ from repro_torch.models.common import (ParamInit, embed_tokens, rms_norm,
 
 _ATTN_FAMILIES = ("dense", "moe")
 _SERVED_FAMILIES = _ATTN_FAMILIES + ("ssm_rwkv", "hybrid")
+_STEP_FAMILIES = ("encdec", "vlm")   # frames / patches: launch.steps only
 SHARED_ATTN_MAX_LEN = 4096    # the hybrid's shared block: its longest cache
 
 
-def check_ported(cfg: ModelConfig, training: bool = False) -> None:
+def check_ported(cfg: ModelConfig, training: bool = False,
+                 engine: bool = False) -> None:
     """Raise NotImplementedError, naming ROADMAP.md, unless the port runs
     `cfg`: dense and MoE decoders (GQA or MLA), RWKV6 and the Mamba2
     hybrid for serving, a sliding window on GQA included (slot backend);
-    full-causal dense and MoE only for training."""
-    families = _ATTN_FAMILIES if training else _SERVED_FAMILIES
+    full-causal dense and MoE only for training. The encoder-decoder and
+    VLM families take frames or patches, which only `launch.steps`'
+    builders take: they pass for serving and training there, and fail
+    with `engine` (the serving engine and the serve and train CLIs, which
+    take token prompts, as the JAX package's do). Raise ValueError for an
+    encdec config without its EncoderSpec or a vlm one without its
+    VisionSpec."""
+    if cfg.family == "encdec" and cfg.encoder is None:
+        raise ValueError(f"{cfg.name}: an encdec config needs an EncoderSpec")
+    if cfg.family == "vlm" and cfg.vision is None:
+        raise ValueError(f"{cfg.name}: a vlm config needs a VisionSpec")
+    if engine and cfg.family in _STEP_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} takes "
+            f"{'frames' if cfg.family == 'encdec' else 'patches'}, which "
+            f"the serving engine and the serve and train CLIs do not take "
+            f"(nor do the JAX package's): it runs through launch.steps' "
+            f"make_prefill, make_serve_step and make_train_step (see "
+            f"ROADMAP.md)")
+    families = ((_ATTN_FAMILIES if training else _SERVED_FAMILIES)
+                + _STEP_FAMILIES)
     windowed = cfg.sliding_window is not None
     if (cfg.family not in families or (windowed and training)
             or (windowed and cfg.mla is not None)):
@@ -70,13 +100,14 @@ def check_ported(cfg: ModelConfig, training: bool = False) -> None:
             f"{'training' if training else 'serving'}: the port "
             f"{'trains' if training else 'serves'} families {families}"
             f"{' without a sliding window' if training else ''} (training "
-            f"RWKV, Mamba2/hybrid and sliding-window models, a window on "
-            f"MLA, enc-dec and VLM are queued in ROADMAP.md)")
+            f"RWKV, Mamba2/hybrid and sliding-window models and a window "
+            f"on MLA are queued in ROADMAP.md)")
 
 
 def attn_config(cfg: ModelConfig) -> attn_lib.AttnConfig:
-    """The attention of a dense or MoE decoder, or the hybrid's shared
-    block (an RWKV model has none)."""
+    """The attention of a dense, MoE, VLM or encoder-decoder decoder (the
+    encoder's with ``causal=False``), or the hybrid's shared block (an
+    RWKV model has none)."""
     check_ported(cfg)
     if cfg.attention_free:
         raise NotImplementedError(f"family {cfg.family!r} has no attention")
@@ -110,7 +141,8 @@ def moe_config(cfg: ModelConfig) -> ffn_lib.MoEConfig:
 
 
 def _group_sizes(cfg: ModelConfig) -> Dict[str, int]:
-    """Stacked layer-group sizes, in trunk order."""
+    """Stacked layer-group sizes, in trunk order (dense, VLM and enc-dec:
+    one dense group of n_layers)."""
     if cfg.family == "moe":
         nd = cfg.moe.n_dense_layers
         return {"dense": nd, "moe": cfg.n_layers - nd}
@@ -165,26 +197,47 @@ def _init_attn(pi: ParamInit, cfg: ModelConfig, L: int) -> dict:
     return attn
 
 
-def _init_mlp(pi: ParamInit, L: int, d: int, f: int) -> dict:
+def _init_mlp(pi: ParamInit, L: int, d: int, f: int,
+              activation: str = "swiglu") -> dict:
+    """SwiGLU (w_gate, w_up, w_down) or GELU (w_up, w_down and the
+    zero-initialised biases b_up, b_down) weights."""
     lead = _lead(L)
-    return {"w_up": pi.normal(lead + (d, f), fan_in=d),
-            "w_down": pi.normal(lead + (f, d), fan_in=f),
-            "w_gate": pi.normal(lead + (d, f), fan_in=d)}
+    mlp = {"w_up": pi.normal(lead + (d, f), fan_in=d),
+           "w_down": pi.normal(lead + (f, d), fan_in=f)}
+    if activation == "swiglu":
+        mlp["w_gate"] = pi.normal(lead + (d, f), fan_in=d)
+    else:
+        mlp.update(b_up=pi.zeros(lead + (f,)), b_down=pi.zeros(lead + (d,)))
+    return mlp
 
 
-def _init_attn_mlp_block(pi: ParamInit, cfg: ModelConfig, L: int) -> dict:
+def _init_attn_mlp_block(pi: ParamInit, cfg: ModelConfig, L: int,
+                         activation: str = "swiglu") -> dict:
     lead = _lead(L)
     return {"norm1": pi.zeros(lead + (cfg.d_model,)),
             "attn": _init_attn(pi, cfg, L),
             "norm2": pi.zeros(lead + (cfg.d_model,)),
-            "mlp": _init_mlp(pi, L, cfg.d_model, cfg.d_ff)}
+            "mlp": _init_mlp(pi, L, cfg.d_model, cfg.d_ff, activation)}
+
+
+def _init_encoder(pi: ParamInit, cfg: ModelConfig) -> dict:
+    """The encoder stack (bidirectional self-attention + GELU MLP, E
+    layers), its final norm, and the decoder's cross-attention and its
+    norm, stacked over the decoder's layers — JAX's `_init_encoder`."""
+    L, d = cfg.n_layers, cfg.d_model
+    return {"stack": _init_attn_mlp_block(pi, cfg, cfg.encoder.n_layers,
+                                          "gelu"),
+            "final_norm": pi.zeros((d,)),
+            "cross": attn_lib.init_cross_attn(pi, attn_config(cfg), L),
+            "cross_norm": pi.zeros((L, d))}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Seeded random weights with the JAX package's shapes and layout (the
     MoE router in fp32 whatever the parameter type, as in JAX; the
     hybrid's shared block built whenever its period is set, as in JAX,
-    even when the trunk is too shallow to call it)."""
+    even when the trunk is too shallow to call it; an encoder-decoder's
+    GELU decoder blocks and its "encoder" subtree)."""
     check_ported(cfg)
     pi = ParamInit(seed, cfg.pdtype(), resolve_device(device))
     d, V = cfg.d_model, cfg.vocab_size
@@ -208,7 +261,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
                 blocks["shared_attn"] = _init_attn_mlp_block(pi, cfg, 0)
             continue
         if kind == "dense":
-            blocks[kind] = _init_attn_mlp_block(pi, cfg, L)
+            act = "gelu" if cfg.family == "encdec" else "swiglu"
+            blocks[kind] = _init_attn_mlp_block(pi, cfg, L, act)
             continue
         b = {"norm1": pi.zeros((L, d)), "attn": _init_attn(pi, cfg, L),
              "norm2": pi.zeros((L, d))}
@@ -224,6 +278,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
                 pi, L, d, m.shared_d_ff or f * m.n_shared_experts)
         blocks[kind] = b
     params["blocks"] = blocks
+    if cfg.encoder is not None:
+        params["encoder"] = _init_encoder(pi, cfg)
     return params
 
 
@@ -326,6 +382,9 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
     blocks with the shared block between them). Returns (x, cache, aux):
     aux is the fp32 sum of the MoE layers' load-balance losses (0 for the
     other families)."""
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: an encoder-decoder runs through "
+                         f"models.encdec")
     if cfg.family == "ssm_rwkv":
         return _rwkv_trunk(params, cfg, x, cache, pages, paged_kernel)
     if cfg.family == "hybrid":
@@ -416,8 +475,13 @@ def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache,
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _embed(params, cfg: ModelConfig, tokens):
-    return embed_tokens(params["embedding"], tokens).to(cfg.cdtype())
+def _embed(params, cfg: ModelConfig, tokens, extra_embeds=None):
+    """Token embeddings in the compute type, with `extra_embeds` [B, P, d]
+    (the VLM's stub patch embeddings), cast likewise, in front."""
+    x = embed_tokens(params["embedding"], tokens).to(cfg.cdtype())
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -430,21 +494,24 @@ def _logits(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-            return_aux: bool = False):
-    """Full-sequence forward (training). tokens [B, T] -> fp32 logits
-    [B, T, V], and with `return_aux` also the MoE aux-loss sum."""
-    x = _embed(params, cfg, tokens)
+            return_aux: bool = False, extra_embeds=None):
+    """Full-sequence forward (training). tokens [B, T] (after
+    `extra_embeds` [B, P, d] when given) -> fp32 logits [B, P + T, V],
+    and with `return_aux` also the MoE aux-loss sum."""
+    x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, aux = _trunk(params, cfg, x, positions)
     logits = _logits(params, cfg, x)
     return (logits, aux) if return_aux else logits
 
 
-def final_hidden(params, cfg: ModelConfig, tokens: torch.Tensor):
+def final_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+                 extra_embeds=None):
     """The trunk and the final norm, without the unembedding: tokens
-    [B, T] -> (x [B, T, d] in the compute type, MoE aux-loss sum). The
-    Stage-2 loss fuses the unembedding with its reductions."""
-    x = _embed(params, cfg, tokens)
+    [B, T] (after `extra_embeds` [B, P, d] when given) -> (x [B, P + T, d]
+    in the compute type, MoE aux-loss sum). The Stage-2 loss fuses the
+    unembedding with its reductions."""
+    x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, aux = _trunk(params, cfg, x, positions)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
@@ -455,14 +522,16 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
             last_only: bool = False, cache_offset: int = 0,
             pages: Optional[torch.Tensor] = None,
             last_index: Optional[torch.Tensor] = None,
-            paged_kernel: Optional[bool] = None):
+            paged_kernel: Optional[bool] = None, extra_embeds=None):
     """Process a prompt (or one chunk of it at absolute offset
-    `cache_offset`), filling `cache` in place. `pages` [B, M] routes the
-    cache through a page table; `last_index` ([B]) unembeds that position
-    instead of the last one; `last_only` unembeds only the last position;
-    `paged_kernel` picks the flash-attention kernel for GQA layers over
-    the plain attention (None: on for CUDA). Returns (logits, cache)."""
-    x = _embed(params, cfg, tokens)
+    `cache_offset`), filling `cache` in place; `extra_embeds` [B, P, d]
+    (the VLM's patches) go in front of the tokens and take positions
+    0..P-1. `pages` [B, M] routes the cache through a page table;
+    `last_index` ([B]) unembeds that position instead of the last one;
+    `last_only` unembeds only the last position; `paged_kernel` picks the
+    flash-attention kernel for GQA layers over the plain attention (None:
+    on for CUDA). Returns (logits, cache)."""
+    x = _embed(params, cfg, tokens, extra_embeds)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None, :] + cache_offset
     x, cache, _ = _trunk(params, cfg, x, positions, cache=cache,

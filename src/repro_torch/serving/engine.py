@@ -108,9 +108,11 @@ class ServeResult:
 
 
 class ModelRunner:
-    """Greedy prefill + decode for one model on its parameters' device."""
+    """Greedy prefill + decode for one model on its parameters' device.
+    Refuses an encoder-decoder or VLM config (token prompts only)."""
 
     def __init__(self, cfg, params: Any):
+        tfm.check_ported(cfg, engine=True)
         self.cfg = cfg
         self.params = params
         self.device = tfm.param_device(params)

@@ -417,6 +417,43 @@ def test_gatekeeper_fused_gradients_match_plain_autograd(cuda, masked):
                                    rtol=2e-2)
 
 
+@pytest.mark.parametrize("P,T,d,V", [(576, 3, 256, 32064), (20, 7, 64, 999)],
+                         ids=["phi-3-vision-rows", "small"])
+def test_gatekeeper_fused_with_invalid_leading_positions(cuda, P, T, d, V):
+    """The VLM's Stage-2 loss: 4 rows of P patch positions (out of the
+    loss) then T text positions. Loss and aux of `gatekeeper_loss_fused`
+    within 1e-4 of the plain version's masked reduction; dx (bf16,
+    exactly zero on the patch rows) and dtable against autograd through
+    the plain version, atol 1e-4 of the largest entry plus rtol 2e-2."""
+    rows = 4
+    x, table, tgt = _loss_case(cuda, rows * (P + T), d, V, torch.bfloat16,
+                               seed=P)
+    valid = torch.ones(rows, P + T, device=cuda)
+    valid[:, :P] = 0.0
+    valid = valid.reshape(-1)
+    xk, tk = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    n = gk.gatekeeper_loss_tokens.launches
+    loss_k, aux = ops.gatekeeper_loss_fused(xk, tk, tgt, valid, alpha=0.3)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    assert gk.gatekeeper_loss_tokens.launches == n + 1
+    xp, tp = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    ce, kl, corr, _ = gk.gatekeeper_loss_tokens_plain(xp, tp, tgt)
+    corr = corr.detach()
+    denom = valid.sum()
+    l_corr = (ce * corr * valid).sum() / denom
+    l_incorr = (kl * (1 - corr) * valid).sum() / denom
+    loss_p = 0.3 * l_corr + 0.7 * l_incorr
+    loss_p.backward()
+    for got, want in ((loss_k, loss_p), (aux["l_corr"], l_corr),
+                      (aux["l_incorr"], l_incorr)):
+        assert abs(float(got.detach()) - float(want.detach())) <= 1e-4
+    assert float(xk.grad.float()[:P].abs().max()) == 0.0
+    for a, b in ((xk.grad.float(), xp.grad.float()), (tk.grad, tp.grad)):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                                   rtol=2e-2)
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-236b"])
 def test_engine_kernel_path_matches_plain_path(cuda, arch):
     from repro_torch.launch import serve
@@ -453,9 +490,11 @@ def _signal_logits(cuda, T, V, dtype, seed=0):
 
 
 @pytest.mark.parametrize("T,V", [(3, 50), (8, 1003), (8, 92544), (8, 102400),
-                                 (300, 4096), (2048, 92544), (8, 32000)],
+                                 (300, 4096), (2048, 92544), (8, 32000),
+                                 (8, 51865), (8, 32064)],
                          ids=["tiny", "vocab-tail", "internlm2", "deepseek",
-                              "ragged", "evaluation", "zamba2"])
+                              "ragged", "evaluation", "zamba2", "whisper",
+                              "phi-3-vision"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_deferral_kernel_matches_plain(cuda, T, V, dtype):
     """neg_entropy and max_prob to atol 1e-4 (fp32 sums in other orders);
@@ -647,6 +686,36 @@ def test_flash_bf16_kernel_non_causal_and_blind_rows(cuda):
         torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
                                    rtol=2 ** -7)
     assert out[0, 5:].abs().max() == 0 and out[0, :5].abs().max() > 0
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd", [
+    (2, 130, 1500, 4, 4, 64),
+    (8, 1500, 1500, 12, 12, 64),
+    (8, 16, 1500, 12, 12, 64),
+    (8, 1, 1500, 12, 12, 64),
+    (3, 1, 4097, 4, 2, 128),
+    (2, 70, 200, 8, 8, 96),
+], ids=["S-1500", "whisper-encoder", "whisper-cross-prefill",
+        "whisper-cross-decode", "T1-long", "hd96"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_non_causal_matches_plain(cuda, B, T, S, H, KV, hd,
+                                               dtype):
+    """Bidirectional attention (an encoder's, and cross-attention over its
+    states) at key counts no 64-key tile divides, one query over many
+    keys (the cross-attention of a decode step: a 64-query tile holding
+    one query), and head_dim 96: the tolerance of
+    test_flash_kernel_matches_plain, two calls bit-equal."""
+    q, k, v = _flash_inputs(cuda, B, T, S, H, KV, hd, dtype, seed=T + S)
+    n = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=False)
+    again = fa.flash_attention(q, k, v, causal=False)
+    ref = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 2 and out.dtype == dtype
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
+                               rtol=rtol)
+    assert torch.equal(out, again)
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(cuda):

@@ -219,10 +219,16 @@ def test_serve_step_kernel_path_equals_plain_path(model):
 
 
 def test_serve_builders_reject_encdec():
-    tcfg = t_reduced(t_get_config("internlm2-1.8b")).replace(family="encdec")
-    for build in (tsteps.make_prefill, tsteps.make_serve_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build(tcfg)
+    """The builders run the encoder-decoder family (tests/
+    test_torch_encdec.py), but refuse an encdec config that has no
+    EncoderSpec to encode with, and a vlm one without its VisionSpec."""
+    base = t_reduced(t_get_config("internlm2-1.8b"))
+    for family, spec in (("encdec", "EncoderSpec"), ("vlm", "VisionSpec")):
+        tcfg = base.replace(family=family)
+        for build in (tsteps.make_prefill, tsteps.make_serve_step):
+            with pytest.raises(ValueError, match=spec):
+                build(tcfg)
+    tsteps.make_prefill(t_reduced(t_get_config("whisper-small")))
 
 
 def test_engine_switch_reaches_calibration_and_large_model(monkeypatch):

@@ -28,8 +28,10 @@ SIGNAL_MODULES = ("core.baselines", "core.cascade", "core.deferral",
                   "kernels.flash_attention", "kernels.ops")
 SSM_MODULES = ("kernels.wkv_scan", "models.ssm", "configs.rwkv6_3b")
 CLASSIFIER_MODULES = ("models.classifier", "data.synthetic", "training.loop")
+ENCDEC_VLM_MODULES = ("models.encdec", "configs.whisper_small",
+                      "configs.phi_3_vision_4_2b")
 SLICE_MODULES = (TRAINING_MODULES + SIGNAL_MODULES + SSM_MODULES
-                 + CLASSIFIER_MODULES)
+                 + CLASSIFIER_MODULES + ENCDEC_VLM_MODULES)
 
 
 def _imported_roots(path: Path):
@@ -76,6 +78,12 @@ def test_import_check_covers_the_ssm_slice():
 def test_import_check_covers_the_classifier_slice():
     src = REPO / "src" / "repro_torch"
     for mod in CLASSIFIER_MODULES:
+        assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+
+
+def test_import_check_covers_the_encdec_and_vlm_slice():
+    src = REPO / "src" / "repro_torch"
+    for mod in ENCDEC_VLM_MODULES:
         assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
 
 
@@ -139,6 +147,20 @@ def test_cli_rejects_unported_features_by_name(argv, capsys):
         serve.main(["--device", "cpu"] + argv)
     assert exc.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "phi-3-vision-4.2b"])
+def test_cli_refuses_the_encdec_and_vlm_families(arch, capsys):
+    """Both configs resolve, but the serve CLI takes token prompts only
+    (as JAX's does): refused at argparse time, naming ROADMAP.md."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    assert get_config(arch).name == arch
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu", "--arch", arch])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f"--arch {arch}" in err and "ROADMAP.md" in err
 
 
 def test_cli_rejects_paged_knobs_on_slot_backend(capsys):
