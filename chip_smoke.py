@@ -1,12 +1,15 @@
 """Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
     python3 chip_smoke.py          # from the root of a repository checkout
-    python3 chip_smoke.py --kernels 3c,3e [--src DIR]
+    python3 chip_smoke.py --kernels 3c,3e [--src DIR] [--parent FILE]
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
 the `repro_torch` under another source directory (an unpacked parent
 commit, say), so two trees are timed by the same checks in one call.
+`--parent` takes the last line of such a run of the parent (its kernels'
+JSON record): phase 3d then prints each fp32 case's parent time beside
+the case's own.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -44,11 +47,13 @@ non-zero:
   3d. The prefill kernel `flash_attention` against its plain version at
      the full-width internlm2-1.8b prefill chunk (8 rows, 128 queries,
      16/8 heads of 128, a 288-position view, q_offset 0, 48 and 128), bf16
-     (the tensor-core kernel) and all fp32 (the SIMT kernel), two calls
-     bit-equal, plus a reduced sliding-window case; timed beside its bound
-     and SDPA with the same boolean mask, and the two kernels' times side
-     by side at each q_offset. Then zamba2-1.2b's shared block's prefill
-     (8 x 128 queries over a 288-position slot cache, 32/32 heads of 64,
+     and all fp32 (three TF32 products a product, the paths' type), two
+     calls bit-equal, plus a reduced sliding-window case; timed beside its
+     bound (fp32 at the three-product rate, the SIMT-rate bound kept
+     beside) and SDPA with the same boolean mask, and the two kernels'
+     times side by side at each q_offset. Then zamba2-1.2b's shared
+     block's prefill (8 x 128 queries over a 288-position slot cache,
+     32/32 heads of 64,
      bf16, window 288), timed beside its bound and SDPA. Then the head
      dims past the old instantiations at the same chunk: phi-3-vision's 96
      (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows. Then
@@ -57,7 +62,10 @@ non-zero:
      queries) and at a decode step (1 query) over the 1500 encoder
      states (non-causal), its decoder's causal prefill over the 32-slot
      cache, and phi-3-vision-4.2b's causal prefill of 576 patches + BOS
-     (32/32 heads of 96).
+     (32/32 heads of 96). Then the paged engine's prefill dispatches of
+     1, 2 and 4 rows (internlm2-1.8b's chunk at q_offset 0 and 128, and
+     zamba2-1.2b's shared block at 0), the grids under one wave that
+     `kv_split` may split.
   3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
      algorithms) in both modes: "rwkv" at the full-width rwkv6-3b decode
      step (8 rows, T 1, 40 heads, K = V = 64; the per-token kernel),
@@ -211,6 +219,8 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+H100_TF32X3_FLOPS = 495e12 / 3   # fp32 as three TF32 tensor-core products
+                                 # (495 TFLOP/s dense TF32, data sheet)
 H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
 
 # main-path configurations (full width, one card)
@@ -773,10 +783,11 @@ def check_deferral_kernel(torch, de, smi) -> dict:
     return rec
 
 
-def check_flash_kernel(torch, fa, smi) -> dict:
+def check_flash_kernel(torch, fa, smi, parent=None) -> dict:
     """flash_attention against its plain version, twice and bit-equal, in
-    fp32 (the SIMT kernel) and bf16 (the tensor-core kernel), each case
-    timed beside its plain version, SDPA over the same mask and its bound.
+    fp32 (three TF32 products a product, split-KV where the grid is under
+    one wave) and bf16, each case timed beside its plain version, SDPA
+    over the same mask and its bound.
     The main paths run fp32: their q/k/v come out of fp32 projections
     (fp32 weights promote the bf16 activations) and `_prefill_attend` casts
     K/V to q's type. The cases: internlm2-1.8b's prefill chunk at
@@ -790,10 +801,16 @@ def check_flash_kernel(torch, fa, smi) -> dict:
     encoder states, non-causal) and at a decode step (1 query), its
     decoder's causal self-attention (16 prompt queries over the 32-slot
     cache), and phi-3-vision-4.2b's prefill (576 patches + BOS, causal
-    over its 593-slot cache, 32/32 heads of 96).
+    over its 593-slot cache, 32/32 heads of 96); the internlm2 chunk and
+    zamba2's block again at 1, 2 and 4 rows, as the paged engine
+    dispatches a prefill group of next_pow2(k) rows once the first wave
+    of admissions has gone.
     The bound counts q and the output once, K/V only at the positions
-    some query sees, and the visible pairs' products at the fp32 SIMT or
-    the bf16 tensor-core rate (bf16 is exact in fp32 accumulation).
+    some query sees, and the visible pairs' products at the rate of the
+    kernel's products: three TF32 products for fp32 (the SIMT-rate bound
+    is kept beside as `bound_simt_ms`), one bf16 product for bf16 (exact
+    in fp32 accumulation). `parent` is a parent tree's kernels record
+    (`--parent`): each fp32 case prints and keeps its time beside.
     Returns the internlm2 chunk at q_offset 128 in fp32, with every case
     under "cases" and zamba2's path case under "zamba2_shared"."""
     B, T = N_SLOTS, CHUNK
@@ -801,6 +818,19 @@ def check_flash_kernel(torch, fa, smi) -> dict:
     g = torch.Generator(device=DEV).manual_seed(SEED + 11)
     F = 1500                                                 # frames
     P0 = 576 + 1                       # phi-3-vision: patches + BOS
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def splits_of(*shape, **mask):
+        """kv_split's count, or None on a tree whose wrapper has none
+        or one of another signature (a parent's)."""
+        try:
+            return fa.kv_split(*shape, n_sms, **mask)[2]
+        except (AttributeError, TypeError, IndexError):
+            return None
+    parent_cases = {}
+    for r in (parent or {}).get("kernels", []):
+        if r.get("name") == "flash_attention":
+            parent_cases = r.get("cases", {})
     # label, B, T, S, H, KV, hd, window, q_offsets, on a main path, causal
     cases = (("internlm2 chunk", B, T, S, 16, 8, 128, 0, (0, 48, 128), True,
               True),
@@ -820,6 +850,13 @@ def check_flash_kernel(torch, fa, smi) -> dict:
               + GREEDY_STEPS, 12, 12, 64, 0, (0,), True, True),
              ("phi-3-vision prefill", B, P0, P0 + GREEDY_STEPS, 32, 32, 96, 0,
               (0,), True, True))
+    cases += tuple(
+        (f"{label} {rows} rows", rows, T, S, H, KV, hd, window, offsets,
+         True, True)
+        for rows in (1, 2, 4)
+        for label, H, KV, hd, window, offsets in (
+            ("internlm2 chunk", 16, 8, 128, 0, (0, 128)),
+            ("zamba2 shared block", 32, 32, 64, S, (0,))))
     rec = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:72",
@@ -829,13 +866,16 @@ def check_flash_kernel(torch, fa, smi) -> dict:
         base = [torch.randn(shape, generator=g, device=DEV) for shape in
                 ((Bc, Tc, H, hd), (Bc, Sc, KV, hd), (Bc, Sc, KV, hd))]
         for name, dtype, rtol, rate in (
-                ("fp32", torch.float32, 0.0, H100_FP32_FLOPS),
+                ("fp32", torch.float32, 0.0, H100_TF32X3_FLOPS),
                 ("bf16", torch.bfloat16, FLASH_BF16_RTOL, H100_BF16_FLOPS)):
             q, k, v = (t.to(dtype) for t in base)
             tol = f"atol {FLASH_ATOL}" + (f" + {rtol:.3g}|ref|" if rtol
                                           else "")
+            fp32 = dtype == torch.float32
             for off in offsets:
                 kw = dict(causal=causal, window=window, q_offset=off)
+                splits = splits_of(Bc, Tc, Sc, H, hd, **kw) if fp32 else 1
+                key = f"{label} {name} q_offset {off}"
                 out = fa.flash_attention(q, k, v, **kw)
                 again = fa.flash_attention(q, k, v, **kw)
                 ref = fa.flash_attention_plain(q, k, v, **kw)
@@ -870,24 +910,34 @@ def check_flash_kernel(torch, fa, smi) -> dict:
                 seen_keys = int(mask.any(0).sum())
                 n_bytes = ((q.numel() + out.numel()) * q.element_size()
                            + 2 * Bc * seen_keys * KV * hd * k.element_size())
-                bound_ms, bound_by = bound(n_bytes, 4 * visible * H * hd,
-                                           rate)
-                path = ", the main path's" if on_path and dtype == \
-                    torch.float32 else ""
+                flops = 4 * visible * H * hd
+                bound_ms, bound_by = bound(n_bytes, flops, rate)
+                r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=err, on_path=on_path and fp32)
+                extra = ""
+                if fp32:
+                    simt_ms, simt_by = bound(n_bytes, flops, H100_FP32_FLOPS)
+                    r.update(bound_simt_ms=simt_ms, splits=splits)
+                    extra = (f", SIMT-rate bound {simt_ms:.5f} ms "
+                             f"({simt_by}), key splits {splits}")
+                    p_ms = parent_cases.get(key, {}).get("ms")
+                    if parent:
+                        r["parent_ms"] = p_ms
+                        extra += (f"; parent {p_ms:.4f} ms ({ms / p_ms:.3f}x)"
+                                  if p_ms else "; parent not measured")
+                path = ", the main path's" if r["on_path"] else ""
                 print(f"[kernel] {what} (B {Bc} T {Tc} S {Sc}, {H}/{KV}x"
                       f"{hd}, {'causal' if causal else 'non-causal'}, window "
                       f"{window or '-'}{path}): max|err| {err:.3g}, at most "
                       f"{share:.3g} of ({tol})"
                       f", two calls bit-equal; kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                      f"{bound_ms:.5f} ms ({bound_by}: {visible} visible "
-                      f"pairs per head at {rate / 1e12:.0f} TFLOP/s, "
-                      f"{seen_keys} of {Sc} key positions seen, {n_bytes} B)"
-                      f" on {smi}")
-                r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         max_abs_err=err, on_path=bool(path))
-                rec["cases"][f"{label} {name} q_offset {off}"] = r
+                      f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+                      f"({ms / lib_ms:.3f}x), bound {bound_ms:.5f} ms "
+                      f"({bound_by}: {visible} visible pairs per head at "
+                      f"{rate / 1e12:.0f} TFLOP/s, {seen_keys} of {Sc} key "
+                      f"positions seen, {n_bytes} B){extra} on {smi}")
+                rec["cases"][key] = r
     rec.update(rec["cases"]["internlm2 chunk fp32 q_offset 128"],
                q_offset=128)
     rec["zamba2_shared"] = rec["cases"]["zamba2 shared block fp32 q_offset 0"]
@@ -899,9 +949,9 @@ def check_flash_kernel(torch, fa, smi) -> dict:
     for off in (0, 48, 128):
         c = rec["cases"]
         print(f"[kernel] flash_attention internlm2 chunk q_offset {off}: "
-              f"fp32 (SIMT, the main path's) "
+              f"fp32 (TF32 x 3, the main path's) "
               f"{c[f'internlm2 chunk fp32 q_offset {off}']['ms']:.4f} ms, "
-              f"bf16 (tensor cores) "
+              f"bf16 "
               f"{c[f'internlm2 chunk bf16 q_offset {off}']['ms']:.4f} ms on "
               f"{smi}")
     return rec
@@ -2471,10 +2521,12 @@ def steps_families(torch, smi) -> tuple:
 KERNEL_PHASES = ("3", "3b", "3c", "3d", "3e")
 
 
-def check_kernels(torch, np, rng, smi, phases, t_start) -> dict:
+def check_kernels(torch, np, rng, smi, phases, t_start,
+                  parent=None) -> dict:
     """The kernel phases named in `phases` (of KERNEL_PHASES), each kernel
-    against its plain version and timed. Returns their records by kernel
-    name."""
+    against its plain version and timed (3d beside `parent`'s times, a
+    parent tree's kernels record, where given). Returns their records by
+    kernel name."""
     from repro_torch.kernels import deferral_entropy as de
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -2535,7 +2587,8 @@ def check_kernels(torch, np, rng, smi, phases, t_start) -> dict:
     # -- 3d. prefill attention against its plain version ---------------------
     if "3d" in phases:
         phase("3d", t_start)
-        records["flash_attention"] = check_flash_kernel(torch, fa, smi)
+        records["flash_attention"] = check_flash_kernel(torch, fa, smi,
+                                                        parent)
         torch.cuda.empty_cache()
     # -- 3e. the RWKV / Mamba2 recurrence against its plain version ----------
     if "3e" in phases:
@@ -2554,6 +2607,10 @@ def parse_args(argv=None):
                     help="comma-separated kernel phases of "
                          f"{','.join(KERNEL_PHASES)} to run alone after the "
                          "build: prints their records, no contract line")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a file holding the last line (the kernels' JSON "
+                         "record) of a --kernels run of the parent tree: "
+                         "phase 3d prints each fp32 case's parent time")
     args = ap.parse_args(argv)
     if args.kernels is not None:
         bad = set(args.kernels.split(",")) - set(KERNEL_PHASES)
@@ -2604,7 +2661,9 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(SEED)
     with torch.inference_mode():
-        records = check_kernels(torch, np, rng, smi, phases, t_start)
+        parent = (json.loads(args.parent.read_text().strip()
+                             .splitlines()[-1]) if args.parent else None)
+        records = check_kernels(torch, np, rng, smi, phases, t_start, parent)
         if args.kernels is not None:
             print(f"[done] {time.perf_counter() - t_start:.1f} s")
             print(json.dumps({"kernels": list(records.values())}))

@@ -6,11 +6,13 @@ minutes) and loaded with `ctypes`. Libraries live under
 `build/repro_torch_kernels/` at the repository root, named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged
 one loads at once. Nothing is built when a module is imported: the first
-launch builds (or `build_all()` does, started up front).
+launch builds (or `build_all()` does, started up front). `sm_count` is
+the device's SM count, which the wrappers' split rules fill.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +21,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -83,3 +87,9 @@ def build_all() -> List[Path]:
     """Compile every source at once (one nvcc process each, in parallel)."""
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
         return list(pool.map(compile_source, SOURCES))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`: the unit the split rules fill."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -17,14 +17,86 @@
 // never loaded (the TPU kernel visits every tile and masks).
 //
 // Two kernels, chosen by the inputs' type in the one C entry point; both
-// hold the fp32 online softmax of the TPU kernel.
+// hold the fp32 online softmax of the TPU kernel, both run every product
+// on the tensor cores with `mma.sync` and fp32 accumulation, and neither
+// uses atomics: every sum is taken in a fixed order, so two calls with the
+// same inputs give the same bits.
 //
-// bf16 inputs (the serving path): `flash_fwd_bf16_kernel`, tensor cores.
-//   Bound: bytes. 4 * hd flops per visible (query, key) pair and head
-//   against 2 * hd bf16 elements of K and V per key and KV head: at the
-//   main path's chunk (8 rows, 128 queries, 16/8 heads of 128, 288 keys)
-//   the tensor cores need about a fifth of the time that 17.8 MB of q, k,
-//   v and out take at 3.35 TB/s. What holds a kernel back there is
+// fp32 inputs (every main path's type: the models' fp32 weights promote
+// the bf16 activations in the q/k/v projections, and the callers cast K/V
+// to q's type): `flash_fwd_f32_kernel`, and `flash_merge_kernel` after it
+// where the keys are split.
+//   Bound: operations at the full-size shapes (whisper-small's encoder,
+//   phi-3-vision's prefill), bytes at a chunk of 128 queries over a few
+//   hundred keys and at cross-attention (1 or 16 queries over 1500 keys).
+//   An fp32 product has no full-precision tensor-core form, and the SIMT
+//   cores give 67 TFLOP/s. TF32 keeps 10 mantissa bits, and one TF32
+//   product misses the 1e-4 the kernel is held to several times over
+//   (tests/test_torch_flash.py pins it), so each fp32 operand x is split
+//   into hi, x rounded to TF32 to nearest, and lo = x - hi, which the
+//   tensor cores truncate to TF32, and each product is the three TF32
+//   products lo.hi + hi.lo + hi.hi (`mma.sync.aligned.m16n8k8`, fp32
+//   accumulation): about 21 of fp32's 24 bits, at a third of the 495
+//   TFLOP/s dense TF32 rate. A peaked softmax (q x 8) reads about 3e-5
+//   against the one-shot fp32 softmax, on the card and in the CPU
+//   emulation alike; one product alone reads 7e-3 to 1.2e-2 in the
+//   emulation.
+//   hi is made by an integer add and a mask (`split_tf32`): `cvt.rna`
+//   gives the same bits with compares and selects besides, and took a
+//   fifth more time.
+//   * One CTA of 4 warps per (64-query tile, head, row, key split); each
+//     warp owns 16 queries. Both Q . K^T and P @ V are three-product
+//     tiles. Q . K^T takes each k8 step's dims in the order (2 tq, 2 tq +
+//     1) for k indices (tq, tq + 4), in Q and K alike, so a lane reads its
+//     two elements of a row as one float2. Q's split fragments stay in
+//     registers at HD <= 64 and are read and split from shared memory per
+//     k step above.
+//   * The scores' accumulator fragment is P's A operand without a shuffle:
+//     the m16n8k8 accumulator holds keys (2 tq, 2 tq + 1) of a row where
+//     the A operand wants k indices (tq, tq + 4), so P @ V takes each k8
+//     step's keys in that order and B reads V's rows 2 tq and 2 tq + 1.
+//     The probabilities never touch shared memory. The row max is reduced
+//     across the 4 threads of a row (xor shuffles 1 and 2); each thread
+//     keeps its part of the row sum, and the parts are added in a fixed
+//     order at the end.
+//   * K and V stay fp32 in shared memory, in a ring of two stages filled by
+//     16-byte `cp.async` copies, one commit group a tile: tile j + 1 is in
+//     flight while tile j is multiplied, one barrier a tile. fp32 tiles
+//     take twice the bf16 kernel's memory, so the key tile is 64 keys at
+//     HD <= 64 (88 KB a CTA) and 32 above (101 KB at HD 128): two CTAs fit
+//     an SM up to HD 128, one at HD 256 (197 KB). Q and K rows are padded
+//     to HD + 8 floats, so the float2 reads of a half-warp fall on distinct
+//     banks; V rows to HD + 4, so the reads of rows 2 tq and 2 tq + 1 at
+//     column g do. Rows past S and columns past hd are zero-filled by the
+//     copy; a row whose hd is not a multiple of 4 is not 16-byte aligned
+//     and is staged element by element instead.
+//   * T <= 16 (one query at a decode step's cross-attention, a 16-token
+//     prompt): one warp a CTA, 16 queries and 32-key tiles, so five CTAs
+//     fit an SM at HD 64. At whisper's cross-attention in 6 splits that
+//     is 0.046 ms where 4-warp CTAs, two an SM, take 0.078 (PERF.md).
+//   * Split-KV where the grid is under one wave (the wrapper's `kv_split`:
+//     whisper's cross-attention is 96 CTAs of one row and head each over
+//     1500 keys, bound by bytes): the keys some query sees are cut into
+//     spans of whole 64-key tiles from `kv_begin`, the first of them
+//     aligned down, so that a causal chunk's keys past its last query and
+//     a window's keys before its first make no split. CTA (tile, head,
+//     row, split) writes its rows' unnormalised o, max m and sum l to an
+//     fp32 workspace, and
+//     `flash_merge_kernel` (one warp a row) weighs the splits by exp2(m_s
+//     - m), sums them in split order and divides. A split that sees no key
+//     adds exactly nothing; with one split the kernel divides and writes
+//     the output itself, the merge's arithmetic for one split.
+//   * Masking inside a tile follows the TPU kernel's predicate; a masked
+//     score becomes -1e30 and its p is zeroed explicitly (with m = -1e30 a
+//     row that sees nothing yet would otherwise add exp(0) = 1). Tiles that
+//     no mask reaches skip the predicate.
+//   * Tile widths HD 16, 32, 64, 96, 112, 128 and 256; a call takes the
+//     smallest HD >= hd.
+//
+// bf16 inputs (no main path runs them): `flash_fwd_bf16_kernel`.
+//   Bound: bytes at the chunk (8 rows, 128 queries, 16/8 heads of 128, 288
+//   keys): the tensor cores need about a fifth of the time that 17.8 MB of
+//   q, k, v and out take at 3.35 TB/s. What holds a kernel back there is
 //   latency: the grid is one wave of 256 CTAs whose key loops are short
 //   (1 to 4 tiles), so the launch, the burst of Q and first-tile loads
 //   that every CTA makes at once and the burst of output stores at the
@@ -45,9 +117,7 @@
 //   * The scores' accumulator fragment stays in registers and becomes the
 //     A operand of P @ V (the accumulator layout of two n8 tiles is the A
 //     layout of one k16 step); the probabilities never touch shared
-//     memory. The row max is reduced across the 4 threads that hold a row
-//     (xor shuffles 1 and 2); each thread keeps its part of the row sum,
-//     and the parts are added in a fixed order at the end.
+//     memory. Row max and row sum as in the fp32 kernel.
 //   * P @ V with P split in two: hi = bf16(p), lo = bf16(p - hi), two bf16
 //     products into one fp32 accumulator. A single bf16 P (8 bits) misses
 //     the reference's tolerance (1e-4 + 2^-7 |ref|) several times over at
@@ -65,34 +135,18 @@
 //     past S and columns past hd are zero-filled by the copy (zero columns
 //     add nothing to either product); a row whose hd is not a multiple of 8
 //     is not 16-byte aligned and is staged element by element instead.
-//   * Masking inside a tile follows the TPU kernel's predicate; a masked
-//     score becomes -1e30 and its p is zeroed explicitly (with m = -1e30 a
-//     row that sees nothing yet would otherwise add exp(0) = 1). Tiles that
-//     no mask reaches skip the predicate.
-//   * Tile widths HD 16, 32, 64, 96, 112, 128 (64-key tiles, two CTAs an
-//     SM) and 256 (32-key tiles); a call takes the smallest HD >= hd.
-//   * No atomics, and every sum in a fixed order: two calls with the same
-//     inputs give the same bits.
-//
-// fp32 inputs (the parity checks and reduced configs): `flash_fwd_f32_kernel`,
-//   SIMT cores. An fp32 product has no full-precision tensor-core form
-//   (TF32 keeps 10 mantissa bits), so this kernel is bound by operations
-//   at the 67 TFLOP/s SIMT rate. One CTA of 256 threads (16 x 16) per
-//   (64-query tile, head, row): the query tile is staged once in shared
-//   memory, then, for each 64-key tile, K is staged, each thread computes
-//   a 4 x 4 block of scores from float4 reads, the 16 threads of a row
-//   reduce its max and sum with shuffles, the probabilities go to shared
-//   memory, V replaces K in the same buffer, and each thread adds P @ V
-//   into its 4 rows x hd/16 columns held in registers. Row strides are
-//   padded by 4 floats (distinct banks for a half-warp's float4 reads).
-//   Same tile widths; columns past hd are staged as zeros.
+//   * Masking as in the fp32 kernel. Tile widths as in the fp32 kernel
+//     (64-key tiles, two CTAs an SM; 32-key tiles at HD 256). It never
+//     splits the keys.
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int QB = 64;          // queries per CTA, both kernels
+constexpr int QB = 64;          // queries per CTA of the bf16 kernel
 constexpr float kNeg = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -441,257 +495,436 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+
 // ---------------------------------------------------------------------------
-// fp32: SIMT kernel
+// fp32: tensor-core kernel, each product as three TF32 products
 // ---------------------------------------------------------------------------
 
-constexpr int KB = 64;          // keys per tile
-constexpr int kThreads = 256;   // 16 x 16: ty owns 4 queries, tx 4 keys
+constexpr int kSmallT = 16;     // T <= kSmallT: one warp's 16 queries a CTA
+constexpr int kSplitAlign = 64; // a split's span is whole tiles of any width
 
-template <int HD> struct Layout {
-  // row stride of q_s and kv_s in floats: RS / 4 is odd, so the float4
-  // reads of 8 consecutive rows fall on distinct banks
-  static constexpr int RS = HD + 4;
-  static constexpr int PS = KB + 4;   // row stride of p_s
-  static constexpr int CPT = HD / 16; // output columns per thread
+template <int HD, int WARPS> struct F32Tile {
+  static constexpr int QB = 16 * WARPS;  // queries per CTA, 16 a warp
+  // keys per tile: 64 where two 4-warp CTAs still fit an SM with them,
+  // else 32 (so do five 1-warp CTAs at HD 64)
+  static constexpr int KB = WARPS == 4 && HD <= 64 ? 64 : 32;
+  static constexpr int RQ = HD + 8;   // Q and K row stride (floats)
+  static constexpr int RV = HD + 4;   // V row stride
+  static constexpr int NS = KB / 8;   // n8 score tiles per warp
+  static constexpr int NO = HD / 8;   // n8 output tiles per warp
+  static constexpr bool kQRegs = HD <= 64;  // Q's split fragments in registers
+  // two stages of K [KB][RQ] then V [KB][RV], then Q [QB][RQ]: 88 KB at
+  // HD 64 and 101 KB at HD 128 (two CTAs an SM), 197 KB at HD 256
+  static constexpr int STAGE = KB * (RQ + RV);
   static constexpr size_t bytes =
-      sizeof(float) * ((size_t)(QB + KB) * RS + (size_t)QB * PS);
+      sizeof(float) * (2 * (size_t)STAGE + (size_t)QB * RQ);
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// d += a (16 x 8, row) . b (8 x 8, col), TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// rows r0 .. r0+63 of a [n_rows, hd] matrix whose rows lie row_stride
-// elements apart -> dst [64][HD + 4]; rows past n_rows and columns past hd
-// are zeros. Vector loads when hd is a multiple of 4 (the rows are then
-// 16-byte aligned), else one element at a time.
-template <int HD>
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const float* __restrict__ src, int r0,
-                                      int n_rows, size_t row_stride, int hd) {
-  constexpr int G = HD / 4;
-  const bool vec = (hd & 3) == 0;
-  for (int i = threadIdx.x; i < 64 * G; i += kThreads) {
-    const int r = i / G, g = i % G;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n_rows && g * 4 < hd) {
-      const float* row = src + (size_t)(r0 + r) * row_stride + g * 4;
-      if (vec) {
-        v = load4(row);
-      } else {
-        float e[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) e[j] = g * 4 + j < hd ? row[j] : 0.f;
-        v = make_float4(e[0], e[1], e[2], e[3]);
-      }
+// x -> TF32 operands hi and lo. hi is x rounded to TF32 (10 mantissa
+// bits) to nearest, ties away from zero: the bits `cvt.rna.tf32.f32`
+// gives for a finite x, by an integer add and a mask (the cvt costs
+// compares and selects besides, a fifth of the kernel's time). lo = x - hi
+// is exact in fp32 and goes to the tensor cores as it is; they read a
+// TF32 operand's top 19 bits, so lo is truncated to TF32.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// this lane's A fragment of a 16 x 8 tile, split
+struct Tf32Frag {
+  unsigned hi[4], lo[4];
+  __device__ __forceinline__ void set(int i, float x) {
+    split_tf32(x, hi[i], lo[i]);
+  }
+};
+
+// d += a . b as three TF32 products lo.hi + hi.lo + hi.hi, the small ones
+// first; b0 and b1 are this lane's B elements (k tq, n g), (k tq + 4, n g)
+__device__ __forceinline__ void mma3(float (&d)[4], const Tf32Frag& a,
+                                     float b0, float b1) {
+  unsigned h0, l0, h1, l1;
+  split_tf32(b0, h0, l0);
+  split_tf32(b1, h1, l1);
+  mma_tf32(d, a.lo, h0, h1);
+  mma_tf32(d, a.hi, l0, l1);
+  mma_tf32(d, a.hi, h0, h1);
+}
+
+// rows r0 .. r0+ROWS-1 of a [n_rows, hd] fp32 matrix whose rows lie
+// row_stride elements apart -> dst [ROWS][RS]; rows past n_rows and columns
+// past hd are zeros. vec (hd % 4 == 0, so rows are 16-byte aligned):
+// cp.async copies, which the caller commits and waits for; else element by
+// element, visible after the caller's next barrier.
+template <int HD, int ROWS, int RS, int NT>
+__device__ __forceinline__ void load_rows_f32(float* __restrict__ dst,
+                                              const float* __restrict__ src,
+                                              int r0, int n_rows,
+                                              size_t row_stride, int hd,
+                                              bool vec) {
+  if (vec) {
+    constexpr int G = HD / 4;
+    for (int i = threadIdx.x; i < ROWS * G; i += NT) {
+      const int r = i / G, c = (i % G) * 4;
+      const bool ok = r0 + r < n_rows && c < hd;
+      cp_async16(dst + r * RS + c,
+                 ok ? src + (size_t)(r0 + r) * row_stride + c : src,
+                 ok ? 16 : 0);
     }
-    *reinterpret_cast<float4*>(dst + r * Layout<HD>::RS + g * 4) = v;
+  } else {
+    for (int i = threadIdx.x; i < ROWS * HD; i += NT) {
+      const int r = i / HD, c = i % HD;
+      dst[r * RS + c] = r0 + r < n_rows && c < hd
+                            ? src[(size_t)(r0 + r) * row_stride + c] : 0.f;
+    }
   }
 }
 
-__device__ __forceinline__ float row16_max(float v) {
+// row r (0: g, 1: g + 8) of a warp's 16 x HD accumulator, divided by
+// denom, to dst[0 .. hd-1]; element e of n8 tile n is column 8 n + 2 tq +
+// (e & 1)
+template <int NO>
+__device__ __forceinline__ void store_row(float* __restrict__ dst,
+                                          const float (&o)[NO][4], int r,
+                                          int tq, int hd, float denom) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int n = 0; n < NO; ++n) {
+    const int col = n * 8 + tq * 2;
+    const float x0 = o[n][2 * r] / denom, x1 = o[n][2 * r + 1] / denom;
+    if ((hd & 1) == 0) {
+      if (col < hd) *reinterpret_cast<float2*>(dst + col) = make_float2(x0, x1);
+    } else {
+      if (col < hd) dst[col] = x0;
+      if (col + 1 < hd) dst[col + 1] = x1;
+    }
+  }
 }
 
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// column c (0 .. CPT-1) of thread tx in the output / V tile
-template <int HD>
-__device__ __forceinline__ int out_col(int tx, int c) {
-  if constexpr (HD % 64 == 0) return (c >> 2) * 64 + tx * 4 + (c & 3);
-  else return tx * (HD / 16) + c;
-}
-
-// grid (ceil(T / QB), H, B), block kThreads, dynamic smem Layout<HD>::bytes;
-// hd <= HD is the inputs' head dim
-template <int HD>
-__global__ void __launch_bounds__(kThreads, HD <= 128 ? 2 : 1)
+// grid (ceil(T / QB) * n_split, H, B), block 32 * WARPS, dynamic smem
+// F32Tile<HD, WARPS>::bytes; hd <= HD is the inputs' head dim. CTA
+// (x, h, b) takes query tile x / n_split and keys [kv_begin + s * span,
+// kv_begin + (s + 1) * span) of split s = x % n_split (all keys when
+// n_split = 1). One split: the output. Else its partial to ws: acc
+// [B][n_split][T][H][hd] (o before the division), then (m, l)
+// [B][n_split][T][H][2], m in log2 units.
+template <int HD, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS,
+                                  WARPS == 4 && HD <= 128 ? 2 : 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int T, int S, int H, int KV, int hd, float scale,
-                     int causal, int window, int q_offset) {
-  using L = Layout<HD>;
-  constexpr int RS = L::RS, PS = L::PS, CPT = L::CPT;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                   // [QB][RS]
-  float* kv_s = q_s + QB * RS;         // [KB][RS]: K, then V, of one tile
-  float* p_s = kv_s + KB * RS;         // [QB][PS] probabilities
+                     float* __restrict__ ws, int T, int S, int H, int KV,
+                     int hd, float scale, int causal, int window,
+                     int q_offset, int n_split, int kv_begin, int span) {
+  using L = F32Tile<HD, WARPS>;
+  constexpr int QB = L::QB, KB = L::KB, RQ = L::RQ, RV = L::RV;
+  constexpr int NS = L::NS, NO = L::NO, NT = 32 * WARPS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [2][K, V]
+  float* q_s = ring + 2 * L::STAGE;                   // [QB][RQ]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int t0 = blockIdx.x * QB, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;   // fragment row, column pair
+  const int split = blockIdx.x % n_split;
+  const int t0 = blockIdx.x / n_split * QB, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KV);
   const size_t q_rows = (size_t)H * hd, kv_rows = (size_t)KV * hd;
   const float* qb = q + ((size_t)b * T * H + h) * hd;
   const float* kb = k + ((size_t)b * S * KV + kh) * hd;
   const float* vb = v + ((size_t)b * S * KV + kh) * hd;
+  const bool vec = (hd & 3) == 0;
 
-  // keys any query of this tile can see
+  // keys any query of this tile can see, within this split's span
   const int p_lo = q_offset + t0;
   const int p_hi = q_offset + min(T, t0 + QB) - 1;
-  const int s_end = causal ? min(S, p_hi + 1) : S;
-  const int s_begin = window > 0 ? max(0, p_lo - window + 1) / KB * KB : 0;
+  int s_end = causal ? min(S, p_hi + 1) : S;
+  int s_begin = window > 0 ? max(0, p_lo - window + 1) / KB * KB : 0;
+  if (n_split > 1) {   // kv_begin and span are multiples of KB
+    s_begin = max(s_begin, kv_begin + split * span);
+    s_end = min(s_end, kv_begin + (split + 1) * span);
+  }
+  const int n_tiles = s_end > s_begin ? (s_end - s_begin + KB - 1) / KB : 0;
 
-  stage<HD>(q_s, qb, t0, T, q_rows, hd);
+  // key tile j -> stage j & 1, one commit group per tile (empty past the
+  // last); tile j + 1 is issued only after the barrier that follows tile
+  // j's wait, so at that wait tile j's group is the only one in flight
+  auto load_kv = [&](int j) {
+    if (j < n_tiles) {
+      float* st = ring + (j & 1) * L::STAGE;
+      load_rows_f32<HD, KB, RQ, NT>(st, kb, s_begin + j * KB, S, kv_rows, hd,
+                                    vec);
+      load_rows_f32<HD, KB, RV, NT>(st + KB * RQ, vb, s_begin + j * KB, S,
+                                    kv_rows, hd, vec);
+    }
+    cp_async_commit();
+  };
+  load_rows_f32<HD, QB, RQ, NT>(q_s, qb, t0, T, q_rows, hd, vec);
+  load_kv(0);                                  // Q rides in tile 0's group
+  cp_async_wait<0>();
+  __syncthreads();
 
-  float o[4][CPT];
-  float m_r[4], l_r[4];
+  // Q . K^T takes dims in pairs: k index tq of a k8 step is dim 2 tq and
+  // k index tq + 4 is dim 2 tq + 1, in A (Q) and B (K) alike, so each
+  // lane reads its two elements of a row as one float2
+  const float* q_w = q_s + (warp * 16 + g) * RQ + 2 * tq;
+  auto q_frag = [&](Tf32Frag& a, int kk) {
+    const float2 x0 = *reinterpret_cast<const float2*>(q_w + 8 * kk);
+    const float2 x1 = *reinterpret_cast<const float2*>(q_w + 8 * RQ + 8 * kk);
+    a.set(0, x0.x);
+    a.set(1, x1.x);
+    a.set(2, x0.y);
+    a.set(3, x1.y);
+  };
+  Tf32Frag qf[L::kQRegs ? HD / 8 : 1];
+  if constexpr (L::kQRegs) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_r[i] = kNeg;
-    l_r[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) o[i][c] = 0.f;
+    for (int kk = 0; kk < HD / 8; ++kk) q_frag(qf[kk], kk);
   }
 
-  for (int s0 = s_begin; s0 < s_end; s0 += KB) {
-    __syncthreads();                 // the previous tile's V and P are read
-    stage<HD>(kv_s, kb, s0, S, kv_rows, hd);
-    __syncthreads();
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_r[2] = {kNeg, kNeg};   // rows g and g + 8, log2 units
+  float l_r[2] = {0.f, 0.f};     // this thread's part of the row sums
+  const float sl2 = scale * kLog2e;
 
-    float sc[4][4];
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile it has landed for every warp, and every warp is done with tile
+    // it - 1, whose stage takes tile it + 1 while tile it is multiplied
+    cp_async_wait<0>();
+    __syncthreads();
+    load_kv(it + 1);
+    const int s0 = s_begin + it * KB;
+    const float* ks = ring + (it & 1) * L::STAGE;
+    const float* vs = ks + KB * RQ;
+
+    // S = Q K^T, 16 x KB per warp
+    float s[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[4], bk[4];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const float* k_w = ks + g * RQ + 2 * tq;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = load4(q_s + (ty * 4 + i) * RS + d);
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      Tf32Frag a;
+      if constexpr (L::kQRegs) {
+        a = qf[kk];
+      } else {
+        q_frag(a, kk);
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = load4(kv_s + (tx + 16 * j) * RS + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float acc = sc[i][j];
-          acc = fmaf(a[i].x, bk[j].x, acc);
-          acc = fmaf(a[i].y, bk[j].y, acc);
-          acc = fmaf(a[i].z, bk[j].z, acc);
-          acc = fmaf(a[i].w, bk[j].w, acc);
-          sc[i][j] = acc;
-        }
+      for (int j = 0; j < NS; ++j) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(k_w + j * 8 * RQ + 8 * kk);
+        mma3(s[j], a, x.x, x.y);
+      }
     }
 
-    // mask, then the rows' online softmax; P to shared memory
+    // mask (only where some mask reaches the tile), scale to log2 units,
+    // then the rows' online softmax; element e of n8 tile j is row
+    // g + 8 (e >> 1), key 8 j + 2 tq + (e & 1)
+    const bool edge = !(s0 + KB <= S && t0 + QB <= T &&
+                        (!causal || s0 + KB - 1 <= p_lo) &&
+                        (window <= 0 || s0 > p_hi - window));
+    unsigned vis = 0xffffffffu;   // bit 4 j + e: s[j][e] is visible
+    float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + ty * 4 + i;
-      const int qp = q_offset + t;
-      unsigned vis = 0;
-      float rmax = kNeg;
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = s0 + tx + 16 * j;
-        const bool ok = t < T && kp < S && (!causal || kp <= qp) &&
-                        (window <= 0 || kp > qp - window);
-        sc[i][j] = ok ? sc[i][j] * scale : kNeg;
-        vis |= (unsigned)ok << j;
-        rmax = fmaxf(rmax, sc[i][j]);
-      }
-      rmax = row16_max(rmax);
-      const float mn = fmaxf(m_r[i], rmax);
-      const float alpha = expf(m_r[i] - mn);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = (vis >> j) & 1u ? expf(sc[i][j] - mn) : 0.f;
-        sc[i][j] = p;
-        rsum += p;
-      }
-      rsum = row16_sum(rsum);
-      l_r[i] = l_r[i] * alpha + rsum;
-      m_r[i] = mn;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) o[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p_s[(ty * 4 + i) * PS + tx + 16 * j] = sc[i][j];
-    }
-    __syncthreads();                 // every thread is done with K
-    stage<HD>(kv_s, vb, s0, S, kv_rows, hd);
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < KB; kk += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = load4(p_s + (ty * 4 + i) * PS + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = kv_s + (kk + u) * RS;
-        float vv[CPT];
-        if constexpr (HD % 64 == 0) {
-#pragma unroll
-          for (int g = 0; g < CPT / 4; ++g) {
-            const float4 x = load4(vrow + g * 64 + tx * 4);
-            vv[4 * g] = x.x; vv[4 * g + 1] = x.y;
-            vv[4 * g + 2] = x.z; vv[4 * g + 3] = x.w;
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (edge) {
+          const int t = t0 + warp * 16 + g + (e >> 1) * 8;
+          const int qp = q_offset + t;
+          const int kp = s0 + j * 8 + tq * 2 + (e & 1);
+          const bool ok = t < T && kp < S && (!causal || kp <= qp) &&
+                          (window <= 0 || kp > qp - window);
+          if (!ok) {
+            x = kNeg;
+            vis &= ~(1u << (4 * j + e));
           }
-        } else {
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) vv[c] = vrow[out_col<HD>(tx, c)];
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? pr[i].x : u == 1 ? pr[i].y
-                        : u == 2 ? pr[i].z : pr[i].w;
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
-        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m_r[r], mx[r]);
+      alpha[r] = exp2f(m_r[r] - mn);
+      m_r[r] = mn;
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (vis >> (4 * j + e)) & 1u
+                            ? exp2f(s[j][e] - m_r[e >> 1]) : 0.f;
+        s[j][e] = p;
+        l_r[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V. The score fragment is P's A operand as it stands, with
+    // the k8 step's keys taken in the order the fragment holds them: k
+    // index tq is key 2 tq and k index tq + 4 is key 2 tq + 1, so B reads
+    // V's rows 2 tq and 2 tq + 1 (no shuffle, no trip through shared
+    // memory)
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      Tf32Frag pa;
+      pa.set(0, s[kk][0]);
+      pa.set(1, s[kk][2]);
+      pa.set(2, s[kk][1]);
+      pa.set(3, s[kk][3]);
+      const float* v_w = vs + (8 * kk + 2 * tq) * RV + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) mma3(o[n], pa, v_w[8 * n], v_w[RV + 8 * n]);
     }
   }
 
-  float* ob = out + ((size_t)b * T * H + h) * hd;
+  // the row sums' four parts, in a fixed order; then out = o / l, or the
+  // split's partial
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + warp * 16 + g + r * 8;
     if (t >= T) continue;
-    const float denom = fmaxf(l_r[i], 1e-30f);   // no visible key -> 0
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = out_col<HD>(tx, c);
-      if (col < hd) ob[(size_t)t * q_rows + col] = o[i][c] / denom;
+    if (n_split == 1) {
+      // no visible key -> 0
+      store_row<NO>(out + (((size_t)b * T + t) * H + h) * hd, o, r, tq, hd,
+                    fmaxf(l_r[r], 1e-30f));
+    } else {
+      const size_t part = (((size_t)b * n_split + split) * T + t) * H + h;
+      store_row<NO>(ws + part * hd, o, r, tq, hd, 1.f);
+      if (tq == 0) {
+        float* ml = ws + (size_t)gridDim.z * n_split * T * H * hd;
+        ml[2 * part] = m_r[r];
+        ml[2 * part + 1] = l_r[r];
+      }
     }
   }
 }
 
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int T, int S, int H, int KV, int hd, float scale, int causal,
-               int window, int q_offset, cudaStream_t st) {
-  auto kernel = flash_fwd_f32_kernel<HD>;
+constexpr int kMergeWarps = 4;
+
+// grid ceil(B * T * H / kMergeWarps), block 32 * kMergeWarps: one warp per
+// output row (b, t, h), from its n_split partials in ws (the split
+// kernel's layout). The splits' weights w_s = exp2(m_s - m) with m their
+// largest m; then l = sum w_s l_s and o = sum w_s acc_s, in split order,
+// and out = o / max(l, 1e-30). A split that saw no key (m_s = -1e30, l_s
+// = 0, acc_s = 0) adds nothing; for one split this is the split kernel's
+// own o / max(l, 1e-30).
+__global__ void __launch_bounds__(32 * kMergeWarps)
+flash_merge_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                   int B, int T, int H, int hd, int n_split) {
+  constexpr int kCols = 256 / 32;   // columns per lane at the widest hd
+  const int lane = threadIdx.x & 31;
+  const size_t rows = (size_t)B * T * H;
+  const size_t row = (size_t)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const size_t th = row % ((size_t)T * H), b = row / ((size_t)T * H);
+  const float* ml = ws + rows * n_split * hd;
+  auto part = [&](int s) { return (b * n_split + s) * T * H + th; };
+  float m_all = kNeg;
+  for (int s = 0; s < n_split; ++s) m_all = fmaxf(m_all, ml[2 * part(s)]);
+  float acc[kCols], den = 0.f;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const size_t p = part(s);
+    const float w = exp2f(ml[2 * p] - m_all);
+    den += w * ml[2 * p + 1];
+    const float* src = ws + p * hd;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int c = lane + 32 * i;
+      if (c < hd) acc[i] += w * src[c];
+    }
+  }
+  const float denom = fmaxf(den, 1e-30f);
+  float* dst = out + row * hd;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int c = lane + 32 * i;
+    if (c < hd) dst[c] = acc[i] / denom;
+  }
+}
+
+template <int HD, int WARPS>
+int launch_f32_w(const float* q, const float* k, const float* v, float* out,
+                 float* ws, int B, int T, int S, int H, int KV, int hd,
+                 float scale, int causal, int window, int q_offset,
+                 int n_split, int kv_begin, int span, cudaStream_t st) {
+  using L = F32Tile<HD, WARPS>;
+  auto kernel = flash_fwd_f32_kernel<HD, WARPS>;
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Layout<HD>::bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (attr_err != cudaSuccess) return (int)attr_err;
-  dim3 grid((T + QB - 1) / QB, H, B);
-  kernel<<<grid, kThreads, Layout<HD>::bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), T, S, H, KV, hd,
-      scale, causal, window, q_offset);
+  dim3 grid((T + L::QB - 1) / L::QB * n_split, H, B);
+  kernel<<<grid, 32 * WARPS, L::bytes, st>>>(q, k, v, out, ws, T, S, H, KV,
+                                             hd, scale, causal, window,
+                                             q_offset, n_split, kv_begin,
+                                             span);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  const size_t rows = (size_t)B * T * H;
+  flash_merge_kernel<<<(unsigned)((rows + kMergeWarps - 1) / kMergeWarps),
+                       32 * kMergeWarps, 0, st>>>(ws, out, B, T, H, hd,
+                                                  n_split);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               void* ws, int B, int T, int S, int H, int KV, int hd,
+               float scale, int causal, int window, int q_offset, int n_split,
+               int kv_begin, int span, cudaStream_t st) {
+  auto f = T <= kSmallT ? launch_f32_w<HD, 1> : launch_f32_w<HD, 4>;
+  return f(static_cast<const float*>(q), static_cast<const float*>(k),
+           static_cast<const float*>(v), static_cast<float*>(out),
+           static_cast<float*>(ws), B, T, S, H, KV, hd, scale, causal, window,
+           q_offset, n_split, kv_begin, span, st);
 }
 
 // the smallest instantiated tile width HD >= hd, for either kernel
 int dispatch_hd(int hd, int bf16_in, const void* q, const void* k,
-                const void* v, void* out, int B, int T, int S, int H, int KV,
-                float scale, int causal, int window, int q_offset,
+                const void* v, void* out, void* ws, int B, int T, int S,
+                int H, int KV, float scale, int causal, int window,
+                int q_offset, int n_split, int kv_begin, int span,
                 cudaStream_t st) {
 #define FLASH_HD(W)                                                          \
   if (hd <= W)                                                               \
   return bf16_in ? launch_bf16<W>(q, k, v, out, B, T, S, H, KV, hd, scale,   \
                                   causal, window, q_offset, st)              \
-                 : launch_f32<W>(q, k, v, out, B, T, S, H, KV, hd, scale,    \
-                                 causal, window, q_offset, st)
+                 : launch_f32<W>(q, k, v, out, ws, B, T, S, H, KV, hd,       \
+                                 scale, causal, window, q_offset, n_split,   \
+                                 kv_begin, span, st)
   FLASH_HD(16);
   FLASH_HD(32);
   FLASH_HD(64);
@@ -706,16 +939,38 @@ int dispatch_hd(int hd, int bf16_in, const void* q, const void* k,
 }  // namespace
 
 // q [B,T,H,hd], k and v [B,S,KV,hd], out [B,T,H,hd], all contiguous, on
-// 16-byte boundaries and of one type: fp32 (is_bf16 = 0, the SIMT kernel)
-// or bf16 (is_bf16 = 1, the tensor-core kernel). 1 <= hd <= 256; H a
-// multiple of KV. Returns the CUDA error of the launch (0 on success).
+// 16-byte boundaries and of one type: fp32 (is_bf16 = 0, the TF32 x 3
+// kernel) or bf16 (is_bf16 = 1). 1 <= hd <= 256; H a multiple of KV.
+// n_split = 1 writes out in one launch. fp32 only: n_split > 1 cuts the
+// keys from kv_begin into spans of `span` (both multiples of 64; every
+// split starts below S; the first starts at or before the first key any
+// query sees and the last ends at or past the last), each split's partial
+// goes to ws (B * n_split * T * H * (hd + 2) floats) and a second launch
+// merges them into out. Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int T, int S, int H, int KV,
                                int hd, float scale, int causal, int window,
-                               int q_offset, int is_bf16, void* stream) {
+                               int q_offset, int is_bf16, int n_split,
+                               int kv_begin, int span, void* ws,
+                               void* stream) {
   if (B < 1 || T < 1 || S < 1 || KV < 1 || H % KV != 0 || H > 65535 ||
-      B > 65535 || q_offset < 0 || window < 0 || hd < 1)
+      B > 65535 || q_offset < 0 || window < 0 || hd < 1 || n_split < 1)
     return (int)cudaErrorInvalidValue;
-  return dispatch_hd(hd, is_bf16, q, k, v, out, B, T, S, H, KV, scale, causal,
-                     window, q_offset, static_cast<cudaStream_t>(stream));
+  if (n_split > 1) {
+    // the keys some query sees: [first, last)
+    const long long first =
+        window > 0 ? std::max(0LL, (long long)q_offset - window + 1) : 0;
+    const long long last =
+        causal ? std::min((long long)S, (long long)q_offset + T) : S;
+    const long long end = kv_begin + (long long)n_split * span;
+    if (is_bf16 || ws == nullptr || span < kSplitAlign ||
+        span % kSplitAlign != 0 || kv_begin < 0 ||
+        kv_begin % kSplitAlign != 0 || end - span >= S ||
+        (first < last && (kv_begin > first || end < last)))
+      return (int)cudaErrorInvalidValue;
+  }
+  return dispatch_hd(hd, is_bf16, q, k, v, out, ws, B, T, S, H, KV, scale,
+                     causal, window, q_offset, n_split, kv_begin, span,
+                     static_cast<cudaStream_t>(stream));
 }

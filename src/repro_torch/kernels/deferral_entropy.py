@@ -68,11 +68,6 @@ def vocab_split(T: int, V: int, n_sms: int) -> Tuple[int, int]:
     return span, -(-V // span)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # (device index, stream handle) -> the kernel's zeroed per-row ticket
 # counters, grown to the most rows seen on that stream; each call leaves
 # them zero, and calls on one stream run in order
@@ -101,7 +96,7 @@ def deferral_entropy(logits: torch.Tensor) -> Signal:
              "logits must be fp32 or bf16")
     x = logits.contiguous()
     dev = x.device
-    span, n_splits = vocab_split(T, V, _sm_count(dev.index))
+    span, n_splits = vocab_split(T, V, _build.sm_count(dev.index))
     stream = torch.cuda.current_stream(dev).cuda_stream
     neg_ent = torch.empty(T, dtype=torch.float32, device=dev)
     max_prob = torch.empty(T, dtype=torch.float32, device=dev)

@@ -623,26 +623,35 @@ def _flash_inputs(cuda, B, T, S, H, KV, hd, dtype, q_scale=1.0, seed=0):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-@pytest.mark.parametrize("B,T,S,H,KV,hd,off,q_scale,dtype", [
-    (8, 128, 288, 16, 8, 128, 128, 8.0, torch.bfloat16),
-    (8, 128, 288, 16, 8, 128, 128, 0.0, torch.bfloat16),
-    (2, 77, 131, 4, 2, 128, 54, 1.0, torch.bfloat16),
-    (2, 77, 131, 4, 2, 128, 54, 1.0, torch.float32),
-    (2, 128, 288, 128, 8, 128, 48, 1.0, torch.bfloat16),
-    (2, 128, 288, 128, 8, 128, 48, 1.0, torch.float32),
+@pytest.mark.parametrize("B,T,S,H,KV,hd,off,q_scale,dtype,causal", [
+    (8, 128, 288, 16, 8, 128, 128, 8.0, torch.bfloat16, True),
+    (8, 128, 288, 16, 8, 128, 128, 0.0, torch.bfloat16, True),
+    (2, 77, 131, 4, 2, 128, 54, 1.0, torch.bfloat16, True),
+    (2, 77, 131, 4, 2, 128, 54, 1.0, torch.float32, True),
+    (2, 128, 288, 128, 8, 128, 48, 1.0, torch.bfloat16, True),
+    (2, 128, 288, 128, 8, 128, 48, 1.0, torch.float32, True),
+    (8, 128, 288, 16, 8, 128, 128, 8.0, torch.float32, True),
+    (8, 128, 288, 16, 8, 128, 128, 0.0, torch.float32, True),
+    (8, 1500, 1500, 12, 12, 64, 0, 8.0, torch.float32, False),
+    (8, 1500, 1500, 12, 12, 64, 0, 0.0, torch.float32, False),
 ], ids=["peaked-bf16", "flat-bf16", "tile-edges-bf16", "tile-edges-fp32",
-        "llama3-405b-group16-bf16", "llama3-405b-group16-fp32"])
+        "llama3-405b-group16-bf16", "llama3-405b-group16-fp32",
+        "peaked-fp32", "flat-fp32", "whisper-encoder-peaked-fp32",
+        "whisper-encoder-flat-fp32"])
 def test_flash_kernel_matches_plain_on_hard_inputs(cuda, B, T, S, H, KV, hd,
-                                                   off, q_scale, dtype):
+                                                   off, q_scale, dtype,
+                                                   causal):
     """The tolerance of test_flash_kernel_matches_plain on inputs that
-    stress the bf16 kernel: a peaked softmax (q scaled by 8, P near
-    one-hot, so P's low bf16 half carries the difference from 1) and a
-    flat one (q = 0), T and S that no 16- or 64-wide tile divides, and
-    llama3-405b's group 16."""
+    stress either kernel: a peaked softmax (q scaled by 8, P near
+    one-hot, so P's low half, bf16 or TF32, carries the difference from
+    1, and the scores' TF32 low halves matter most) and a flat one (q =
+    0), T and S that no 16- or 64-wide tile divides, llama3-405b's group
+    16, and in fp32 internlm2's chunk and whisper-small's encoder (8 x
+    1500 over 1500, non-causal)."""
     q, k, v = _flash_inputs(cuda, B, T, S, H, KV, hd, dtype, q_scale)
     n = fa.flash_attention.launches
-    out = fa.flash_attention(q, k, v, causal=True, q_offset=off)
-    ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=off)
+    out = fa.flash_attention(q, k, v, causal=causal, q_offset=off)
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == n + 1 and out.dtype == dtype
     rtol = 0 if dtype == torch.float32 else 2 ** -7
@@ -715,6 +724,119 @@ def test_flash_kernel_non_causal_matches_plain(cuda, B, T, S, H, KV, hd,
     rtol = 0 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
                                rtol=rtol)
+    assert torch.equal(out, again)
+
+
+def _n_sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _force_split(monkeypatch, n):
+    """Make the wrapper cut all S keys, from key 0, into about n splits."""
+    monkeypatch.setattr(fa, "kv_split",
+                        lambda B, T, S, H, hd, n_sms, **_: (
+                            0, *fa.split_span(S, n)))
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd", [
+    (8, 1, 1500, 12, 12, 64),
+    (8, 16, 1500, 12, 12, 64),
+    (8, 1, 1499, 12, 12, 64),
+    (8, 16, 1499, 12, 12, 64),
+    (2, 1, 4097, 4, 2, 128),
+    (2, 16, 4097, 4, 2, 128),
+], ids=["T1-S1500", "T16-S1500", "T1-S1499", "T16-S1499", "T1-S4097",
+        "T16-S4097"])
+def test_flash_fp32_split_kv_matches_plain(cuda, monkeypatch, B, T, S, H,
+                                           KV, hd):
+    """Grids under one wave split the keys (`kv_split` says so here): the
+    fp32 kernel's split and merge launches against the plain version at
+    1e-4, one launch counted per call, two calls bit-equal, and a
+    one-split call of the same inputs within the same 1e-4."""
+    assert fa.kv_split(B, T, S, H, hd, _n_sms(), causal=False, window=0,
+                       q_offset=0)[2] > 1
+    q, k, v = _flash_inputs(cuda, B, T, S, H, KV, hd, torch.float32,
+                            seed=T + S)
+    n = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=False)
+    again = fa.flash_attention(q, k, v, causal=False)
+    _force_split(monkeypatch, 1)
+    one = fa.flash_attention(q, k, v, causal=False)
+    ref = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 3
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(one, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out, one, atol=1e-4, rtol=0)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("T,S,off,win,n_split", [
+    (20, 300, 200, 90, 4),
+    (70, 300, 200, 90, 4),
+    (12, 300, 298, 3, 4),
+    (12, 200, 210, 5, 3),
+], ids=["window-starts-in-a-split", "chunk-ends-in-a-split", "blind-rows",
+        "all-blind"])
+def test_flash_fp32_forced_split_under_a_window(cuda, monkeypatch, T, S, off,
+                                                win, n_split):
+    """Causal q_offset chunks with a window, the keys split by force: a
+    split boundary inside the window, a split no query sees (the first
+    case's keys past the chunk), rows that see no key (exact zeros) and a
+    call where no row sees any; each within 1e-4 of the plain version and
+    of a one-split call, two calls bit-equal."""
+    q, k, v = _flash_inputs(cuda, 2, T, S, 4, 2, 64, torch.float32,
+                            seed=off + T)
+    kw = dict(causal=True, window=win, q_offset=off)
+    assert fa.split_span(S, n_split)[1] > 1
+    _force_split(monkeypatch, n_split)
+    out = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    _force_split(monkeypatch, 1)
+    one = fa.flash_attention(q, k, v, **kw)
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out, one, atol=1e-4, rtol=0)
+    assert torch.equal(out, again)
+    blind = ~fa.visible_mask(T, S, **kw).any(dim=-1)
+    assert torch.all(out[:, blind] == 0) and torch.all(one[:, blind] == 0)
+    assert blind.all() or out[:, ~blind].abs().max() > 0
+
+
+@pytest.mark.parametrize("B,H,KV,hd,off", [
+    (1, 16, 8, 128, 0),
+    (1, 16, 8, 128, 128),
+    (2, 16, 8, 128, 0),
+    (2, 16, 8, 128, 128),
+    (4, 16, 8, 128, 0),
+    (4, 16, 8, 128, 128),
+], ids=["B1-off0", "B1-off128", "B2-off0", "B2-off128", "B4-off0",
+        "B4-off128"])
+def test_flash_fp32_causal_split_at_the_engine_shapes(cuda, monkeypatch, B,
+                                                      H, KV, hd, off):
+    """internlm2-1.8b's paged prefill dispatches of 1, 2 and 4 rows (128
+    queries at q_offset 0 or 128 over the 288-position cache view, 16/8
+    heads of 128): under one wave, so `kv_split` splits the keys the
+    chunk's queries see, and no further; 4-warp CTAs of 64 queries, causal,
+    against the plain version and a one-split call at 1e-4, two calls
+    bit-equal, one launch counted a call."""
+    T, S = 128, 288
+    kw = dict(causal=True, window=0, q_offset=off)
+    begin, span, n_split = fa.kv_split(B, T, S, H, hd, _n_sms(), **kw)
+    assert n_split > 1 and begin + n_split * span == off + T
+    q, k, v = _flash_inputs(cuda, B, T, S, H, KV, hd, torch.float32,
+                            seed=B + off)
+    n = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    _force_split(monkeypatch, 1)
+    one = fa.flash_attention(q, k, v, **kw)
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 3
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out, one, atol=1e-4, rtol=0)
     assert torch.equal(out, again)
 
 

@@ -150,6 +150,257 @@ def test_bf16_kernel_precision_design_holds_the_card_tolerance(off):
     assert share(split=False) > 1.0
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as `cvt.rna.tf32.f32` rounds (the kernel's `split_tf32` makes
+    the same bits with an integer add and a mask)."""
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def _tf32_cut(x):
+    """x truncated to TF32, as the tensor cores read an fp32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, three):
+    """einsum(eq, a, b) as the fp32 kernel's tensor cores form it: each
+    operand split into hi = tf32(x) and lo = x - hi, truncated to TF32,
+    the three products lo.hi + hi.lo + hi.hi (``three``) or hi.hi alone,
+    fp32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if three:
+        al, bl = _tf32_cut(a - ah), _tf32_cut(b - bh)
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+def _emulated_f32_kernel(q, k, v, three, **kw):
+    """The fp32 kernel's arithmetic in one softmax: Q . K^T and P @ V as
+    TF32 products (`_tf32_product`), fp32 scores, p = exp(s - row max),
+    division by the fp32 row sum of the unsplit p."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, T, KV, H // KV, hd)
+    s = _tf32_product("btkgh,bskh->bkgts", qg, k, three) / math.sqrt(hd)
+    mask = tfa.visible_mask(T, S, **kw)
+    s = torch.where(mask, s, tfa.NEG)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    o = _tf32_product("bkgts,bskh->bkgth", p, v, three)
+    o = o / p.sum(-1).clamp_min(1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,causal,off", [
+    (8, 128, 288, 16, 8, 128, True, 128),
+    (1, 64, 1500, 4, 4, 64, False, 0),
+], ids=["internlm2-chunk", "non-causal-S1500"])
+def test_tf32x3_precision_design_holds_the_card_tolerance(B, T, S, H, KV, hd,
+                                                          causal, off):
+    """Pins the fp32 kernel's tensor-core design with a peaked softmax (q
+    x 8): Q . K^T and P @ V each as three TF32 products of split operands
+    stay within the 1e-4 the card tests hold the kernel to against
+    `flash_attention_plain`, and one TF32 product each does not, so a
+    one-product kernel cannot pass for a simplification."""
+    rng = np.random.default_rng(23 + S)
+    q = torch.from_numpy(rng.standard_normal((B, T, H, hd))
+                         .astype(np.float32) * 8)
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, KV, hd))
+                             .astype(np.float32)) for _ in range(2))
+    kw = dict(causal=causal, q_offset=off)
+    ref = tfa.flash_attention_plain(q, k, v, **kw)
+
+    def err(three):
+        return float((_emulated_f32_kernel(q, k, v, three, **kw) - ref)
+                     .abs().max())
+    assert err(three=True) <= 1e-4
+    assert err(three=False) > 1e-4
+
+
+def _split_partials(q, k, v, begin, span, n, **kw):
+    """Per split s (keys [begin + s * span, begin + (s + 1) * span)): the
+    rows' max m (log2 units, -1e30 where the split shows a row no key),
+    sum l of p = exp2(x - m) and unnormalised acc = p @ V, as the split
+    kernel writes them."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, T, KV, H // KV, hd)
+    x = torch.einsum("btkgh,bskh->bkgts", qg, k) * (math.log2(math.e)
+                                                   / math.sqrt(hd))
+    mask = tfa.visible_mask(T, S, **kw)
+    parts = []
+    for i in range(n):
+        cut = slice(begin + i * span, min(S, begin + (i + 1) * span))
+        vis = mask[:, cut]
+        xs = torch.where(vis, x[..., cut], tfa.NEG)
+        m = xs.amax(dim=-1)
+        p = torch.where(vis, torch.exp2(xs - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgts,bskh->bkgth", p, v[:, cut])))
+    return parts
+
+
+def _merge(parts):
+    """The merge kernel's arithmetic: weights exp2(m_s - m) with m the
+    splits' largest m, l and o summed in split order, o / max(l, 1e-30)."""
+    m_all = parts[0][0]
+    for m, _, _ in parts[1:]:
+        m_all = torch.maximum(m_all, m)
+    den, acc = 0.0, 0.0
+    for m, l, a in parts:
+        w = torch.exp2(m - m_all)
+        den = den + w * l
+        acc = acc + w[..., None] * a
+    return acc / den.clamp_min(1e-30)[..., None]
+
+
+def _rows(o):
+    B, KV, G, T, hd = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, KV * G, hd)
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,causal,win,off,want", [
+    (8, 1, 1500, 12, 12, 64, False, 0, 0, None),     # whisper's decode step
+    (2, 16, 1499, 4, 4, 64, False, 0, 0, None),
+    (1, 128, 288, 16, 8, 128, True, 0, 128, None),   # internlm2, one row
+    (2, 20, 300, 4, 2, 128, True, 90, 200, None),    # window cut
+    (2, 20, 300, 4, 2, 64, True, 90, 200, 4),  # window starts in split 0,
+                                               # split 2 past the chunk
+    (2, 70, 300, 4, 2, 64, True, 90, 200, 4),  # chunk ends in split 2
+    (1, 12, 300, 2, 1, 32, True, 3, 298, 4),   # rows past the keys: blind
+    (1, 12, 200, 2, 1, 32, True, 5, 210, 3),   # every row blind
+], ids=["whisper-decode", "T16-S1499", "internlm2-B1-chunk",
+        "window-kv-split", "window-in-split", "window-in-split-T70",
+        "blind-rows", "all-blind"])
+def test_split_merge_arithmetic_holds_the_tolerance(B, T, S, H, KV, hd,
+                                                    causal, win, off, want):
+    """The split-KV path's arithmetic against the one-shot softmax of
+    `flash_attention_plain`: per split (m, l, acc), merged in split order,
+    within the kernel's 1e-4, with splits as `kv_split` (at 132 SMs) or
+    `split_span` over all S keys cut them, including a split no query
+    sees, a window that ends inside a split and rows that see nothing
+    (exact zeros). One split merged is the single split's own o / max(l,
+    1e-30), exactly."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(S + T, B, T, S, H, KV, hd))
+    kw = dict(causal=causal, window=win, q_offset=off)
+    begin, span, n = (tfa.kv_split(B, T, S, H, hd, 132, **kw)
+                      if want is None else (0, *tfa.split_span(S, want)))
+    first, last = tfa.seen_keys(T, S, **kw)
+    assert n > 1 and begin <= first and last <= begin + n * span
+    # kv_split's last split starts below the last seen key; a forced one
+    # below S
+    assert begin + (n - 1) * span < (last if want is None else S)
+    parts = _split_partials(q, k, v, begin, span, n, **kw)
+    ref = tfa.flash_attention_plain(q, k, v, **kw)
+    out = _rows(_merge(parts))
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    blind = ~tfa.visible_mask(T, S, **kw).any(dim=-1)
+    assert torch.all(out[:, blind] == 0)
+    mask = tfa.visible_mask(T, S, **kw)
+    for i, (m, l, a) in enumerate(parts):   # a split no query sees adds 0
+        if not mask[:, begin + i * span:begin + (i + 1) * span].any():
+            assert torch.all(m <= tfa.NEG) and not l.any() and not a.any()
+    (m1, l1, a1), = _split_partials(q, k, v, 0, -(-S // 64) * 64, 1, **kw)
+    torch.testing.assert_close(_merge([(m1, l1, a1)]),
+                               a1 / l1.clamp_min(1e-30)[..., None],
+                               atol=0, rtol=0)
+
+
+NON_CAUSAL = dict(causal=False, window=0, q_offset=0)
+
+
+@pytest.mark.parametrize("shape,mask,want", [
+    ((8, 128, 288, 16, 128), dict(causal=True, window=0, q_offset=128),
+     (0, 288, 1)),                          # internlm2-1.8b's chunk
+    ((8, 128, 288, 32, 64), dict(causal=True, window=288, q_offset=0),
+     (0, 288, 1)),                          # zamba2-1.2b's shared block
+    ((8, 577, 593, 32, 96), dict(causal=True, window=0, q_offset=0),
+     (0, 593, 1)),                          # phi-3-vision's prefill
+    ((8, 1500, 1500, 12, 64), NON_CAUSAL, (0, 1500, 1)),  # whisper's encoder
+    ((8, 16, 32, 12, 64), dict(causal=True, window=0, q_offset=0),
+     (0, 32, 1)),                           # its decoder's prefill
+    ((8, 16, 1500, 12, 64), NON_CAUSAL, (0, 256, 6)),  # its cross-attention
+    ((8, 1, 1500, 12, 64), NON_CAUSAL, (0, 256, 6)),   # ... at a decode step
+    # the paged engine's prefill dispatches of 1, 2 and 4 rows: the keys
+    # past the chunk's last query are never split
+    ((1, 128, 288, 16, 128), dict(causal=True, window=0, q_offset=0),
+     (0, 64, 2)),
+    ((1, 128, 288, 16, 128), dict(causal=True, window=0, q_offset=128),
+     (0, 64, 4)),
+    ((2, 128, 288, 16, 128), dict(causal=True, window=0, q_offset=128),
+     (0, 64, 4)),
+    ((4, 128, 288, 16, 128), dict(causal=True, window=0, q_offset=0),
+     (0, 64, 2)),
+    ((4, 128, 288, 16, 128), dict(causal=True, window=0, q_offset=128),
+     (0, 128, 2)),
+    # zamba2's slot prefill of 1 or 2 rows: 128 keys at hd 64 are one
+    # split's minimum bytes
+    ((1, 128, 288, 32, 64), dict(causal=True, window=288, q_offset=0),
+     (0, 288, 1)),
+    ((2, 128, 288, 32, 64), dict(causal=True, window=288, q_offset=0),
+     (0, 288, 1)),
+], ids=["internlm2-chunk", "zamba2-shared", "phi3v-prefill",
+        "whisper-encoder", "whisper-decoder-self", "whisper-cross-prefill",
+        "whisper-cross-decode", "internlm2-B1-off0", "internlm2-B1-off128",
+        "internlm2-B2-off128", "internlm2-B4-off0", "internlm2-B4-off128",
+        "zamba2-B1", "zamba2-B2"])
+def test_kv_split_at_the_path_shapes(shape, mask, want):
+    """Grids of a wave or more never split; whisper's cross-attention (96
+    one-warp CTAs of one row and head) splits its 1500 keys six ways; the
+    paged engine's causal dispatches of 1 to 4 rows (32 to 128 four-warp
+    CTAs) split only the keys their queries see."""
+    assert tfa.kv_split(*shape, 132, **mask) == want
+
+
+def test_kv_split_edges():
+    """One wave of CTAs exactly: no split, one CTA fewer: splits; T 17
+    takes 64-query tiles, T 65 two; fewer seen keys than two splits' minimum bytes:
+    one split; the MAX_SPLITS cap; a causal chunk's keys past its last
+    query and a window's before its first are never split; a call no query
+    sees a key of takes one split; and for any shape and mask, whole
+    64-key spans from an aligned begin at or before the first seen key,
+    every split starting below the last seen key, the last ending at or
+    past it."""
+    kv = tfa.kv_split
+    assert kv(1, 16, 1500, 132, 64, 132, **NON_CAUSAL)[2] == 1
+    assert kv(1, 16, 1500, 131, 64, 132, **NON_CAUSAL)[2] > 1
+    assert kv(1, 17, 1500, 66, 64, 132, **NON_CAUSAL)[2] > 1   # 1 tile x 66
+    assert kv(1, 65, 1500, 66, 64, 132, **NON_CAUSAL)[2] == 1  # 2 tiles x 66
+    assert kv(1, 1, 255, 1, 64, 132, **NON_CAUSAL) == (0, 255, 1)
+    assert kv(1, 1, 256, 1, 64, 132, **NON_CAUSAL) == (0, 128, 2)
+    assert kv(1, 1, 256, 1, 128, 132, **NON_CAUSAL) == (0, 64, 4)
+    assert kv(1, 1, 10 ** 6, 1, 16, 132, **NON_CAUSAL)[2] == tfa.MAX_SPLITS
+    # causal: one query at position 200 sees keys 0..200 of 4000
+    assert kv(1, 1, 4000, 1, 128, 132, causal=True, window=0,
+              q_offset=200) == (0, 128, 2)
+    # a window of 300 ending at position 3000: keys 2701..3000, from 2688
+    assert kv(1, 1, 4000, 1, 128, 132, causal=True, window=300,
+              q_offset=3000) == (2688, 128, 3)
+    assert kv(1, 4, 100, 1, 64, 132, causal=True, window=5,
+              q_offset=500) == (0, 100, 1)             # nothing seen
+    rng = np.random.default_rng(0)
+    for _ in range(500):
+        B, T, S, H = (int(x) for x in rng.integers(1, (9, 40, 9000, 40)))
+        hd = int(rng.choice([16, 50, 64, 96, 128, 256]))
+        causal = bool(rng.integers(2))
+        mask = dict(causal=causal, window=int(rng.integers(0, 2 * S)),
+                    q_offset=int(rng.integers(0, S)) if causal else 0)
+        begin, span, n = kv(B, T, S, H, hd, 132, **mask)
+        assert 1 <= n <= tfa.MAX_SPLITS
+        if n == 1:
+            assert (begin, span) == (0, S)
+            continue
+        seen = tfa.visible_mask(T, S, **mask).any(dim=0).nonzero()
+        first, last = int(seen.min()), int(seen.max()) + 1
+        assert (first, last) == (max(0, mask["q_offset"] - mask["window"]
+                                     + 1) if mask["window"] else 0,
+                                 tfa.seen_keys(T, S, **mask)[1])
+        assert begin % tfa.SPLIT_ALIGN == 0 and span % tfa.SPLIT_ALIGN == 0
+        assert begin <= first and begin + (n - 1) * span < last
+        assert last <= begin + n * span
+
+
 def test_wrapper_takes_plain_on_cpu_and_counts_nothing():
     q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 9, 9, 4, 2, 16))
     n = tfa.flash_attention.launches
