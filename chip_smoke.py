@@ -1,15 +1,15 @@
 """Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
     python3 chip_smoke.py          # from the root of a repository checkout
-    python3 chip_smoke.py --kernels 3c,3e [--src DIR] [--parent FILE]
+    python3 chip_smoke.py --kernels 3c,3e,7a [--src DIR] [--parent FILE]
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
 the `repro_torch` under another source directory (an unpacked parent
 commit, say), so two trees are timed by the same checks in one call.
 `--parent` takes the last line of such a run of the parent (its kernels'
-JSON record): phase 3d then prints each fp32 case's parent time beside
-the case's own.
+JSON record): phases 3d and 7a then print each case's parent time beside
+the case's own (3d its fp32 cases).
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -184,12 +184,17 @@ non-zero:
      7a. The fused Gatekeeper-loss kernel against its plain version at the
          full-width Stage-2 shapes (T = 16*128 tokens, d 2048, vocab
          92544; bf16 x and fp32 table as the main path gives them, and all
-         fp32), timed beside its bound and cuBLAS's fp32 logits GEMM; the
+         fp32), twice and bit-equal, bf16 x bit-equal to the same x
+         widened to fp32, timed beside its bound at the kernel's TF32 rate
+         (the SIMT-rate one beside) and cuBLAS's fp32 logits GEMM; the
          same at phase 12's Stage-2 shapes (whisper-small: 8 x 16 tokens,
          d 768, vocab 51865; phi-3-vision: 8 x (576 + 3) positions, d
          3072, vocab 32064, with `gatekeeper_loss_fused`'s loss under the
-         patch mask held against the plain reduction); and the gradients
-         of `gatekeeper_loss_fused` (kernel forward, chunked backward)
+         patch mask held against the plain reduction); phi-3-vision's
+         Stage-2 loss forward + backward through `launch.steps`, which
+         hands the kernel only its 24 loss rows, against autograd through
+         the plain version, and timed; and the gradients of
+         `gatekeeper_loss_fused` (kernel forward, chunked backward)
          against autograd through the plain version.
      7b. The training main path: `launch.train.run` on internlm2-1.8b at
          its published width, 2 Stage-1 (CE) and 3 Stage-2 (Gatekeeper)
@@ -221,6 +226,8 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 H100_TF32X3_FLOPS = 495e12 / 3   # fp32 as three TF32 tensor-core products
                                  # (495 TFLOP/s dense TF32, data sheet)
+H100_TF32X2_FLOPS = 495e12 / 2   # bf16 x fp32 as two TF32 products (the
+                                 # bf16 operand is exact in TF32)
 H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
 
 # main-path configurations (full width, one card)
@@ -1920,21 +1927,32 @@ def loss_case(torch, x_dtype, V: int, d: int, seed: int, T: int = LOSS_T):
 
 def check_loss_kernel(torch, gk, smi, V: int, d: int, T: int = LOSS_T,
                       rows: int = 1, invalid: int = 0,
-                      label: str = "internlm2-1.8b") -> dict:
+                      label: str = "internlm2-1.8b",
+                      parent_cases=None) -> dict:
     """gatekeeper_loss_tokens against its plain version (bf16 x and all
-    fp32) at T tokens; times kernel, plain version and the fp32 cuBLAS
-    GEMM of the logits alone (bf16 x case). With `invalid` > 0 the T
-    tokens are `rows` sequences whose first `invalid` positions leave the
-    loss (the VLM's patches), and `gatekeeper_loss_fused`'s masked loss
-    and terms are also held against the plain reduction. Returns the
-    kernel's record."""
+    fp32) at T tokens, twice and bit-equal, and with bf16 x bit-equal to
+    the same x widened to fp32 (its two TF32 products are the three-
+    product sum); times kernel, plain version and the fp32 cuBLAS GEMM of
+    the logits alone, beside the bound at the kernel's TF32 rate (two
+    products for bf16 x, three for fp32) and the SIMT-rate one. With
+    `invalid` > 0 the T tokens are `rows` sequences whose first `invalid`
+    positions leave the loss (the VLM's patches), and
+    `gatekeeper_loss_fused`'s masked loss and terms are also held against
+    the plain reduction. `parent_cases` (a parent tree's record's "cases")
+    puts each case's parent time beside its own. Returns the bf16-x case's
+    record (the main path's types) with every case under "cases"."""
     rec = None
+    cases = {}
     valid = torch.ones(T, device=DEV)
     valid.view(rows, T // rows)[:, :invalid] = 0.0
-    for name, x_dtype in (("x bf16, table fp32", torch.bfloat16),
-                          ("all fp32", torch.float32)):
+    for name, x_dtype, rate in (
+            ("x bf16, table fp32", torch.bfloat16, H100_TF32X2_FLOPS),
+            ("all fp32", torch.float32, H100_TF32X3_FLOPS)):
         x, table, tgt, gap = loss_case(torch, x_dtype, V, d, SEED + 7, T)
         got = gk.gatekeeper_loss_tokens(x, table, tgt)
+        again = gk.gatekeeper_loss_tokens(x, table, tgt)
+        widened = (gk.gatekeeper_loss_tokens(x.float(), table, tgt)
+                   if x_dtype == torch.bfloat16 else got)
         want = gk.gatekeeper_loss_tokens_plain(x, table, tgt)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max())
@@ -1943,14 +1961,21 @@ def check_loss_kernel(torch, gk, smi, V: int, d: int, T: int = LOSS_T,
         flips = int((got[2] != want[2]).sum())
         clear_flips = int((got[2][clear] != want[2][clear]).sum())
         ok = all(bool(torch.isfinite(t).all()) for t in got)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        same_wide = all(torch.equal(a, b) for a, b in zip(got, widened))
         print(f"[train] gatekeeper_loss_tokens {label} {name}, T {T} d {d} "
               f"V {V}: max|err| ce/kl/entropy {err:.3g} (atol {LOSS_ATOL}); "
               f"correct differs on {flips} rows, {clear_flips} of them with "
               f"a top-2 gap > {TIE_GAP} ({int((~clear).sum())} rows under "
-              f"it); frac correct {float(want[2].mean()):.3f}")
-        if not (ok and err <= LOSS_ATOL and clear_flips == 0):
+              f"it); frac correct {float(want[2].mean()):.3f}; two calls "
+              f"bit-equal {same}"
+              + (f", bit-equal to x widened to fp32 {same_wide}"
+                 if x_dtype == torch.bfloat16 else ""))
+        if not (ok and err <= LOSS_ATOL and clear_flips == 0 and same
+                and same_wide):
             raise AssertionError(f"gatekeeper_loss_tokens ({name}): err "
-                                 f"{err} or {clear_flips} flips on clear rows")
+                                 f"{err}, {clear_flips} flips on clear "
+                                 f"rows, bit-equal {same} / {same_wide}")
         if invalid:
             loss_k, aux = gk.gatekeeper_loss_fused(x, table, tgt, valid,
                                                    alpha=0.3)
@@ -1970,36 +1995,151 @@ def check_loss_kernel(torch, gk, smi, V: int, d: int, T: int = LOSS_T,
             if not t_err <= LOSS_ATOL:
                 raise AssertionError(f"masked loss ({label}, {name}): "
                                      f"{t_err}")
+        del got, again, widened, want
+        ms = time_ms(lambda: gk.gatekeeper_loss_tokens(x, table, tgt),
+                     iters=5, warmup=1)
+        plain_ms = time_ms(lambda: gk.gatekeeper_loss_tokens_plain(
+            x, table, tgt), iters=5, warmup=1)
+        x32 = x.float()
+        # yardstick only, never called by the port: cuBLAS's fp32 GEMM
+        # of the logits, which computes none of the reductions
+        lib_ms = time_ms(lambda: x32 @ table.t(), iters=5, warmup=1)
+        del x32
+        n_bytes = (x.numel() * x.element_size() + table.numel() * 4
+                   + tgt.numel() * 4 + 4 * T * 4)
+        flops = 2 * T * V * d
+        bound_ms, bound_by = bound(n_bytes, flops, rate)
+        simt_ms, simt_by = bound(n_bytes, flops)
+        n_prod = 2 if x_dtype == torch.bfloat16 else 3
+        need = ""
+        if invalid:
+            n_valid = int(valid.sum())
+            rows_bytes = (n_valid * d * x.element_size() + table.numel() * 4
+                          + 4 * n_valid * 5)
+            need = (f"; the loss reads {n_valid} of these rows, a bound of "
+                    f"{bound(rows_bytes, flops * n_valid / T, rate)[0]:.4f}"
+                    f" ms for them alone")
+        key = f"{label} {name}"
+        p_ms = (parent_cases or {}).get(key, {}).get("ms")
+        versus = ""
+        if parent_cases is not None:
+            versus = (f"; parent {p_ms:.3f} ms ({ms / p_ms:.3f}x)" if p_ms
+                      else "; parent not measured")
+        print(f"[kernel] gatekeeper_loss_tokens {key}: kernel {ms:.3f} ms"
+              f"{versus}, plain {plain_ms:.3f} ms, cuBLAS fp32 logits GEMM "
+              f"{lib_ms:.3f} ms ({ms / lib_ms:.3f}x), bound {bound_ms:.4f} "
+              f"ms ({bound_by}: {n_bytes} B, {flops} fp32 flop as "
+              f"{n_prod} TF32 products at {rate / 1e12:.1f} TFLOP/s), "
+              f"SIMT-rate bound {simt_ms:.4f} ms ({simt_by}){need} on {smi}")
+        cases[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          bound_simt_ms=simt_ms, max_abs_err=err,
+                          shape=[T, d, V])
+        if parent_cases is not None:
+            cases[key]["parent_ms"] = p_ms
         if rec is None:                     # the main path's types
-            ms = time_ms(lambda: gk.gatekeeper_loss_tokens(x, table, tgt),
-                         iters=5, warmup=1)
-            plain_ms = time_ms(lambda: gk.gatekeeper_loss_tokens_plain(
-                x, table, tgt), iters=5, warmup=1)
-            x32 = x.float()
-            # yardstick only, never called by the port: cuBLAS's fp32 GEMM
-            # of the logits, which computes none of the reductions
-            lib_ms = time_ms(lambda: x32 @ table.t(), iters=5, warmup=1)
-            n_bytes = (x.numel() * x.element_size() + table.numel() * 4
-                       + tgt.numel() * 4 + 4 * T * 4)
-            flops = 2 * T * V * d
-            bound_ms, bound_by = bound(n_bytes, flops)
-            need = (f"; the loss reads {int(valid.sum())} of these rows, "
-                    f"a bound of {bound(n_bytes, flops * valid.mean())[0]:.4f}"
-                    f" ms for them alone" if invalid else "")
-            print(f"[kernel] gatekeeper_loss_tokens {label} {name}: kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, cuBLAS fp32 logits "
-                  f"GEMM {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
-                  f"({bound_by}: {n_bytes} B, {flops} fp32 flop){need} on "
-                  f"{smi}")
             rec = dict(name="gatekeeper_loss_tokens", route="cuda",
                        source="src/repro_torch/kernels/csrc/gatekeeper_loss.cu",
                        replaces="src/repro/kernels/gatekeeper_loss.py:99",
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=lib_ms, shape=[T, d, V])
-        del x, table, tgt, got, want
+                       **cases[key])
+        del x, table, tgt
         torch.cuda.empty_cache()
+    rec["cases"] = cases
     return rec
+
+
+def check_stage2_vlm_loss(torch, gk, smi, parent_cases=None) -> dict:
+    """phi-3-vision-4.2b's Stage-2 loss as `launch.steps` computes it:
+    `fused_gatekeeper_loss` over 8 x (576 + 3) positions (d 3072, vocab
+    32064, bf16 x, fp32 table) with the 576 patch positions of each row
+    masked, forward and backward (one kernel launch), against autograd
+    through the plain version over every row (the loss within LOSS_ATOL,
+    dx and dtable within check_loss_gradients' tolerances); then the
+    forward + backward timed (each call with its host read of the valid
+    count), beside `parent_cases`' time where given, and split by kernel
+    under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.launch import steps
+    c = get_config(VLM_ARCH)
+    P = c.vision.n_patches
+    B, S = N_SLOTS, P + 3
+    x, table, tgt, _ = loss_case(torch, torch.bfloat16, c.vocab_size,
+                                 c.d_model, SEED + 9, B * S)
+    mask = torch.ones((B, S), device=DEV)
+    mask[:, :P] = 0.0
+    alpha = 0.3
+    gkc = GatekeeperConfig(alpha=alpha)
+    xk = x.clone().requires_grad_(True)
+    tk = table.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        xk.grad = tk.grad = None
+        loss, _ = steps.fused_gatekeeper_loss(
+            xk.view(B, S, -1), tk, tgt.view(B, S), gkc, mask)
+        loss.backward()
+        return loss
+    n = gk.gatekeeper_loss_tokens.launches
+    loss_k = fwd_bwd().detach()
+    torch.cuda.synchronize()
+    launched = gk.gatekeeper_loss_tokens.launches - n
+    grads_k = (xk.grad.float(), tk.grad.clone())
+    xp = x.clone().requires_grad_(True)
+    tp = table.clone().requires_grad_(True)
+    ce, kl, corr, _ = gk.gatekeeper_loss_tokens_plain(xp, tp, tgt)
+    valid = mask.view(-1)
+    corr = corr.detach()
+    loss_p = (alpha * (ce * corr * valid).sum()
+              + (1 - alpha) * (kl * (1 - corr) * valid).sum()) / valid.sum()
+    loss_p.backward()
+    torch.cuda.synchronize()
+    errs = []
+    for name, gkk, gp, tol in (("dx", grads_k[0], xp.grad.float(),
+                                DX_RTOL_OF_MAX),
+                               ("dtable", grads_k[1], tp.grad,
+                                DTABLE_RTOL_OF_MAX)):
+        rel = float((gkk - gp).abs().max()) / float(gp.abs().max())
+        errs.append((name, rel, tol))
+    dloss = abs(float(loss_k) - float(loss_p.detach()))
+    masked_dx = float(grads_k[0].view(B, S, -1)[:, :P].abs().max())
+    del xp, tp, ce, kl, corr, loss_p, grads_k
+    torch.cuda.empty_cache()
+    ms = time_ms(fwd_bwd, iters=5, warmup=1)
+
+    def run():
+        for _ in range(5):
+            fwd_bwd()
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, ranked = profile_steps(torch, run, 5)
+    key = f"{VLM_ARCH} stage-2 loss forward + backward"
+    p_ms = (parent_cases or {}).get(key, {}).get("ms")
+    versus = ""
+    if parent_cases is not None:
+        versus = (f"; parent {p_ms:.3f} ms ({ms / p_ms:.3f}x)" if p_ms
+                  else "; parent not measured")
+    print(f"[train] {key}, {B} x {S} positions ({int(valid.sum())} in the "
+          f"loss), d {c.d_model}, V {c.vocab_size}: |dloss| {dloss:.3g} "
+          f"(<= {LOSS_ATOL}), "
+          + ", ".join(f"max|d{nm[1:]}| / max|{nm}| {r:.3g} (<= {t})"
+                      for nm, r, t in errs)
+          + f", max|dx| on the patch rows {masked_dx}; kernel launches "
+          f"{launched}; {ms:.3f} ms a forward + backward{versus} on {smi}")
+    busy = ("not measured (profiler saw no device time)" if busy_ms is None
+            else f"device busy {busy_ms:.3f} ms")
+    print(f"[train] {key}: host wall {wall_ms:.3f} ms a call, {busy}; by "
+          f"kernel: " + ", ".join(f"{name[:60]} {t:.3f}"
+                                  for name, t in ranked[:6]))
+    if (launched != 1 or dloss > LOSS_ATOL or masked_dx != 0.0
+            or any(r > t for _, r, t in errs)):
+        raise AssertionError(f"{key}: {errs}, |dloss| {dloss}, patch-row dx "
+                             f"{masked_dx}, {launched} launches")
+    rec = dict(ms=ms, loss_rows=int(valid.sum()), rows=B * S,
+               host_wall_ms=wall_ms, device_busy_ms=busy_ms)
+    if parent_cases is not None:
+        rec["parent_ms"] = p_ms
+    del xk, tk, x, table
+    torch.cuda.empty_cache()
+    return {key: rec}
 
 
 def check_loss_gradients(torch, gk, V: int, d: int) -> None:
@@ -2518,7 +2658,45 @@ def steps_families(torch, smi) -> tuple:
     return serving, stage2
 
 
-KERNEL_PHASES = ("3", "3b", "3c", "3d", "3e")
+def loss_phase(torch, gk, smi, parent=None) -> dict:
+    """Phase 7a: the loss kernel at internlm2-1.8b's Stage-2 shape and
+    phase 12's (whisper-small's 8 x 16 decoder tokens, phi-3-vision's 8 x
+    (576 + 3) positions with the patches masked), phi-3-vision's Stage-2
+    loss forward + backward through `launch.steps`, and the fused loss's
+    gradients at internlm2's shape. `parent` is a parent tree's kernels
+    record (`--parent`): every case prints its parent's time beside its
+    own. Returns the kernel's record, every case under "cases". Needs
+    autograd: run it outside inference mode."""
+    from repro_torch.configs import get_config
+    parent_cases = None
+    if parent is not None:
+        parent_cases = {}
+        for r in parent.get("kernels", []):
+            if r.get("name") == "gatekeeper_loss_tokens":
+                parent_cases = r.get("cases", {})
+    cfg = get_config(ARCH)
+    rec = check_loss_kernel(torch, gk, smi, cfg.vocab_size, cfg.d_model,
+                            parent_cases=parent_cases)
+    rec["by_shape"] = {}
+    for arch, T, invalid in (
+            (WHISPER_ARCH, N_SLOTS * ENC_PROMPT, 0),
+            (VLM_ARCH, N_SLOTS * (get_config(VLM_ARCH).vision.n_patches
+                                  + 3), get_config(VLM_ARCH).vision.n_patches)):
+        c = get_config(arch)
+        r = check_loss_kernel(torch, gk, smi, c.vocab_size, c.d_model, T,
+                              N_SLOTS, invalid, arch, parent_cases)
+        rec["by_shape"][arch] = {k: r[k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_simt_ms", "max_abs_err")}
+        rec["cases"].update(r["cases"])
+        torch.cuda.empty_cache()
+    rec["cases"].update(check_stage2_vlm_loss(torch, gk, smi, parent_cases))
+    check_loss_gradients(torch, gk, cfg.vocab_size, cfg.d_model)
+    torch.cuda.empty_cache()
+    return rec
+
+
+KERNEL_PHASES = ("3", "3b", "3c", "3d", "3e", "7a")
 
 
 def check_kernels(torch, np, rng, smi, phases, t_start,
@@ -2610,7 +2788,7 @@ def parse_args(argv=None):
     ap.add_argument("--parent", type=Path, default=None,
                     help="a file holding the last line (the kernels' JSON "
                          "record) of a --kernels run of the parent tree: "
-                         "phase 3d prints each fp32 case's parent time")
+                         "phases 3d and 7a print each case's parent time")
     args = ap.parse_args(argv)
     if args.kernels is not None:
         bad = set(args.kernels.split(",")) - set(KERNEL_PHASES)
@@ -2663,12 +2841,19 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         parent = (json.loads(args.parent.read_text().strip()
                              .splitlines()[-1]) if args.parent else None)
-        records = check_kernels(torch, np, rng, smi, phases, t_start, parent)
-        if args.kernels is not None:
-            print(f"[done] {time.perf_counter() - t_start:.1f} s")
-            print(json.dumps({"kernels": list(records.values())}))
-            return 0
-
+        records = check_kernels(torch, np, rng, smi,
+                                [p for p in phases if p != "7a"], t_start,
+                                parent)
+    if args.kernels is not None:
+        if "7a" in phases:
+            phase("7a", t_start)
+            from repro_torch.kernels import gatekeeper_loss as gk
+            records["gatekeeper_loss_tokens"] = loss_phase(torch, gk, smi,
+                                                           parent)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": list(records.values())}))
+        return 0
+    with torch.inference_mode():
         from repro_torch.configs import get_config
         from repro_torch.launch import serve
         from repro_torch.models import transformer as tfm
@@ -2778,24 +2963,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import gatekeeper_loss as gk
     from repro_torch.launch import train
     torch.cuda.empty_cache()
-    cfg = get_config(ARCH)
-    rec = check_loss_kernel(torch, gk, smi, cfg.vocab_size, cfg.d_model)
-    # phase 12's Stage-2 shapes: whisper-small's 8 x 16 decoder tokens, and
-    # phi-3-vision's 8 x (576 + 3) positions with the patches masked
-    rec["by_shape"] = {}
-    for arch, T, invalid in (
-            (WHISPER_ARCH, N_SLOTS * ENC_PROMPT, 0),
-            (VLM_ARCH, N_SLOTS * (get_config(VLM_ARCH).vision.n_patches
-                                  + 3), get_config(VLM_ARCH).vision.n_patches)):
-        c = get_config(arch)
-        r = check_loss_kernel(torch, gk, smi, c.vocab_size, c.d_model, T,
-                              N_SLOTS, invalid, arch)
-        rec["by_shape"][arch] = {k: r[k] for k in (
-            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err")}
-        torch.cuda.empty_cache()
-    check_loss_gradients(torch, gk, cfg.vocab_size, cfg.d_model)
-    torch.cuda.empty_cache()
+    rec = loss_phase(torch, gk, smi)
     n = train_main_path(torch, gk, train, smi)
     rec.update(launches=n + sum(stage2.values()),
                launches_by_path={"train": n, **stage2})

@@ -8,9 +8,11 @@ note says what bounds it and what its design does about that.
 
   * `gatekeeper_loss_tokens` — per token (ce, kl, correct, entropy) of
     the logits ``x @ table.T`` in one streaming pass over the
-    vocabulary, without the [T, V] logits in memory; x and the table are
-    taken in fp32 (cast if they come as bf16), targets int32. The argmax
-    keeps the first index of the maximum.
+    vocabulary, without the [T, V] logits in memory; x is taken in its
+    own type (fp32, or bf16, which the kernel reads as it is and
+    multiplies in two TF32 products instead of three), the table in fp32
+    (cast if it comes as bf16), targets int32. The argmax keeps the first
+    index of the maximum.
   * `gatekeeper_loss_fused` — the scalar loss alpha*L_corr +
     (1-alpha)*L_incorr over valid tokens and the per-token aux of
     `repro.kernels.ops.gatekeeper_loss_fused`, differentiable in x and
@@ -33,8 +35,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-_TB = _VB = 128               # token and vocabulary tile of the kernel
-_WAVES = 4                    # CTAs per SM the vocabulary split aims for
+_VB = 128                     # vocabulary columns per tile of the kernel
+_CTA_START = 0.5              # a CTA's start and end, in tiles of work
 BACKWARD_CHUNK = 8192         # vocabulary columns per backward chunk
 
 
@@ -59,7 +61,8 @@ def gatekeeper_loss_tokens_plain(x: torch.Tensor, table: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gatekeeper_loss")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gatekeeper_loss_tokens.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+    lib.gatekeeper_loss_tokens.argtypes = ([vp, ci] + [vp] * 8 + [ci] * 6
+                                           + [vp])
     lib.gatekeeper_loss_tokens.restype = ci
     return lib
 
@@ -69,22 +72,45 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def token_tile(T: int) -> int:
+    """Tokens per CTA: 128 (the warpgroup kernel), or 32 / 64 for T <= 32
+    / 64 (the mma.sync kernel), so that few rows (the VLM's 24 loss rows)
+    are not mostly padding."""
+    return 32 if T <= 32 else 64 if T <= 64 else 128
+
+
+@functools.lru_cache(maxsize=256)
 def vocab_split(T: int, V: int, n_sms: int):
-    """(tiles per split, splits): enough (token block, split) CTAs for
-    `_WAVES` per SM, each split a whole number of 128-column tiles."""
+    """(tiles per split, splits), each split a whole number of 128-column
+    tiles: the split that finishes first when every CTA slot (one an SM at
+    128 tokens a CTA, else two) takes waves of (token block, split) CTAs,
+    a CTA costing its tiles plus `_CTA_START`; of equal costs the fewest
+    CTAs."""
     n_tiles = -(-V // _VB)
-    n_tblocks = -(-T // _TB)
-    want = min(n_tiles, max(1, -(-_WAVES * n_sms // n_tblocks)))
-    per = -(-n_tiles // want)
-    return per, -(-n_tiles // per)
+    bm = token_tile(T)
+    slots = n_sms * (1 if bm == 128 else 2)
+    n_blocks = -(-T // bm)
+    best = None
+    for per in range(1, n_tiles + 1):
+        n = -(-n_tiles // per)
+        cost = -(-n_blocks * n // slots) * (per + _CTA_START)
+        if best is None or cost <= best[0]:
+            best = (cost, per, n)
+    return best[1], best[2]
+
+
+def _aligned(t: torch.Tensor, n_bytes: int) -> torch.Tensor:
+    """t, or a copy of it if its data does not start n_bytes-aligned."""
+    return t if t.data_ptr() % n_bytes == 0 else t.clone()
 
 
 def gatekeeper_loss_tokens(x: torch.Tensor, table: torch.Tensor,
                            targets: torch.Tensor, *,
                            return_lse: bool = False):
-    """x [T, d], table [V, d] (fp32 or bf16; computed in fp32), targets
-    [T] int32. Returns fp32 (ce, kl, correct, entropy) [T] each, and the
-    log-sum-exp [T] with `return_lse`."""
+    """x [T, d] fp32 or bf16 (read in its own type), table [V, d] fp32 or
+    bf16 (computed in fp32), targets [T] int32. Returns fp32 (ce, kl,
+    correct, entropy) [T] each, and the log-sum-exp [T] with
+    `return_lse`."""
     if not x.is_cuda:
         return gatekeeper_loss_tokens_plain(x, table, targets,
                                             return_lse=return_lse)
@@ -94,7 +120,7 @@ def gatekeeper_loss_tokens(x: torch.Tensor, table: torch.Tensor,
     T, d = x.shape
     V = table.shape[0]
     _require(T > 0 and V > 0, "empty x or table")
-    _require(d % 4 == 0, f"d={d}: the kernel loads 4 floats at a time")
+    _require(d % 4 == 0, f"d={d}: the kernel copies 4 elements at a time")
     for name, t in (("x", x), ("table", table)):
         _require(t.device == x.device, f"{name} must be on {x.device}")
         _require(t.dtype in (torch.float32, torch.bfloat16),
@@ -103,17 +129,18 @@ def gatekeeper_loss_tokens(x: torch.Tensor, table: torch.Tensor,
              and targets.shape == (T,) and targets.is_contiguous(),
              f"targets must be a contiguous int32 [T={T}] on {x.device}")
     _require(V * d < 2 ** 31, "table too large for int32 offsets")
-    x32 = x.float().contiguous()
-    tbl = table.float().contiguous()
-    per, n_splits = vocab_split(
-        T, V, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    x_bf16 = x.dtype == torch.bfloat16
+    xk = _aligned(x.contiguous(), 8 if x_bf16 else 16)
+    tbl = _aligned(table.float().contiguous(), 16)
+    bm = token_tile(T)
+    per, n_splits = vocab_split(T, V, _build.sm_count(x.device.index))
     outs = torch.empty((5, T), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((5, n_splits, T), dtype=torch.float32,
+    scratch = torch.empty((5, T, n_splits), dtype=torch.float32,
                           device=x.device)
     err = _lib().gatekeeper_loss_tokens(
-        x32.data_ptr(), tbl.data_ptr(), targets.data_ptr(),
+        xk.data_ptr(), int(x_bf16), tbl.data_ptr(), targets.data_ptr(),
         *(outs[i].data_ptr() for i in range(5)), scratch.data_ptr(),
-        T, V, d, per, n_splits,
+        T, V, d, bm, per, n_splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gatekeeper_loss_tokens launch failed: CUDA "

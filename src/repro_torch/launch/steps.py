@@ -125,14 +125,29 @@ def fused_gatekeeper_loss(x_final: torch.Tensor, table: torch.Tensor,
                           targets: torch.Tensor, gk: GatekeeperConfig,
                           valid_mask: Optional[torch.Tensor] = None):
     """`chunked_gatekeeper_loss`'s function and outputs through
-    `kernels.ops.gatekeeper_loss_fused` (one kernel launch on CUDA)."""
+    `kernels.ops.gatekeeper_loss_fused` (one kernel launch on CUDA).
+
+    With a `valid_mask`, only the rows of non-zero weight reach the kernel
+    and the backward (one host read of their count): the others add
+    nothing to the loss or its denominator, and indexing gives them
+    exactly zero gradient, as JAX's gradient does. With no such row the
+    loss and its terms are 0 with zero gradients, as JAX's clamped
+    denominator gives, and nothing is launched."""
     B, S, d = x_final.shape
-    valid = (None if valid_mask is None
-             else valid_mask.reshape(B * S).float())
-    loss, a = kernel_ops.gatekeeper_loss_fused(
-        x_final.reshape(B * S, d), table, targets.reshape(B * S), valid,
-        alpha=gk.alpha)
-    v = torch.ones_like(a["ce"]) if valid is None else valid
+    x = x_final.reshape(B * S, d)
+    tgt = targets.reshape(B * S)
+    v = None
+    if valid_mask is not None:
+        v = valid_mask.reshape(B * S).float()
+        rows = torch.nonzero(v).squeeze(1)
+        if rows.numel() == 0:
+            zero = (x[:0].sum() + table[:0].sum()).float()
+            return zero, {k: zero.detach() for k in (
+                "l_corr", "l_incorr", "frac_correct", "mean_entropy")}
+        x, tgt, v = x[rows], tgt[rows], v[rows]
+    loss, a = kernel_ops.gatekeeper_loss_fused(x, table, tgt, v,
+                                               alpha=gk.alpha)
+    v = torch.ones_like(a["ce"]) if v is None else v
     denom = torch.clamp(v.sum(), min=1.0)
     return loss, {"l_corr": a["l_corr"], "l_incorr": a["l_incorr"],
                   "frac_correct": (a["correct"] * v).sum() / denom,

@@ -350,9 +350,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     assert gk.gatekeeper_loss_tokens.launches == n
 
 
-def _loss_case(cuda, T, d, V, x_dtype=torch.float32, seed=0):
+def _loss_case(cuda, T, d, V, x_dtype=torch.float32, seed=0, scale=1.0):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    x = torch.randn((T, d), generator=g, device=cuda).to(x_dtype)
+    x = (torch.randn((T, d), generator=g, device=cuda) * scale).to(x_dtype)
     table = torch.randn((V, d), generator=g, device=cuda) * (2.0 / d ** 0.5)
     tgt = torch.randint(0, V, (T,), generator=g, device=cuda,
                         dtype=torch.int32)
@@ -367,15 +367,32 @@ def _top2_gap(x, table):
     return top2[:, 0] - top2[:, 1]
 
 
-@pytest.mark.parametrize("T,d,V", [(37, 32, 300), (200, 64, 1000),
-                                   (512, 256, 9000)],
-                         ids=["tiny", "ragged", "vocab-tail"])
+# (T, d, V, x scale): T <= 32 and <= 64 take the mma.sync kernel's 32-
+# and 64-token tiles, past 64 the warpgroup kernel's 128-token blocks; d
+# 36 and 100 are no multiple of the 32-deep ring stage; V no multiple of
+# the 128-column tile
+LOSS_SHAPES = {
+    "tiny": (37, 32, 300, 1.0),
+    "ragged": (200, 64, 1000, 1.0),
+    "vocab-tail": (512, 256, 9000, 1.0),
+    "vlm-rows": (24, 768, 5000, 1.0),
+    "whisper-rows": (128, 768, 51865, 1.0),
+    "token-blocks": (700, 128, 3000, 1.0),
+    "d36": (60, 36, 1100, 1.0),
+    "d36-blocks": (300, 36, 1100, 1.0),
+    "d100-narrow": (9, 100, 777, 1.0),
+    "peaked": (256, 768, 4000, 8.0),
+}
+
+
+@pytest.mark.parametrize("T,d,V,scale", list(LOSS_SHAPES.values()),
+                         ids=list(LOSS_SHAPES))
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-def test_gatekeeper_kernel_matches_plain(cuda, T, d, V, x_dtype):
-    """ce, kl, entropy and lse to atol 1e-4 (fp32 logits summed in other
-    orders); `correct` equal on every row whose top-2 gap exceeds 1e-4.
-    T and V are no multiples of the 128-wide tiles."""
-    x, table, tgt = _loss_case(cuda, T, d, V, x_dtype)
+def test_gatekeeper_kernel_matches_plain(cuda, T, d, V, scale, x_dtype):
+    """ce, kl, entropy and lse to atol 1e-4 (fp32 logits as split-TF32
+    products, summed in other orders); `correct` equal on every row whose
+    top-2 gap exceeds 1e-4. T and V are no multiples of the tiles."""
+    x, table, tgt = _loss_case(cuda, T, d, V, x_dtype, scale=scale)
     n = gk.gatekeeper_loss_tokens.launches
     got = gk.gatekeeper_loss_tokens(x, table, tgt, return_lse=True)
     want = gk.gatekeeper_loss_tokens_plain(x, table, tgt, return_lse=True)
@@ -386,6 +403,102 @@ def test_gatekeeper_kernel_matches_plain(cuda, T, d, V, x_dtype):
     clear = _top2_gap(x, table) > 1e-4
     assert torch.equal(got[2][clear], want[2][clear])
     assert 0 < float(want[2].mean()) < 1
+
+
+@pytest.mark.parametrize("shape", ["vlm-rows", "whisper-rows",
+                                   "token-blocks", "d36"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_gatekeeper_kernel_two_calls_bit_equal(cuda, shape, x_dtype):
+    """No atomics and fixed merge orders: the same inputs give the same
+    bits, at each token tile."""
+    T, d, V, scale = LOSS_SHAPES[shape]
+    x, table, tgt = _loss_case(cuda, T, d, V, x_dtype, scale=scale, seed=1)
+    a = gk.gatekeeper_loss_tokens(x, table, tgt, return_lse=True)
+    b = gk.gatekeeper_loss_tokens(x, table, tgt, return_lse=True)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("shape", ["vlm-rows", "whisper-rows",
+                                   "token-blocks", "peaked"])
+def test_gatekeeper_bf16_x_two_products_equal_three(cuda, shape):
+    """A bf16 x is exact in TF32, so its two products (no x lo) give the
+    bits of the three-product sum the kernel takes for the same x widened
+    to fp32."""
+    T, d, V, scale = LOSS_SHAPES[shape]
+    x, table, tgt = _loss_case(cuda, T, d, V, torch.bfloat16, scale=scale)
+    a = gk.gatekeeper_loss_tokens(x, table, tgt, return_lse=True)
+    b = gk.gatekeeper_loss_tokens(x.float(), table, tgt, return_lse=True)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("T", [24, 100, 300])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_gatekeeper_exact_ties_resolve_to_the_lowest_index(cuda, T, x_dtype):
+    """Table rows duplicated within an n8 tile, across warps, tiles and
+    vocabulary splits: every row's maximum is an exact tie among them, and
+    the argmax is the lowest index, as in JAX."""
+    V, d = 20000, 64
+    x, table, _ = _loss_case(cuda, T, d, V, x_dtype)
+    dups = [3, 5, 70, 300, 9001, V - 2]
+    table[dups] = table[3].clone()
+    x = (table[3] * 10.0).expand(T, d).to(x_dtype).contiguous()
+    tgt = torch.tensor([dups[i % len(dups)] for i in range(T)],
+                       dtype=torch.int32, device=cuda)
+    got = gk.gatekeeper_loss_tokens(x, table, tgt)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], (tgt == 3).float())
+    assert torch.equal(got[0], got[0][:1].expand(T))   # the same target logit
+
+
+def test_stage2_loss_launches_once_on_the_weighted_rows(cuda, monkeypatch):
+    """`launch.steps.fused_gatekeeper_loss` under the VLM's patch mask
+    hands the kernel only the rows of non-zero weight (one launch); loss,
+    aux and gradients within 1e-4 of the chunked plain loss, dx exactly 0
+    on the masked rows. No valid row: loss 0, zero gradients, no launch."""
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.launch import steps
+    B, P, S, d, V = 4, 60, 63, 128, 5000
+    x, table, tgt = _loss_case(cuda, B * S, d, V, torch.bfloat16, seed=2)
+    mask = torch.ones((B, S), device=cuda)
+    mask[:, :P] = 0.0
+    seen = []
+    inner = gk.gatekeeper_loss_tokens
+
+    def recording(xx, *args, **kw):
+        seen.append(xx.shape[0])
+        return inner(xx, *args, **kw)
+    monkeypatch.setattr(gk, "gatekeeper_loss_tokens", recording)
+    recording.launches = 0      # the wrapper counts on the name it is bound to
+    gkc = GatekeeperConfig(alpha=0.3)
+    out = {}
+    for name, fn in (("fused", steps.fused_gatekeeper_loss),
+                     ("chunked", steps.chunked_gatekeeper_loss)):
+        xk = x.view(B, S, d).clone().requires_grad_(True)
+        tk = table.clone().requires_grad_(True)
+        loss, aux = fn(xk, tk, tgt.view(B, S), gkc, mask)
+        loss.backward()
+        out[name] = (loss.detach(), aux, xk.grad.float(), tk.grad)
+    torch.cuda.synchronize()
+    assert seen == [B * (S - P)]
+    (lf, af, gxf, gtf), (lc, ac, gxc, gtc) = out["fused"], out["chunked"]
+    assert abs(float(lf) - float(lc)) <= 1e-4
+    for k in ac:
+        assert abs(float(af[k]) - float(ac[k])) <= 1e-4, k
+    assert float(gxf[:, :P].abs().max()) == 0.0
+    for a, b in ((gxf, gxc), (gtf, gtc)):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                                   rtol=2e-2)
+    xk = x.view(B, S, d).clone().requires_grad_(True)
+    tk = table.clone().requires_grad_(True)
+    loss, _ = steps.fused_gatekeeper_loss(xk, tk, tgt.view(B, S), gkc,
+                                          torch.zeros_like(mask))
+    loss.backward()
+    assert float(loss.detach()) == 0.0 and seen == [B * (S - P)]
+    assert not bool(xk.grad.any()) and not bool(tk.grad.any())
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["all-valid", "valid"])
