@@ -106,6 +106,26 @@ non-zero:
      per forward; then `launch.steps.make_prefill` and one
      `make_serve_step` step through the kernels against the plain
      `fused_confidence` of the same hidden states.
+  13. Memory pressure and overload on phase 4's models: a width probe
+     (the main path's first 8 prompts prefilled through the engine's
+     paged prefill as one 8-row dispatch and as dispatches of 4, 2 and
+     1 rows, with `kv_split` as shipped and with no key split, then
+     re-prefilled from token 48 as a resume may:
+     the largest |d| of the seed logits and the layers whose K/V pages
+     are bit-equal); phase 4's 16 requests at its tau on about 2/3 of
+     the blocks the first 8 need at full length, oversubscribed x2,
+     preempt (bound 4) and a 32-block swap tier: every request DONE,
+     preemptions, pool invariants, the launches counted exactly (resume
+     re-prefills and dispatches that seed nothing included), tokens,
+     deferral and confidences held to phase 4's run (a difference
+     passes only where the probe measured a width drift and the
+     reference's top-2 margin there is within twice it), the host cost
+     of each snapshot and restore; the same requests under Poisson
+     arrivals at 8x the rate phase 4's slots served, with a 4-deep queue
+     and deadlines
+     (each request terminal exactly once, some shed); then the reduced fp32
+     internlm2 fixture under tests/test_serving_pressure.py's scenario,
+     kernels on: tokens equal to the unconstrained run bit for bit.
   6. The second main path, the same way: DeepSeek-V2 (MLA + MoE) at its
      published widths, M_S cut to 2 layers (one dense, one MoE layer with
      all 160 routed experts), M_L `build_ladder`'s 4-layer large tier.
@@ -280,6 +300,20 @@ EVAL_SEQS, EVAL_LEN, EVAL_DEFERRAL = 16, 128, 0.3
 SIGNAL_SHAPES = ((N_SLOTS, 92544), (N_SLOTS, 102400), (N_SLOTS, 65536),
                  (N_SLOTS, 32000), (EVAL_SEQS * EVAL_LEN, 92544), (1000, 8),
                  (3000, 8), (3000, 10), (N_SLOTS, 51865), (N_SLOTS, 32064))
+
+# phase 13: memory pressure and overload on phase 4's models
+PRESSURE_OVERSUB = 2.0  # the paged pool's virtual budget over its blocks
+PRESSURE_SHARE = 2 / 3  # blocks: this share of what the first N_SLOTS
+                        # requests need at full length (never under the
+                        # largest request's)
+PRESSURE_MAX_PREEMPT, PRESSURE_SWAP = 4, 32
+PROBE_WIDTHS = (4, 2, 1)  # prefill dispatch widths held to one of N_SLOTS
+PROBE_RESUME_AT = 48    # a block-aligned, not chunk-aligned, re-prefill
+OVERLOAD_QUEUE = 4      # the overload run's ready-queue bound
+OVERLOAD_RATE_X = 8.0   # its arrival rate over the rate phase 4's 8 slots
+                        # served (its makespan less the M_L drain): the 16
+                        # arrive before the first 8 finish, the queue fills
+OVERLOAD_DEADLINE_SHARE = 0.25  # its deadline over the pressure makespan
 
 # phase 10: the classifier cascade, tests/test_system.py's flow on the
 # port's own draw (seed SEED) at that test's sizes
@@ -1271,7 +1305,7 @@ def serve_main_path(torch, small, large, per_step: dict, smi) -> dict:
     Checks that paged kernel k launched per_step[k] times per decode step,
     and the signal and prefill kernels as the run's steps, prefill
     dispatches and M_L batches give them (and the others never). Returns
-    the counts."""
+    (the counts, the run's result, the calibrated tau)."""
     import numpy as np
     from repro_torch.data.synthetic import (make_lm_stream,
                                             make_ragged_lm_stream)
@@ -1338,7 +1372,7 @@ def serve_main_path(torch, small, large, per_step: dict, smi) -> dict:
           f"{flash_layers(large.cfg)} x {n_ml})")
     if launches != want or res.steps == 0:
         raise AssertionError(f"launch counts {launches} != {want}")
-    return launches
+    return launches, res, tau
 
 
 def evaluate_cascade(torch, small, large, smi) -> dict:
@@ -1479,6 +1513,493 @@ def evaluate_cascade(torch, small, large, smi) -> dict:
         raise AssertionError(f"make_serve_step: {flips} token flips, "
                              f"neg_entropy err {err}")
     return total
+
+
+def probe_prefill(torch, tfm, small, prompts, width: int, start: int = 0,
+                  one_split: bool = False, base=None):
+    """Prefill `prompts` (one slot each, the engine's table layout, the
+    main path's bf16 cache) from token `start` through the engine's paged
+    prefill with the kernels on: CHUNK-token chunks at start, start +
+    CHUNK, ..., each offset's rows in dispatches of up to `width` rows
+    padded to a power of two, as the engine's `_prefill_chunk_once` makes
+    them. `base` (a pool of the same layout) is copied in first: the
+    blocks a resume keeps. `one_split` makes `kv_split` split no call's
+    keys, at any width. Returns (each row's seed logits [n, V] fp32, the
+    pool)."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.paged_pool import PagedCachePool, next_pow2
+    cfg = small.cfg
+    longest = max(len(p) for p in prompts)
+    max_len = longest + MAX_NEW
+    pool = PagedCachePool(cfg, len(prompts),
+                          len(prompts) * math.ceil(max_len / BLOCK), BLOCK,
+                          max_len, DEV)
+    for p in prompts:
+        s = pool.alloc()
+        pool.reserve(s, len(p) + MAX_NEW - 1)
+        pool.ensure_mapped(s, len(p))
+    if base is not None:
+        for kind, leaves in pool.cache.items():
+            for name, leaf in leaves.items():
+                leaf.copy_(base.cache[kind][name])
+    seeds = [None] * len(prompts)
+    shipped = fa.kv_split
+    if one_split:
+        fa.kv_split = lambda B, T, S, *_, **__: (0, S, 1)
+    try:
+        for off in range(start, longest, CHUNK):
+            rows = [i for i, p in enumerate(prompts) if len(p) > off]
+            for j in range(0, len(rows), width):
+                group = rows[j:j + width]
+                Bc = next_pow2(len(group))
+                chunks = np.zeros((Bc, CHUNK), np.int64)
+                tbl = np.zeros((Bc, pool.max_blocks), np.int32)
+                last = np.zeros((Bc,), np.int64)
+                for r, i in enumerate(group):
+                    piece = prompts[i][off:off + CHUNK]
+                    chunks[r, :len(piece)] = piece
+                    tbl[r] = pool.tables[i]
+                    last[r] = min(len(prompts[i]) - 1 - off, CHUNK - 1)
+                logits, _ = tfm.prefill(
+                    small.params, cfg, torch.from_numpy(chunks).to(DEV),
+                    pool.cache, cache_offset=off,
+                    pages=torch.from_numpy(tbl).to(DEV),
+                    last_index=torch.from_numpy(last).to(DEV),
+                    paged_kernel=True)
+                for r, i in enumerate(group):
+                    if off + CHUNK >= len(prompts[i]):
+                        seeds[i] = logits[r, 0].float()
+    finally:
+        fa.kv_split = shipped
+    torch.cuda.synchronize()
+    return torch.stack(seeds), pool
+
+
+def layers_equal(torch, a, b, prompts, lo: int = 0) -> list:
+    """Per layer: are the K and V of every row's positions [lo, len) the
+    same bits in pools `a` and `b` (same table layout)?"""
+    blk, off = [], []
+    for i, p in enumerate(prompts):
+        pos = range(lo, len(p))
+        blk += [int(a.tables[i, t // BLOCK]) for t in pos]
+        off += [t % BLOCK for t in pos]
+    blk = torch.tensor(blk, device=DEV)
+    off = torch.tensor(off, device=DEV)
+    same = None
+    for kind, leaves in a.cache.items():
+        for name, leaf in leaves.items():
+            eq = (leaf[:, blk, off] == b.cache[kind][name][:, blk, off])
+            eq = eq.reshape(eq.shape[0], -1).all(-1)
+            same = eq if same is None else same & eq
+    return same.tolist()
+
+
+def _neg_entropy(torch, logits):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return (logp.exp() * logp).sum(-1)
+
+
+def width_probe(torch, tfm, small, smi) -> dict:
+    """Does a row's prefill depend on its dispatch width, or on where its
+    chunks start? The main path's first 8 prompts prefilled through the
+    engine's paged prefill (kernels on, bf16 cache) as 8-row dispatches
+    and as dispatches of 4, 2 and 1 rows, with `kv_split` as shipped
+    (its key split depends on the launch's rows) and with no key split
+    at any width; then re-prefilled from token PROBE_RESUME_AT
+    (block-aligned, not chunk-aligned: where a resume may re-prefill)
+    over the 8-row run's first blocks. Prints each comparison's largest
+    |d seed logit| and |d seed neg-entropy| and how many layers' K/V
+    pages are bit-equal: layer 0's K/V come from the projections alone,
+    with no attention before them, so a difference there is the GEMMs'.
+    Returns the shipped plan's largest differences over the widths
+    ("drift", "conf_drift"), the resume probe's ("resume_drift") and the
+    unsplit variant's ("unsplit_drift")."""
+    from repro_torch.data.synthetic import make_ragged_lm_stream
+    cfg = small.cfg
+    prompts = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
+                                    cfg.vocab_size)[:N_SLOTS]
+    L = cfg.n_layers
+    out = {}
+    for plan, unsplit in (("kv_split as shipped", False),
+                          ("no key split at any width", True)):
+        ref_seed, ref_pool = probe_prefill(torch, tfm, small, prompts,
+                                           N_SLOTS, one_split=unsplit)
+        ref_conf = _neg_entropy(torch, ref_seed)
+        parts = []
+        drift = conf_drift = 0.0
+        for w in PROBE_WIDTHS:
+            seed, pool = probe_prefill(torch, tfm, small, prompts, w,
+                                       one_split=unsplit)
+            d = float((seed - ref_seed).abs().max())
+            dc = float((_neg_entropy(torch, seed) - ref_conf).abs().max())
+            eq = layers_equal(torch, ref_pool, pool, prompts)
+            drift, conf_drift = max(drift, d), max(conf_drift, dc)
+            parts.append(f"{w} row{'s' if w > 1 else ''}: max|dseed logit| "
+                         f"{d:.4g}, |dseed neg-entropy| {dc:.3g}, K/V "
+                         f"bit-equal in {sum(eq)}/{L} layers"
+                         + (f" (first other layer {eq.index(False)})"
+                            if not all(eq) else ""))
+            del pool
+        print(f"[pressure] width probe, {plan}, against one {N_SLOTS}-row "
+              f"dispatch of the main path's first {N_SLOTS} prompts "
+              f"(chunks of {CHUNK}): " + "; ".join(parts) + f" on {smi}")
+        out[plan] = dict(drift=drift, conf_drift=conf_drift)
+        if not unsplit:
+            seed, pool = probe_prefill(torch, tfm, small, prompts, N_SLOTS,
+                                       start=PROBE_RESUME_AT, base=ref_pool)
+            eq = layers_equal(torch, ref_pool, pool, prompts,
+                              lo=PROBE_RESUME_AT)
+            d = float((seed - ref_seed).abs().max())
+            print(f"[pressure] resume probe, {plan}: re-prefilled from "
+                  f"token {PROBE_RESUME_AT} over the first blocks of the "
+                  f"{N_SLOTS}-row run: max|dseed logit| {d:.4g}, K/V of "
+                  f"positions {PROBE_RESUME_AT}.. bit-equal in "
+                  f"{sum(eq)}/{L} layers"
+                  + (f" (first other layer {eq.index(False)})"
+                     if not all(eq) else "") + f" on {smi}")
+            out["resume_drift"] = d
+            del pool
+        del ref_pool
+        torch.cuda.empty_cache()
+    return dict(drift=out["kv_split as shipped"]["drift"],
+                conf_drift=out["kv_split as shipped"]["conf_drift"],
+                resume_drift=out["resume_drift"],
+                unsplit_drift=out["no key split at any width"]["drift"])
+
+
+def top2_margin(torch, tfm, small, prompt, tokens) -> float:
+    """M_S's top-2 logit margin for the token after `prompt` + `tokens`
+    (one forward of the whole context)."""
+    import numpy as np
+    ctx = np.concatenate([prompt, tokens]).astype(np.int64)
+    logits = tfm.forward(small.params, small.cfg,
+                         torch.from_numpy(ctx[None]).to(DEV))[0, -1]
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def hold_to_reference(torch, tfm, small, res, ref, tau: float, probe: dict,
+                      label: str) -> None:
+    """Every DONE request of `res` against phase 4's unconstrained run
+    `ref`: tokens, deferral and confidence equal. A request the pressure
+    policy deferred to M_L (`deferred_reason` "oom") is held only to the
+    M_S tokens it made before its eviction and to a full M_L generation.
+    A request that differs is printed with its first differing M_S step
+    and the reference's top-2 margin there; it is explained only when the
+    probe measured a width drift and the margin is within twice it (a
+    deferral or confidence that differs over equal M_S tokens: the
+    confidence difference, or for a deferral the nearer confidence's
+    distance to tau, within twice the probe's neg-entropy drift). Raises
+    unless every difference is explained."""
+    import numpy as np
+    from repro_torch.serving.request import DONE
+    drift, cdrift = probe["drift"], probe["conf_drift"]
+    bad, n_diff, n_oom = [], 0, 0
+    for a, b in zip(res.requests, ref.requests):
+        if a.state != DONE:
+            continue
+        sa, sb = a.small_tokens, b.small_tokens
+        n = min(len(sa), len(sb))
+        diff = np.nonzero(sa[:n] != sb[:n])[0]
+        if a.deferred_reason == "oom":
+            n_oom += 1
+            if not (a.tier == 1 and len(a.tokens) == a.max_new):
+                bad.append(f"rid {a.rid}: OOM deferral without a full M_L "
+                           f"generation")
+        elif (np.array_equal(a.tokens, b.tokens)
+              and a.deferred == b.deferred
+              and a.confidence == b.confidence):
+            continue
+        if a.deferred_reason == "oom" and not diff.size:
+            continue
+        n_diff += 1
+        if diff.size:
+            j = int(diff[0])
+            margin = top2_margin(torch, tfm, small, b.prompt, sb[:j])
+            ok = drift > 0 and margin <= 2 * drift
+            what = (f"rid {a.rid}: M_S token {j} {int(sa[j])} vs "
+                    f"{int(sb[j])}, reference top-2 margin {margin:.4g}")
+        else:
+            dconf = abs(a.confidence - b.confidence)
+            near = min(abs(a.confidence - tau), abs(b.confidence - tau))
+            ok = cdrift > 0 and (dconf <= 2 * cdrift
+                                 if a.deferred == b.deferred
+                                 else near <= 2 * cdrift)
+            what = (f"rid {a.rid}: equal M_S tokens, deferred "
+                    f"{a.deferred} vs {b.deferred}, confidence "
+                    f"{a.confidence:.7g} vs {b.confidence:.7g} (tau "
+                    f"{tau:.7g})")
+        print(f"[pressure] {label} differs from phase 4's run, {what}: "
+              f"{'within' if ok else 'NOT within'} twice the probe's "
+              f"drift")
+        if not ok:
+            bad.append(what)
+    n_done = sum(r.state == DONE for r in res.requests)
+    print(f"[pressure] {label}: {n_done - n_diff - n_oom} of {n_done} "
+          f"finished requests equal phase 4's tokens, deferral and "
+          f"confidence bit for bit, {n_oom} deferred to M_L for OOM (their "
+          f"M_S tokens before eviction held); {n_diff} differ, {len(bad)} "
+          f"beyond the width rule (probe drift {drift:.4g} logit, "
+          f"{cdrift:.3g} neg-entropy)")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+
+
+def _nbytes(snapshot) -> int:
+    return sum(t.numel() * t.element_size() for blk in snapshot
+               for leaves in blk.values() for t in leaves.values())
+
+
+def _expected_launches(small, large, res) -> dict:
+    """The paged path's launches in a run without calibration: the decode
+    and the paired write once per layer of each decode step; the signal
+    once per decode step, per seeding prefill dispatch and per M_L
+    generate step (MAX_NEW a batch); flash_attention once per layer of
+    each prefill dispatch (resume re-prefills too) and of each M_L
+    batch's prefill."""
+    st = res.stats
+    L, n_ml = small.cfg.n_layers, st["ml_batches"]
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_flash_decode_gqa"] = want["paged_write_token"] = (
+        L * res.steps)
+    want["deferral_entropy"] = (res.steps + st["prefill_seed_dispatches"]
+                                + MAX_NEW * n_ml)
+    want["flash_attention"] = (flash_layers(small.cfg)
+                               * st["prefill_dispatches"]
+                               + flash_layers(large.cfg) * n_ml)
+    return want
+
+
+def pressure_phase(torch, tfm, small, large, tau, ref, probe, smi):
+    """Phase 4's cascade under memory pressure, then under overload, at
+    phase 4's tau, on its 16 requests: the paged pool oversubscribed
+    x PRESSURE_OVERSUB over about PRESSURE_SHARE of what the first 8
+    requests need at full length, the preempt policy (bound
+    PRESSURE_MAX_PREEMPT, then defer-on-OOM) and a PRESSURE_SWAP-block
+    host swap tier. The pressure run: every request DONE, preemptions,
+    pool invariants, exact launches, and tokens, deferral and confidences
+    held to phase 4's run (`hold_to_reference`); the host cost of each
+    snapshot and restore. The overload run: Poisson arrivals at
+    OVERLOAD_RATE_X times the rate phase 4's slots served requests (its
+    makespan less the M_L drain), the ready queue bounded
+    at OVERLOAD_QUEUE and a deadline of OVERLOAD_DEADLINE_SHARE of the
+    pressure run's makespan: each request terminal once, DONE ones full
+    and held to phase 4's, shed ones empty, and some shed. Returns both
+    runs' launch counts."""
+    import numpy as np
+    from repro_torch.data.synthetic import make_ragged_lm_stream
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, PagedConfig,
+                                     PressureConfig, make_requests,
+                                     poisson_arrivals)
+    from repro_torch.serving.paged_pool import PagedCachePool
+    from repro_torch.serving.request import DONE, EXPIRED, REJECTED
+    cfg = small.cfg
+    live = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
+                                 cfg.vocab_size)
+    need = [math.ceil((len(p) + MAX_NEW - 1) / BLOCK) for p in live]
+    n_blocks = max(max(need), round(PRESSURE_SHARE * sum(need[:N_SLOTS])))
+    pressure = PressureConfig(oversubscribe=PRESSURE_OVERSUB,
+                              policy="preempt",
+                              max_preemptions=PRESSURE_MAX_PREEMPT,
+                              swap_blocks=PRESSURE_SWAP)
+
+    def engine(**kw):
+        return ContinuousCascadeEngine(
+            CascadeSpec.two_tier(small, large, tau=tau),
+            EngineConfig(n_slots=N_SLOTS, backend="paged", paged=PagedConfig(
+                block_size=BLOCK, n_blocks=n_blocks, prefill_chunk=CHUNK,
+                paged_kernel=True, pressure=pressure), **kw))
+
+    def run(eng, reqs):
+        reset_counts()
+        res = eng.run(reqs, MAX_NEW)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        eng.pool.check_invariants()
+        want = _expected_launches(small, large, res)
+        if launches != want or res.steps == 0:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        return res, launches
+
+    # host clock of each snapshot and restore the engine makes
+    costs = {"save": [], "restore": []}
+    save0, restore0 = (PagedCachePool.save_block_span,
+                       PagedCachePool.restore_block_span)
+
+    def save(pool, *args):
+        t0 = time.perf_counter()
+        snap = save0(pool, *args)
+        costs["save"].append((time.perf_counter() - t0, _nbytes(snap)))
+        return snap
+
+    def restore(pool, slot, lo, hi, saved):
+        t0 = time.perf_counter()
+        restore0(pool, slot, lo, hi, saved)
+        costs["restore"].append((time.perf_counter() - t0, _nbytes(saved)))
+
+    PagedCachePool.save_block_span = save
+    PagedCachePool.restore_block_span = restore
+    try:
+        eng = engine()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches = run(eng, make_requests(live, MAX_NEW))
+    finally:
+        PagedCachePool.save_block_span = save0
+        PagedCachePool.restore_block_span = restore0
+    st = res.stats
+    print(f"[pressure] {N_REQUESTS} requests (prompts {RAGGED[0]}-"
+          f"{RAGGED[1]}, max_new {MAX_NEW}) on {N_SLOTS} slots over "
+          f"{n_blocks} blocks of {BLOCK} (the first {N_SLOTS} requests "
+          f"need {sum(need[:N_SLOTS])} at full length, the largest "
+          f"{max(need)}), oversubscribed x{PRESSURE_OVERSUB} to "
+          f"{st['virtual_blocks']}, preempt (bound {PRESSURE_MAX_PREEMPT}),"
+          f" swap tier {PRESSURE_SWAP} blocks, tau {tau:.4f}: makespan "
+          f"{st['makespan_s']:.3f} s ({ref.stats['makespan_s']:.3f} s "
+          f"unconstrained), {st['throughput_tok_s']:.1f} tok/s, "
+          f"{st['n_preemptions']} preemptions, {st['swap_outs']} swap outs,"
+          f" {st['swap_ins']} swap ins, {st['pressure_reliefs']} reliefs, "
+          f"{st['oom_deferrals']} OOM deferrals, at most "
+          f"{max(r.n_preempted for r in res.requests)} preemptions of one "
+          f"request, peak blocks "
+          f"{st['peak_blocks']}/{n_blocks}, {res.steps} decode steps, "
+          f"{st['prefill_dispatches']} prefill dispatches "
+          f"({ref.stats['prefill_dispatches']} unconstrained), peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+          f"{smi}")
+    print(f"[pressure] launches {launches} (exact)")
+    for kind, rows in costs.items():
+        if rows:
+            ms = [t * 1e3 for t, _ in rows]
+            nb = [b for _, b in rows]
+            print(f"[pressure] {kind} of a preempted request's decode "
+                  f"blocks, host clock: {len(rows)} calls, mean "
+                  f"{np.mean(ms):.4f} ms, max {max(ms):.4f} ms, "
+                  f"{int(np.mean(nb))} B a call (max {max(nb)} B) on {smi}")
+    if not (all(r.state == DONE for r in res.requests)
+            and st["n_preemptions"] > 0):
+        raise AssertionError(f"pressure run: states "
+                             f"{[r.state for r in res.requests]}, "
+                             f"{st['n_preemptions']} preemptions")
+    # a request deferred for OOM mid-prefill has no M_S confidence
+    seen = np.array([r.n_small_steps > 0 for r in res.requests])
+    if res.tokens.shape != (N_REQUESTS, MAX_NEW) or not np.isfinite(
+            res.confidence[seen]).all():
+        raise AssertionError("malformed pressure result")
+    hold_to_reference(torch, tfm, small, res, ref, tau, probe,
+                      "pressure run")
+    # a snapshot and restore of 3 blocks, synchronised: the device's share
+    pool = eng.pool
+    s = pool.alloc()
+    pool.reserve(s, 3 * BLOCK)
+    pool.ensure_mapped(s, 3 * BLOCK)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = pool.save_block_span(s, 0, 3 * BLOCK)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pool.restore_block_span(s, 0, 3 * BLOCK, snap)
+        torch.cuda.synchronize()
+        times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    pool.release(s)
+    save_ms, restore_ms = min(times)
+    print(f"[pressure] 3-block snapshot and restore ({_nbytes(snap)} B, "
+          f"{cfg.n_layers} layers), synchronised, best of 3: save "
+          f"{save_ms:.4f} ms, restore {restore_ms:.4f} ms on {smi}")
+
+    # overload: Poisson arrivals above the drain rate, a bounded queue and
+    # deadlines
+    served_s = ref.stats["makespan_s"] - ref.stats["phase_drain_s"]
+    rate = OVERLOAD_RATE_X * N_REQUESTS / served_s
+    deadline = OVERLOAD_DEADLINE_SHARE * st["makespan_s"]
+    reqs = make_requests(live, MAX_NEW, poisson_arrivals(N_REQUESTS, rate,
+                                                         seed=SEED))
+    over, o_launches = run(engine(max_queue=OVERLOAD_QUEUE,
+                                  deadline_s=deadline), reqs)
+    ost = over.stats
+    states = [r.state for r in over.requests]
+    print(f"[pressure] overload: Poisson arrivals at {rate:.2f} requests/s "
+          f"({OVERLOAD_RATE_X}x phase 4's {N_REQUESTS} in "
+          f"{served_s:.3f} s before its M_L drain), max_queue "
+          f"{OVERLOAD_QUEUE}, "
+          f"deadline {deadline * 1e3:.1f} ms: {ost['n_completed']} done, "
+          f"{ost['n_rejected']} rejected, {ost['n_expired']} expired, "
+          f"{ost['n_preemptions']} preemptions, makespan "
+          f"{ost['makespan_s']:.3f} s; launches {o_launches} (exact) on "
+          f"{smi}")
+    terminal = all(
+        (r.state == DONE and len(r.tokens) == r.max_new)
+        or (r.state in (REJECTED, EXPIRED) and len(r.tokens) == 0)
+        for r in over.requests)
+    if not (terminal and len({r.rid for r in over.requests}) == N_REQUESTS
+            and ost["n_completed"] + ost["n_rejected"] + ost["n_expired"]
+            == N_REQUESTS and ost["n_completed"] < N_REQUESTS):
+        raise AssertionError(f"overload run: states {states}")
+    hold_to_reference(torch, tfm, small, over, ref, tau, probe,
+                      "overload run")
+    return launches, o_launches
+
+
+def reduced_pressure(torch, serve) -> dict:
+    """tests/test_serving_pressure.py's scenario on the card, kernels on:
+    the reduced fp32 internlm2-1.8b, 10 ragged prompts of 6-20 tokens,
+    max_new 10, 4 slots, block 4, chunk 4, 4 steps a sync, 16 blocks
+    oversubscribed x4 with the preempt policy and an 8-block swap tier,
+    against 64 blocks and no pressure: tokens equal bit for bit,
+    preemptions, pool invariants, exact launches. Returns the counts."""
+    import numpy as np
+    from repro_torch.data.synthetic import make_lm_stream
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, MLBackendConfig,
+                                     PagedConfig, PressureConfig,
+                                     make_requests)
+    from repro_torch.serving.request import DONE
+    small, large = serve.build_ladder(ARCH, SEED, 2, device=DEV)
+    lens = np.random.default_rng(7).integers(6, 21, size=10)
+    base = make_lm_stream([SEED, 5], 10, 20, small.cfg.vocab_size)
+    prompts = [base[i, :n] for i, n in enumerate(lens)]
+    max_new = 10
+    out = {}
+    for name, n_blocks, pressure in (
+            ("unconstrained", 64, None),
+            ("pressure", 16, PressureConfig(oversubscribe=4.0,
+                                            policy="preempt",
+                                            max_preemptions=50,
+                                            swap_blocks=8))):
+        eng = ContinuousCascadeEngine(
+            CascadeSpec.two_tier(small, large, tau=-1e9),
+            EngineConfig(n_slots=4, early_exit=False, steps_per_sync=4,
+                         backend="paged", ml=MLBackendConfig(large_batch=4),
+                         paged=PagedConfig(block_size=4, n_blocks=n_blocks,
+                                           prefill_chunk=4, paged_kernel=True,
+                                           pressure=pressure)))
+        reset_counts()
+        res = eng.run(make_requests(prompts, max_new), max_new)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        eng.pool.check_invariants()
+        want = _expected_launches(small, large, res)
+        if counts != want or res.stats["ml_batches"]:
+            raise AssertionError(f"reduced {name} run: launches {counts} "
+                                 f"!= {want}")
+        out[name] = (res, counts)
+    res, counts = out["pressure"]
+    st = res.stats
+    same = np.array_equal(res.tokens, out["unconstrained"][0].tokens)
+    print(f"[reduced] {small.cfg.name} fp32 under pressure (16 blocks of 4 "
+          f"against 64, x4, preempt, swap 8): {st['n_preemptions']} "
+          f"preemptions, {st['swap_outs']} swap outs, {st['swap_ins']} swap "
+          f"ins, {st['n_completed']}/10 done, tokens "
+          f"{'equal' if same else 'NOT equal'} to the unconstrained run bit "
+          f"for bit; launches {counts} (exact)")
+    if not (same and st["n_preemptions"] > 0
+            and all(r.state == DONE for r in res.requests)):
+        raise AssertionError("reduced pressure run differs from the "
+                             "unconstrained run")
+    return counts
 
 
 def profile_step(torch, label, cfg, split, params, loss) -> None:
@@ -2870,15 +3391,22 @@ def main(argv=None) -> int:
         check_prefill_paths(torch, tfm, small)
         report_profile(torch, tfm, small, rng, smi)
         L = small.cfg.n_layers
-        by_path[ARCH] = serve_main_path(
+        by_path[ARCH], main_res, main_tau = serve_main_path(
             torch, small, large,
             {"paged_flash_decode_gqa": L, "paged_write_token": L}, smi)
         torch.cuda.empty_cache()
         # -- 8. the paper's cascade evaluation on the same models -----------
         phase("8", t_start)
         by_path["evaluation"] = evaluate_cascade(torch, small, large, smi)
+        torch.cuda.empty_cache()
+        # -- 13. memory pressure and overload on the same models ------------
+        phase("13", t_start)
+        probe = width_probe(torch, tfm, small, smi)
+        by_path["pressure"], by_path["overload"] = pressure_phase(
+            torch, tfm, small, large, main_tau, main_res, probe, smi)
         del small, large
         torch.cuda.empty_cache()
+        by_path["pressure_reduced"] = reduced_pressure(torch, serve)
 
         # -- 6. DeepSeek-V2 (MLA + MoE) at full width -----------------------
         phase("6", t_start)
@@ -2893,7 +3421,7 @@ def main(argv=None) -> int:
         L = small.cfg.n_layers
         by_path[MLA_ARCH] = serve_main_path(
             torch, small, large,
-            {"paged_flash_decode_mla": L, "paged_write_token": L}, smi)
+            {"paged_flash_decode_mla": L, "paged_write_token": L}, smi)[0]
         del small, large
         torch.cuda.empty_cache()
 

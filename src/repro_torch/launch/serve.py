@@ -6,9 +6,10 @@ argparse-time rejections of contradictory combinations. Flags for what
 the port does not run yet are rejected by name at argparse time (see
 ROADMAP.md): architectures of unported families, ladders of more than
 two tiers, the semantic-agreement signal, online recalibration, the
-thread/stub/socket/pool M_L backends, memory pressure (oversubscription,
-preemption, swap tier), admission overload control, and the /metrics
-endpoint and profiler flags. One flag is new: --device (default: cuda,
+thread/stub/socket/pool M_L backends, and the /metrics endpoint and
+profiler flags. Memory pressure (--oversubscribe, --pressure-policy,
+--max-preemptions, --swap-blocks) and admission overload control
+(--max-queue, --deadline-ms) run as in JAX, with its validations. One flag is new: --device (default: cuda,
 which must exist). `--arch` takes internlm2-1.8b (dense GQA),
 deepseek-v2-236b (MLA + MoE), rwkv6-3b (RWKV6, attention-free) and
 zamba2-1.2b (Mamba2 with a shared attention block): the last two on the
@@ -35,7 +36,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving import (CascadeEngine, CascadeSpec, CascadeTier,
                                  ContinuousCascadeEngine, DeferralEdge,
                                  EngineConfig, MLBackendConfig, ModelRunner,
-                                 PagedConfig, make_requests,
+                                 PagedConfig, PressureConfig, make_requests,
                                  poisson_arrivals)
 from repro_torch.serving.obs import (Observability, add_obs_args,
                                      obs_config_from_args)
@@ -56,11 +57,6 @@ _UNPORTED = (("recalibrate", "--recalibrate"),
              ("ml_retries", "--ml-retries"),
              ("ml_health_interval", "--ml-health-interval"),
              ("stub_latency", "--stub-latency"),
-             ("oversubscribe", "--oversubscribe"),
-             ("pressure_policy", "--pressure-policy"),
-             ("max_preemptions", "--max-preemptions"),
-             ("swap_blocks", "--swap-blocks"),
-             ("max_queue", "--max-queue"), ("deadline_ms", "--deadline-ms"),
              ) + UNPORTED_FLAGS
 
 
@@ -164,13 +160,32 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="paged backend: disable copy-on-write prefix "
                          "sharing")
-    ap.add_argument("--oversubscribe", type=float, default=1.0)
+    ap.add_argument("--oversubscribe", type=float, default=1.0,
+                    help="paged backend: admit against a virtual budget "
+                         "of round(blocks * factor); > 1.0 allows block "
+                         "pressure, handled by --pressure-policy "
+                         "(1.0 = classic reservation invariant)")
     ap.add_argument("--pressure-policy",
-                    choices=("preempt", "defer", "shed"), default="preempt")
-    ap.add_argument("--max-preemptions", type=int, default=2)
-    ap.add_argument("--swap-blocks", type=int, default=0)
-    ap.add_argument("--max-queue", type=int, default=0)
-    ap.add_argument("--deadline-ms", type=float, default=0.0)
+                    choices=("preempt", "defer", "shed"), default="preempt",
+                    help="paged backend under --oversubscribe > 1: evict "
+                         "the youngest running request by preempt-and-"
+                         "requeue (bit-exact resume), defer-on-OOM to "
+                         "M_L, or shed (REJECTED)")
+    ap.add_argument("--max-preemptions", type=int, default=2,
+                    help="preempt policy: preemption bound per request "
+                         "before escalating to defer-on-OOM")
+    ap.add_argument("--swap-blocks", type=int, default=0,
+                    help="paged backend: host-RAM swap-tier capacity in "
+                         "blocks for cold registered prefix blocks "
+                         "(0 = evicted cold blocks are dropped)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="admission overload control: bound on the ready "
+                         "arrival queue; overflow is shed newest-first "
+                         "as REJECTED (0 = unbounded)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request queueing deadline in ms from "
+                         "arrival; requests still queued past it are "
+                         "shed as EXPIRED (0 = no deadlines)")
     ap.add_argument("--ragged-min", type=int, default=0,
                     help=">0: ragged prompt lengths uniform in "
                          "[ragged-min, ragged-max] (continuous engine)")
@@ -196,11 +211,35 @@ def main(argv=None):
                  "--device-timing) need --engine continuous")
     if args.backend != "paged":
         for dest in ("block_size", "blocks", "prefill_chunk",
-                     "paged_kernel", "serial_prefill", "no_prefix_sharing"):
+                     "paged_kernel", "serial_prefill", "no_prefix_sharing",
+                     "oversubscribe", "pressure_policy", "max_preemptions",
+                     "swap_blocks"):
             if given(dest):
                 ap.error(f"--{dest.replace('_', '-')} needs --backend "
                          f"paged (got --backend {args.backend}, which "
                          f"would silently ignore it)")
+    if args.oversubscribe < 1.0:
+        ap.error(f"--oversubscribe must be >= 1.0 (1.0 = reservation-"
+                 f"only), got {args.oversubscribe}")
+    if args.oversubscribe == 1.0:
+        # pressure can only fire past the reservation invariant: tuning
+        # its handling without enabling it is a silent no-op
+        for dest in ("pressure_policy", "max_preemptions"):
+            if given(dest):
+                ap.error(f"--{dest.replace('_', '-')} needs "
+                         f"--oversubscribe > 1.0 (reservation-only "
+                         f"admission never hits block pressure)")
+    if args.pressure_policy != "preempt" and given("max_preemptions"):
+        ap.error(f"--max-preemptions needs --pressure-policy preempt "
+                 f"(got --pressure-policy {args.pressure_policy}, which "
+                 f"never preempts)")
+    if args.oversubscribe > 1.0 and not given("blocks"):
+        ap.error("--oversubscribe > 1.0 needs an explicit --blocks "
+                 "budget (the worst-case default never runs out)")
+    if args.max_queue < 0:
+        ap.error(f"--max-queue must be >= 0, got {args.max_queue}")
+    if args.deadline_ms < 0:
+        ap.error(f"--deadline-ms must be >= 0, got {args.deadline_ms}")
     if args.tiers < 2:
         ap.error(f"--tiers must be >= 2, got {args.tiers}")
     # what the port does not run yet: rejected by name, never ignored
@@ -259,9 +298,17 @@ def main(argv=None):
         tiers=[CascadeTier(small_cfg.name, runner=small, cost=0.2),
                CascadeTier(large.cfg.name, runner=large, cost=1.0)],
         edges=[DeferralEdge(margin=args.margin, min_tokens=args.min_tokens)])
+    pressure = (PressureConfig(oversubscribe=args.oversubscribe,
+                               policy=args.pressure_policy,
+                               max_preemptions=args.max_preemptions,
+                               swap_blocks=args.swap_blocks)
+                if args.oversubscribe > 1.0 or args.swap_blocks > 0
+                else None)
     config = EngineConfig(
         n_slots=args.slots, early_exit=not args.no_early_exit,
         backend=args.backend,
+        max_queue=args.max_queue or None,
+        deadline_s=args.deadline_ms / 1e3 if args.deadline_ms else None,
         paged=PagedConfig(
             block_size=args.block_size,
             n_blocks=args.blocks or None,
@@ -269,7 +316,8 @@ def main(argv=None):
             paged_kernel={"auto": None, "on": True,
                           "off": False}[args.paged_kernel],
             batch_prefill=not args.serial_prefill,
-            prefix_sharing=not args.no_prefix_sharing),
+            prefix_sharing=not args.no_prefix_sharing,
+            pressure=pressure),
         ml=MLBackendConfig(large_batch=args.large_batch or None,
                            max_wait=args.large_max_wait or None))
     engine = ContinuousCascadeEngine(spec, config)
@@ -290,6 +338,13 @@ def main(argv=None):
           f"{res.steps} M_S steps: deferral_ratio={res.deferral_ratio:.3f}, "
           f"early_exits={int(res.early_exited.sum())}, "
           f"saved_M_S_steps={res.saved_steps}")
+    if pressure is not None or args.max_queue or args.deadline_ms:
+        st = res.stats
+        print(f"pressure/overload: preemptions={st['n_preemptions']}, "
+              f"oom_deferrals={st['oom_deferrals']}, "
+              f"rejected={st['n_rejected']}, expired={st['n_expired']}, "
+              f"swap_outs={st.get('swap_outs', 0)}, "
+              f"swap_ins={st.get('swap_ins', 0)}")
     print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                       for k, v in res.stats.items()}, indent=1))
     if args.audit_log:

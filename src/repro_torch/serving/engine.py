@@ -21,6 +21,19 @@ evicts it in flight, and it is regenerated on M_L. On the paged backend
 requests, prompt prefixes are shared copy-on-write, and decode goes
 through the CUDA paged kernels when `paged_kernel` resolves on.
 
+Memory pressure and overload (as in the JAX engine): with
+`PagedConfig.pressure` the paged pool admits against an oversubscribed
+virtual block budget, and physical exhaustion (`BlockPressure`) is
+answered by the `PressurePolicy`, which evicts the youngest running
+request: "preempt" snapshots its decode state and decode-written blocks
+to pinned host memory, publishes its prompt blocks in the prefix registry
+and requeues it age-first (on re-admission the prompt blocks come back
+from the registry, the swap tier or a re-prefill, the snapshot is copied
+back, and decoding resumes where it stopped), "defer" hands it to M_L
+(`deferred_reason="oom"`), "shed" drops it (REJECTED). `max_queue` bounds
+the ready queue (overflow shed newest-first as REJECTED) and `deadline_s`
+expires requests still queued past their deadline (EXPIRED).
+
 The same switch (`kernel_ops.paged_kernel_enabled`: the engine's
 `paged_kernel`, then REPRO_PAGED_KERNEL, then on exactly for CUDA) picks
 the kernel path for the rest of the serving path on either backend: every
@@ -36,14 +49,14 @@ and for M_L behind its backend. The plain path is
 `deferral_entropy_plain`, `_attend` and `wkv_scan_plain`.
 
 What the port does not run yet is rejected (see ROADMAP.md): ladders of
-more than two tiers, backends other than "sync", memory pressure,
-recalibration and overload control.
+more than two tiers, backends other than "sync", and recalibration.
 
 Differences from the JAX engine: PyTorch runs eagerly (no jit; the decode
 loop is a Python loop of device ops), and the KV caches are updated in
 place. Greedy equivalences within the port match the JAX package's:
 slot against paged, kernel against plain path, shared against unshared
-prefix, and ``early_exit=False`` continuous against static.
+prefix, preempted against unconstrained, and ``early_exit=False``
+continuous against static.
 """
 from __future__ import annotations
 
@@ -67,9 +80,12 @@ from repro_torch.serving.cache_pool import SlotCachePool, scatter_rows
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.large_backend import SyncLocalBackend
 from repro_torch.serving.obs import Observability, emit_request_spans
-from repro_torch.serving.paged_pool import PagedCachePool, next_pow2
-from repro_torch.serving.request import (DEFERRED_PENDING, DONE,
-                                         ArrivalQueue, Request)
+from repro_torch.serving.paged_pool import (BlockPressure, PagedCachePool,
+                                           next_pow2)
+from repro_torch.serving.pressure import (DEFER, PREEMPT, SHED,
+                                          make_pressure_policy)
+from repro_torch.serving.request import (DEFERRED_PENDING, DONE, EXPIRED,
+                                         REJECTED, ArrivalQueue, Request)
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.telemetry import ServingTelemetry
 
@@ -222,7 +238,13 @@ class ContinuousCascadeEngine:
     n_gen (prefill token counts as 1), budget (the request's max_new; a
     slot self-deactivates on device when n_gen reaches it), conf_sum (the
     running eq.-8 sum, ON DEVICE), active, and tokens [n_slots, max_new]
-    (copied to the host at retirement)."""
+    (copied to the host at retirement).
+
+    `pool` is the KV pool of the latest `run` (None before one), kept so
+    that a caller can inspect it afterwards (`check_invariants`, the swap
+    store)."""
+
+    pool = None
 
     def __init__(self, spec: CascadeSpec,
                  config: Optional[EngineConfig] = None):
@@ -318,6 +340,36 @@ class ContinuousCascadeEngine:
         state["active"][slots] = budgets > 1
         state["tokens"][slots] = row0
 
+    @staticmethod
+    def _resume_slot(state, slot: int, rs: dict, budget: int) -> None:
+        """Restore a preempted request's decode state in `slot` (in
+        place) verbatim from its snapshot `rs` — the counterpart of
+        `_seed_slots` for re-admission. Decoding on from it over the
+        restored and recomputed blocks is bit-exact with never having
+        been preempted."""
+        dev = state["tokens"].device
+        state["last_tok"][slot] = rs["last_tok"]
+        state["pos"][slot] = rs["pos"]
+        state["n_gen"][slot] = rs["n_gen"]
+        state["budget"][slot] = budget
+        state["conf_sum"][slot] = rs["conf_sum"]
+        state["active"][slot] = rs["n_gen"] < budget
+        state["tokens"][slot] = torch.from_numpy(rs["tokens"]).to(dev)
+
+    @staticmethod
+    def _slot_to_host(state, slot: int) -> Tuple[int, int, int, float,
+                                                 np.ndarray]:
+        """(last_tok, pos, n_gen, conf_sum, tokens row) of one slot in one
+        device -> host copy."""
+        ints = torch.cat([state["last_tok"][slot:slot + 1],
+                          state["pos"][slot:slot + 1],
+                          state["n_gen"][slot:slot + 1],
+                          state["tokens"][slot]])
+        ints, floats = _to_host(ints[None], state["conf_sum"][None,
+                                                               slot:slot + 1])
+        return (int(ints[0, 0]), int(ints[0, 1]), int(ints[0, 2]),
+                float(floats[0, 0]), ints[0, 3:].copy())
+
     # -- host-side control loop -------------------------------------------
     @torch.inference_mode()
     def run(self, requests: List[Request], max_new: Optional[int] = None,
@@ -341,6 +393,10 @@ class ContinuousCascadeEngine:
         paged = ecfg.backend == "paged"
         pc = ecfg.paged
         use_kernel = kernel_ops.paged_kernel_enabled(pc.paged_kernel, dev)
+        pressure = pc.pressure if paged else None
+        policy = (make_pressure_policy(pressure.policy,
+                                       pressure.max_preemptions)
+                  if pressure is not None else None)
         if paged:
             bs = pc.block_size
             n_blocks = (pc.n_blocks if pc.n_blocks is not None
@@ -348,16 +404,32 @@ class ContinuousCascadeEngine:
             biggest = max(math.ceil((r.prompt_len + r.max_new - 1) / bs)
                           for r in requests)
             if n_blocks < biggest:
+                # each request must fit the PHYSICAL budget on its own:
+                # oversubscription stretches the admission (virtual)
+                # budget, never physical capacity
                 raise ValueError(
                     f"n_blocks={n_blocks} cannot hold the largest request "
                     f"({biggest} blocks of {bs}); raise n_blocks")
-            pool = PagedCachePool(cfg, ecfg.n_slots, n_blocks, bs, max_len,
-                                  dev)
+            pool = PagedCachePool(
+                cfg, ecfg.n_slots, n_blocks, bs, max_len, dev,
+                oversubscribe=(pressure.oversubscribe
+                               if pressure is not None else 1.0),
+                swap_blocks=(pressure.swap_blocks
+                             if pressure is not None else 0))
         else:
             pool = SlotCachePool(cfg, ecfg.n_slots, max_len, dev)
 
+        self.pool = pool
         sched = SlotScheduler(pool)
-        queue = ArrivalQueue(requests)
+        queue = ArrivalQueue(requests, max_queue=ecfg.max_queue)
+        # engine-level deadline default; an explicit per-request deadline
+        # (make_requests(deadline_s=...)) wins
+        if ecfg.deadline_s is not None:
+            for r in requests:
+                if r.deadline is None:
+                    r.deadline = r.arrival_time + ecfg.deadline_s
+        overload_on = (queue.max_queue is not None
+                       or any(r.deadline is not None for r in requests))
         own_obs = not isinstance(obs, Observability)
         obs_rt = obs if isinstance(obs, Observability) else Observability(obs)
         tr = obs_rt.tracer
@@ -389,6 +461,7 @@ class ContinuousCascadeEngine:
             n_shared_tokens = 0
             peak_active = 0
             n_deferrals = 0
+            n_relief = 0        # pressure-policy evictions (paged only)
             ml = SyncLocalBackend(self.large, max_new, ecfg.ml.large_batch,
                                   ecfg.ml.max_wait, registry=tel.registry,
                                   paged_kernel=use_kernel)
@@ -407,6 +480,9 @@ class ContinuousCascadeEngine:
             reg.gauge("serving_requests_retired",
                       "requests retired from slots (lifetime)",
                       fn=lambda: sched.n_retired)
+            reg.gauge("serving_preemptions",
+                      "requests preempted under block pressure (lifetime)",
+                      fn=lambda: sched.n_preempted)
             if paged:
                 pool.register_metrics(reg)
             # host mirrors of the confidence accumulators (tracing only)
@@ -555,17 +631,31 @@ class ContinuousCascadeEngine:
                 """Paged backend: one prefill dispatch for the oldest
                 mid-prefill request's next chunk — plus, with
                 `batch_prefill`, the same-offset chunks of every other
-                mid-prefill request. Every row's chunk span is made
+                mid-prefill request. Under oversubscription the chunk's
+                CoW clones can hit BlockPressure before the dispatch; after
+                a policy eviction (which may remove mid-prefill entries)
+                the chunk restarts against the survivors."""
+                while prefilling:
+                    try:
+                        return _prefill_chunk_once()
+                    except BlockPressure:
+                        if policy is None or not relieve_pressure():
+                            raise
+
+            def _prefill_chunk_once():
+                """One prefill dispatch. Every row's chunk span is made
                 write-private first (CoW) and the rows' writable blocks
-                are checked pairwise disjoint."""
+                are checked pairwise disjoint. A resumed request's chunks
+                stop at `prefill_end` (its decode-written tail comes back
+                from the preemption snapshot) and seed no signal."""
                 nonlocal n_prefill_chunks, n_prefill_dispatches, \
                     n_prefill_tokens, n_seed_dispatches
                 head_req, _, off0 = prefilling[0]
-                C = pc.prefill_chunk or (head_req.prompt_len - off0)
+                C = pc.prefill_chunk or (prefill_end(head_req) - off0)
                 if pc.batch_prefill:
                     group = [e for e in prefilling if e[2] == off0
                              and (pc.prefill_chunk
-                                  or e[0].prompt_len - e[2]) == C]
+                                  or prefill_end(e[0]) - e[2]) == C]
                 else:
                     group = [prefilling[0]]
                 k = len(group)
@@ -583,7 +673,7 @@ class ContinuousCascadeEngine:
                     piece = req.prompt[off:off + C]
                     chunks[i, :piece.shape[0]] = piece
                     tbl[i] = pool.tables[slot]
-                    last_idx[i] = min(req.prompt_len - 1 - off, C - 1)
+                    last_idx[i] = min(prefill_end(req) - 1 - off, C - 1)
                     n_prefill_tokens += int(piece.shape[0])
                 logits, _ = tfm.prefill(
                     small.params, cfg, torch.from_numpy(chunks).to(dev),
@@ -597,9 +687,11 @@ class ContinuousCascadeEngine:
                     tel.phase_add("prefill", 0.0, tel.now - t_dev)
                 n_prefill_dispatches += 1
                 n_prefill_chunks += k
-                # one signal over the rows whose prompt this chunk finishes
+                # one signal over the fresh rows whose prompt this chunk
+                # finishes (a resumed row carries its in-flight token)
                 final = [i for i, (req, _, off) in enumerate(group)
-                         if off + C >= req.prompt_len]
+                         if off + C >= prefill_end(req)
+                         and req.resume is None]
                 if final:
                     n_seed_dispatches += 1
                     tok0, nent0 = _signal(
@@ -608,8 +700,15 @@ class ContinuousCascadeEngine:
                 seeded: List[Tuple[int, Request]] = []
                 for i, entry in enumerate(group):
                     req, slot, off = entry
-                    if off + C >= req.prompt_len:            # final chunk
+                    if off + C >= prefill_end(req):          # final chunk
                         prefilling.remove(entry)
+                        if req.resume is not None:
+                            # prompt blocks re-established: restore the
+                            # decode tail and the device rows
+                            apply_resume(slot, req)
+                            if pc.prefix_sharing:
+                                pool.register_prefix(slot, req.prompt)
+                            continue
                         j = final.index(i)
                         self._seed_slots(
                             state, [slot], tok0[j:j + 1], nent0[j:j + 1],
@@ -637,14 +736,165 @@ class ContinuousCascadeEngine:
                 mid_prefill = {s for _, s, _ in prefilling}
                 return [s for s in sched.active_slots if s not in mid_prefill]
 
+            # -- pressure machinery (oversubscribed paged pool only) ----
+            def prefill_end(req: Request) -> int:
+                """Last token (exclusive) to PREFILL for this admission:
+                the whole prompt for a fresh request; for a resumed one
+                only up to its first decode-written block, whose content
+                and everything after it come back verbatim from the
+                snapshot (decode-written K/V is not bit-identical under a
+                prefill recompute)."""
+                return (req.prompt_len if req.resume is None
+                        else req.resume["mb0"] * pc.block_size)
+
+            def apply_resume(slot: int, req: Request) -> None:
+                """Re-establish a preempted request in its new slot: copy
+                the snapshot's decode-written blocks over the freshly
+                mapped tail, then restore its device rows. From here it
+                decodes as if it had never been evicted."""
+                rs = req.resume
+                pool.restore_block_span(slot, rs["mb0"] * pc.block_size,
+                                        rs["ctx_len"], rs["blocks"])
+                self._resume_slot(state, slot, rs, req.max_new)
+                conf_prev[slot] = rs["conf_sum"]
+                ngen_prev[slot] = rs["n_gen"]
+                req.resume = None
+                tel.event("resume", rid=req.rid, slot=slot,
+                          n_gen=rs["n_gen"],
+                          restored_blocks=len(rs["blocks"]))
+
+            def preempt_slot(slot: int) -> None:
+                """Evict the request in `slot` under block pressure with
+                bit-exact resume state: snapshot its device rows (one host
+                copy) and the blocks holding decode-written K/V, publish
+                its prompt blocks in the prefix registry, release the
+                slot, and requeue the request at its ORIGINAL arrival
+                position (age priority)."""
+                req = sched.running[slot]
+                entry = next((e for e in prefilling if e[1] == slot), None)
+                if entry is not None:
+                    # mid-prefill victim: no decode state yet — keep the
+                    # chunks already written via the registry and requeue
+                    # as a plain re-admission
+                    prefilling.remove(entry)
+                    pool.register_prefix(slot, req.prompt[:entry[2]])
+                    req.resume = None
+                else:
+                    lt, ps, g, cs, toks = self._slot_to_host(state, slot)
+                    ctx_len = req.prompt_len + g - 1
+                    assert ps == ctx_len, (slot, ps, ctx_len)
+                    mb0 = req.prompt_len // pc.block_size
+                    req.resume = {
+                        "last_tok": lt, "pos": ps, "n_gen": g,
+                        "conf_sum": cs, "tokens": toks,
+                        "ctx_len": ctx_len, "mb0": mb0,
+                        "blocks": pool.save_block_span(
+                            slot, mb0 * pc.block_size, ctx_len),
+                    }
+                    pool.register_prefix(slot, req.prompt)
+                    state["active"][slot] = False
+                sched.preempt(slot, tel.now)
+                queue.requeue(req)
+                tel.event("preempt", rid=req.rid, slot=slot,
+                          n_preempted=req.n_preempted,
+                          mid_prefill=entry is not None)
+
+            def defer_oom(slot: int) -> None:
+                """Defer the victim straight to M_L — the cascade's escape
+                hatch under memory pressure: its blocks free at once and
+                the request still completes, on M_L."""
+                req = sched.running[slot]
+                entry = next((e for e in prefilling if e[1] == slot), None)
+                if entry is not None:
+                    prefilling.remove(entry)
+                    req.n_small_steps = 0
+                    req.small_tokens = np.zeros(0, np.int32)
+                else:
+                    _, _, n, cs, toks = self._slot_to_host(state, slot)
+                    req.n_small_steps = n
+                    req.small_tokens = toks[:n].copy()
+                    req.confidence = cs / max(n, 1)
+                    state["active"][slot] = False
+                req.deferred_reason = "oom"
+                sched.retire(slot, tel.now, deferred=True, early=True)
+                tel.event("defer_oom", rid=req.rid, slot=slot,
+                          n_gen=req.n_small_steps)
+                tel.m_requests.labels(outcome="defer_oom").inc()
+                submit_large(req)
+
+            def finalize_shed(req: Request, terminal: str,
+                              reason: str) -> None:
+                """Terminal bookkeeping for a shed request: empty token
+                vector, REJECTED/EXPIRED state, audit event and outcome
+                counter — exactly once per request."""
+                req.state = terminal
+                req.tokens = np.zeros(0, np.int32)
+                req.t_done = tel.now
+                tel.event("shed", rid=req.rid, reason=reason,
+                          outcome=terminal)
+                tel.m_requests.labels(outcome=terminal).inc()
+
+            def shed_slot(slot: int) -> None:
+                """Drop an in-flight victim (shed pressure policy)."""
+                req = sched.running[slot]
+                entry = next((e for e in prefilling if e[1] == slot), None)
+                if entry is not None:
+                    prefilling.remove(entry)
+                else:
+                    state["active"][slot] = False
+                sched.drop(slot, tel.now)
+                finalize_shed(req, REJECTED, "shed_pressure")
+
+            def relieve_pressure(exclude=()) -> bool:
+                """Free physical blocks by evicting one deterministic
+                victim (the youngest admission) per the pressure policy.
+                False when there is no victim: the caller raises."""
+                nonlocal n_relief
+                sel = policy.select(sched.running, exclude)
+                if sel is None:
+                    return False
+                slot, action = sel
+                if action == PREEMPT:
+                    preempt_slot(slot)
+                elif action == DEFER:
+                    defer_oom(slot)
+                else:
+                    assert action == SHED, action
+                    shed_slot(slot)
+                n_relief += 1
+                return True
+
+            def with_relief(fn, needy=()):
+                """Run `fn`, relieving `BlockPressure` by policy eviction
+                and retrying (the pool's mapping calls are idempotent).
+                `needy` slots are exempt from victim selection: evicting
+                the slot being mapped would livelock its own retry."""
+                while True:
+                    try:
+                        return fn()
+                    except BlockPressure:
+                        if policy is None or not relieve_pressure(needy):
+                            raise
+
             try:
                 while len(queue) or sched.n_active:
                     t_it = tel.now
+                    if overload_on:
+                        # admission overload control BEFORE admitting:
+                        # release arrivals, shed deadline-expired entries,
+                        # then bound the queue (newest-first overflow).
+                        # Admitted requests are never expired.
+                        queue.release(t_it)
+                        for r in queue.expire(t_it):
+                            finalize_shed(r, EXPIRED, "deadline")
+                        for r in queue.shed_overflow():
+                            finalize_shed(r, REJECTED, "queue_full")
                     if paged:
                         # admit one at a time: each admission reserves its
                         # blocks, so the next FIFO head's capacity check
                         # sees the updated reservation
                         admitted = []
+                        relief0 = n_relief
                         while True:
                             got = sched.admit_ready(
                                 queue, tel.now, limit=1,
@@ -655,18 +905,40 @@ class ContinuousCascadeEngine:
                             slot, req = got[0]
                             pool.reserve(slot,
                                          req.prompt_len + req.max_new - 1)
+                            rs = req.resume
+                            end = prefill_end(req)
                             start = 0
-                            if pc.prefix_sharing:
-                                # map resident prefix blocks by refcount;
-                                # a fully shared prompt still recomputes
-                                # its final token for the seed logits
+                            if pc.prefix_sharing or rs is not None:
+                                # map resident (or cached, or swapped)
+                                # prefix blocks by refcount; prefill
+                                # resumes at the first unshared token. A
+                                # fully shared prompt still recomputes its
+                                # final token for the seed logits. A
+                                # resumed request walks the chain its
+                                # eviction registered.
                                 shared = pool.share_prefix(slot, req.prompt)
-                                start = min(shared, req.prompt_len - 1)
-                                req.shared_prefix_tokens = start
-                                n_shared_tokens += start
-                            pool.ensure_mapped(slot, req.prompt_len)
-                            prefilling.append([req, slot, start])
+                                if rs is None:
+                                    start = min(shared, req.prompt_len - 1)
+                                    req.shared_prefix_tokens = start
+                                    n_shared_tokens += start
+                                else:
+                                    start = min(shared, end)
+                            n_map = req.prompt_len if rs is None \
+                                else rs["ctx_len"]
+                            with_relief(lambda s=slot, n=n_map:
+                                        pool.ensure_mapped(s, n),
+                                        needy=(slot,))
+                            if rs is not None and start >= end:
+                                # every prompt block came back from the
+                                # registry: restore the tail, resume now
+                                apply_resume(slot, req)
+                            else:
+                                prefilling.append([req, slot, start])
                             admitted.append((slot, req))
+                            if n_relief != relief0:
+                                # pressure fired while admitting: admitting
+                                # more now would thrash straight back
+                                break
                         if admitted:
                             tel.event("admit",
                                       rids=[r.rid for _, r in admitted],
@@ -694,29 +966,39 @@ class ContinuousCascadeEngine:
                     peak_active = max(peak_active, sched.n_active)
                     decoding = decoding_slots()
                     tables = None
-                    if paged and decoding:
+                    while paged and decoding:
                         # map (and make write-private) each decoding row's
-                        # span [pos, pos + steps_per_sync)
-                        pos_host = state["pos"].cpu().numpy()
-                        need = 1
-                        covers = {}
-                        for slot in decoding:
-                            req = sched.running[slot]
-                            total = req.prompt_len + req.max_new - 1
-                            cover = min(int(pos_host[slot])
-                                        + ecfg.steps_per_sync, total)
-                            pool.ensure_mapped(slot, cover)
-                            pool.ensure_writable(slot, int(pos_host[slot]),
-                                                 cover)
-                            covers[slot] = cover
-                            need = max(need, cover)
-                        pool.check_write_disjoint(
-                            (s, int(pos_host[s]), c)
-                            for s, c in covers.items())
-                        # active-prefix tightening: walk only the
-                        # bucketed block prefix the masks can reach
-                        tables = pool.tables_device(
-                            pool.active_prefix_blocks(need))
+                        # span [pos, pos + steps_per_sync). Under
+                        # oversubscription this can hit BlockPressure:
+                        # relieve (the victim may be a decoding slot) and
+                        # redo against the survivors — the mapping calls
+                        # are idempotent
+                        try:
+                            pos_host = state["pos"].cpu().numpy()
+                            need = 1
+                            covers = {}
+                            for slot in decoding:
+                                req = sched.running[slot]
+                                total = req.prompt_len + req.max_new - 1
+                                cover = min(int(pos_host[slot])
+                                            + ecfg.steps_per_sync, total)
+                                pool.ensure_mapped(slot, cover)
+                                pool.ensure_writable(
+                                    slot, int(pos_host[slot]), cover)
+                                covers[slot] = cover
+                                need = max(need, cover)
+                            pool.check_write_disjoint(
+                                (s, int(pos_host[s]), c)
+                                for s, c in covers.items())
+                            # active-prefix tightening: walk only the
+                            # bucketed block prefix the masks can reach
+                            tables = pool.tables_device(
+                                pool.active_prefix_blocks(need))
+                            break
+                        except BlockPressure:
+                            if policy is None or not relieve_pressure():
+                                raise
+                            decoding = decoding_slots()
                     t_dec = tel.now
                     if decoding:
                         for _ in range(ecfg.steps_per_sync):
@@ -827,6 +1109,15 @@ class ContinuousCascadeEngine:
                          shared_blocks=pool.shared_blocks_total,
                          cow_clones=pool.cow_clones,
                          paged_kernel=use_kernel)
+            if pressure is not None:
+                stats.update(oversubscribe=pressure.oversubscribe,
+                             virtual_blocks=pool.virtual_blocks,
+                             pressure_policy=pressure.policy,
+                             pressure_reliefs=n_relief,
+                             swap_blocks=pressure.swap_blocks,
+                             swap_outs=pool.swap_outs,
+                             swap_ins=pool.swap_ins,
+                             swapped_blocks=pool.n_swapped_blocks)
         if own_obs:
             obs_rt.finish()
         tokens = np.zeros((len(reqs), max_new), np.int32)

@@ -16,7 +16,15 @@ tokens shared by all slots:
 
 Admission is **reservation-based**: admitting a request reserves its
 worst-case block count, blocks are mapped lazily, and ``free >= reserved``
-guarantees `ensure_mapped` never fails mid-flight. **Prefix sharing**:
+guarantees `ensure_mapped` never fails mid-flight. **Oversubscription**
+(``oversubscribe > 1``) admits against a virtual budget of
+``round(n_blocks * oversubscribe)`` blocks; the invariant becomes
+``physical_in_use + reserved_total <= virtual_blocks``, and physical
+exhaustion mid-flight raises the typed `BlockPressure`, which the engine's
+pressure policy answers (`serving.pressure`). **Host swap tier**
+(``swap_blocks > 0``): a cached prefix block evicted for reuse is first
+copied to a bounded host store (LRU over chain keys), and `share_prefix`
+swaps it back in after a registry miss. **Prefix sharing**:
 blocks carry reference counts; a prefix registry keyed on the hash chain
 of each full prompt block's tokens lets a new request map already
 resident blocks instead of prefilling them. Shared blocks are read-only:
@@ -27,15 +35,23 @@ writable from two rows (the paged write kernel's contract).
 Differences from the JAX pool: the cache is mutated IN PLACE (a CoW clone
 copies block ``old`` to ``new`` in every layer at once, before the next
 write dispatch), and `tables_device` is an int32 tensor on the model's
-device. Oversubscription, the preemption snapshots and the host swap tier
-are not ported yet (see ROADMAP.md).
+device. Host copies (swapped blocks, `save_block_span` snapshots) are
+pinned CPU tensors, one per cache leaf of a block, copied on the current
+stream of the cache's device: the stream every cache write is issued on,
+so a restore is ordered before the next step reads the block, and a
+snapshot after the writes it copies. They may be read on the host only
+after that stream has been synchronised (the engine never reads them; it
+copies them back).
 
 Invariants (as in the JAX pool, checked by `check_invariants`):
   * per-slot table rows never repeat a block and never map block 0;
   * every block's refcount equals the number of table rows of in-use
     slots that map it; blocks with refcount 0 are exactly the free set;
   * refcounted + free is always exactly {1..n_blocks};
-  * len(free) >= total outstanding reservation;
+  * physical_in_use + total outstanding reservation <= virtual_blocks
+    (len(free) >= reservation at oversubscribe 1);
+  * the swap store holds at most `swap_blocks` keys, none of them also in
+    the device registry;
   * registry entries point at blocks that are mapped or cached-free,
     bijectively with the reverse map;
   * a slot's table row is all-zero whenever the slot is free.
@@ -45,6 +61,7 @@ from __future__ import annotations
 import hashlib
 import heapq
 import math
+from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -53,6 +70,18 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.cache_pool import cache_bytes
+
+
+class BlockPressure(RuntimeError):
+    """Physical block exhaustion under oversubscription.
+
+    Raised by allocation paths (`ensure_mapped` -> `_take_free_block`,
+    `cow_clone`, swap-in) when the pool is oversubscribed and no physical
+    block is free — an expected, recoverable condition the engine answers
+    with its pressure policy (preempt / defer-on-OOM / shed a victim, then
+    retry). Never raised at ``oversubscribe == 1``, where the reservation
+    invariant makes allocation infallible and exhaustion stays a hard
+    RuntimeError."""
 
 
 def next_pow2(n: int) -> int:
@@ -111,11 +140,17 @@ class PagedCachePool:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, n_blocks: int,
                  block_size: int, max_len: int, device,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 oversubscribe: float = 1.0, swap_blocks: int = 0):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if block_size < 1 or n_blocks < 1:
             raise ValueError("block_size and n_blocks must be >= 1")
+        if oversubscribe < 1.0:
+            raise ValueError(f"oversubscribe must be >= 1.0, "
+                             f"got {oversubscribe}")
+        if swap_blocks < 0:
+            raise ValueError(f"swap_blocks must be >= 0, got {swap_blocks}")
         validate_pageable(cfg, max_len)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -150,12 +185,26 @@ class PagedCachePool:
         self.peak_mapped = 0           # high-water physical blocks in use
         self.shared_blocks_total = 0   # lifetime blocks mapped via sharing
         self.cow_clones = 0            # lifetime copy-on-write clones
+        # oversubscription: virtual reservation budget (== n_blocks at
+        # factor 1, where the classic free >= reserved invariant holds)
+        self.oversubscribe = float(oversubscribe)
+        self.virtual_blocks = int(round(n_blocks * self.oversubscribe))
+        # host swap tier: chain key -> host copy of the block's leaves
+        # (insertion-ordered for LRU eviction), bounded capacity
+        self.swap_blocks = int(swap_blocks)
+        self._swap: "OrderedDict[bytes, dict]" = OrderedDict()
+        self.swap_outs = 0             # lifetime device -> host spills
+        self.swap_ins = 0              # lifetime host -> device restores
         self._tables_cache: Dict[Optional[int], torch.Tensor] = {}
 
     # -- capacity / accounting --------------------------------------------
     def blocks_for(self, n_tokens: int) -> int:
         """Physical blocks needed to store `n_tokens` cache entries."""
         return max(0, math.ceil(n_tokens / self.block_size))
+
+    @property
+    def n_free_blocks(self) -> int:
+        return len(self._free_set)
 
     @property
     def n_physical_in_use(self) -> int:
@@ -221,7 +270,10 @@ class PagedCachePool:
 
     def _pop_free(self) -> int:
         """Lowest-id unregistered free block, else evict (deregister) the
-        lowest-id cached one. Caller owns the block (ref set to 1)."""
+        lowest-id cached one, spilling it to the host swap store first
+        when there is one. Caller owns the block (ref set to 1).
+        Exhaustion raises `BlockPressure` when oversubscribed, a hard
+        RuntimeError otherwise (a bookkeeping bug)."""
         for heap in (self._free_plain, self._free_cached):
             while heap:
                 blk = heapq.heappop(heap)
@@ -231,21 +283,31 @@ class PagedCachePool:
                 key = self._registered_key.pop(blk, None)
                 if key is not None:             # evict the cached prefix
                     del self._prefix_registry[key]
+                    if self.swap_blocks > 0:
+                        self._swap_out(blk, key)
                 self.ref[blk] = 1
                 return blk
+        if self.virtual_blocks > self.n_blocks:
+            raise BlockPressure(
+                f"paged pool out of physical blocks ({self.n_blocks} "
+                f"in use, {self._reserved_total} still reserved) under "
+                f"oversubscription x{self.oversubscribe:g}")
         raise RuntimeError("paged pool out of blocks — reservation "
                            "invariant violated")
 
     def _take_free_block(self, slot: int) -> int:
         """Allocate one fresh block for `slot`, charged against its
-        reservation — or, beyond it, against unreserved headroom."""
+        reservation — or, beyond it, against unreserved virtual headroom.
+        The reservation is charged only after the pop succeeds, so a
+        `BlockPressure` leaves the books untouched for a retry."""
         charged = self._owed[slot] > 0
         if not charged and (self.n_physical_in_use + 1
-                            + self._reserved_total > self.n_blocks):
+                            + self._reserved_total > self.virtual_blocks):
             raise RuntimeError(
                 f"slot {slot} mapping beyond its reservation would leave "
                 f"free ({len(self._free_set) - 1}) < reserved "
-                f"({self._reserved_total}) — raise n_blocks")
+                f"({self._reserved_total}) — raise n_blocks or reserve "
+                f"the slack explicitly")
         blk = self._pop_free()
         if charged:
             self._owed[slot] -= 1
@@ -256,16 +318,18 @@ class PagedCachePool:
     # -- block reservation / mapping --------------------------------------
     def can_reserve(self, n_tokens: int) -> bool:
         """True if a request needing `n_tokens` cache entries fits the
-        reservation budget (``free - reserved >= need``)."""
+        (possibly oversubscribed) reservation budget: ``physical_in_use +
+        reserved_total + need <= virtual_blocks``, at oversubscribe 1
+        exactly ``free - reserved >= need``."""
         return (self.n_physical_in_use + self._reserved_total
-                + self.blocks_for(n_tokens) <= self.n_blocks)
+                + self.blocks_for(n_tokens) <= self.virtual_blocks)
 
     def reserve(self, slot: int, n_tokens: int) -> None:
         """Reserve the slot's worst-case block count (after
         `can_reserve`)."""
         need = self.blocks_for(n_tokens)
         if (self.n_physical_in_use + self._reserved_total + need
-                > self.n_blocks):
+                > self.virtual_blocks):
             raise RuntimeError("paged pool over-reserved: admission must "
                                "check can_reserve() first")
         self._owed[slot] = need
@@ -273,7 +337,10 @@ class PagedCachePool:
 
     def ensure_mapped(self, slot: int, n_tokens: int) -> int:
         """Map blocks until the slot covers `n_tokens` logical entries.
-        Returns the number of newly mapped blocks."""
+        An oversubscribed pool may raise `BlockPressure` mid-way; progress
+        is kept and the call is idempotent, so the caller retries the same
+        demand after relieving pressure. Returns the number of newly
+        mapped blocks."""
         need = self.blocks_for(n_tokens)
         newly = 0
         while int(self.n_mapped[slot]) < need:
@@ -285,14 +352,96 @@ class PagedCachePool:
             self._tables_cache.clear()
         return newly
 
+    # -- host copies: swap tier and preemption snapshots ---------------------
+    def _block_to_host(self, blk: int) -> dict:
+        """Host copy of physical block `blk`: {kind: {leaf: [L, bs, ...]}},
+        pinned when the cache is on a GPU, copied on its current stream."""
+        out = {}
+        for kind, leaves in self.cache.items():
+            out[kind] = {}
+            for name, leaf in leaves.items():
+                src = leaf[:, blk]
+                if leaf.is_cuda:
+                    buf = torch.empty(src.shape, dtype=src.dtype,
+                                      pin_memory=True)
+                    buf.copy_(src, non_blocking=True)
+                else:
+                    buf = src.clone()
+                out[kind][name] = buf
+        return out
+
+    def _block_from_host(self, blk: int, host: dict) -> None:
+        """Write a `_block_to_host` copy over physical block `blk`."""
+        for kind, leaves in self.cache.items():
+            for name, leaf in leaves.items():
+                leaf[:, blk].copy_(host[kind][name], non_blocking=True)
+
+    def _swap_out(self, blk: int, key: bytes) -> None:
+        """Spill an evicted cached block to the host store before its
+        device block goes to a new owner (LRU over chain keys, bounded
+        by `swap_blocks`)."""
+        self._swap[key] = self._block_to_host(blk)
+        self._swap.move_to_end(key)
+        self.swap_outs += 1
+        while len(self._swap) > self.swap_blocks:
+            self._swap.popitem(last=False)      # LRU: drop the coldest
+
+    def _swap_in(self, slot: int, key: bytes) -> int:
+        """Restore a swapped-out prefix block: allocate a device block
+        (charged to `slot` like a fresh mapping — may raise
+        `BlockPressure`), copy the host contents back, and re-register the
+        chain key. Returns the new physical id with ref set to 1."""
+        blk = self._take_free_block(slot)        # BlockPressure-able
+        self._block_from_host(blk, self._swap.pop(key))
+        self._prefix_registry[key] = blk
+        self._registered_key[blk] = key
+        self.swap_ins += 1
+        return blk
+
+    def save_block_span(self, slot: int, lo: int, hi: int) -> list:
+        """Host snapshot of the physical blocks covering token span [lo,
+        hi) of `slot` (whole blocks; `lo` rounds down to a block
+        boundary), one `{kind: {leaf: [L, bs, ...]}}` per block. The
+        preemption path keeps the DECODE-written region of a victim this
+        way: decode-written K/V is not bit-identical to a prefill
+        recompute of the same positions, so it must survive preemption
+        verbatim. Every cache leaf the config holds is copied (GQA k/v,
+        MLA ckv/kr)."""
+        if hi <= lo:
+            return []
+        return [self._block_to_host(int(self.tables[slot, m]))
+                for m in range(lo // self.block_size,
+                               (hi - 1) // self.block_size + 1)]
+
+    def restore_block_span(self, slot: int, lo: int, hi: int,
+                           saved: list) -> None:
+        """Write a `save_block_span` snapshot back over the SAME token
+        span of `slot`'s (re-mapped) table. The span's blocks must be
+        mapped and write-private (the resume path maps them fresh);
+        restoring over a shared or registered block would corrupt another
+        reader."""
+        if hi <= lo:
+            return
+        ms = range(lo // self.block_size, (hi - 1) // self.block_size + 1)
+        for m, host in zip(ms, saved):
+            blk = int(self.tables[slot, m])
+            assert blk > 0 and self.ref[blk] == 1 \
+                and blk not in self._registered_key, \
+                (f"restore_block_span: slot {slot} block {m} (phys {blk}) "
+                 f"is not a private mapped block")
+            self._block_from_host(blk, host)
+
     # -- prefix sharing / copy-on-write ------------------------------------
     def share_prefix(self, slot: int, tokens: np.ndarray) -> int:
         """Map the longest registered prefix of `tokens` into `slot`'s
         (empty) table row without prefilling it; returns the prompt tokens
-        covered (a multiple of `block_size`). Aliased blocks give their
-        reservation back — minus one block of slack when the whole prompt
-        is shared with an aliased tail, so its worst-case `cow_clone`
-        (the final prompt token is recomputed in place) cannot fail."""
+        covered (a multiple of `block_size`). Keys missing from the device
+        registry but held by the host swap store are swapped back in (on
+        `BlockPressure` matching stops at the blocks recovered). Aliased
+        blocks give their reservation back — minus one block of slack when
+        the whole prompt is shared with an aliased tail, so its worst-case
+        `cow_clone` (the final prompt token is recomputed in place) cannot
+        fail."""
         assert int(self.n_mapped[slot]) == 0, \
             "share_prefix needs an empty table row"
         shared = 0
@@ -300,13 +449,18 @@ class PagedCachePool:
         for m, key in enumerate(prefix_block_keys(tokens, self.block_size)):
             blk = self._prefix_registry.get(key)
             if blk is None:
-                break
-            if self.ref[blk] == 0:
+                if self.swap_blocks <= 0 or key not in self._swap:
+                    break
+                try:
+                    blk = self._swap_in(slot, key)
+                except BlockPressure:
+                    break        # keep what was recovered; caller prefills
+            elif self.ref[blk] == 0:
                 # cached free block: resurrect, charged like a fresh
                 # mapping (or, past the reservation, only within headroom)
                 if self._owed[slot] <= 0 and (
                         self.n_physical_in_use + 1 + self._reserved_total
-                        > self.n_blocks):
+                        > self.virtual_blocks):
                     break
                 self._free_set.remove(blk)
                 if self._owed[slot] > 0:
@@ -334,8 +488,9 @@ class PagedCachePool:
 
     def register_prefix(self, slot: int, tokens: np.ndarray) -> int:
         """Publish `slot`'s fully-prefilled prompt blocks for later
-        `share_prefix` calls; first registration of a key wins. Returns
-        how many entries were added."""
+        `share_prefix` calls; first registration of a key wins. `tokens`
+        may be a cut prompt (a victim preempted mid-prefill publishes the
+        chunks it wrote). Returns how many entries were added."""
         n = 0
         for m, key in enumerate(prefix_block_keys(tokens, self.block_size)):
             if m >= int(self.n_mapped[slot]):
@@ -345,6 +500,9 @@ class PagedCachePool:
                 continue
             self._prefix_registry[key] = blk
             self._registered_key[blk] = key
+            # a device registration supersedes any stale host copy (swap
+            # keys and registry keys stay disjoint)
+            self._swap.pop(key, None)
             n += 1
         return n
 
@@ -413,6 +571,11 @@ class PagedCachePool:
         """Zero-ref blocks still holding a registered prefix."""
         return sum(1 for b in self._registered_key if b in self._free_set)
 
+    @property
+    def n_swapped_blocks(self) -> int:
+        """Prefix blocks currently living only in the host swap store."""
+        return len(self._swap)
+
     def register_metrics(self, reg) -> None:
         """Expose pool occupancy as pull-mode gauges on a registry."""
         g = reg.gauge("serving_pool_blocks",
@@ -424,12 +587,18 @@ class PagedCachePool:
         g.labels(kind="refcounted").set_fn(lambda: self.n_shared_blocks)
         g.labels(kind="cached").set_fn(lambda: self.n_cached_blocks)
         g.labels(kind="peak").set_fn(lambda: self.peak_mapped)
+        g.labels(kind="virtual").set_fn(lambda: self.virtual_blocks)
+        g.labels(kind="swapped").set_fn(lambda: self.n_swapped_blocks)
         reg.gauge("serving_pool_cow_clones_total",
                   "lifetime copy-on-write block clones",
                   fn=lambda: self.cow_clones)
         reg.gauge("serving_pool_shared_blocks_total",
                   "lifetime blocks mapped via prefix sharing",
                   fn=lambda: self.shared_blocks_total)
+        s = reg.gauge("serving_pool_swap_total",
+                      "lifetime host swap-tier transfers", ("dir",))
+        s.labels(dir="out").set_fn(lambda: self.swap_outs)
+        s.labels(dir="in").set_fn(lambda: self.swap_ins)
 
     def active_prefix_blocks(self, n_tokens: int) -> int:
         """Logical blocks covering `n_tokens` entries, bucketed up to a
@@ -468,12 +637,27 @@ class PagedCachePool:
         assert mapped.isdisjoint(free), "free block still referenced"
         assert mapped | free == set(range(1, self.n_blocks + 1)), \
             "blocks leaked"
-        assert len(free) >= self._reserved_total >= 0, \
-            "reservation exceeds free blocks"
+        if self.virtual_blocks == self.n_blocks:
+            assert len(free) >= self._reserved_total >= 0, \
+                "reservation exceeds free blocks"
+        else:
+            assert self._reserved_total >= 0
+        # the oversubscription-aware reservation invariant; the classic
+        # free >= reserved at factor 1
+        assert (self.n_physical_in_use + self._reserved_total
+                <= self.virtual_blocks), \
+            "physical_in_use + reserved exceeds the virtual budget"
         for key, blk in self._prefix_registry.items():
             assert self._registered_key.get(blk) == key, \
                 "registry / reverse-map mismatch"
         assert len(self._registered_key) == len(self._prefix_registry)
+        # swap tier: bounded, key-disjoint from the device registry; a
+        # swapped-out prefix owns no physical block, so no table row can
+        # reach one
+        assert len(self._swap) <= max(self.swap_blocks, 0), \
+            "swap store exceeds its capacity"
+        assert not (set(self._swap) & set(self._prefix_registry)), \
+            "chain key registered on device AND swapped to host"
         for s in range(self.n_slots):
             if s not in self._in_use:
                 assert (self.tables[s] == 0).all(), \

@@ -1,6 +1,4 @@
-"""Copy of `repro.serving.request` for the port (preemption and
-overload shedding are not ported yet, see ROADMAP.md; their states and
-counters stay so that the telemetry summary reads as in the JAX package).
+"""Copy of `repro.serving.request` for the port.
 
 Request lifecycle + arrival queue for the continuous-batching cascade.
 
@@ -45,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -77,6 +75,9 @@ class Request:
     tier: int = 0                      # cascade tier that owns (and, at
                                        # DONE, served) this request
 
+    # admission overload control
+    deadline: Optional[float] = None   # absolute (run-relative) seconds;
+                                       # queued past it -> EXPIRED
     # pressure bookkeeping
     n_preempted: int = 0               # times evicted under block pressure
     admit_seq: int = -1                # global admission sequence number
@@ -84,6 +85,12 @@ class Request:
     deferred_reason: Optional[str] = None  # "oom" when deferred by block
                                        # pressure; None for the confidence
                                        # gate
+    resume: Optional[Dict[str, Any]] = None  # saved decode state of a
+                                       # preempted request (device rows +
+                                       # the token context whose KV must
+                                       # be re-established); None once
+                                       # consumed by re-admission
+
     # outputs
     tokens: Optional[np.ndarray] = None        # final (post-cascade) tokens
     small_tokens: Optional[np.ndarray] = None  # M_S tokens actually decoded
@@ -131,15 +138,32 @@ class Request:
 
 
 class ArrivalQueue:
-    """Arrival-ordered queue with delayed visibility.
+    """Arrival-ordered queue with delayed visibility, age-priority
+    re-entry, and optional overload control.
 
     Requests sit in a min-heap keyed on `arrival_time` until the virtual
-    clock passes them, then move to the READY heap of admissible requests
-    — also keyed ``(arrival_time, rid)``, so pop order equals arrival
-    order. (Re-entry of preempted requests and overload shedding are not
-    ported yet; see ROADMAP.md.)"""
+    clock passes them, then move to the READY heap of admissible
+    requests — also keyed ``(arrival_time, rid)``, so pop order equals
+    arrival order exactly as with the old FIFO. The heap (rather than a
+    deque) is what makes `requeue` correct: a preempted request
+    re-enters with its ORIGINAL arrival time, which is older than every
+    never-admitted arrival still waiting, so it pops first and repeated
+    preemption can never starve it behind fresh traffic.
 
-    def __init__(self, requests: Optional[List[Request]] = None):
+    Overload control (both optional):
+      * ``max_queue`` bounds the ready set; `shed_overflow` returns the
+        NEWEST overflowing requests for the engine to reject.
+      * per-request ``deadline`` + `expire(now)` returns ready requests
+        whose deadline passed while queued.
+    The queue only *selects* shed requests — marking them
+    REJECTED/EXPIRED and surfacing telemetry is the engine's job.
+    """
+
+    def __init__(self, requests: Optional[List[Request]] = None,
+                 max_queue: Optional[int] = None):
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.max_queue = max_queue
         self._future: list = []
         self._ready: list = []          # min-heap of (arrival_time, rid, req)
         for r in requests or ():
@@ -147,6 +171,12 @@ class ArrivalQueue:
 
     def push(self, req: Request) -> None:
         heapq.heappush(self._future, (req.arrival_time, req.rid, req))
+
+    def requeue(self, req: Request) -> None:
+        """Re-enter a preempted request, keyed on its ORIGINAL arrival
+        time (age-priority): it is older than anything still waiting, so
+        it is next out."""
+        heapq.heappush(self._ready, (req.arrival_time, req.rid, req))
 
     def release(self, now: float) -> int:
         """Move every request with arrival_time <= now into the ready
@@ -165,6 +195,33 @@ class ArrivalQueue:
         the scheduler checks block capacity before committing a pop)."""
         return self._ready[0][2] if self._ready else None
 
+    def shed_overflow(self) -> List[Request]:
+        """Trim the ready set down to `max_queue` by removing the NEWEST
+        entries (largest arrival key — the requests that would wait
+        longest anyway). Returns the removed requests, oldest first."""
+        if self.max_queue is None or len(self._ready) <= self.max_queue:
+            return []
+        keep = heapq.nsmallest(self.max_queue, self._ready)
+        shed = sorted(set(map(id, self._ready)) - set(map(id, keep)))
+        shed_entries = [e for e in self._ready if id(e) in shed]
+        self._ready = keep
+        heapq.heapify(self._ready)
+        return [e[2] for e in sorted(shed_entries)]
+
+    def expire(self, now: float) -> List[Request]:
+        """Remove ready requests whose deadline passed while queued.
+        Returns them oldest-first. Requests already admitted to a slot
+        are never expired — work in flight is finished, not wasted."""
+        dead = [e for e in self._ready
+                if e[2].deadline is not None and e[2].deadline < now]
+        if dead:
+            alive = [e for e in self._ready
+                     if not (e[2].deadline is not None
+                             and e[2].deadline < now)]
+            self._ready = alive
+            heapq.heapify(self._ready)
+        return [e[2] for e in sorted(dead)]
+
     @property
     def n_ready(self) -> int:
         return len(self._ready)
@@ -178,16 +235,20 @@ class ArrivalQueue:
 
 
 def make_requests(prompts, max_new: int,
-                  arrivals: Optional[np.ndarray] = None) -> List[Request]:
+                  arrivals: Optional[np.ndarray] = None,
+                  deadline_s: Optional[float] = None) -> List[Request]:
     """One Request per prompt. `prompts` is either a uniform [N, T] int
     matrix or a sequence of 1-D token vectors with *different* lengths
     (ragged workloads). `arrivals` are per-request offsets in seconds from
-    run start (default: all arrive at t=0)."""
+    run start (default: all arrive at t=0). `deadline_s` gives every
+    request an absolute deadline of ``arrival_time + deadline_s``."""
     n = len(prompts)
     if arrivals is None:
         arrivals = np.zeros(n)
     return [Request(rid=i, prompt=np.asarray(prompts[i], np.int32),
-                    max_new=max_new, arrival_time=float(arrivals[i]))
+                    max_new=max_new, arrival_time=float(arrivals[i]),
+                    deadline=(float(arrivals[i]) + deadline_s
+                              if deadline_s is not None else None))
             for i in range(n)]
 
 

@@ -15,23 +15,27 @@ The scheduler drives either pool flavor: `SlotCachePool` (admission
 gated on free slots only) or `PagedCachePool` (the engine additionally
 passes `can_admit`, gating the FIFO head on block-reservation capacity).
 
-Retirement releases the slot with the pool generation captured at
-admission, so a stale double release of a re-allocated slot fails loudly
-instead of corrupting the free heap. (Preemption and overload shedding
-are not ported yet; see ROADMAP.md.)
+Under oversubscription the engine may also *preempt* a running slot
+(`preempt`: the request leaves RUNNING with its state saved and re-enters
+the arrival queue age-first) or *drop* one (`drop`: overload shed — the
+caller marks the terminal state). Retirement/preemption release the slot
+with the pool generation captured at admission, so a stale double release
+of a re-allocated slot fails loudly instead of corrupting the free heap.
 
 Invariants (pinned by tests/test_serving_continuous.py and
-tests/test_serving_paged.py in the JAX package):
+tests/test_serving_paged.py in the JAX package, and by
+tests/test_torch_pressure.py for the port):
   * a slot hosts at most one request at a time;
   * admitted set + free set is always exactly {0..n_slots-1};
-  * admission order equals arrival order.
+  * admission order equals arrival order (preempted requests re-enter
+    at their original arrival position).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Tuple
 
-from repro_torch.serving.request import (DEFERRED, DONE, PENDING, RUNNING,
-                                         ArrivalQueue, Request)
+from repro_torch.serving.request import (DEFERRED, DONE, PENDING, PREEMPTED,
+                                   RUNNING, ArrivalQueue, Request)
 
 
 class SlotScheduler:
@@ -50,6 +54,7 @@ class SlotScheduler:
         # so the admission/retire paths pay nothing extra)
         self.n_admitted = 0
         self.n_retired = 0
+        self.n_preempted = 0
 
     # -- admission ---------------------------------------------------------
     def admit_ready(self, queue: ArrivalQueue, now: float,
@@ -71,7 +76,7 @@ class SlotScheduler:
             if can_admit is not None and not can_admit(queue.peek_ready()):
                 break
             req = queue.pop_ready()
-            assert req is not None and req.state == PENDING
+            assert req is not None and req.state in (PENDING, PREEMPTED)
             slot = self.pool.alloc()
             req.slot = slot
             req.state = RUNNING
@@ -101,6 +106,30 @@ class SlotScheduler:
         else:
             req.state = DONE
             req.t_done = now
+        self.pool.release(slot, self._admit_gen.pop(slot))
+        self.n_retired += 1
+        return req
+
+    def preempt(self, slot: int, now: float) -> Request:
+        """Evict the request in `slot` under block pressure WITHOUT
+        retiring it: the request leaves RUNNING as PREEMPTED (caller has
+        already saved its resume state) and must be re-queued by the
+        caller. Frees the slot and its blocks."""
+        req = self.running.pop(slot)
+        req.slot = None
+        req.state = PREEMPTED
+        req.n_preempted += 1
+        self.pool.release(slot, self._admit_gen.pop(slot))
+        self.n_preempted += 1
+        return req
+
+    def drop(self, slot: int, now: float) -> Request:
+        """Remove the request in `slot` without completing it (overload
+        shed of an in-flight victim). The caller sets the terminal state
+        and telemetry; this only unwinds the slot accounting."""
+        req = self.running.pop(slot)
+        req.slot = None
+        req.t_retire = now
         self.pool.release(slot, self._admit_gen.pop(slot))
         self.n_retired += 1
         return req

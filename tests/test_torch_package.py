@@ -136,8 +136,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     ["--large-backend", "thread"],
     ["--signal", "semantic_agreement"],
     ["--recalibrate"],
-    ["--backend", "paged", "--blocks", "8", "--oversubscribe", "2"],
-    ["--max-queue", "4"],
+    ["--ml-spawn", "2"],
+    ["--stub-latency", "0.5"],
     ["--metrics-port", "0"],
     ["--arch", "whisper-small"],
 ], ids=lambda a: a[0] if a[0] != "--backend" else a[-2])

@@ -7,7 +7,7 @@ The shapes are those where `kv_split` may split, because the grid is
 under one wave of CTAs: whisper-small's cross-attention at prefill (16
 queries) and at a decode step (1 query) over 1500 encoder states
 (non-causal, 8 rows, 12 heads of 64); the paged engine's internlm2-1.8b
-prefill dispatches of 1, 2 and 4 rows (128 queries at q_offset 0 and 128
+prefill dispatches of 1, 2, 4 and 8 rows (128 queries at q_offset 0 and 128
 over a 288-position view, causal, 16/8 heads of 128); and zamba2-1.2b's
 shared block at 1 and 2 rows (32/32 heads of 64, window 288). At each,
 the keys some query sees (`seen_keys`) are cut into 1, 2, 3, 4, 6, 8, 12
@@ -33,7 +33,7 @@ SHAPES = (
     ("whisper cross prefill", 8, 16, 1500, 12, 12, 64, False, 0, 0),
     ("whisper cross decode", 8, 1, 1500, 12, 12, 64, False, 0, 0),
     *((f"internlm2 chunk {rows} rows q_offset {off}", rows, 128, 288, 16, 8,
-       128, True, 0, off) for rows in (1, 2, 4) for off in (0, 128)),
+       128, True, 0, off) for rows in (1, 2, 4, 8) for off in (0, 128)),
     *((f"zamba2 shared block {rows} rows", rows, 128, 288, 32, 32, 64, True,
        288, 0) for rows in (1, 2)),
 )
