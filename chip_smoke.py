@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py          # from the root of a repository checkout
     python3 chip_smoke.py --kernels 3c,3e,7a [--src DIR] [--parent FILE]
+    python3 chip_smoke.py --ml-tier
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
@@ -9,7 +10,9 @@ the `repro_torch` under another source directory (an unpacked parent
 commit, say), so two trees are timed by the same checks in one call.
 `--parent` takes the last line of such a run of the parent (its kernels'
 JSON record): phases 3d and 7a then print each case's parent time beside
-the case's own (3d its fp32 cases).
+the case's own (3d its fp32 cases). The third form runs phase 4's main
+path and phase 14 (the M_L tier) alone after the build, with no contract
+line.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -126,6 +129,40 @@ non-zero:
      (each request terminal exactly once, some shed); then the reduced fp32
      internlm2 fixture under tests/test_serving_pressure.py's scenario,
      kernels on: tokens equal to the unconstrained run bit for bit.
+  14. The asynchronous and remote M_L tier on phase 4's models. Two
+     server processes start first, each with its own CUDA context (this
+     script with `--ml-server`: the full-width large tier alone, from
+     the same seed, warmed by one generate, behind two `MLServer`s; and
+     `python -m repro_torch.launch.ml_server`), and listen before
+     anything is timed:
+     14a. Phase 4's 16 requests at its tau with M_L through `thread` (a
+         worker thread on a CUDA stream of its own), `stub` and `socket`
+         (an in-process `MLServer`, its worker on its own stream), each
+         with `large_batch` None and then 4 with `max_wait` None, then
+         `pool` over two in-process replicas with the first killed as
+         its first batch starts (its requests re-dispatched): every
+         request DONE, M_S tokens, deferral and confidences bit-equal to
+         phase 4's sync run, M_L tokens bit-equal wherever a request's
+         M_L batch kept phase 4's rows (elsewhere held to the width rule
+         with M_L's own width drift), launches exact with the worker
+         threads' and servers'.
+     14b. Everything deferred on 16 prompts of two lengths under Poisson
+         arrivals, `large_batch` 4, `max_wait` 0.05 s, through `thread`,
+         `sync` and `socket` to the second process: the M_S steps
+         between each large_submit and its large_complete, the M_L
+         queue-depth peak, the makespans, and a profiled thread run's
+         kernels and busy time per stream, their overlap and the
+         device-busy share.
+     14c. Phase 4's requests through `socket` to the second process:
+         everything bit-equal to phase 4's sync run, both processes'
+         launches exact, the child's start time printed.
+     (Then phase 13's reduced pressure run.)
+     14d. tests/test_serving_async.py's reduced fp32 fixture, kernels on,
+         through the legacy constructor and sync / thread / stub /
+         socket / pool: tokens and masks identical; then
+         `launch.serve.main()` with --large-backend sync, thread, pool
+         --ml-spawn 2, and socket to the `python -m
+         repro_torch.launch.ml_server` process: tokens equal.
   6. The second main path, the same way: DeepSeek-V2 (MLA + MoE) at its
      published widths, M_S cut to 2 layers (one dense, one MoE layer with
      all 160 routed experts), M_L `build_ladder`'s 4-layer large tier.
@@ -314,6 +351,16 @@ OVERLOAD_RATE_X = 8.0   # its arrival rate over the rate phase 4's 8 slots
                         # served (its makespan less the M_L drain): the 16
                         # arrive before the first 8 finish, the queue fills
 OVERLOAD_DEADLINE_SHARE = 0.25  # its deadline over the pressure makespan
+
+# phase 14: the asynchronous and remote M_L tier on phase 4's models
+ML_BATCH = 4            # rows per M_L batch in 14a's second pass, 14b, 14d
+ML_MAX_WAIT = 0.05      # 14b: seconds a partial M_L batch may wait
+ML_LENS = (96, 160)     # 14b: prompt lengths, alternating, so that M_L's
+                        # length groups fill (as in the JAX test)
+ML_STUB_LATENCY = 0.002  # 14a's stub backend: injected seconds a batch
+ML_PROBE_PROMPTS = 2    # prompts of the M_L width probe
+ML_START_TIMEOUT = 600  # seconds a server process may take to listen
+ML_RPC_TIMEOUT = 120.0  # socket / pool request timeout (full-width batches)
 
 # phase 10: the classifier cascade, tests/test_system.py's flow on the
 # port's own draw (seed SEED) at that test's sizes
@@ -1751,15 +1798,17 @@ def _nbytes(snapshot) -> int:
                for leaves in blk.values() for t in leaves.values())
 
 
-def _expected_launches(small, large, res) -> dict:
+def _expected_launches(small, large, res, n_ml=None) -> dict:
     """The paged path's launches in a run without calibration: the decode
     and the paired write once per layer of each decode step; the signal
     once per decode step, per seeding prefill dispatch and per M_L
     generate step (MAX_NEW a batch); flash_attention once per layer of
     each prefill dispatch (resume re-prefills too) and of each M_L
-    batch's prefill."""
+    batch's prefill. `n_ml` is the M_L generates run in this process
+    (default: the run's M_L batches)."""
     st = res.stats
-    L, n_ml = small.cfg.n_layers, st["ml_batches"]
+    L = small.cfg.n_layers
+    n_ml = st["ml_batches"] if n_ml is None else n_ml
     want = dict.fromkeys(KERNELS, 0)
     want["paged_flash_decode_gqa"] = want["paged_write_token"] = (
         L * res.steps)
@@ -2000,6 +2049,809 @@ def reduced_pressure(torch, serve) -> dict:
         raise AssertionError("reduced pressure run differs from the "
                              "unconstrained run")
     return counts
+
+
+def _sum_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in KERNELS}
+
+
+def _audit_widths(path) -> dict:
+    """{rid: rows of the M_L batch that regenerated it} from an audit log."""
+    with open(path) as f:
+        return {e["rid"]: e["pad_to"] for e in map(json.loads, f)
+                if e["event"] == "large_complete"}
+
+
+def _ref_widths(ref) -> dict:
+    """M_L batch rows per deferred rid of a run with `large_batch` None
+    (phase 4's): its prompt length's group, exact size, at the drain."""
+    by_len = {}
+    for r in ref.requests:
+        if r.deferred:
+            by_len[r.prompt_len] = by_len.get(r.prompt_len, 0) + 1
+    return {r.rid: by_len[r.prompt_len] for r in ref.requests if r.deferred}
+
+
+def ml_width_drift(torch, tfm, large, prompts, widths) -> float:
+    """Does M_L's seed depend on its batch's rows? Each prompt prefilled
+    by M_L (kernels on, a generate's cache) repeated to each width in
+    `widths` and alone, as a padded batch repeats its first row: the
+    largest |d seed logit| between any two widths."""
+    import numpy as np
+    drift = 0.0
+    for p in prompts:
+        seeds = []
+        for w in sorted(set(widths) | {1}):
+            toks = torch.from_numpy(np.repeat(
+                np.asarray(p, np.int64)[None], w, 0)).to(DEV)
+            cache = tfm.init_cache(large.cfg, w, len(p) + MAX_NEW,
+                                   device=DEV)
+            logits, _ = tfm.prefill(large.params, large.cfg, toks, cache,
+                                    last_only=True, paged_kernel=True)
+            seeds.append(logits[0, -1].float())
+        for a in seeds:
+            for b in seeds:
+                drift = max(drift, float((a - b).abs().max()))
+    return drift
+
+
+def hold_ml_run(torch, tfm, large, res, ref, widths, ref_widths, drift_of,
+                label: str, hold_small: bool = True) -> int:
+    """`res` against a run `ref` of the same requests and tau: every
+    request DONE, deferral equal, and (`hold_small`) M_S tokens and
+    confidence bit-equal. A request's final tokens are bit-equal where
+    its M_L batch had the reference's rows (rows regenerate
+    independently of the others in a batch of one shape); where the rows
+    differ (a re-dispatch, a clock-cut batch) a difference passes only
+    where M_L's top-2 margin at the first differing token lies within
+    twice `drift_of(widths seen)`, M_L's width drift. Returns how many
+    requests differ."""
+    import numpy as np
+    from repro_torch.serving.request import DONE
+    bad, n_diff, drift = [], 0, None
+    for a, b in zip(res.requests, ref.requests):
+        if a.state != DONE:
+            bad.append(f"rid {a.rid} {a.state}")
+            continue
+        if a.deferred != b.deferred:
+            bad.append(f"rid {a.rid}: deferred {a.deferred} vs {b.deferred}")
+            continue
+        if hold_small and not (np.array_equal(a.small_tokens, b.small_tokens)
+                               and a.confidence == b.confidence):
+            bad.append(f"rid {a.rid}: M_S tokens or confidence differ")
+            continue
+        if np.array_equal(a.tokens, b.tokens):
+            continue
+        n_diff += 1
+        w, w_ref = widths.get(a.rid), ref_widths.get(a.rid)
+        if not a.deferred or w == w_ref:
+            bad.append(f"rid {a.rid}: tokens differ in a batch of the "
+                       f"reference's {w_ref} rows")
+            continue
+        if drift is None:
+            drift = drift_of(set(widths.values()) | set(ref_widths.values()))
+        j = int(np.nonzero(a.tokens != b.tokens)[0][0])
+        margin = top2_margin(torch, tfm, large, b.prompt, b.tokens[:j])
+        ok = drift > 0 and margin <= 2 * drift
+        print(f"[ml] {label}: rid {a.rid} M_L token {j} {int(a.tokens[j])} "
+              f"vs {int(b.tokens[j])} in a batch of {w} rows (reference "
+              f"{w_ref}), M_L top-2 margin {margin:.4g}: "
+              f"{'within' if ok else 'NOT within'} twice the width drift "
+              f"{drift:.4g}")
+        if not ok:
+            bad.append(f"rid {a.rid}: M_L margin {margin:.4g}")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    return n_diff
+
+
+class TimedRunner:
+    """A runner whose `generate` calls are timed on the host clock (each
+    ends in its one host copy of the tokens, so the time is the call's)."""
+
+    def __init__(self, runner):
+        self.runner, self.device, self.cfg = runner, runner.device, runner.cfg
+        self.seconds = []
+
+    def generate(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.runner.generate(*args, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _socket_factory(address):
+    """The engine's M_L backend factory for one `MLServer` at `address`."""
+    from repro_torch.serving.remote import SocketBackend
+
+    def factory(runner=None, max_new=0, large_batch=None, max_wait=None,
+                stub_latency=0.0, registry=None):
+        return SocketBackend(address, request_timeout=ML_RPC_TIMEOUT,
+                             registry=registry)
+    return factory
+
+
+def start_ml_processes(torch, src):
+    """Start phase 14's two server processes at once: this script as an
+    M_L server child (14c: the full-width large tier alone, from the same
+    seed) and `python -m repro_torch.launch.ml_server` (14d: the reduced
+    CLI ladder). Each process holds its own CUDA context on the card;
+    neither is a fork. Returns {name: (process, start time, lines read
+    so far, ready event)}."""
+    import os
+    import threading
+    env = dict(os.environ, PYTHONPATH=str(src))
+    cmds = {"child": [sys.executable, str(Path(__file__).resolve()),
+                      "--ml-server", "--src", str(src)],
+            "cli": [sys.executable, "-m", "repro_torch.launch.ml_server"]}
+    procs = {}
+    for name, cmd in cmds.items():
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        lines, ready = [], threading.Event()
+
+        def read(proc=proc, lines=lines, ready=ready):
+            for line in proc.stdout:
+                lines.append((time.perf_counter(), line.rstrip()))
+                if "listening" in line:
+                    ready.set()
+            ready.set()
+        threading.Thread(target=read, daemon=True).start()
+        procs[name] = (proc, t0, lines, ready)
+    return procs
+
+
+def ml_address(procs, name: str):
+    """(host:port, seconds from the process's start to its listening
+    line) of a server process of `start_ml_processes`."""
+    proc, t0, lines, ready = procs[name]
+    if not ready.wait(timeout=ML_START_TIMEOUT) or proc.poll() is not None:
+        raise AssertionError(f"M_L server process {name} did not start: "
+                             + " | ".join(line for _, line in lines[-20:]))
+    t, line = next((t, line) for t, line in lines if "listening" in line)
+    addr = (line.split("--ml-address ")[1].split()[0] if "--ml-address"
+            in line else line.split("listening ")[1].split()[0])
+    return addr, t - t0
+
+
+def stop_ml_process(procs, name: str) -> list:
+    """Send the server process a shutdown frame, wait for it and return
+    its output lines; raises unless it exits 0."""
+    import socket as socket_lib
+    from repro_torch.serving.remote import wire
+    proc, _, lines, _ = procs[name]
+    if proc.poll() is None:
+        host, port = ml_address(procs, name)[0].rsplit(":", 1)
+        with socket_lib.create_connection((host, int(port)),
+                                          timeout=30.0) as s:
+            s.settimeout(30.0)
+            wire.send_frame(s, wire.envelope("shutdown"))
+            wire.recv_frame(s)
+        proc.wait(timeout=120)
+    time.sleep(0.1)                     # the reader thread's last lines
+    if proc.returncode != 0:
+        raise AssertionError(f"M_L server process {name} exited "
+                             f"{proc.returncode}: "
+                             + " | ".join(line for _, line in lines[-20:]))
+    return [line for _, line in lines]
+
+
+def ml_server_child(torch) -> int:
+    """`--ml-server`: phase 14's second process. Builds only the
+    full-width large tier of phase 4's ladder (same config and seed, so
+    the same weights), runs one warm-up generate (the process's first
+    launches: library loads, cuBLAS handles), and serves it through two
+    `MLServer`s, kernels on: the first with one exact-size batch per
+    prompt length at the drain, as phase 4's sync backend (14c), the
+    second with 14b's batching. When a shutdown frame stops the first it
+    stops the second and prints each one's batches and the process's
+    exact launches."""
+    import numpy as np
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving.remote import MLServer
+    large = serve.tier_runner(get_config(ARCH), SEED, 1, DEV)
+    large.generate(np.zeros((1, RAGGED[0]), np.int32), RAGGED[0], MAX_NEW,
+                   paged_kernel=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    srv = MLServer(large, max_new=MAX_NEW, paged_kernel=True).start()
+    batched = MLServer(large, max_new=MAX_NEW, large_batch=ML_BATCH,
+                       max_wait=ML_MAX_WAIT, paged_kernel=True).start()
+    print(f"[child] listening {srv.address[0]}:{srv.address[1]} and "
+          f"{batched.address[0]}:{batched.address[1]} after "
+          f"{time.perf_counter() - t0:.2f} s in the process (weights "
+          f"{sum(p.numel() for p in _leaves(large.params)) / 1e9:.3f} B)",
+          flush=True)
+    try:
+        while srv.running:
+            time.sleep(0.05)
+    finally:
+        srv.stop(timeout=120)
+        batched.stop(timeout=120)
+    torch.cuda.synchronize()
+    print("[child] " + json.dumps({
+        "batches": len(srv.batch_log),
+        "batches_second": len(batched.batch_log), "launches": read_counts(),
+        "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}),
+        flush=True)
+    return 0
+
+
+def child_second_address(procs) -> str:
+    """host:port of the `--ml-server` child's second server (14b's
+    batching)."""
+    _, _, lines, _ = procs["child"]
+    line = next(line for _, line in lines if "listening" in line)
+    return line.split(" and ")[1].split()[0]
+
+
+def ml_backends_phase(torch, tfm, small, large, tau, ref, smi, procs: dict,
+                      src) -> dict:
+    """14a. Phase 4's 16 requests at its tau on the paged engine (kernels
+    on), after `start_ml_processes` has filled `procs` and both server
+    processes listen: M_L through `sync` (this phase's yardstick of
+    time), then `thread`, `stub` and `socket` (an in-process `MLServer`,
+    its worker on a stream of its own), each with
+    `large_batch` None and then ML_BATCH with `max_wait` None (batches
+    fixed by submission order), then `pool` over two in-process replicas
+    with the first killed when its first batch starts (orphans
+    re-dispatched to the survivor). Each run: every request DONE, held to
+    phase 4's sync run by `hold_ml_run` (M_S bit-equal; M_L bit-equal
+    unless a batch's rows changed), launches counted exactly (the worker
+    threads' and the servers' included: MAX_NEW signal launches and one
+    flash_attention a layer per M_L generate). Returns the summed
+    counts."""
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.data.synthetic import make_ragged_lm_stream
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, MLBackendConfig,
+                                     PagedConfig, make_requests)
+    from repro_torch.serving.obs import MetricsRegistry
+    from repro_torch.serving.remote import MLServer, ReplicaPool
+    live = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
+                                 small.cfg.vocab_size)
+    ref_w = _ref_widths(ref)
+    probe_prompts = [r.prompt for r in ref.requests
+                     if r.deferred][:ML_PROBE_PROMPTS]
+    drifts = {}
+
+    def drift_of(widths):
+        key = tuple(sorted(widths))
+        if key not in drifts:
+            drifts[key] = ml_width_drift(torch, tfm, large, probe_prompts,
+                                         key)
+        return drifts[key]
+
+    tmp = Path(tempfile.mkdtemp(prefix="ml_phase_"))
+    total = dict.fromkeys(KERNELS, 0)
+    rows = []
+
+    timed = TimedRunner(large)
+
+    def run(label, kind, lb, servers=()):
+        timed.seconds = []
+        eng = ContinuousCascadeEngine(
+            CascadeSpec.two_tier(small, timed, tau=tau),
+            EngineConfig(n_slots=N_SLOTS, backend="paged", paged=PagedConfig(
+                block_size=BLOCK, prefill_chunk=CHUNK, paged_kernel=True),
+                ml=MLBackendConfig(kind=kind, large_batch=lb,
+                                   stub_latency=ML_STUB_LATENCY)))
+        audit = tmp / f"{label.replace(' ', '_')}.jsonl"
+        reset_counts()
+        res = eng.run(make_requests(live, MAX_NEW), MAX_NEW,
+                      audit_path=str(audit))
+        for srv in servers:
+            srv.stop(timeout=120)       # a killed replica's last batches
+        torch.cuda.synchronize()
+        counts = read_counts()
+        n_ml = (sum(len(srv.batch_log) for srv in servers) if servers
+                else res.stats["ml_batches"])
+        want = _expected_launches(small, large, res, n_ml=n_ml)
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts} != {want}")
+        widths = _audit_widths(audit)
+        n_diff = hold_ml_run(torch, tfm, large, res, ref, widths, ref_w,
+                             drift_of, label)
+        st = res.stats
+        rows.append(f"{label} {st['makespan_s']:.3f} s (decode "
+                    f"{st['phase_decode_s']:.3f}, drain "
+                    f"{st['phase_drain_s']:.3f}; {n_ml} M_L generates, "
+                    + ", ".join(f"{t:.3f}" for t in timed.seconds)
+                    + f" s; {n_diff} M_L rows differ)")
+        for k in KERNELS:
+            total[k] += counts[k]
+        return res
+
+    try:
+        procs.update(start_ml_processes(torch, src))
+        for name in procs:
+            addr, t_up = ml_address(procs, name)
+            print(f"[ml] server process {name} listening at {addr} "
+                  f"after {t_up:.2f} s")
+        run("sync large_batch None", "sync", None)
+        for lb in (None, ML_BATCH):
+            for kind in ("thread", "stub"):
+                run(f"{kind} large_batch {lb}", kind, lb)
+            srv = MLServer(timed, max_new=MAX_NEW, large_batch=lb,
+                           paged_kernel=True).start()
+            try:
+                run(f"socket large_batch {lb}", _socket_factory(srv.address),
+                    lb, servers=(srv,))
+            finally:
+                srv.stop(timeout=120)
+        # the pool, its first replica killed as its first batch starts
+        started = threading.Event()
+
+        class FirstBatchSignal:
+            """M_L that signals when its first generate starts."""
+            device = large.device
+            cfg = large.cfg
+
+            def generate(self, *args, **kw):
+                started.set()
+                return large.generate(*args, **kw)
+
+        doomed = MLServer(FirstBatchSignal(), max_new=MAX_NEW,
+                          large_batch=ML_BATCH, paged_kernel=True).start()
+        survivor = MLServer(timed, max_new=MAX_NEW, large_batch=ML_BATCH,
+                            paged_kernel=True).start()
+        reg = MetricsRegistry()
+        made = []
+
+        def pool_factory(runner=None, max_new=0, large_batch=None,
+                         max_wait=None, stub_latency=0.0, registry=None):
+            made.append(ReplicaPool(
+                [doomed.address, survivor.address],
+                request_timeout=ML_RPC_TIMEOUT, retries=1, backoff=0.01,
+                health_interval=0.1, max_new=max_new,
+                large_batch=large_batch, registry=reg))
+            return made[-1]
+
+        def kill_when_started():
+            if started.wait(timeout=ML_START_TIMEOUT):
+                doomed.kill()
+        killer = threading.Thread(target=kill_when_started, daemon=True)
+        killer.start()
+        try:
+            run("pool of 2, one killed", pool_factory, ML_BATCH,
+                servers=(doomed, survivor))
+        finally:
+            started.set()
+            killer.join(timeout=60)
+            doomed.stop(timeout=120)
+            survivor.stop(timeout=120)
+        scrape = reg.render()
+        ejected = redispatched = 0
+        for line in scrape.splitlines():
+            if line.startswith("serving_ml_replica_ejections_total"):
+                ejected = float(line.split()[-1])
+            if line.startswith("serving_ml_redispatched_requests_total"):
+                redispatched = float(line.split()[-1])
+        print(f"[ml] pool: the killed replica ran {len(doomed.batch_log)} "
+              f"M_L generates whose results were dropped, the survivor "
+              f"{len(survivor.batch_log)}; {int(ejected)} ejection, "
+              f"{int(redispatched)} requests re-dispatched, "
+              f"{made[0].n_alive} replica alive")
+        if not (ejected == 1 and redispatched > 0 and made[0].n_alive == 1):
+            raise AssertionError("pool: the killed replica's work was not "
+                                 "re-dispatched")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[ml] 14a: phase 4's {N_REQUESTS} requests at tau {tau:.4f}, "
+          f"makespans (phase 4's sync {ref.stats['makespan_s']:.3f} s, decode "
+          f"{ref.stats['phase_decode_s']:.3f}, drain "
+          f"{ref.stats['phase_drain_s']:.3f}): "
+          + "; ".join(rows) + f"; every request DONE, M_S tokens, deferral "
+          f"and confidences bit-equal to phase 4's, launches exact on {smi}"
+          + (f"; M_L width drift {max(drifts.values()):.4g}" if drifts
+             else ""))
+    return total
+
+
+def _kernel_intervals(trace: dict):
+    """{stream: [(start us, end us)]} of the GPU kernels in a Chrome trace
+    that torch.profiler exported (raises when it holds none)."""
+    out = {}
+    events = trace.get("traceEvents", [])
+    for e in events:
+        if str(e.get("cat", "")).lower() == "kernel" and "dur" in e:
+            stream = e.get("args", {}).get("stream", e.get("tid"))
+            out.setdefault(stream, []).append((e["ts"], e["ts"] + e["dur"]))
+    if not out:
+        cats = sorted({str(e.get("cat")) for e in events})
+        raise AssertionError(f"the profiler's trace holds no kernel event "
+                             f"(categories {cats})")
+    return out
+
+
+def _union(intervals):
+    """Merged, sorted intervals."""
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _overlap_us(xs, ys) -> float:
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def overlap_phase(torch, tfm, small, large, procs, smi):
+    """14b. JAX's test_threaded_steps_interleave_with_large_regeneration
+    at full width: 16 prompts of ML_LENS tokens (alternating), everything
+    deferred (tau +inf, early exit after min_tokens 2), Poisson arrivals
+    at about the rate M_L regenerates batches of ML_BATCH, `large_batch`
+    ML_BATCH and `max_wait` ML_MAX_WAIT, through `thread`, then `sync`,
+    then `socket` to the `--ml-server` child's second server (M_L in
+    another process: no GIL shared with the engine's loop). The clock
+    cuts batches, so M_L rows are held to the sync run's by the width
+    rule, and M_S's discarded tokens are not held. Prints the M_S steps
+    between each large_submit and its large_complete, the queue depth's
+    peak, the three makespans and, from a thread run under
+    torch.profiler, the kernels and busy time on each stream, their
+    overlap and the device-busy share. Returns (the timed thread and
+    socket runs' counts summed, the socket run's M_L batches)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.synthetic import make_lm_stream
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, MLBackendConfig,
+                                     PagedConfig, make_requests,
+                                     poisson_arrivals)
+    base = make_lm_stream([SEED, 6], N_REQUESTS, max(ML_LENS),
+                          small.cfg.vocab_size)
+    prompts = [base[i, :ML_LENS[i % 2]] for i in range(N_REQUESTS)]
+    for plen in ML_LENS:                 # warm M_L's shapes
+        large.generate(np.zeros((ML_BATCH, plen), np.int32), plen, MAX_NEW,
+                       paged_kernel=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    large.generate(np.zeros((ML_BATCH, max(ML_LENS)), np.int32),
+                   max(ML_LENS), MAX_NEW, paged_kernel=True)
+    t_batch = time.perf_counter() - t0
+    rate = ML_BATCH / t_batch
+    arrivals = poisson_arrivals(N_REQUESTS, rate, seed=SEED)
+    tmp = Path(tempfile.mkdtemp(prefix="ml_overlap_"))
+
+    def run(kind, label, n_ml=None):
+        eng = ContinuousCascadeEngine(
+            CascadeSpec.two_tier(small, large, tau=math.inf, min_tokens=2),
+            EngineConfig(n_slots=N_SLOTS, backend="paged", paged=PagedConfig(
+                block_size=BLOCK, prefill_chunk=CHUNK, paged_kernel=True),
+                ml=MLBackendConfig(kind=kind, large_batch=ML_BATCH,
+                                   max_wait=ML_MAX_WAIT)))
+        audit = tmp / f"{label}.jsonl"
+        reset_counts()
+        res = eng.run(make_requests(prompts, MAX_NEW, arrivals), MAX_NEW,
+                      audit_path=str(audit))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = _expected_launches(small, large, res, n_ml=n_ml)
+        if counts != want:
+            raise AssertionError(f"14b {label}: launches {counts} != {want}")
+        if not res.deferred.all():
+            raise AssertionError(f"14b {label}: not every request deferred")
+        return res, counts, audit
+
+    try:
+        thr, counts, audit = run("thread", "thread")
+        syn, _, audit_sync = run("sync", "sync")
+        sock, sock_counts, audit_sock = run(
+            _socket_factory(child_second_address(procs)),
+            "process", n_ml=0)
+        events = [json.loads(line) for line in open(audit)]
+        submit = {e["rid"]: i for i, e in enumerate(events)
+                  if e["event"] == "large_submit"}
+        done = {e["rid"]: i for i, e in enumerate(events)
+                if e["event"] == "large_complete"}
+        between = [sum(1 for e in events[submit[r] + 1:done[r]]
+                       if e["event"] == "step")
+                   for r in sorted(submit)]
+        from repro_torch.serving.request import DONE
+        if not (set(submit) == set(done) == set(range(N_REQUESTS))
+                and all(r.state == DONE for r in
+                        thr.requests + syn.requests + sock.requests)):
+            raise AssertionError("14b: a deferral never completed")
+
+        def drift_of(widths):
+            return ml_width_drift(torch, tfm, large,
+                                  prompts[:ML_PROBE_PROMPTS], widths)
+        n_diff = hold_ml_run(
+            torch, tfm, large, thr, syn, _audit_widths(audit),
+            _audit_widths(audit_sync), drift_of, "14b thread against sync",
+            hold_small=False)
+        n_diff_sock = hold_ml_run(
+            torch, tfm, large, sock, syn, _audit_widths(audit_sock),
+            _audit_widths(audit_sync), drift_of,
+            "14b second process against sync", hold_small=False)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prof_res = run("thread", "profiled")[0]
+            wall_us = (time.perf_counter() - t0) * 1e6
+        trace_path = tmp / "trace.json"
+        prof.export_chrome_trace(str(trace_path))
+        trace = json.loads(trace_path.read_text())
+        os.remove(trace_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = _kernel_intervals(trace)
+    by_stream = {s: _union(iv) for s, iv in kernels.items()}
+    busy = {s: sum(b - a for a, b in iv) for s, iv in by_stream.items()}
+    n_kernels = {s: len(iv) for s, iv in kernels.items()}
+    streams = sorted(by_stream, key=lambda s: -busy[s])
+    overlap = (_overlap_us(by_stream[streams[0]], by_stream[streams[1]])
+               if len(streams) > 1 else 0.0)
+    every = _union([iv for ivs in by_stream.values() for iv in ivs])
+    window = (every[-1][1] - every[0][0]) if every else 0.0
+    dev_busy = sum(b - a for a, b in every)
+    st, sst, kst = thr.stats, syn.stats, sock.stats
+    print(f"[ml] 14b: {N_REQUESTS} prompts of {ML_LENS} tokens, everything "
+          f"deferred, Poisson arrivals at {rate:.2f} requests/s (one M_L "
+          f"generate of {ML_BATCH} x {max(ML_LENS)} + {MAX_NEW} tokens took "
+          f"{t_batch * 1e3:.1f} ms), large_batch {ML_BATCH}, max_wait "
+          f"{ML_MAX_WAIT} s: thread makespan {st['makespan_s']:.3f} s, sync "
+          f"{sst['makespan_s']:.3f} s, socket to the second process "
+          f"{kst['makespan_s']:.3f} s ({kst['ml_batches']} M_L batches, "
+          f"queue-depth peak {kst['ml_queue_depth_peak']}, {n_diff_sock} M_L "
+          f"rows differ from the sync run); M_S steps between each large_submit "
+          f"and its large_complete {between} (total {sum(between)}); "
+          f"ml_queue_depth_peak {st['ml_queue_depth_peak']} (sync "
+          f"{sst['ml_queue_depth_peak']}); M_L batches {st['ml_batches']} "
+          f"(sync {sst['ml_batches']}), occupancy "
+          f"{st['ml_batch_occupancy']:.3f}; {n_diff} M_L rows differ from "
+          f"the sync run (within the width rule) on {smi}")
+    print(f"[ml] 14b profiled thread run (makespan "
+          f"{prof_res.stats['makespan_s']:.3f} s): kernels on "
+          f"{len(streams)} streams: "
+          + "; ".join(f"stream {s}: {n_kernels[s]} kernels, busy "
+                      f"{busy[s] / 1e3:.2f} ms" for s in streams)
+          + f"; the two busiest overlap for {overlap / 1e3:.2f} ms; device "
+          f"busy {dev_busy / 1e3:.2f} ms of a {window / 1e3:.2f} ms kernel "
+          f"window ({dev_busy / max(window, 1e-9):.3f}) and of "
+          f"{wall_us / 1e3:.2f} ms of host wall ({dev_busy / wall_us:.3f})")
+    if not (sum(between) > 0 and st["ml_queue_depth_peak"] > 0):
+        raise AssertionError("14b: M_S did not step while M_L regenerated")
+    if len(streams) < 2 or overlap <= 0:
+        raise AssertionError("14b: M_L's kernels ran on the engine's stream "
+                             "or never beside its kernels")
+    return _sum_counts(counts, sock_counts), kst["ml_batches"]
+
+
+def second_process_phase(torch, small, large, tau, ref, procs,
+                         second_batches: int, smi) -> dict:
+    """14c. M_L in a second process on the card: the `--ml-server` child
+    (started by `start_ml_processes`) serves the full-width large tier;
+    phase 4's requests at its tau go through `socket` to its first
+    server. Every token, deferral and confidence bit-equal to phase 4's
+    sync run; the engine's launches exact with no M_L generate in this
+    process, the child's exact for its two servers' batches (the second
+    ran `second_batches`, 14b's). Returns the run's counts and the
+    child's summed."""
+    import numpy as np
+    from repro_torch.data.synthetic import make_ragged_lm_stream
+    from repro_torch.serving import (CascadeSpec, ContinuousCascadeEngine,
+                                     EngineConfig, MLBackendConfig,
+                                     PagedConfig, make_requests)
+    address, t_ready = ml_address(procs, "child")
+    live = make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
+                                 small.cfg.vocab_size)
+    eng = ContinuousCascadeEngine(
+        CascadeSpec.two_tier(small, large, tau=tau),
+        EngineConfig(n_slots=N_SLOTS, backend="paged", paged=PagedConfig(
+            block_size=BLOCK, prefill_chunk=CHUNK, paged_kernel=True),
+            ml=MLBackendConfig(kind=_socket_factory(address))))
+    reset_counts()
+    res = eng.run(make_requests(live, MAX_NEW), MAX_NEW)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = _expected_launches(small, large, res, n_ml=0)
+    if counts != want:
+        raise AssertionError(f"14c: launches {counts} != {want}")
+    same = (np.array_equal(res.tokens, ref.tokens)
+            and np.array_equal(res.deferred, ref.deferred)
+            and np.array_equal(res.confidence, ref.confidence))
+    lines = stop_ml_process(procs, "child")
+    for line in lines:
+        print(f"[ml] {line}")
+    child = json.loads(next(line for line in reversed(lines)
+                            if line.startswith("[child] {"))[8:])
+    n = child["batches"]
+    n_all = n + child["batches_second"]
+    want_child = dict.fromkeys(KERNELS, 0)
+    want_child["deferral_entropy"] = MAX_NEW * n_all
+    want_child["flash_attention"] = flash_layers(large.cfg) * n_all
+    print(f"[ml] 14c: M_L in a second process on the card ({address}), "
+          f"listening {t_ready:.2f} s after its start (interpreter, torch, "
+          f"CUDA context, {large.cfg.n_layers}-layer large tier, one "
+          f"warm-up generate), peak {child['peak_gib']} GiB there; phase 4's "
+          f"{N_REQUESTS} requests through socket in "
+          f"{res.stats['makespan_s']:.3f} s (phase 4's sync "
+          f"{ref.stats['makespan_s']:.3f} s): tokens, deferral and "
+          f"confidences {'bit-equal' if same else 'NOT equal'} to phase "
+          f"4's; {n} M_L generates in the child for this run and "
+          f"{child['batches_second']} for 14b's, its launches "
+          f"{child['launches']}, this process's {counts} (exact) on {smi}")
+    if not same or child["launches"] != want_child \
+            or n != res.stats["ml_batches"] \
+            or child["batches_second"] != second_batches:
+        raise AssertionError(f"14c: second-process run differs: tokens "
+                             f"equal {same}, child launches "
+                             f"{child['launches']} != {want_child}")
+    return _sum_counts(counts, child["launches"])
+
+
+def kill_ml_processes(procs: dict) -> None:
+    """End any server process of `start_ml_processes` still running."""
+    for proc, *_ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def ml_tier(torch, tfm, small, large, tau, ref, smi, procs: dict, src,
+            t_start: float) -> dict:
+    """Phases 14a, 14b and 14c on phase 4's models (`tau` and `ref` its
+    calibrated tau and sync run); `procs` receives the server processes,
+    which the caller ends. Returns their launch counts by path."""
+    out = {}
+    phase("14a", t_start)
+    out["ml_backends"] = ml_backends_phase(torch, tfm, small, large, tau,
+                                           ref, smi, procs, src)
+    phase("14b", t_start)
+    out["ml_overlap"], second = overlap_phase(torch, tfm, small, large,
+                                              procs, smi)
+    phase("14c", t_start)
+    out["ml_process"] = second_process_phase(torch, small, large, tau, ref,
+                                             procs, second, smi)
+    return out
+
+
+def ml_tier_only(torch, smi, src, t_start: float) -> int:
+    """`--ml-tier`: phase 4's main path on the full-width internlm2-1.8b
+    cascade (its tau and sync run are phase 14's reference), then phase
+    14, with no other phase (about 3 min with the build)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    with torch.inference_mode():
+        phase("4", t_start)
+        small, large = serve.build_ladder(ARCH, SEED, 2, reduce=False,
+                                          device=DEV)
+        L = small.cfg.n_layers
+        _, ref, tau = serve_main_path(
+            torch, small, large,
+            {"paged_flash_decode_gqa": L, "paged_write_token": L}, smi)
+        procs = {}
+        try:
+            ml_tier(torch, tfm, small, large, tau, ref, smi, procs, src,
+                    t_start)
+            del small, large
+            torch.cuda.empty_cache()
+            phase("14d", t_start)
+            reduced_ml_backends(torch, serve, procs)
+        finally:
+            kill_ml_processes(procs)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+def reduced_ml_backends(torch, serve, procs) -> dict:
+    """14d. tests/test_serving_async.py's reduced fp32 fixture (internlm2
+    reduced, M_L 3 layers with d_ff 768, 16 prompts of 8 tokens, tau at
+    deferral 0.5, 8 slots, min_tokens 2, `large_batch` ML_BATCH with
+    `max_wait` None), kernels on, through the legacy constructor with
+    sync / thread / stub / socket / pool: tokens and masks identical.
+    Then `launch.serve.main()` with --large-backend sync, thread, pool
+    --ml-spawn 2, and socket to the `python -m
+    repro_torch.launch.ml_server` process: tokens equal to sync's.
+    Returns the engine runs' counts."""
+    import warnings
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import make_lm_stream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import (ContinuousCascadeEngine, ModelRunner,
+                                     make_requests)
+    from repro_torch.serving.remote import MLServer, ReplicaPool
+    from repro_torch.serving.request import DONE
+    s_cfg = reduced(get_config(ARCH))
+    l_cfg = s_cfg.replace(name="large", n_layers=3, d_ff=768)
+    small = ModelRunner(s_cfg, tfm.init_params(s_cfg, SEED, DEV))
+    large = ModelRunner(l_cfg, tfm.init_params(l_cfg, SEED + 1, DEV))
+    prompts = make_lm_stream([SEED, 2], N_REQUESTS, 8, s_cfg.vocab_size)
+    servers = [MLServer(large, max_new=4, large_batch=ML_BATCH,
+                        paged_kernel=True).start() for _ in range(3)]
+    kinds = {"sync": "sync", "thread": "thread", "stub": "stub",
+             "socket": _socket_factory(servers[0].address),
+             "pool": lambda **kw: ReplicaPool(
+                 [s.address for s in servers[1:]],
+                 request_timeout=ML_RPC_TIMEOUT, max_new=kw["max_new"],
+                 large_batch=kw["large_batch"], registry=kw["registry"])}
+    outs, total = {}, dict.fromkeys(KERNELS, 0)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            tau = ContinuousCascadeEngine(
+                small, large, n_slots=8, min_tokens=2,
+                paged_kernel=True).calibrate(prompts, 8, 4, 0.5)
+            for name, kind in kinds.items():
+                eng = ContinuousCascadeEngine(
+                    small, large, n_slots=8, tau=tau, min_tokens=2,
+                    early_exit=True, large_batch=ML_BATCH,
+                    large_backend=kind, large_max_wait=None,
+                    paged_kernel=True)
+                reset_counts()
+                outs[name] = eng.run(make_requests(prompts, 4), 4)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                if not (counts["deferral_entropy"]
+                        and counts["flash_attention"]):
+                    raise AssertionError(f"14d {name}: kernels off: "
+                                         f"{counts}")
+                for k in KERNELS:
+                    total[k] += counts[k]
+    finally:
+        for srv in servers:
+            srv.stop(timeout=60)
+    ref = outs["sync"]
+    same = {name: bool(np.array_equal(r.tokens, ref.tokens)
+                       and np.array_equal(r.deferred, ref.deferred)
+                       and all(q.state == DONE for q in r.requests))
+            for name, r in outs.items()}
+    print(f"[ml] 14d: reduced fp32 fixture ({s_cfg.n_layers} + "
+          f"{l_cfg.n_layers} layers), tau {tau:.5f}, "
+          f"{int(ref.deferred.sum())} of {N_REQUESTS} deferred: tokens and "
+          f"masks equal to sync's: {same}")
+    if not all(same.values()) or not 0 < ref.deferred.sum() < N_REQUESTS:
+        raise AssertionError(f"14d: backends differ: {same}")
+    cli = {}
+    address, t_ready = ml_address(procs, "cli")
+    for name, argv in (("sync", []), ("thread", ["--large-backend",
+                                                 "thread"]),
+                       ("pool", ["--large-backend", "pool", "--ml-spawn",
+                                 "2"]),
+                       ("socket", ["--large-backend", "socket",
+                                   "--ml-address", address])):
+        res = serve.main(argv)
+        if not all(r.state == DONE for r in res.requests):
+            raise AssertionError(f"serve.main({argv}) left requests "
+                                 f"unfinished")
+        cli[name] = res
+    lines = stop_ml_process(procs, "cli")
+    cli_same = {name: bool(np.array_equal(r.tokens, cli["sync"].tokens)
+                           and np.array_equal(r.deferred,
+                                              cli["sync"].deferred))
+                for name, r in cli.items()}
+    print(f"[ml] 14d: serve.main with --large-backend sync / thread / pool "
+          f"--ml-spawn 2 / socket to `python -m repro_torch.launch."
+          f"ml_server` (listening {t_ready:.2f} s after its start; "
+          f"{lines[-1]}): tokens and masks equal to sync's: {cli_same}, "
+          f"{int(cli['sync'].deferred.sum())} of "
+          f"{len(cli['sync'].requests)} deferred")
+    if not all(cli_same.values()) or not cli["sync"].deferred.any():
+        raise AssertionError(f"14d: CLI backends differ: {cli_same}")
+    return total
 
 
 def profile_step(torch, label, cfg, split, params, loss) -> None:
@@ -3310,6 +4162,14 @@ def parse_args(argv=None):
                     help="a file holding the last line (the kernels' JSON "
                          "record) of a --kernels run of the parent tree: "
                          "phases 3d and 7a print each case's parent time")
+    ap.add_argument("--ml-tier", action="store_true",
+                    help="run only phase 4's main path and phase 14 (the "
+                         "M_L tier) after the build: prints their lines, "
+                         "no contract line")
+    ap.add_argument("--ml-server", action="store_true",
+                    help="run as phase 14c's M_L server process (this "
+                         "script starts it): the full-width large tier "
+                         "behind an MLServer until a shutdown frame")
     args = ap.parse_args(argv)
     if args.kernels is not None:
         bad = set(args.kernels.split(",")) - set(KERNEL_PHASES)
@@ -3336,6 +4196,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 matmuls in fp32
     torch.backends.cudnn.allow_tf32 = False
+    if args.ml_server:
+        return ml_server_child(torch)
     t_start = time.perf_counter()
 
     # -- 1. the card -------------------------------------------------------
@@ -3358,6 +4220,8 @@ def main(argv=None) -> int:
                     or "spill" in line):
                 print(f"[build] {line.strip()}")
 
+    if args.ml_tier:
+        return ml_tier_only(torch, smi, src, t_start)
     rng = np.random.default_rng(SEED)
     with torch.inference_mode():
         parent = (json.loads(args.parent.read_text().strip()
@@ -3404,9 +4268,19 @@ def main(argv=None) -> int:
         probe = width_probe(torch, tfm, small, smi)
         by_path["pressure"], by_path["overload"] = pressure_phase(
             torch, tfm, small, large, main_tau, main_res, probe, smi)
-        del small, large
         torch.cuda.empty_cache()
-        by_path["pressure_reduced"] = reduced_pressure(torch, serve)
+        # -- 14. the asynchronous and remote M_L tier on the same models ----
+        procs = {}
+        try:
+            by_path.update(ml_tier(torch, tfm, small, large, main_tau,
+                                   main_res, smi, procs, src, t_start))
+            del small, large
+            torch.cuda.empty_cache()
+            by_path["pressure_reduced"] = reduced_pressure(torch, serve)
+            phase("14d", t_start)
+            by_path["ml_reduced"] = reduced_ml_backends(torch, serve, procs)
+        finally:
+            kill_ml_processes(procs)
 
         # -- 6. DeepSeek-V2 (MLA + MoE) at full width -----------------------
         phase("6", t_start)

@@ -33,6 +33,17 @@ SOURCES = ("paged_attention", "mla_attention", "gatekeeper_loss",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count(fn, **increments: int) -> None:
+    """Add to a wrapper's launch counters (`fn.launches = 0` resets one)
+    under one lock, so that a launch on one thread never loses another
+    thread's increment (M_L's worker threads launch beside the engine's
+    loop)."""
+    with _count_lock:
+        for attr, n in increments.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def nvcc_path() -> str:

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -70,17 +71,23 @@ def vocab_split(T: int, V: int, n_sms: int) -> Tuple[int, int]:
 
 # (device index, stream handle) -> the kernel's zeroed per-row ticket
 # counters, grown to the most rows seen on that stream; each call leaves
-# them zero, and calls on one stream run in order
+# them zero, and calls on one stream run in order. Threads on distinct
+# streams (M_L's workers) get distinct keys. Two threads on one stream
+# share a key: the lock makes a grow atomic, and a thread that still
+# holds the older, smaller tensor launches on the same stream, in order
+# with the grow's zero fill, so each launch sees zeroed counters.
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
+_counters_lock = threading.Lock()
 
 
 def _row_counters(dev: torch.device, stream: int, T: int) -> torch.Tensor:
     key = (dev.index, stream)
-    counters = _counters.get(key)
-    if counters is None or counters.numel() < T:
-        counters = torch.zeros(T, dtype=torch.int32, device=dev)
-        _counters[key] = counters
-    return counters
+    with _counters_lock:
+        counters = _counters.get(key)
+        if counters is None or counters.numel() < T:
+            counters = torch.zeros(T, dtype=torch.int32, device=dev)
+            _counters[key] = counters
+        return counters
 
 
 def deferral_entropy(logits: torch.Tensor) -> Signal:
@@ -113,7 +120,7 @@ def deferral_entropy(logits: torch.Tensor) -> Signal:
         n_splits, int(x.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"deferral_entropy launch failed: CUDA error {err}")
-    deferral_entropy.launches += 1
+    _build.count(deferral_entropy, launches=1)
     return neg_ent, max_prob, argmax
 
 

@@ -197,7 +197,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention.launches += 1
+    _build.count(flash_attention, launches=1)
     return out
 
 

@@ -145,7 +145,7 @@ def gatekeeper_loss_tokens(x: torch.Tensor, table: torch.Tensor,
     if err:
         raise RuntimeError(f"gatekeeper_loss_tokens launch failed: CUDA "
                            f"error {err}")
-    gatekeeper_loss_tokens.launches += 1
+    _build.count(gatekeeper_loss_tokens, launches=1)
     ce, kl, corr, ent, lse = outs
     return (ce, kl, corr, ent, lse) if return_lse else (ce, kl, corr, ent)
 

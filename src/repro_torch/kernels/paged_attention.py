@@ -247,7 +247,7 @@ def paged_flash_decode_gqa(q: torch.Tensor, k_pages: torch.Tensor,
     if err:
         raise RuntimeError(f"paged_flash_decode_gqa launch failed: CUDA "
                            f"error {err}")
-    paged_flash_decode_gqa.launches += 1
+    _build.count(paged_flash_decode_gqa, launches=1)
     return out
 
 
@@ -320,7 +320,7 @@ def paged_flash_decode_mla(q_abs: torch.Tensor, q_rope: torch.Tensor,
     if err:
         raise RuntimeError(f"paged_flash_decode_mla launch failed: CUDA "
                            f"error {err}")
-    paged_flash_decode_mla.launches += 1
+    _build.count(paged_flash_decode_mla, launches=1)
     return out
 
 
@@ -357,7 +357,7 @@ def _write(leaves, tables: torch.Tensor, positions: torch.Tensor,
                                     _stream(device))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    paged_write_token.launches += 1
+    _build.count(paged_write_token, launches=1)
 
 
 def paged_write_token(leaf: torch.Tensor, tables: torch.Tensor,

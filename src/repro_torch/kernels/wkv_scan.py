@@ -273,8 +273,7 @@ def wkv_scan(q, k, v, logw, u, state0, *, mode: str = "rwkv",
         *(_ptr(t) for t in ins), y.data_ptr(), out.data_ptr(), _ptr(ws),
         _ptr(wc), *dims, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "wkv_scan")
-    wkv_scan.launches += 1
-    wkv_scan.launches_chunked += chunked
+    _build.count(wkv_scan, launches=1, launches_chunked=chunked)
     return y, out
 
 
@@ -298,7 +297,7 @@ def wkv_scan_path(q, k, v, logw, u, state0, *, chunked: bool,
         _ptr(wc), *dims, int(chunked),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "wkv_scan_path")
-    wkv_scan_path.launches += 1
+    _build.count(wkv_scan_path, launches=1)
     return y, out
 
 

@@ -5,12 +5,16 @@ Counterpart of `repro.launch.serve` with the same flags, defaults and
 argparse-time rejections of contradictory combinations. Flags for what
 the port does not run yet are rejected by name at argparse time (see
 ROADMAP.md): architectures of unported families, ladders of more than
-two tiers, the semantic-agreement signal, online recalibration, the
-thread/stub/socket/pool M_L backends, and the /metrics endpoint and
-profiler flags. Memory pressure (--oversubscribe, --pressure-policy,
---max-preemptions, --swap-blocks) and admission overload control
-(--max-queue, --deadline-ms) run as in JAX, with its validations. One flag is new: --device (default: cuda,
-which must exist). `--arch` takes internlm2-1.8b (dense GQA),
+two tiers, the semantic-agreement signal, online recalibration, and the
+/metrics endpoint and profiler flags. Memory pressure (--oversubscribe,
+--pressure-policy, --max-preemptions, --swap-blocks), admission overload
+control (--max-queue, --deadline-ms) and the M_L backends run as in JAX,
+with its validations: --large-backend sync (inline), thread (a worker
+thread, on a CUDA stream of its own on the card), stub (serialized pipe,
+--stub-latency), socket (one M_L server: --ml-address host:port, started
+with `python -m repro_torch.launch.ml_server`) or pool (several, with
+health checks and re-dispatch); --ml-spawn N starts N in-process servers
+instead. One flag is new: --device (default: cuda, which must exist). `--arch` takes internlm2-1.8b (dense GQA),
 deepseek-v2-236b (MLA + MoE), rwkv6-3b (RWKV6, attention-free) and
 zamba2-1.2b (Mamba2 with a shared attention block): the last two on the
 slot backend only, as in JAX, whose paged pool refuses a recurrent state.
@@ -21,6 +25,11 @@ through `launch.steps`.
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 \\
         --max-new 8 --engine continuous --backend paged --ragged-min 8 \\
         --ragged-max 32 --block-size 8 --prefill-chunk 8
+
+    # M_L in another process (same --arch, --seed, --max-new and --device)
+    PYTHONPATH=src python -m repro_torch.launch.ml_server --port 7070
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --large-backend socket --ml-address 127.0.0.1:7070
 """
 from __future__ import annotations
 
@@ -51,12 +60,6 @@ _UNPORTED = (("recalibrate", "--recalibrate"),
              ("recalib_warmup", "--recalib-warmup"),
              ("signal_k", "--signal-k"),
              ("signal_temperature", "--signal-temperature"),
-             ("ml_address", "--ml-address"), ("ml_spawn", "--ml-spawn"),
-             ("ml_connect_timeout", "--ml-connect-timeout"),
-             ("ml_request_timeout", "--ml-request-timeout"),
-             ("ml_retries", "--ml-retries"),
-             ("ml_health_interval", "--ml-health-interval"),
-             ("stub_latency", "--stub-latency"),
              ) + UNPORTED_FLAGS
 
 
@@ -77,16 +80,59 @@ def build_ladder(arch: str, seed: int, n_tiers: int, reduce: bool = True,
                               seed, device)
 
 
+def build_runners(arch: str, seed: int, device=None):
+    """(small, large, small's config): the reduced two-tier ladder, as
+    the JAX CLI builds it. An M_L server and an engine built from the same
+    `arch` and `seed` on one device type hold the same large weights."""
+    small, large = build_ladder(arch, seed, 2, device=device)
+    return small, large, small.cfg
+
+
+def tier_runner(small_cfg: ModelConfig, seed: int, tier: int, device=None
+                ) -> ModelRunner:
+    """One tier of `ladder_from_config`'s ladder alone, with the same
+    seeded weights (an M_L server process builds only tier 1): tier 0 is
+    `small_cfg`, tier 1 the demo "large" model — 4 layers, twice the
+    width and FFN, 8 heads."""
+    cfg = small_cfg if tier == 0 else small_cfg.replace(
+        name=small_cfg.name + "-large", n_layers=4,
+        d_model=small_cfg.d_model * 2, n_heads=8, d_ff=small_cfg.d_ff * 2)
+    return ModelRunner(cfg, tfm.init_params(cfg, _tier_seed(seed, tier),
+                                            resolve_device(device)))
+
+
 def ladder_from_config(small_cfg: ModelConfig, seed: int, device=None):
-    """The two-tier ladder over a resolved tier-0 config: `small_cfg`, then
-    the demo "large" model — 4 layers, twice the width and FFN, 8 heads.
-    Weights are random, seeded per tier."""
+    """The two-tier ladder over a resolved tier-0 config (`tier_runner`'s
+    two tiers). Weights are random, seeded per tier."""
     device = resolve_device(device)
-    large_cfg = small_cfg.replace(name=small_cfg.name + "-large",
-                                  n_layers=4, d_model=small_cfg.d_model * 2,
-                                  n_heads=8, d_ff=small_cfg.d_ff * 2)
-    return [ModelRunner(c, tfm.init_params(c, _tier_seed(seed, i), device))
-            for i, c in enumerate((small_cfg, large_cfg))]
+    return [tier_runner(small_cfg, seed, i, device) for i in (0, 1)]
+
+
+def make_remote_factory(kind: str, addresses, *, connect_timeout: float,
+                        request_timeout: float, retries: int,
+                        health_interval: float):
+    """Callable `large_backend` for the engine: builds the socket/pool
+    backend with the engine-supplied context (max_new, metrics registry)
+    plus the addresses/timeouts closed over here. The runner argument is
+    ignored — with a remote tier, M_L compute lives in the server."""
+    from repro_torch.serving.remote import ReplicaPool, SocketBackend
+
+    def factory(runner=None, max_new=0, large_batch=None, max_wait=None,
+                stub_latency=0.0, registry=None):
+        if kind == "socket":
+            return SocketBackend(addresses[0],
+                                 connect_timeout=connect_timeout,
+                                 request_timeout=request_timeout,
+                                 retries=retries, registry=registry)
+        return ReplicaPool(addresses,
+                           connect_timeout=connect_timeout,
+                           request_timeout=request_timeout,
+                           retries=retries,
+                           health_interval=health_interval,
+                           max_new=max_new, large_batch=large_batch,
+                           registry=registry)
+
+    return factory
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,20 +168,37 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--large-backend",
                     choices=("sync", "thread", "stub", "socket", "pool"),
                     default="sync",
-                    help="M_L regeneration backend (only sync is ported)")
-    ap.add_argument("--ml-address", default="")
-    ap.add_argument("--ml-spawn", type=int, default=0)
+                    help="M_L regeneration backend: inline (sync), "
+                         "worker thread overlapped with M_S decode, on a "
+                         "CUDA stream of its own on the card (thread), "
+                         "serialized RPC stub (stub), one remote M_L "
+                         "server (socket), or N replicas with health "
+                         "checks + re-dispatch (pool)")
+    ap.add_argument("--ml-address", default="",
+                    help="socket/pool: comma-separated host:port of "
+                         "running M_L servers (repro_torch.launch."
+                         "ml_server); empty with --ml-spawn starts "
+                         "in-process servers")
+    ap.add_argument("--ml-spawn", type=int, default=0,
+                    help="socket/pool: start this many in-process M_L "
+                         "servers on ephemeral ports instead of "
+                         "connecting to --ml-address")
     ap.add_argument("--ml-connect-timeout", type=float, default=2.0)
     ap.add_argument("--ml-request-timeout", type=float, default=30.0)
-    ap.add_argument("--ml-retries", type=int, default=3)
-    ap.add_argument("--ml-health-interval", type=float, default=2.0)
+    ap.add_argument("--ml-retries", type=int, default=3,
+                    help="socket/pool: RPC retry attempts "
+                         "(exponential backoff) before giving up")
+    ap.add_argument("--ml-health-interval", type=float, default=2.0,
+                    help="pool: seconds between replica health probes")
     ap.add_argument("--large-batch", type=int, default=0,
                     help="M_L regeneration batch size (0 = one "
                          "exact-size batch at end of run)")
     ap.add_argument("--large-max-wait", type=float, default=0.0,
                     help="seconds a partial M_L batch may wait before "
                          "flushing padded (0 = wait for a full batch)")
-    ap.add_argument("--stub-latency", type=float, default=0.0)
+    ap.add_argument("--stub-latency", type=float, default=0.0,
+                    help="injected per-batch RPC latency for "
+                         "--large-backend stub")
     ap.add_argument("--audit-log", default=None,
                     help="JSONL audit log path (continuous engine)")
     ap.add_argument("--backend", choices=("slot", "paged"), default="slot",
@@ -209,6 +272,23 @@ def main(argv=None):
     if args.engine == "static" and obs_cfg.any_enabled:
         ap.error("observability flags (--trace-out/--metrics-out/"
                  "--device-timing) need --engine continuous")
+    # reject contradictory flag combinations up front: a tuning flag that
+    # the selected backend/engine would silently ignore is a user error,
+    # not a no-op
+    remote = args.large_backend in ("socket", "pool")
+    if not remote:
+        for dest in ("ml_address", "ml_spawn", "ml_connect_timeout",
+                     "ml_request_timeout", "ml_retries",
+                     "ml_health_interval"):
+            if given(dest):
+                ap.error(f"--{dest.replace('_', '-')} needs "
+                         f"--large-backend socket|pool (got "
+                         f"--large-backend {args.large_backend}, which "
+                         f"would silently ignore it)")
+    if args.large_backend != "stub" and given("stub_latency"):
+        ap.error(f"--stub-latency needs --large-backend stub (got "
+                 f"--large-backend {args.large_backend}, which would "
+                 f"silently ignore it)")
     if args.backend != "paged":
         for dest in ("block_size", "blocks", "prefill_chunk",
                      "paged_kernel", "serial_prefill", "no_prefix_sharing",
@@ -242,14 +322,24 @@ def main(argv=None):
         ap.error(f"--deadline-ms must be >= 0, got {args.deadline_ms}")
     if args.tiers < 2:
         ap.error(f"--tiers must be >= 2, got {args.tiers}")
+    if remote:
+        if args.tiers != 2:
+            ap.error("--large-backend socket|pool drives the final "
+                     "(remote) tier of a 2-tier cascade; --tiers > 2 "
+                     "needs a local backend per intermediate tier")
+        if args.ml_spawn <= 0 and not args.ml_address:
+            ap.error("--large-backend socket/pool needs --ml-address "
+                     "host:port[,host:port...] or --ml-spawn N")
+        if (args.large_backend == "socket" and args.ml_address
+                and len(args.ml_address.split(",")) != 1):
+            ap.error("--large-backend socket takes exactly one "
+                     "--ml-address; use --large-backend pool for several")
     # what the port does not run yet: rejected by name, never ignored
     unported = [flag for dest, flag in _UNPORTED if given(dest)]
     if args.tiers != 2:
         unported.append(f"--tiers {args.tiers}")
     if args.signal != "mean_confidence":
         unported.append(f"--signal {args.signal}")
-    if args.large_backend != "sync":
-        unported.append(f"--large-backend {args.large_backend}")
     if unported:
         ap.error(f"{', '.join(unported)}: not ported to repro_torch yet "
                  f"(see ROADMAP.md)")
@@ -294,9 +384,34 @@ def main(argv=None):
         print("first tokens:", res.tokens[:4].tolist())
         return res
 
+    ml_servers = []
+    large_backend = args.large_backend
+    if remote:
+        if args.ml_spawn > 0:
+            from repro_torch.serving.remote import MLServer
+            n = max(args.ml_spawn,
+                    2 if args.large_backend == "pool" else 1)
+            for _ in range(n):
+                ml_servers.append(MLServer(
+                    large, max_new=args.max_new,
+                    large_batch=args.large_batch or None,
+                    max_wait=args.large_max_wait or None).start())
+            addresses = [srv.address for srv in ml_servers]
+            print(f"spawned {n} in-process M_L server(s): "
+                  + ", ".join(f"{h}:{p}" for h, p in addresses))
+        else:
+            addresses = args.ml_address.split(",")
+        large_backend = make_remote_factory(
+            args.large_backend, addresses,
+            connect_timeout=args.ml_connect_timeout,
+            request_timeout=args.ml_request_timeout,
+            retries=args.ml_retries,
+            health_interval=args.ml_health_interval)
+
     spec = CascadeSpec(
         tiers=[CascadeTier(small_cfg.name, runner=small, cost=0.2),
-               CascadeTier(large.cfg.name, runner=large, cost=1.0)],
+               CascadeTier(large.cfg.name, runner=large, cost=1.0,
+                           backend=large_backend if remote else None)],
         edges=[DeferralEdge(margin=args.margin, min_tokens=args.min_tokens)])
     pressure = (PressureConfig(oversubscribe=args.oversubscribe,
                                policy=args.pressure_policy,
@@ -318,8 +433,10 @@ def main(argv=None):
             batch_prefill=not args.serial_prefill,
             prefix_sharing=not args.no_prefix_sharing,
             pressure=pressure),
-        ml=MLBackendConfig(large_batch=args.large_batch or None,
-                           max_wait=args.large_max_wait or None))
+        ml=MLBackendConfig(kind="sync" if remote else args.large_backend,
+                           large_batch=args.large_batch or None,
+                           max_wait=args.large_max_wait or None,
+                           stub_latency=args.stub_latency))
     engine = ContinuousCascadeEngine(spec, config)
     tau = engine.calibrate(cal, cal_len, args.max_new, args.deferral_ratio)
     print(f"calibrated tau {tau:.4f} for target deferral "
@@ -333,8 +450,11 @@ def main(argv=None):
                          obs=obs)
     finally:
         obs.finish()
+        for srv in ml_servers:
+            srv.stop()
     print(f"served {len(live)} requests on {args.slots} slots "
-          f"({args.backend} backend, M_L via sync, {device}) in "
+          f"({args.backend} backend, M_L via {args.large_backend}, "
+          f"{device}) in "
           f"{res.steps} M_S steps: deferral_ratio={res.deferral_ratio:.3f}, "
           f"early_exits={int(res.early_exited.sum())}, "
           f"saved_M_S_steps={res.saved_steps}")

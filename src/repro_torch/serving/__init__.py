@@ -1,7 +1,8 @@
 """Cascade serving for the port: static and continuous-batching engines,
 slot and block-paged KV pools (with oversubscription, the pressure
-policies and a host swap tier), admission overload control, the sync M_L
-backend and telemetry."""
+policies and a host swap tier), admission overload control, the M_L
+backends (sync, worker thread, serialized stub, and the distributed tier
+of `remote`: socket server, client and replica pool) and telemetry."""
 from repro_torch.core.cascade_spec import (CascadeSpec, CascadeTier,
                                            DeferralEdge)
 from repro_torch.serving.cache_pool import SlotCachePool
@@ -11,18 +12,28 @@ from repro_torch.serving.engine import (CascadeEngine,
                                         ContinuousCascadeEngine,
                                         ContinuousServeResult, ModelRunner,
                                         ServeResult)
+from repro_torch.serving.large_backend import (BatchPolicy, LargeBackend,
+                                               LargeResult,
+                                               RemoteStubBackend,
+                                               SyncLocalBackend,
+                                               ThreadedBackend,
+                                               make_large_backend)
 from repro_torch.serving.paged_pool import BlockPressure, PagedCachePool
 from repro_torch.serving.pressure import (DeferOnOomPolicy, PreemptPolicy,
                                           PressurePolicy, ShedPolicy,
                                           make_pressure_policy)
+from repro_torch.serving.remote import MLServer, ReplicaPool, SocketBackend
 from repro_torch.serving.request import (ArrivalQueue, Request,
                                          make_requests, poisson_arrivals)
 from repro_torch.serving.scheduler import SlotScheduler
 
-__all__ = ["ArrivalQueue", "BlockPressure", "CascadeEngine", "CascadeSpec",
-           "CascadeTier", "ContinuousCascadeEngine", "ContinuousServeResult",
-           "DeferOnOomPolicy", "DeferralEdge", "EngineConfig",
-           "MLBackendConfig", "ModelRunner", "PagedCachePool", "PagedConfig",
-           "PreemptPolicy", "PressureConfig", "PressurePolicy", "Request",
-           "ServeResult", "ShedPolicy", "SlotCachePool", "SlotScheduler",
+__all__ = ["ArrivalQueue", "BatchPolicy", "BlockPressure", "CascadeEngine",
+           "CascadeSpec", "CascadeTier", "ContinuousCascadeEngine",
+           "ContinuousServeResult", "DeferOnOomPolicy", "DeferralEdge",
+           "EngineConfig", "LargeBackend", "LargeResult", "MLBackendConfig",
+           "MLServer", "ModelRunner", "PagedCachePool", "PagedConfig",
+           "PreemptPolicy", "PressureConfig", "PressurePolicy",
+           "RemoteStubBackend", "ReplicaPool", "Request", "ServeResult",
+           "ShedPolicy", "SlotCachePool", "SlotScheduler", "SocketBackend",
+           "SyncLocalBackend", "ThreadedBackend", "make_large_backend",
            "make_pressure_policy", "make_requests", "poisson_arrivals"]

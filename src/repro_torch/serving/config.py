@@ -1,14 +1,22 @@
 """Typed engine configuration for the port's `ContinuousCascadeEngine`.
 
-Copy of `repro.serving.config` for the features the port serves. Not
-ported yet (see ROADMAP.md): online recalibration, the
-thread/stub/socket/pool M_L backends, and the legacy flat-kwargs
-constructor shim.
+Copy of `repro.serving.config` for the features the port serves:
+
+    engine = ContinuousCascadeEngine(spec, EngineConfig(
+        n_slots=8,
+        backend="paged",
+        paged=PagedConfig(block_size=8, prefill_chunk=8),
+        ml=MLBackendConfig(kind="thread", large_batch=4)))
+
+The old flat-kwargs constructor still works through a back-compat shim
+that maps every legacy name onto these fields (`LEGACY_KWARG_MAP` below
+is the table) and emits one `DeprecationWarning` with the migration
+hint. Not ported yet (see ROADMAP.md): online recalibration.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 
 @dataclasses.dataclass
@@ -85,15 +93,21 @@ class PagedConfig:
 
 @dataclasses.dataclass
 class MLBackendConfig:
-    """Batching of tier 1 (M_L), which runs on the sync backend.
+    """Default execution backend for tier 1 (M_L); a tier's own
+    `CascadeTier.backend` overrides `kind`.
 
+    kind         — "sync" | "thread" | "stub", or a callable factory
+                   (the socket / replica-pool path).
     large_batch  — regeneration batch size per prompt-length group
                    (None: one exact-size batch at drain).
     max_wait     — seconds a partial batch may wait before flushing padded
                    (None: wait for a full batch).
+    stub_latency — injected per-batch RPC latency (kind="stub").
     """
+    kind: Any = "sync"
     large_batch: Optional[int] = None
     max_wait: Optional[float] = None
+    stub_latency: float = 0.0
 
 
 @dataclasses.dataclass
@@ -106,7 +120,7 @@ class EngineConfig:
     steps_per_sync — decode steps per host sync (multi-step scheduling).
     backend        — tier-0 KV-cache backend: "slot" | "paged".
     paged          — `PagedConfig` (used when backend="paged").
-    ml             — `MLBackendConfig` for tier 1.
+    ml             — `MLBackendConfig` defaults for tier 1.
     max_queue      — admission overload control: bound on the READY
                      arrival queue; overflow is shed newest-first as
                      REJECTED (None: unbounded, the default).
@@ -137,3 +151,36 @@ class EngineConfig:
         if self.deadline_s is not None and self.deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {self.deadline_s}")
         self.steps_per_sync = max(1, self.steps_per_sync)
+
+
+# legacy constructor kwarg -> (object path, field): the shim in
+# `ContinuousCascadeEngine.__init__` consumes this table
+LEGACY_KWARG_MAP = {
+    "n_slots":        ("config", "n_slots"),
+    "tau":            ("spec.edges[0]", "tau"),
+    "margin":         ("spec.edges[0]", "margin"),
+    "min_tokens":     ("spec.edges[0]", "min_tokens"),
+    "early_exit":     ("config", "early_exit"),
+    "large_batch":    ("config.ml", "large_batch"),
+    "large_backend":  ("config.ml", "kind"),
+    "large_max_wait": ("config.ml", "max_wait"),
+    "stub_latency":   ("config.ml", "stub_latency"),
+    "steps_per_sync": ("config", "steps_per_sync"),
+    "backend":        ("config", "backend"),
+    "block_size":     ("config.paged", "block_size"),
+    "n_blocks":       ("config.paged", "n_blocks"),
+    "prefill_chunk":  ("config.paged", "prefill_chunk"),
+    "paged_kernel":   ("config.paged", "paged_kernel"),
+    "batch_prefill":  ("config.paged", "batch_prefill"),
+    "prefix_sharing": ("config.paged", "prefix_sharing"),
+    "cost_small":     ("spec.tiers[0]", "cost"),
+    "cost_large":     ("spec.tiers[1]", "cost"),
+}
+
+MIGRATION_HINT = (
+    "ContinuousCascadeEngine(small, large, **kwargs) is deprecated: "
+    "build a CascadeSpec + EngineConfig instead — "
+    "ContinuousCascadeEngine(CascadeSpec.two_tier(small, large, "
+    "tau=...), EngineConfig(n_slots=..., "
+    "ml=MLBackendConfig(kind=...), paged=PagedConfig(...))). "
+    "See docs/serving.md for the full old-kwarg -> config-field table.")

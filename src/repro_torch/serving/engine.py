@@ -34,6 +34,17 @@ back, and decoding resumes where it stopped), "defer" hands it to M_L
 the ready queue (overflow shed newest-first as REJECTED) and `deadline_s`
 expires requests still queued past their deadline (EXPIRED).
 
+M_L regeneration goes through a pluggable backend
+(`large_backend.make_large_backend`, from `EngineConfig.ml` or the tier's
+own `backend`): "sync" runs each released batch inline on the decode loop
+(the reference), "thread" on a worker thread under a CUDA stream of its
+own on the card, "stub" the same behind a serialized pipe, and a callable
+factory plugs in the socket and replica-pool backends of
+`serving.remote`. Deferrals stream into the backend as their slots
+retire; completed regenerations fold back in every engine iteration
+(`poll_large`), and the drain at the end aborts a remote backend that
+makes no progress for its `drain_stall_timeout`.
+
 The same switch (`kernel_ops.paged_kernel_enabled`: the engine's
 `paged_kernel`, then REPRO_PAGED_KERNEL, then on exactly for CUDA) picks
 the kernel path for the rest of the serving path on either backend: every
@@ -49,7 +60,9 @@ and for M_L behind its backend. The plain path is
 `deferral_entropy_plain`, `_attend` and `wkv_scan_plain`.
 
 What the port does not run yet is rejected (see ROADMAP.md): ladders of
-more than two tiers, backends other than "sync", and recalibration.
+more than two tiers, and recalibration. The legacy flat-kwargs
+constructor `ContinuousCascadeEngine(small, large, tau=..., ...)` maps
+every old name onto the spec and config (`config.LEGACY_KWARG_MAP`).
 
 Differences from the JAX engine: PyTorch runs eagerly (no jit; the decode
 loop is a Python loop of device ops), and the KV caches are updated in
@@ -63,6 +76,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -77,8 +91,10 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.cache_pool import SlotCachePool, scatter_rows
-from repro_torch.serving.config import EngineConfig
-from repro_torch.serving.large_backend import SyncLocalBackend
+from repro_torch.serving.config import (LEGACY_KWARG_MAP, MIGRATION_HINT,
+                                        EngineConfig, MLBackendConfig,
+                                        PagedConfig)
+from repro_torch.serving.large_backend import make_large_backend
 from repro_torch.serving.obs import Observability, emit_request_spans
 from repro_torch.serving.paged_pool import (BlockPressure, PagedCachePool,
                                            next_pow2)
@@ -88,6 +104,10 @@ from repro_torch.serving.request import (DEFERRED_PENDING, DONE, EXPIRED,
                                          REJECTED, ArrivalQueue, Request)
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.telemetry import ServingTelemetry
+
+
+# seconds each poll of the final M_L drain may wait for its first result
+_DRAIN_POLL_S = 0.05
 
 
 def _signal(logits: torch.Tensor, use_kernel: bool
@@ -246,31 +266,73 @@ class ContinuousCascadeEngine:
 
     pool = None
 
-    def __init__(self, spec: CascadeSpec,
-                 config: Optional[EngineConfig] = None):
-        if not isinstance(spec, CascadeSpec):
-            raise TypeError("ContinuousCascadeEngine needs a CascadeSpec "
-                            "(CascadeSpec.two_tier(small, large, ...))")
-        if spec.n_tiers != 2:
+    def __init__(self, spec, config: Optional[EngineConfig] = None,
+                 **legacy):
+        if isinstance(spec, CascadeSpec):
+            if legacy:
+                raise TypeError(
+                    f"ContinuousCascadeEngine(spec, config) takes no extra "
+                    f"kwargs, got {sorted(legacy)} — per-edge knobs live on "
+                    f"the spec's DeferralEdges, execution knobs on "
+                    f"EngineConfig")
+            if config is not None and not isinstance(config, EngineConfig):
+                raise TypeError(f"config must be an EngineConfig, got "
+                                f"{type(config).__name__}")
+            self.spec = spec
+            self.config = config if config is not None else EngineConfig()
+        else:
+            # legacy flat-kwargs shim: (small, large, n_slots=..., tau=...,
+            # ...) — every old name maps onto a spec/config field
+            # (config.LEGACY_KWARG_MAP is the table) so old call sites run
+            # through the exact same code path as a hand-built 2-tier spec
+            small, large = spec, legacy.pop("large", config)
+            if not (hasattr(small, "generate") and hasattr(large, "generate")):
+                raise TypeError(
+                    "ContinuousCascadeEngine needs a CascadeSpec (plus an "
+                    "optional EngineConfig) or the legacy "
+                    "(small, large) ModelRunner pair")
+            unknown = set(legacy) - set(LEGACY_KWARG_MAP)
+            if unknown:
+                raise TypeError(f"unknown ContinuousCascadeEngine kwargs "
+                                f"{sorted(unknown)}")
+            warnings.warn(MIGRATION_HINT, DeprecationWarning, stacklevel=2)
+            self.spec = CascadeSpec.two_tier(
+                small, large,
+                tau=legacy.get("tau", -1.0),
+                margin=legacy.get("margin", 0.0),
+                min_tokens=legacy.get("min_tokens", 2),
+                cost_small=legacy.get("cost_small", 0.2),
+                cost_large=legacy.get("cost_large", 1.0))
+            self.config = EngineConfig(
+                n_slots=legacy.get("n_slots", 8),
+                early_exit=legacy.get("early_exit", True),
+                steps_per_sync=legacy.get("steps_per_sync", 1),
+                backend=legacy.get("backend", "slot"),
+                paged=PagedConfig(
+                    block_size=legacy.get("block_size", 16),
+                    n_blocks=legacy.get("n_blocks"),
+                    prefill_chunk=legacy.get("prefill_chunk"),
+                    paged_kernel=legacy.get("paged_kernel"),
+                    batch_prefill=legacy.get("batch_prefill", True),
+                    prefix_sharing=legacy.get("prefix_sharing", True)),
+                ml=MLBackendConfig(
+                    kind=legacy.get("large_backend", "sync"),
+                    large_batch=legacy.get("large_batch"),
+                    max_wait=legacy.get("large_max_wait"),
+                    stub_latency=legacy.get("stub_latency", 0.0)))
+        if self.spec.n_tiers != 2:
             raise NotImplementedError(
-                f"{spec.n_tiers}-tier ladders are not ported yet (see "
+                f"{self.spec.n_tiers}-tier ladders are not ported yet (see "
                 f"ROADMAP.md); the port serves the two-tier cascade")
-        if spec.tiers[1].backend not in (None, "sync"):
-            raise NotImplementedError(
-                f"tier backend {spec.tiers[1].backend!r} is not ported yet "
-                f"(see ROADMAP.md)")
-        if config is not None and not isinstance(config, EngineConfig):
-            raise TypeError(f"config must be an EngineConfig, got "
-                            f"{type(config).__name__}")
-        self.spec = spec
-        self.config = config if config is not None else EngineConfig()
 
+    # -- back-compat attribute surface (the legacy flat-kwarg names read —
+    # and where old code mutated them, write — through to spec/config) ----
     @property
     def small(self) -> ModelRunner:
         return self.spec.tiers[0].runner
 
     @property
-    def large(self) -> ModelRunner:
+    def large(self):
         return self.spec.tiers[1].runner
 
     @property
@@ -280,6 +342,90 @@ class ContinuousCascadeEngine:
     @tau.setter
     def tau(self, v: float) -> None:
         self.spec.edges[0].tau = float(v)
+
+    @property
+    def margin(self) -> float:
+        return self.spec.edges[0].margin
+
+    @margin.setter
+    def margin(self, v: float) -> None:
+        self.spec.edges[0].margin = float(v)
+
+    @property
+    def min_tokens(self) -> int:
+        return self.spec.edges[0].min_tokens
+
+    @min_tokens.setter
+    def min_tokens(self, v: int) -> None:
+        self.spec.edges[0].min_tokens = max(1, int(v))
+
+    @property
+    def early_exit(self) -> bool:
+        return self.config.early_exit
+
+    @early_exit.setter
+    def early_exit(self, v: bool) -> None:
+        self.config.early_exit = bool(v)
+
+    @property
+    def n_slots(self) -> int:
+        return self.config.n_slots
+
+    @property
+    def steps_per_sync(self) -> int:
+        return self.config.steps_per_sync
+
+    @property
+    def backend(self) -> str:
+        return self.config.backend
+
+    @property
+    def large_batch(self) -> Optional[int]:
+        return self.config.ml.large_batch
+
+    @property
+    def large_backend(self):
+        return self.config.ml.kind
+
+    @property
+    def large_max_wait(self) -> Optional[float]:
+        return self.config.ml.max_wait
+
+    @property
+    def stub_latency(self) -> float:
+        return self.config.ml.stub_latency
+
+    @property
+    def block_size(self) -> int:
+        return self.config.paged.block_size
+
+    @property
+    def n_blocks(self) -> Optional[int]:
+        return self.config.paged.n_blocks
+
+    @property
+    def prefill_chunk(self) -> Optional[int]:
+        return self.config.paged.prefill_chunk
+
+    @property
+    def paged_kernel(self) -> Optional[bool]:
+        return self.config.paged.paged_kernel
+
+    @property
+    def batch_prefill(self) -> bool:
+        return self.config.paged.batch_prefill
+
+    @property
+    def prefix_sharing(self) -> bool:
+        return self.config.paged.prefix_sharing
+
+    @property
+    def cost_small(self) -> float:
+        return self.spec.tiers[0].cost
+
+    @property
+    def cost_large(self) -> float:
+        return self.spec.tiers[1].cost
 
     def calibrate(self, val_prompts: np.ndarray, prompt_len: int,
                   max_new: int, deferral_ratio: float = 0.2) -> float:
@@ -437,6 +583,9 @@ class ContinuousCascadeEngine:
         tel = ServingTelemetry(audit_path, obs=obs_rt)
         edge0 = self.spec.edges[0]
         sig0 = edge0.signal
+        tier1 = self.spec.tiers[1]
+        ml_kind = (tier1.backend if tier1.backend is not None
+                   else ecfg.ml.kind)
 
         try:
             S = ecfg.n_slots
@@ -462,9 +611,14 @@ class ContinuousCascadeEngine:
             peak_active = 0
             n_deferrals = 0
             n_relief = 0        # pressure-policy evictions (paged only)
-            ml = SyncLocalBackend(self.large, max_new, ecfg.ml.large_batch,
-                                  ecfg.ml.max_wait, registry=tel.registry,
-                                  paged_kernel=use_kernel)
+            # tier 1's execution backend: the tier's own `backend` wins,
+            # else config.ml.kind; the engine's kernel switch reaches a
+            # local runner's generate (a remote server keeps its own)
+            ml = make_large_backend(ml_kind, tier1.runner, max_new,
+                                    ecfg.ml.large_batch, ecfg.ml.max_wait,
+                                    ecfg.ml.stub_latency,
+                                    registry=tel.registry,
+                                    paged_kernel=use_kernel)
             by_rid = {r.rid: r for r in requests}
             ml_depths: List[int] = []
             reg = tel.registry
@@ -500,9 +654,11 @@ class ContinuousCascadeEngine:
                 tel.event("large_submit", rid=req.rid, edge=0,
                           depth=ml.n_pending)
 
-            def poll_large():
-                """Fold completed M_L regenerations back into the run."""
-                for res in ml.poll():
+            def poll_large(timeout: Optional[float] = None):
+                """Fold completed M_L regenerations back into the run (a
+                worker or remote backend's results arrive while M_S
+                decodes); `timeout` waits that long for the first."""
+                for res in ml.poll(timeout=timeout):
                     req = by_rid[res.rid]
                     now = tel.now
                     req.tier = 1
@@ -1051,14 +1207,33 @@ class ContinuousCascadeEngine:
                                     args={"n_active": sched.n_active,
                                           "ml_pending": ml.n_pending})
 
-                # all M_S work is done: the sync backend runs every
-                # released M_L batch inline on flush
+                # all M_S work is done: release M_L's partial batches and
+                # drain, each poll waiting for the next result (a worker's
+                # queue, a server's long poll) rather than waking on a
+                # timer that takes the GIL from the M_L worker. Remote
+                # backends advertise drain_stall_timeout: when a replica
+                # dies mid-drain and nothing can make progress, abort
+                # with the pending count instead of spinning forever
                 t_drain = tel.now
-                ml.flush()
-                poll_large()
-                if ml.n_pending:
-                    raise RuntimeError(f"M_L drain left {ml.n_pending} "
-                                       f"deferral(s) pending")
+                stall_s = getattr(ml, "drain_stall_timeout", None)
+                last_pending = ml.n_pending
+                t_progress = time.perf_counter()
+                while True:
+                    ml.flush()
+                    poll_large(timeout=_DRAIN_POLL_S)
+                    pending = ml.n_pending
+                    if not pending:
+                        break
+                    if pending != last_pending:
+                        last_pending = pending
+                        t_progress = time.perf_counter()
+                    elif (stall_s is not None
+                          and time.perf_counter() - t_progress > stall_s):
+                        raise RuntimeError(
+                            f"M_L drain stalled: {pending} deferral(s) "
+                            f"still pending on the "
+                            f"{getattr(ml, 'name', '?')} backend with no "
+                            f"progress for {stall_s}s")
                 makespan = tel.now
                 tel.phase_add("drain", makespan - t_drain)
                 if tr is not None:
@@ -1077,7 +1252,7 @@ class ContinuousCascadeEngine:
         stats["backend"] = ecfg.backend
         stats["cache_bytes"] = pool.footprint_bytes()
         stats["peak_active"] = peak_active
-        stats["ml_backend"] = ml.name
+        stats["ml_backend"] = getattr(ml, "name", str(ml_kind))
         stats["ml_batches"] = len(ml.batch_log)
         stats["ml_batch_occupancy"] = (
             float(np.mean([b["n_real"] / max(b["pad_to"], 1)

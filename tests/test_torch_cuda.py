@@ -1233,3 +1233,125 @@ def test_zamba2_prefill_and_decode_step_kernel_matches_plain(cuda, T):
     assert wk.wkv_scan.launches == n + 2 * cfg.n_layers
     assert fa.flash_attention.launches == n_fa + tfm.shared_attn_calls(cfg)
     torch.testing.assert_close(out[True], out[False], atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# M_L on a worker thread: its own CUDA stream, counters under concurrency
+# ---------------------------------------------------------------------------
+
+def _reduced_pair(cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ModelRunner
+    s_cfg = reduced(get_config("internlm2-1.8b"))
+    l_cfg = s_cfg.replace(name="large", n_layers=3, d_ff=768)
+    return (ModelRunner(s_cfg, tfm.init_params(s_cfg, 0, cuda)),
+            ModelRunner(l_cfg, tfm.init_params(l_cfg, 1, cuda)))
+
+
+def test_threaded_backend_on_its_own_stream_equals_sync(cuda):
+    """A ThreadedBackend batch runs on the worker's own (non-default)
+    stream, with the kernels on, and returns what SyncLocalBackend
+    returns for the same batch, bit for bit; close() joins the worker and
+    drains its stream."""
+    from repro_torch.serving import (Request, SyncLocalBackend,
+                                     ThreadedBackend)
+    _, large = _reduced_pair(cuda)
+    prompts = np.random.default_rng(3).integers(
+        0, large.cfg.vocab_size, size=(6, 12)).astype(np.int32)
+    seen = []
+    generate = large.generate
+
+    def recording(*args, **kw):
+        seen.append(torch.cuda.current_stream(cuda).cuda_stream)
+        return generate(*args, **kw)
+    large.generate = recording
+    outs = {}
+    try:
+        for cls in (SyncLocalBackend, ThreadedBackend):
+            be = cls(large, max_new=6, large_batch=3, paged_kernel=True)
+            try:
+                be.submit([Request(rid=i, prompt=p, max_new=6)
+                           for i, p in enumerate(prompts)])
+                outs[cls.name] = {r.rid: r.tokens for r in be.drain()}
+            finally:
+                be.close()
+            if cls is ThreadedBackend:
+                assert be.stream is not None
+                assert be.stream.cuda_stream != \
+                    torch.cuda.default_stream(cuda).cuda_stream
+                assert seen[-1] == be.stream.cuda_stream
+                assert not be._worker.is_alive()
+    finally:
+        large.generate = generate
+    assert seen[0] == torch.cuda.default_stream(cuda).cuda_stream
+    assert sorted(outs["thread"]) == list(range(6))
+    for rid, toks in outs["sync"].items():
+        np.testing.assert_array_equal(outs["thread"][rid], toks)
+
+
+def test_deferral_kernel_on_two_threads_two_streams(cuda):
+    """Two threads, each on a stream of its own, enqueue deferral_entropy
+    calls at changing shapes with no synchronise between: each result
+    equals the plain version (each stream keeps its own zeroed ticket
+    counters)."""
+    import threading
+    shapes = [(8, 92544), (3, 65536), (16, 32000), (8, 92544)] * 3
+    results = {}
+
+    def work(tid):
+        stream = torch.cuda.Stream(cuda)
+        g = torch.Generator(device=cuda).manual_seed(tid)
+        with torch.cuda.stream(stream):
+            outs = []
+            for T, V in shapes:
+                x = torch.randn((T, V), generator=g, device=cuda) * 4
+                outs.append((x, de.deferral_entropy(x)))
+            stream.synchronize()
+        results[tid] = outs
+    threads = [threading.Thread(target=work, args=(t,)) for t in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert sorted(results) == [1, 2]
+    for outs in results.values():
+        for x, (nent, mprob, amax) in outs:
+            p_nent, p_mprob, p_amax = de.deferral_entropy_plain(x)
+            torch.testing.assert_close(nent, p_nent, atol=1e-4, rtol=0)
+            torch.testing.assert_close(mprob, p_mprob, atol=1e-4, rtol=0)
+            assert torch.equal(amax, p_amax)
+
+
+def test_launch_counters_exact_after_concurrent_launches(cuda):
+    """Eight threads on eight streams launch deferral_entropy and
+    flash_attention at once: both counters end exact."""
+    import threading
+    n_threads, n_each = 8, 25
+    de.deferral_entropy.launches = fa.flash_attention.launches = 0
+    start = threading.Barrier(n_threads)
+    errors = []
+
+    def work(tid):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            g = torch.Generator(device=cuda).manual_seed(tid)
+            with torch.cuda.stream(stream):
+                x = torch.randn((4, 4096), generator=g, device=cuda)
+                q = torch.randn((1, 16, 4, 64), generator=g, device=cuda)
+                start.wait(timeout=60)
+                for _ in range(n_each):
+                    de.deferral_entropy(x)
+                    fa.flash_attention(q, q, q, causal=True)
+                stream.synchronize()
+        except BaseException as e:              # noqa: BLE001
+            errors.append(e)
+    threads = [threading.Thread(target=work, args=(t,))
+               for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    assert de.deferral_entropy.launches == n_threads * n_each
+    assert fa.flash_attention.launches == n_threads * n_each

@@ -2,7 +2,8 @@
 imports `jax` or the JAX package `repro` (the SSM and classifier slices'
 modules named among them); its entry points run on CUDA
 unless told otherwise and raise without it; its CLI rejects by name what
-is not ported yet; chip_smoke.py refuses to run without a card or outside
+is not ported yet (the M_L backends' flags are ported: see
+tests/test_torch_remote.py); chip_smoke.py refuses to run without a card or outside
 a checkout."""
 import ast
 import shutil
@@ -133,11 +134,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--tiers", "3"],
-    ["--large-backend", "thread"],
+    ["--signal-k", "8"],
     ["--signal", "semantic_agreement"],
     ["--recalibrate"],
-    ["--ml-spawn", "2"],
-    ["--stub-latency", "0.5"],
+    ["--recalib-step", "0.1"],
+    ["--profile-dir", "prof"],
     ["--metrics-port", "0"],
     ["--arch", "whisper-small"],
 ], ids=lambda a: a[0] if a[0] != "--backend" else a[-2])
