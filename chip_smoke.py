@@ -3,6 +3,7 @@
     python3 chip_smoke.py          # from the root of a repository checkout
     python3 chip_smoke.py --kernels 3c,3e,7a [--src DIR] [--parent FILE]
     python3 chip_smoke.py --ml-tier
+    python3 chip_smoke.py --decoders
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
@@ -12,7 +13,8 @@ commit, say), so two trees are timed by the same checks in one call.
 JSON record): phases 3d and 7a then print each case's parent time beside
 the case's own (3d its fp32 cases). The third form runs phase 4's main
 path and phase 14 (the M_L tier) alone after the build, with no contract
-line.
+line; the fourth phase 15 (the four remaining decoders) and those archs'
+phase-5 fixtures, the same way.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -27,7 +29,8 @@ non-zero:
      one all-trash row; plus fp32 pages), and time kernel, plain version
      and a PyTorch library call with CUDA events, beside the bytes /
      operations bound; the same for the decode at a 4,096-token cache (8
-     full rows) and at llama3-405b's 128/8 heads (group 16). The write is
+     full rows), at llama3-405b's 128/8 heads (group 16), at the qwens'
+     MHA (20/20 and 40/40 heads, group 1) and at kimi-k2's 64/8 x 112. The write is
      a decode layer's: K and V into their two leaves in one
      `paged_write_token_pair` launch, timed beside two `index_put_`.
   3b. The same for the MLA decode kernel at the full-width DeepSeek-V2
@@ -42,7 +45,9 @@ non-zero:
      92544), phase 10's classifier logits (1000 x 8, 3000 x 8, and
      3000 x 10, whose rows take the scalar loads) and phase 12's (8 x
      51865, whisper-small's odd vocabulary on the scalar loads, and 8 x
-     32064, phi-3-vision's), with a row of equal
+     32064, phi-3-vision's), and phase 15's (8 x 151936, 8 x 152064,
+     8 x 128256, 8 x 163840: qwen1.5-4b, qwen1.5-32b, llama3-405b,
+     kimi-k2-1t-a32b), with a row of equal
      logits, a row with an exact top tie and a vocabulary tail no span
      divides, two calls bit-equal; timed beside its bytes bound (no
      single PyTorch call computes the triple, so no library time), and
@@ -59,7 +64,9 @@ non-zero:
      32/32 heads of 64,
      bf16, window 288), timed beside its bound and SDPA. Then the head
      dims past the old instantiations at the same chunk: phi-3-vision's 96
-     (32/32 heads) and kimi-k2's 112 (64/8), and 256 on 2 rows. Then
+     (32/32 heads) and kimi-k2's 112 (64/8, q_offset 0, 48 and 128, its
+     main path's), and 256 on 2 rows; phase 15's qwen1.5-4b chunk (20/20
+     x 128) and llama3-405b's (128/8 x 128) at q_offset 0 and 128. Then
      phase 12's five calls: whisper-small's encoder (8 x 1500 frames,
      non-causal, 12/12 heads of 64), its cross-attention at prefill (16
      queries) and at a decode step (1 query) over the 1500 encoder
@@ -193,14 +200,29 @@ non-zero:
      chunked `wkv_scan` once per Mamba2 layer of every prefill, the
      per-token one once per layer of every decode step,
      `flash_attention` 6 times per M_S prefill and never for M_L,
-     `deferral_entropy` as in phase 9. Freed before phase 5.
-  5. The reduced fp32 fixtures of the four architectures (rwkv6-3b and
-     zamba2-1.2b on the slot backend), every kernel of the path switched
-     together by the engine's `paged_kernel`, at a calibrated tau:
-     identical deferral masks and greedy tokens per request (a request
-     whose confidence lies within 1e-5 of tau is reported, not held), and
-     `launch.serve.main()` with defaults, with --arch rwkv6-3b and with
-     --arch zamba2-1.2b.
+     `deferral_entropy` as in phase 9. Freed before phase 15.
+  15. The four remaining decoders, phase 6's checks on each, one after
+     another, each freed before the next: qwen1.5-4b (all 40 layers,
+     fp32 weights; MHA with a QKV bias; M_L `tier_runner`'s large tier
+     with 8 KV heads), qwen1.5-32b (24 of 64 layers, bf16; M_L the large
+     tier), llama3-405b (2 of 126 layers, bf16; M_L the published widths
+     at 4 layers) and kimi-k2-1t-a32b (GQA + MoE: the dense layer and
+     one MoE layer with all 384 experts; M_L its attention and dense-FFN
+     widths, 3 layers, no experts), each cut printed with its reason
+     (DECODER_CUTS): the ladder, one decode step and one paged prefill
+     kernel path against plain path by logits (fp32 activations to
+     STEP_LOGIT_ATOL with no route flip, bf16 under DECODER_LOGIT_GUARD
+     with Kimi's rows of another top-8 route apart), a profiled decode
+     step, then `calibrate` and `.run` with the launches counted exactly
+     as in phase 4; each arch's seconds and peak device memory, which
+     must leave DECODER_FREE_GIB of the card free. Freed before phase 5.
+  5. The reduced fp32 fixtures of the eight served architectures
+     (rwkv6-3b and zamba2-1.2b on the slot backend), every kernel of the
+     path switched together by the engine's `paged_kernel`, at a
+     calibrated tau: identical deferral masks and greedy tokens per
+     request (a request whose confidence lies within 1e-5 of tau is
+     reported, not held), and `launch.serve.main()` with defaults and
+     with --arch for each of the other seven.
   10. The classifier cascade, tests/test_system.py's flow on the port's
      own draw (seed 0) at that test's sizes: M_S a (64, 64) MLP on 2,000
      rows for 1,500 steps, M_L a (256, 256) MLP on 12,000 rows for 2,500
@@ -268,6 +290,7 @@ The last two lines of standard output are the kernels' JSON record and
 when no CUDA device is present or the repository's sources are missing.
 """
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -333,10 +356,13 @@ EVAL_SEQS, EVAL_LEN, EVAL_DEFERRAL = 16, 128, 0.3
 # logits, then the evaluation's [EVAL_SEQS * EVAL_LEN, V], then phase 10's
 # classifier logits (calibration rows, test split) and a class count whose
 # rows are not 16-byte aligned (the kernel's scalar loads), then phase 12's
-# whisper-small (an odd vocabulary: scalar loads) and phi-3-vision logits
+# whisper-small (an odd vocabulary: scalar loads) and phi-3-vision logits,
+# then phase 15's: qwen1.5-4b, qwen1.5-32b, llama3-405b and kimi-k2-1t-a32b
 SIGNAL_SHAPES = ((N_SLOTS, 92544), (N_SLOTS, 102400), (N_SLOTS, 65536),
                  (N_SLOTS, 32000), (EVAL_SEQS * EVAL_LEN, 92544), (1000, 8),
-                 (3000, 8), (3000, 10), (N_SLOTS, 51865), (N_SLOTS, 32064))
+                 (3000, 8), (3000, 10), (N_SLOTS, 51865), (N_SLOTS, 32064),
+                 (N_SLOTS, 151936), (N_SLOTS, 152064), (N_SLOTS, 128256),
+                 (N_SLOTS, 163840))
 
 # phase 13: memory pressure and overload on phase 4's models
 PRESSURE_OVERSUB = 2.0  # the paged pool's virtual budget over its blocks
@@ -427,6 +453,56 @@ ZAMBA_LOGIT_GUARD = 1.0  # the kernel-vs-plain checks in the config's own
                         # it catches only gross failures (NaN, a wrong
                         # layout); the binding check of this path's kernels
                         # is the fp32-activation one at STEP_LOGIT_ATOL
+
+# phase 15: the four remaining decoders at published widths, the depth
+# cut only where one card forces it. Per arch: (M_S layers, or None for
+# all; M_L: None for `tier_runner`'s large tier, else the replacements
+# of a `ModelRunner` over the published config on the tier-1 seed)
+DECODER_ARCHS = ("qwen1.5-4b", "qwen1.5-32b", "llama3-405b",
+                 "kimi-k2-1t-a32b")
+DECODER_TIERS = {
+    "qwen1.5-4b": (None, None),
+    "qwen1.5-32b": (24, None),
+    "llama3-405b": (2, dict(n_layers=4)),
+    "kimi-k2-1t-a32b": (2, dict(n_layers=3, family="dense", moe=None)),
+}
+DECODER_CUTS = {      # each cut with its reason (parameters from the configs)
+    "qwen1.5-4b": "M_S all 40 layers (3.95 B fp32 parameters, 15.8 GB); "
+                  "M_L tier_runner's large tier (d 5120, 4 layers) with 8 KV "
+                  "heads in place of 20, since 20 KV heads over its 8 query "
+                  "heads is no GQA (2.49 B fp32, 10.0 GB)",
+    "qwen1.5-32b": "M_S 24 of 64 layers (14.2 B bf16 parameters, 28.3 GB): "
+                   "all 64 hold 35.2 B (70.4 GB) and leave no room for M_L; "
+                   "M_L tier_runner's large tier (d 10240, 4 layers, 8 KV "
+                   "heads; 10.0 B, 20.0 GB)",
+    "llama3-405b": "M_S 2 of 126 layers (3.19 B parameters a layer; 10.6 B, "
+                   "21.2 GB with the two 2.1 B vocabulary tables); M_L the "
+                   "published widths at 4 layers on the tier-1 seed (17.0 B, "
+                   "33.9 GB): tier_runner's doubled-width tier holds 41.9 B "
+                   "parameters (84 GB) in its FFNs alone",
+    "kimi-k2-1t-a32b": "M_S 2 of 61 layers, the dense one and one MoE layer "
+                       "with all 384 routed experts (16.9 B expert "
+                       "parameters, 33.8 GB; 19.9 B, 39.9 GB in all); M_L "
+                       "Kimi's attention and dense-FFN widths with no routed "
+                       "experts (family dense), 3 layers (3.9 B, 7.8 GB): a "
+                       "second MoE layer would add 33.8 GB, tier_runner's "
+                       "doubled-width MoE layer is 67.6 GB",
+}
+DECODER_LOGIT_GUARD = {  # the bf16 steps, kernel vs plain path, on rows
+    # whose MoE routes agree: a last-bit difference after the fp32
+    # attention can flip a bf16 rounding of the residual stream. Sound
+    # readings on an H100 in two runs (decode; prefill): qwen1.5-4b
+    # 0.0746, 0.0772; 0.0872. qwen1.5-32b 0.0795, 0.0854; 0.0864.
+    # llama3-405b 0.0497, 0.0509; 0.0497. Kimi 0.0508, 0.0496; 0.0544,
+    # 0.0555 (each with one row of another top-8 route apart, 0.34-0.47).
+    # The guards are about 3x the larger reading, never looser than
+    # phase 4's
+    "qwen1.5-4b": STEP_LOGIT_GUARD,
+    "qwen1.5-32b": STEP_LOGIT_GUARD,
+    "llama3-405b": 0.15,
+    "kimi-k2-1t-a32b": 0.15,
+}
+DECODER_FREE_GIB = 10   # each arch's peak must leave this much of the card
 
 # phase 7: training
 TRAIN_BATCH, TRAIN_SEQ, STAGE1_STEPS, STAGE2_STEPS = 16, 128, 2, 3
@@ -537,14 +613,14 @@ def case_tables(torch, rng, pos=None) -> dict:
                 B=B, M=M, N=N, trash_row=trash)
 
 
-def decode_case(torch, kv_dtype, rng, H=16, KV=8, pos=None, copies=8):
+def decode_case(torch, kv_dtype, rng, H=16, KV=8, pos=None, copies=8,
+                hd=128):
     """Full-width GQA decode inputs on `case_tables` (internlm2-1.8b's
     16/8 heads of 128 by default). The rotating page copies exceed the
     50 MB L2, so timed launches read their pages from device memory as the
     decode loop does (24 layers of weights pass through L2 between two
     visits of one layer's cache)."""
     c = case_tables(torch, rng, pos)
-    hd = 128
     q = torch.randn((c["B"], 1, H, hd), device=DEV)
     c["pages"] = [
         (torch.randn((c["N"] + 1, BLOCK, KV, hd), device=DEV).to(kv_dtype),
@@ -882,7 +958,9 @@ def check_flash_kernel(torch, fa, smi, parent=None) -> dict:
     q_offset 0, 48 and 128; zamba2-1.2b's shared block as the slot engine
     gives it (8 prompts of 128 tokens at q_offset 0 over the 288-position
     slot cache, 32/32 heads of 64, the cache's length as the window);
-    other configs' head dims; a window that cuts (24 over 100 tokens);
+    other configs' head dims (kimi-k2's 64/8 x 112 at its main path's
+    q_offsets); phase 15's qwen1.5-4b (20/20 x 128) and llama3-405b
+    (128/8 x 128) chunks; a window that cuts (24 over 100 tokens);
     phase 12's five calls: whisper-small's encoder (8 x 1500 frames over
     themselves, non-causal, 12/12 heads of 64; 1500 is no multiple of the
     64-key tile), its cross-attention at prefill (16 queries over the 1500
@@ -926,7 +1004,12 @@ def check_flash_kernel(torch, fa, smi, parent=None) -> dict:
               True),
              ("phi-3-vision hd 96", B, T, S, 32, 32, 96, 0, (48,), False,
               True),
-             ("kimi-k2 hd 112", B, T, S, 64, 8, 112, 0, (48,), False, True),
+             ("kimi-k2 hd 112", B, T, S, 64, 8, 112, 0, (0, 48, 128), True,
+              True),
+             ("qwen1.5-4b chunk", B, T, S, 20, 20, 128, 0, (0, 128), True,
+              True),
+             ("llama3-405b chunk", B, T, S, 128, 8, 128, 0, (0, 128), True,
+              True),
              ("hd 256", 2, T, S, 4, 2, 256, 0, (48,), False, True),
              ("window 24", 2, 100, 100, 4, 2, 128, 24, (0,), False, True),
              ("whisper encoder", B, F, F, 12, 12, 64, 0, (0,), True, False),
@@ -1223,7 +1306,8 @@ def describe_ladder(torch, small, large, t_init: float) -> None:
           f"{cfg.d_model} {cfg.n_heads}/{cfg.n_kv_heads} heads hd "
           f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size},{extra} "
           f"{n_params[0] / 1e9:.3f} B params; M_L {lcfg.n_layers} layers "
-          f"d_model {lcfg.d_model} {lcfg.n_heads} heads, "
+          f"d_model {lcfg.d_model} {lcfg.n_heads}/{lcfg.n_kv_heads} heads "
+          f"d_ff {lcfg.d_ff}{' MoE' if lcfg.moe else ''}, "
           f"{n_params[1] / 1e9:.3f} B params; {cfg.param_dtype} weights, "
           f"{cfg.compute_dtype} activations/cache; init {t_init:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
@@ -1256,37 +1340,68 @@ def check_one_step(torch, tfm, small, rng, guard: float) -> None:
                                  f"in rows {flipped}")
 
 
-def check_prefill_paths(torch, tfm, small) -> None:
+def check_prefill_paths(torch, tfm, small,
+                        guard: float = STEP_LOGIT_GUARD) -> None:
     """One full-width paged prefill of 8 ragged prompts (one chunk each, up
     to 256 tokens), flash kernel against `_attend`, by last-token logits:
     with fp32 activations over an fp32 cache (isolates the kernel: over a
     bf16 cache a last-bit difference in one layer's K/V can flip its bf16
     rounding, and every later layer reads it) and with the main path's
     bf16 activations and cache, where `_attend` also rounds the
-    probabilities to bf16 before P @ V and the kernel keeps them fp32."""
+    probabilities to bf16 before P @ V and the kernel keeps them fp32.
+    As in `check_one_step`, the bound holds on the rows whose logits read
+    the same MoE routes on both paths (every prompt token's in the MoE
+    layers before the last, the last token's in the last: an MoE model's
+    last layer is an MoE layer); a row where one took another top-k set
+    is reported apart (none allowed in fp32)."""
     import numpy as np
     cfg = small.cfg
-    for label, pcfg, cache_dtype, tol in (
+    for label, pcfg, cache_dtype, tol, max_flips in (
             ("fp32 activations and cache", cfg.replace(
-                compute_dtype="float32"), torch.float32, STEP_LOGIT_ATOL),
+                compute_dtype="float32"), torch.float32, STEP_LOGIT_ATOL,
+             0),
             (f"{cfg.compute_dtype} activations, bf16 cache", cfg,
-             torch.bfloat16, STEP_LOGIT_GUARD)):
-        out = {}
+             torch.bfloat16, guard, MAX_ROUTE_FLIPS)):
+        out, experts = {}, {}
         for kernel in (True, False):
-            d = prepare_decode(torch, tfm, small.params, pcfg,
-                               np.random.default_rng(SEED + 12),
-                               paged_kernel=kernel, cache_dtype=cache_dtype)
+            with recorded_routes(torch) as experts[kernel]:
+                d = prepare_decode(torch, tfm, small.params, pcfg,
+                                   np.random.default_rng(SEED + 12),
+                                   paged_kernel=kernel,
+                                   cache_dtype=cache_dtype)
             out[kernel] = d["logits"]
         torch.cuda.synchronize()
-        err = float((out[True] - out[False]).abs().max())
+        # the routes a row's last-token logits read: every prompt token's
+        # in the MoE layers before the last (later layers attend to their
+        # outputs), and the last token's own in the last layer
+        t = torch.arange(int(d["pos"].max()), device=DEV)[None, :]
+        valid, last = t < d["pos"][:, None], t == d["pos"][:, None] - 1
+        same = torch.ones(N_SLOTS, dtype=torch.bool, device=DEV)
+        for i, (a, b) in enumerate(zip(experts[True], experts[False])):
+            differs = (a != b).any(-1).reshape(N_SLOTS, -1)
+            read = last if i == len(experts[True]) - 1 else valid
+            same &= ~(differs & read).any(-1)
+        row_err = (out[True] - out[False]).abs().amax(-1)
+        err = float(row_err[same].max()) if bool(same.any()) else math.inf
+        flipped = (~same).nonzero()[:, 0].tolist()
         agree = float((out[True].argmax(-1) == out[False].argmax(-1))
                       .float().mean())
+        routes = ""
+        if cfg.moe is not None:
+            flip_err = float(row_err[~same].max()) if flipped else 0.0
+            routes = (f"; rows with another top-{cfg.moe.top_k} route "
+                      f"read {flipped} (at most {max_flips}), "
+                      f"their max|dlogit| {flip_err:.4g}")
         print(f"[main] full-width paged prefill, flash kernel vs _attend, "
-              f"{label}: max|dlogit| {err:.4g} (atol {tol}; logit std "
-              f"{float(out[False].std()):.3g}), argmax agreement {agree:.3f}")
-        if not (torch.isfinite(out[True]).all() and err <= tol):
+              f"{label}: max|dlogit| {err:.4g} over rows with the same "
+              f"routes (atol {tol}; logit std "
+              f"{float(out[False].std()):.3g}), argmax agreement "
+              f"{agree:.3f}{routes}")
+        if not (torch.isfinite(out[True]).all() and err <= tol
+                and len(flipped) <= max_flips):
             raise AssertionError(f"full-width prefill ({label}): logits "
-                                 f"differ by {err} > {tol}")
+                                 f"differ by {err} > {tol}, or routes "
+                                 f"differ in rows {flipped}")
 
 
 def report_profile(torch, tfm, small, rng, smi) -> None:
@@ -3050,6 +3165,80 @@ def classifier_cascade(torch, smi) -> dict:
     return got
 
 
+def decoder_ladder(torch, tfm, serve, arch: str):
+    """Phase 15's two tiers for `arch` at its published widths, cut as
+    DECODER_TIERS says: (M_S, M_L)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ModelRunner
+    cfg = get_config(arch)
+    small_layers, large_kw = DECODER_TIERS[arch]
+    small_cfg = cfg if small_layers is None else cfg.replace(
+        n_layers=small_layers)
+    if large_kw is None:
+        return tuple(serve.ladder_from_config(small_cfg, SEED, DEV))
+    small = serve.tier_runner(small_cfg, SEED, 0, DEV)
+    lcfg = cfg.replace(name=cfg.name + "-large", **large_kw)
+    return small, ModelRunner(lcfg, tfm.init_params(
+        lcfg, serve._tier_seed(SEED, 1), DEV))
+
+
+def decoder_phase(torch, tfm, serve, rng, smi, t_start: float) -> dict:
+    """Phase 15: qwen1.5-4b, qwen1.5-32b, llama3-405b and kimi-k2-1t-a32b
+    at their published widths, one after another, each freed before the
+    next: the ladder and its cuts, one decode step and one paged prefill
+    kernel path against plain path, a profiled decode step, then the main
+    path with the launches counted exactly. Each arch's peak must leave
+    DECODER_FREE_GIB of the card. Returns {arch: launches}."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    counts = {}
+    t_phase = time.perf_counter()
+    for arch in DECODER_ARCHS:
+        phase(f"15 {arch}", t_start)
+        t_arch = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        small, large = decoder_ladder(torch, tfm, serve, arch)
+        torch.cuda.synchronize()
+        describe_ladder(torch, small, large, time.perf_counter() - t_arch)
+        print(f"[decoders] {arch}: {DECODER_CUTS[arch]}")
+        guard = DECODER_LOGIT_GUARD[arch]
+        check_one_step(torch, tfm, small, rng, guard)
+        check_prefill_paths(torch, tfm, small, guard)
+        report_profile(torch, tfm, small, rng, smi)
+        torch.cuda.synchronize()
+        checks_peak = torch.cuda.max_memory_allocated()
+        L = small.cfg.n_layers
+        counts[arch] = serve_main_path(
+            torch, small, large,
+            {"paged_flash_decode_gqa": L, "paged_write_token": L}, smi)[0]
+        peak = max(checks_peak, torch.cuda.max_memory_allocated())
+        print(f"[decoders] {arch}: {time.perf_counter() - t_arch:.1f} s, "
+              f"peak {peak / 2**30:.2f} GiB of the card's "
+              f"{total / 2**30:.2f} GiB (checks {checks_peak / 2**30:.2f}, "
+              f"then the main path) on {smi}")
+        if total - peak < DECODER_FREE_GIB * 2**30:
+            raise AssertionError(f"{arch}: peak {peak / 2**30:.2f} GiB "
+                                 f"leaves under {DECODER_FREE_GIB} GiB free")
+        del small, large
+        torch.cuda.empty_cache()
+    print(f"[decoders] phase 15: {time.perf_counter() - t_phase:.1f} s "
+          f"for {len(DECODER_ARCHS)} archs")
+    return counts
+
+
+def reduced_fixtures(torch, serve, archs) -> None:
+    """Phase 5: `reduced_fixture` for each of `archs`, then
+    `launch.serve.main()` with defaults and with --arch for each but the
+    default."""
+    from repro_torch.serving.request import DONE
+    for arch in archs:
+        reduced_fixture(torch, serve, arch)
+    for argv in [[]] + [["--arch", a] for a in archs if a != ARCH]:
+        res = serve.main(argv)
+        if not all(r.state == DONE for r in res.requests):
+            raise AssertionError(f"serve.main({argv}) left requests "
+                                 f"unfinished")
+
+
 def reduced_fixture(torch, serve, arch) -> None:
     """Reduced fp32 `arch` on the paged engine (the slot engine for an
     RWKV6 or Mamba2 model, whose recurrent state does not page), every
@@ -4102,7 +4291,13 @@ def check_kernels(torch, np, rng, smi, phases, t_start,
                 ("long_cache", f"pages bf16, {LONG_CACHE}-token cache",
                  dict(pos=[LONG_CACHE - 1] * N_SLOTS, copies=2)),
                 ("group16", "pages bf16, llama3-405b heads (group 16)",
-                 dict(H=128, KV=8))):
+                 dict(H=128, KV=8)),
+                ("qwen1.5-4b_mha", "pages bf16, qwen1.5-4b heads (20/20, "
+                 "group 1)", dict(H=20, KV=20)),
+                ("qwen1.5-32b_mha", "pages bf16, qwen1.5-32b heads (40/40, "
+                 "group 1)", dict(H=40, KV=40)),
+                ("kimi_hd112", "pages bf16, kimi-k2 heads (64/8 x 112)",
+                 dict(H=64, KV=8, hd=112))):
             case = decode_case(torch, torch.bfloat16, rng3, **kw)
             rec = check_decode_kernel(torch, pa, case, label, smi)
             records["paged_flash_decode_gqa"][key] = {
@@ -4166,6 +4361,11 @@ def parse_args(argv=None):
                     help="run only phase 4's main path and phase 14 (the "
                          "M_L tier) after the build: prints their lines, "
                          "no contract line")
+    ap.add_argument("--decoders", action="store_true",
+                    help="run only phase 15 (the four remaining decoders at "
+                         "published widths) and their phase-5 fixtures "
+                         "after the build: prints their lines, no contract "
+                         "line")
     ap.add_argument("--ml-server", action="store_true",
                     help="run as phase 14c's M_L server process (this "
                          "script starts it): the full-width large tier "
@@ -4222,6 +4422,16 @@ def main(argv=None) -> int:
 
     if args.ml_tier:
         return ml_tier_only(torch, smi, src, t_start)
+    if args.decoders:
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as tfm
+        with torch.inference_mode():
+            decoder_phase(torch, tfm, serve, np.random.default_rng(SEED),
+                          smi, t_start)
+            phase("5 (phase 15's archs)", t_start)
+            reduced_fixtures(torch, serve, DECODER_ARCHS)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
     rng = np.random.default_rng(SEED)
     with torch.inference_mode():
         parent = (json.loads(args.parent.read_text().strip()
@@ -4327,16 +4537,14 @@ def main(argv=None) -> int:
         del small, large
         torch.cuda.empty_cache()
 
+        # -- 15. the four remaining decoders at published widths -----------
+        by_path.update(decoder_phase(torch, tfm, serve, rng, smi, t_start))
+
         # -- 5. reduced fp32 fixtures: kernel paths == plain paths ----------
         phase("5", t_start)
-        for arch in (ARCH, MLA_ARCH, RWKV_ARCH, ZAMBA_ARCH):
-            reduced_fixture(torch, serve, arch)
-        from repro_torch.serving.request import DONE
-        for argv in ([], ["--arch", RWKV_ARCH], ["--arch", ZAMBA_ARCH]):
-            res = serve.main(argv)
-            if not all(r.state == DONE for r in res.requests):
-                raise AssertionError(f"serve.main({argv}) left requests "
-                                     f"unfinished")
+        reduced_fixtures(torch, serve,
+                         (ARCH, MLA_ARCH, RWKV_ARCH, ZAMBA_ARCH)
+                         + DECODER_ARCHS)
 
     # -- 10. the classifier cascade (it trains: outside inference mode) -----
     phase("10", t_start)
@@ -4415,32 +4623,39 @@ def prepare_decode(torch, tfm, params, cfg, rng, paged_kernel=None,
                 pos=torch.from_numpy(lens.astype("int32")).to(DEV))
 
 
+@contextlib.contextmanager
+def recorded_routes(torch):
+    """Within the block, every MoE routing call appends its top-k expert
+    sets ([tokens, k], sorted) to the list it yields."""
+    from repro_torch.models import ffn
+    route, seen = ffn._route, []
+
+    def recording(*args):
+        res = route(*args)
+        seen.append(torch.sort(res[1], dim=-1).values)
+        return res
+    ffn._route = recording
+    try:
+        yield seen
+    finally:
+        ffn._route = route
+
+
 def decode_step_check(torch, tfm, params, cfg, rng):
     """One decode step through the kernel path and through the plain path,
     on copies of one prepared cache, recording each MoE layer's top-k
     expert set per row. Returns (max |logit difference| over the rows whose
     expert sets agree in every layer, argmax agreement, logit std, the rows
     whose sets differ, max |logit difference| over those rows)."""
-    from repro_torch.models import ffn
     d = prepare_decode(torch, tfm, params, cfg, rng)
-    route = ffn._route
     out, experts = {}, {}
     for kernel in (True, False):
         c = {kind: {k: v.clone() for k, v in leaves.items()}
              for kind, leaves in d["cache"].items()}
-        seen = experts[kernel] = []
-
-        def recording(*args, seen=seen):
-            res = route(*args)
-            seen.append(torch.sort(res[1], dim=-1).values)
-            return res
-        ffn._route = recording
-        try:
+        with recorded_routes(torch) as experts[kernel]:
             out[kernel], _ = tfm.decode_step(params, cfg, d["tok"], d["pos"],
                                              c, pages=d["tables"],
                                              paged_kernel=kernel)
-        finally:
-            ffn._route = route
     torch.cuda.synchronize()
     if not torch.isfinite(out[True]).all() or out[True].shape != (
             N_SLOTS, cfg.vocab_size):

@@ -1,17 +1,19 @@
 """Model configuration for the port: `ModelConfig`, `get_config`, `reduced`.
 
-Own copy of `repro.configs` for the families the port runs (dense GQA
-decoders, DeepSeek-style MLA/MoE decoders, the attention-free RWKV6, the
-Mamba2 hybrid with its shared attention block, the encoder-decoder
+Own copy of `repro.configs` for all ten of the repo's architectures
+(`ARCH_IDS`, in the JAX package's order: dense GQA and MHA decoders,
+DeepSeek-style MLA/MoE and GQA/MoE decoders, the attention-free RWKV6,
+the Mamba2 hybrid with its shared attention block, the encoder-decoder
 whisper and the vision-language decoder with its stub frontend);
-`pdtype()` and `cdtype()` return torch dtypes. Each architecture lives in its own module
-(src/repro_torch/configs/<id>.py) exporting `CONFIG`.
+`pdtype()` and `cdtype()` return torch dtypes. Each architecture lives in
+its own module (src/repro_torch/configs/<id>.py) exporting `CONFIG`.
+`InputShape` and `SHAPES` stay with their readers (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -96,23 +98,46 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-_ALIAS = {"internlm2-1.8b": "internlm2_1_8b",
-          "deepseek-v2-236b": "deepseek_v2_236b",
-          "rwkv6-3b": "rwkv6_3b",
-          "zamba2-1.2b": "zamba2_1_2b",
-          "whisper-small": "whisper_small",
-          "phi-3-vision-4.2b": "phi_3_vision_4_2b"}
+ARCH_IDS = (
+    "kimi_k2_1t_a32b",
+    "deepseek_v2_236b",
+    "qwen1_5_32b",
+    "llama3_405b",
+    "whisper_small",
+    "rwkv6_3b",
+    "phi_3_vision_4_2b",
+    "qwen1_5_4b",
+    "internlm2_1_8b",
+    "zamba2_1_2b",
+)
+
+# public ids (with dashes) -> module names
+_ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
+_ALIAS.update({
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "llama3-405b": "llama3_405b",
+    "whisper-small": "whisper_small",
+    "rwkv6-3b": "rwkv6_3b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "zamba2-1.2b": "zamba2_1_2b",
+})
 
 
 def get_config(name: str) -> ModelConfig:
     mod_name = _ALIAS.get(name, name.replace("-", "_").replace(".", "_"))
-    try:
-        mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
-    except ModuleNotFoundError:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet (the port serves "
-            f"{', '.join(sorted(_ALIAS))}; see ROADMAP.md)") from None
-    return mod.CONFIG
+    if mod_name not in ARCH_IDS:
+        raise ValueError(
+            f"config {name!r} is not one of the repo's architectures "
+            f"({', '.join(ARCH_IDS)})")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+
+
+def list_configs() -> Tuple[str, ...]:
+    return ARCH_IDS
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

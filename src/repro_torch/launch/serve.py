@@ -14,8 +14,11 @@ thread, on a CUDA stream of its own on the card), stub (serialized pipe,
 --stub-latency), socket (one M_L server: --ml-address host:port, started
 with `python -m repro_torch.launch.ml_server`) or pool (several, with
 health checks and re-dispatch); --ml-spawn N starts N in-process servers
-instead. One flag is new: --device (default: cuda, which must exist). `--arch` takes internlm2-1.8b (dense GQA),
-deepseek-v2-236b (MLA + MoE), rwkv6-3b (RWKV6, attention-free) and
+instead. One flag is new: --device (default: cuda, which must exist).
+`--arch` takes the JAX CLI's decoders, reduced as JAX reduces them:
+internlm2-1.8b and llama3-405b (dense GQA), qwen1.5-4b and qwen1.5-32b
+(dense MHA with a QKV bias), deepseek-v2-236b (MLA + MoE),
+kimi-k2-1t-a32b (GQA + MoE), rwkv6-3b (RWKV6, attention-free) and
 zamba2-1.2b (Mamba2 with a shared attention block): the last two on the
 slot backend only, as in JAX, whose paged pool refuses a recurrent state.
 whisper-small and phi-3-vision-4.2b take frames or patches, which the
@@ -88,15 +91,30 @@ def build_runners(arch: str, seed: int, device=None):
     return small, large, small.cfg
 
 
+def large_tier_config(small_cfg: ModelConfig) -> ModelConfig:
+    """The demo "large" tier over `small_cfg`: 4 layers, twice the width
+    and FFN, 8 query heads, as JAX's `build_ladder` makes it. Its KV heads
+    are the small tier's, except where those exceed the 8 query heads
+    (qwen1.5's MHA at 20 and 40 heads, published width only): an
+    attention with more KV heads than query heads is no GQA, so such a
+    dense or MoE tier without MLA keeps 8 KV heads, one per query head.
+    Every config whose large tier JAX builds (the reduced ones) is
+    untouched."""
+    cfg = small_cfg.replace(
+        name=small_cfg.name + "-large", n_layers=4,
+        d_model=small_cfg.d_model * 2, n_heads=8, d_ff=small_cfg.d_ff * 2)
+    if (cfg.family in ("dense", "moe") and cfg.mla is None
+            and cfg.n_kv_heads > cfg.n_heads):
+        cfg = cfg.replace(n_kv_heads=cfg.n_heads)
+    return cfg
+
+
 def tier_runner(small_cfg: ModelConfig, seed: int, tier: int, device=None
                 ) -> ModelRunner:
     """One tier of `ladder_from_config`'s ladder alone, with the same
     seeded weights (an M_L server process builds only tier 1): tier 0 is
-    `small_cfg`, tier 1 the demo "large" model — 4 layers, twice the
-    width and FFN, 8 heads."""
-    cfg = small_cfg if tier == 0 else small_cfg.replace(
-        name=small_cfg.name + "-large", n_layers=4,
-        d_model=small_cfg.d_model * 2, n_heads=8, d_ff=small_cfg.d_ff * 2)
+    `small_cfg`, tier 1 `large_tier_config(small_cfg)`."""
+    cfg = small_cfg if tier == 0 else large_tier_config(small_cfg)
     return ModelRunner(cfg, tfm.init_params(cfg, _tier_seed(seed, tier),
                                             resolve_device(device)))
 
@@ -346,7 +364,7 @@ def main(argv=None):
     try:
         arch_cfg = get_config(args.arch)
         tfm.check_ported(arch_cfg, engine=True)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         ap.error(f"--arch {args.arch}: {e}")
     if args.backend == "paged":
         try:

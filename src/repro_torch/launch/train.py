@@ -10,8 +10,9 @@ JAX's learning rates, warmup and schedule, and a checkpoint in the JAX
 package's format is written after each stage with --ckpt.
 
 Same flags as `repro.launch.train` plus --device (default: cuda, which must
-exist). --arch takes the architectures the port serves (internlm2-1.8b,
-deepseek-v2-236b); others are rejected at argparse time.
+exist). --arch takes the dense and MoE decoders (internlm2-1.8b,
+qwen1.5-4b, qwen1.5-32b, llama3-405b, deepseek-v2-236b, kimi-k2-1t-a32b);
+others are rejected at argparse time.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --stage1-steps 200 --stage2-steps 100 --alpha 0.3
@@ -144,7 +145,7 @@ def main(argv=None):
         try:
             tfm.check_ported(get_config(args.arch), training=True,
                              engine=True)
-        except NotImplementedError as e:
+        except (NotImplementedError, ValueError) as e:
             ap.error(f"--arch {args.arch}: {e}")
     return run(args)
 

@@ -403,9 +403,11 @@ class _WorkerBackend:
     # seconds `close` waits for the worker to finish its current batch
     join_timeout = 60.0
 
+    # keyword-only past JAX's shared prefix: JAX has poll_interval there,
+    # so a call in its positional order raises instead of misbinding
     def __init__(self, runner, max_new: int,
                  large_batch: Optional[int] = None,
-                 max_wait: Optional[float] = None,
+                 max_wait: Optional[float] = None, *,
                  registry=None, paged_kernel: Optional[bool] = None):
         self._generate = bind_generate(runner, paged_kernel)
         self.max_new = max_new
@@ -581,14 +583,16 @@ class RemoteStubBackend(_WorkerBackend):
 
     name = "stub"
 
+    # keyword-only past JAX's shared prefix: JAX has poll_interval there,
+    # so a call in its positional order raises instead of misbinding
     def __init__(self, runner, max_new: int,
                  large_batch: Optional[int] = None,
-                 max_wait: Optional[float] = None,
+                 max_wait: Optional[float] = None, *,
                  latency: float = 0.0,
                  registry=None, paged_kernel: Optional[bool] = None):
         self.latency = latency
         super().__init__(runner, max_new, large_batch, max_wait,
-                         registry, paged_kernel)
+                         registry=registry, paged_kernel=paged_kernel)
 
     def _encode_submit(self, req: Request) -> bytes:
         return json.dumps({"rid": req.rid,

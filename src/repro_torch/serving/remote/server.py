@@ -76,10 +76,12 @@ class MLServer:
     `max_wait` runs out; JAX's wakes every 2 ms instead.
     """
 
+    # keyword-only past JAX's shared prefix: JAX has poll_interval there,
+    # so a call in its positional order raises instead of misbinding
     def __init__(self, runner, max_new: int,
                  large_batch: Optional[int] = None,
                  max_wait: Optional[float] = None,
-                 host: str = "127.0.0.1", port: int = 0,
+                 host: str = "127.0.0.1", port: int = 0, *,
                  latency: float = 0.0,
                  registry=None, paged_kernel: Optional[bool] = None):
         self._generate = bind_generate(runner, paged_kernel)

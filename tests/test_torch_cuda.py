@@ -59,6 +59,7 @@ DECODE_SHAPES = {   # (B, H, KV, hd, bs, positions below)
     "llama3-405b": (8, 128, 8, 128, 16, 300),      # group 16
     "kimi-hd112": (8, 64, 8, 112, 16, 300),
     "mha": (8, 20, 20, 128, 16, 300),              # qwen1.5-4b, group 1
+    "mha-40": (8, 40, 40, 128, 16, 300),           # qwen1.5-32b, group 1
     "odd-hd": (4, 6, 2, 50, 5, 200),               # scalar load path
     "wide-hd": (2, 4, 2, 640, 16, 100),            # two column blocks
     "long-cache": (8, 16, 8, 128, 16, 4096),
@@ -567,7 +568,9 @@ def test_gatekeeper_fused_with_invalid_leading_positions(cuda, P, T, d, V):
                                    rtol=2e-2)
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-236b",
+                                  "qwen1.5-4b", "qwen1.5-32b", "llama3-405b",
+                                  "kimi-k2-1t-a32b"])
 def test_engine_kernel_path_matches_plain_path(cuda, arch):
     from repro_torch.launch import serve
     from repro_torch.data.synthetic import make_ragged_lm_stream
@@ -604,10 +607,12 @@ def _signal_logits(cuda, T, V, dtype, seed=0):
 
 @pytest.mark.parametrize("T,V", [(3, 50), (8, 1003), (8, 92544), (8, 102400),
                                  (300, 4096), (2048, 92544), (8, 32000),
-                                 (8, 51865), (8, 32064)],
+                                 (8, 51865), (8, 32064), (8, 151936),
+                                 (8, 152064), (8, 128256), (8, 163840)],
                          ids=["tiny", "vocab-tail", "internlm2", "deepseek",
                               "ragged", "evaluation", "zamba2", "whisper",
-                              "phi-3-vision"])
+                              "phi-3-vision", "qwen1.5-4b", "qwen1.5-32b",
+                              "llama3-405b", "kimi-k2"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_deferral_kernel_matches_plain(cuda, T, V, dtype):
     """neg_entropy and max_prob to atol 1e-4 (fp32 sums in other orders);
@@ -705,8 +710,11 @@ def test_deferral_wrapper_raises_on_refused_launch(cuda, monkeypatch):
     (1, 70, 90, 4, 4, 256, 0, 0),
     (1, 33, 40, 2, 1, 50, 0, 0),
     (8, 128, 288, 32, 32, 64, 128, 288),
+    (8, 128, 288, 20, 20, 128, 0, 0),
+    (8, 128, 288, 20, 20, 128, 128, 0),
 ], ids=["tiny", "offset", "tail-offset", "full-0", "full-48", "full-128",
-        "window", "hd96", "hd112", "hd256", "hd50", "zamba2-shared"])
+        "window", "hd96", "hd112", "hd256", "hd50", "zamba2-shared",
+        "qwen1.5-4b-0", "qwen1.5-4b-128"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, T, S, H, KV, hd, off, win,
                                     dtype):
