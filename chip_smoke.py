@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels 3c,3e,7a [--src DIR] [--parent FILE]
     python3 chip_smoke.py --ml-tier
     python3 chip_smoke.py --decoders
+    python3 chip_smoke.py --ladder
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
@@ -14,7 +15,7 @@ JSON record): phases 3d and 7a then print each case's parent time beside
 the case's own (3d its fp32 cases). The third form runs phase 4's main
 path and phase 14 (the M_L tier) alone after the build, with no contract
 line; the fourth phase 15 (the four remaining decoders) and those archs'
-phase-5 fixtures, the same way.
+phase-5 fixtures, the same way; the fifth phase 16 (the ladder) alone.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -170,6 +171,47 @@ non-zero:
          `launch.serve.main()` with --large-backend sync, thread, pool
          --ml-spawn 2, and socket to the `python -m
          repro_torch.launch.ml_server` process: tokens equal.
+  16. The N-tier ladder on internlm2-1.8b at published width, through
+     `build_ladder(ARCH, SEED, 3, reduce=False)`: tier 0 phase 4's M_S
+     (24 layers, 1.889 B), a mid tier of 14 layers with d_ff 12288
+     (1.612 B) and the large tier (4 layers at twice the width, 1.631 B),
+     each tier's parameters and the peak memory printed; the width rule's
+     drift from phase 13's probe (probed anew when run alone) and one bf16
+     decode step kernel vs plain:
+     16a. Phase 4's 16 requests and prompts, max_new 32, on the paged
+         backend with the kernels on and early exit off, both edges on
+         mean_confidence, taus from `calibrate_edges` at 0.3 per edge,
+         under a caller-owned `Observability` (16e): every request DONE
+         at exactly one tier, `tier_served`, `tier_reach`,
+         `edge_deferrals` and `compute_cost == ladder_compute_cost(reach,
+         costs)` consistent, launches exact (`_expected_launches` over
+         every tier's generates, the calibration's included), then the
+         sequential reference (each tier's `generate` over what reached
+         it): tier 0 row by row under the width rule, each differing row
+         printed; tiers 1 and 2 bit for bit over what the engine sent
+         them.
+     16b. The same ladder with `RecalibConfig(warmup=4)` toward 0.3, early
+         exit on, the last tier on its own `thread` backend (its own CUDA
+         stream): `edge_tau == tau_final`, and a host replay of
+         `EdgeRecalibrator` over the audit log's `recalibrate` events
+         gives the run's summary; launches exact.
+     16c. `core.prng` on the card: uint32 bits and uniforms equal to the
+         numpy version at [4, 92544] over seeds past 2^31 and several
+         fold_in steps, the gumbel noise within 2e-6, one draw's time and
+         kernel launches; two `sample` calls equal; then the ladder with
+         `SemanticAgreementSignal(k=4, temperature=0.8)` on edge 1:
+         launches exact (a `sample` is one flash prefill a call), each
+         gated request's score and each `finalize`'s milliseconds printed.
+     16d. The reduced fp32 three-tier ladder, semantic agreement on both
+         edges and recalibration on, every kernel on and then off: taus,
+         tokens, tiers, confidences and tau trace equal.
+     16e. 16a's runtime: GET /metrics shows serving_requests_retired 16,
+         the profiler window's Chrome trace (5 iterations) names
+         `gqa_decode_kernel`, the engine's trace passes
+         `validate_chrome_trace`; then `python -m
+         repro_torch.launch.serve --tiers 3 --signal semantic_agreement
+         --recalibrate --metrics-port 0 --profile-dir ...` at the reduced
+         size in a process of its own exits 0.
   6. The second main path, the same way: DeepSeek-V2 (MLA + MoE) at its
      published widths, M_S cut to 2 layers (one dense, one MoE layer with
      all 160 routed experts), M_L `build_ladder`'s 4-layer large tier.
@@ -503,6 +545,18 @@ DECODER_LOGIT_GUARD = {  # the bf16 steps, kernel vs plain path, on rows
     "kimi-k2-1t-a32b": 0.15,
 }
 DECODER_FREE_GIB = 10   # each arch's peak must leave this much of the card
+
+# phase 16: the N-tier ladder, recalibration, semantic agreement, obs
+LADDER_TIERS = 3        # internlm2-1.8b, a 14-layer mid tier, the large tier
+LADDER_WARMUP = 4       # 16b: observations before a controller may move
+SEMANTIC_K, SEMANTIC_T = 4, 0.8  # 16c, 16d: samples a vote, temperature
+PRNG_SHAPE = (SEMANTIC_K, 92544)  # 16c: one sampled step's noise
+PRNG_SEEDS = (2 ** 31, 2 ** 31 + 12345, 2 ** 32 - 1)
+PRNG_STEPS = (0, 1, MAX_NEW - 1)
+GUMBEL_ATOL = 2e-6      # -log(-log(u)): each library's fp32 log, a few
+                        # ulp of values below 17 (tests/test_torch_cuda.py)
+OBS_PROFILE_ITERS = 5   # 16e: engine iterations in the profiler window
+LADDER_CLI_TIMEOUT = 300  # 16e: seconds the reduced serve CLI may take
 
 # phase 7: training
 TRAIN_BATCH, TRAIN_SEQ, STAGE1_STEPS, STAGE2_STEPS = 16, 128, 2, 3
@@ -1913,25 +1967,37 @@ def _nbytes(snapshot) -> int:
                for leaves in blk.values() for t in leaves.values())
 
 
-def _expected_launches(small, large, res, n_ml=None) -> dict:
+def _expected_launches(small, large, res, n_ml=None,
+                       extra_calls=()) -> dict:
     """The paged path's launches in a run without calibration: the decode
     and the paired write once per layer of each decode step; the signal
-    once per decode step, per seeding prefill dispatch and per M_L
-    generate step (MAX_NEW a batch); flash_attention once per layer of
-    each prefill dispatch (resume re-prefills too) and of each M_L
-    batch's prefill. `n_ml` is the M_L generates run in this process
-    (default: the run's M_L batches)."""
+    once per decode step, per seeding prefill dispatch and per generate
+    step of an upper tier (MAX_NEW a batch); flash_attention once per
+    layer of each prefill dispatch (resume re-prefills too) and of each
+    upper tier's batch's prefill. `large` is M_L's runner, or a ladder's
+    upper tiers' runners (tier e+1 generating behind edge e,
+    `ml_batches_per_edge[e]` batches). `n_ml` is the M_L generates run in
+    this process (default: the run's batches per edge). `extra_calls`
+    are (runner, generates, samples) made besides the backends' batches
+    (a calibration's generates; a sampling signal's `sample` calls, each
+    one prefill and no signal launch)."""
     st = res.stats
     L = small.cfg.n_layers
-    n_ml = st["ml_batches"] if n_ml is None else n_ml
+    uppers = list(large) if isinstance(large, (list, tuple)) else [large]
+    if n_ml is None:
+        n_ml = st.get("ml_batches_per_edge", [st["ml_batches"]])
+    elif not isinstance(n_ml, (list, tuple)):
+        n_ml = [n_ml]
     want = dict.fromkeys(KERNELS, 0)
     want["paged_flash_decode_gqa"] = want["paged_write_token"] = (
         L * res.steps)
+    n_gen = sum(n_ml) + sum(g for _, g, _ in extra_calls)
     want["deferral_entropy"] = (res.steps + st["prefill_seed_dispatches"]
-                                + MAX_NEW * n_ml)
-    want["flash_attention"] = (flash_layers(small.cfg)
-                               * st["prefill_dispatches"]
-                               + flash_layers(large.cfg) * n_ml)
+                                + MAX_NEW * n_gen)
+    want["flash_attention"] = (
+        flash_layers(small.cfg) * st["prefill_dispatches"]
+        + sum(flash_layers(r.cfg) * n for r, n in zip(uppers, n_ml))
+        + sum(flash_layers(r.cfg) * (g + k) for r, g, k in extra_calls))
     return want
 
 
@@ -2967,6 +3033,542 @@ def reduced_ml_backends(torch, serve, procs) -> dict:
     if not all(cli_same.values()) or not cli["sync"].deferred.any():
         raise AssertionError(f"14d: CLI backends differ: {cli_same}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the N-tier ladder, recalibration, semantic agreement, obs
+# ---------------------------------------------------------------------------
+
+class CallLog:
+    """Counts each runner's `generate` and `sample` calls while it is
+    entered (instance attributes shadow the methods; a backend binds
+    `generate` when `run` builds it, so enter before the run). Thread-safe:
+    a worker backend calls from its own thread."""
+
+    def __init__(self, runners):
+        import threading
+        self.runners = list(runners)
+        self.calls = [dict(generate=0, sample=0) for _ in self.runners]
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        for i, r in enumerate(self.runners):
+            for kind in ("generate", "sample"):
+                setattr(r, kind, self._wrap(getattr(r, kind), i, kind))
+        return self
+
+    def _wrap(self, fn, i: int, kind: str):
+        def call(*args, **kw):
+            with self._lock:
+                self.calls[i][kind] += 1
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for r in self.runners:
+            del r.generate, r.sample
+
+
+def timed_semantic(k: int = SEMANTIC_K, temperature: float = SEMANTIC_T):
+    """A `SemanticAgreementSignal` that records (rid, score, wall ms) of
+    each `finalize` (its k samples end in one host copy, so the wall time
+    holds the device's)."""
+    from repro_torch.core.deferral import SemanticAgreementSignal
+
+    class TimedSemantic(SemanticAgreementSignal):
+        def __init__(self):
+            super().__init__(k=k, temperature=temperature, seed=SEED)
+            self.records = []
+
+        def finalize(self, obs):
+            t0 = time.perf_counter()
+            score = super().finalize(obs)
+            self.records.append((obs.rid, score,
+                                 (time.perf_counter() - t0) * 1e3))
+            return score
+    return TimedSemantic()
+
+
+def ladder_engine(runners, signals, *, recalibrate: bool = False,
+                  early_exit: bool = False, thread_last: bool = False,
+                  paged_kernel: bool = True):
+    """The serve CLI's ladder over `runners` (costs geometric from 0.2 to
+    1.0) on the paged backend at phase 4's sizes, one edge per signal;
+    `thread_last` runs the last tier on a `thread` backend (a CUDA
+    stream of its own); `recalibrate` holds every edge at DEFERRAL
+    online."""
+    from repro_torch.serving import (CascadeSpec, CascadeTier,
+                                     ContinuousCascadeEngine, DeferralEdge,
+                                     EngineConfig, PagedConfig,
+                                     RecalibConfig)
+    n = len(runners)
+    costs = [0.2 * (1.0 / 0.2) ** (i / (n - 1)) for i in range(n)]
+    tiers = [CascadeTier(r.cfg.name, runner=r, cost=costs[i],
+                         backend=("thread" if thread_last and i == n - 1
+                                  else None))
+             for i, r in enumerate(runners)]
+    return ContinuousCascadeEngine(
+        CascadeSpec(tiers=tiers,
+                    edges=[DeferralEdge(signal=s) for s in signals]),
+        EngineConfig(n_slots=N_SLOTS, early_exit=early_exit,
+                     backend="paged",
+                     paged=PagedConfig(block_size=BLOCK, prefill_chunk=CHUNK,
+                                       paged_kernel=paged_kernel),
+                     recalibration=(RecalibConfig(warmup=LADDER_WARMUP)
+                                    if recalibrate else None),
+                     recalib_target=DEFERRAL))
+
+
+def ladder_prompts(cfg):
+    """Phase 4's calibration batch and 16 ragged live prompts."""
+    from repro_torch.data.synthetic import (make_lm_stream,
+                                            make_ragged_lm_stream)
+    cal_len = sum(RAGGED) // 2
+    return (make_lm_stream([SEED, 1], N_REQUESTS, cal_len, cfg.vocab_size),
+            cal_len, make_ragged_lm_stream([SEED, 2], N_REQUESTS, *RAGGED,
+                                           cfg.vocab_size))
+
+
+def ladder_main_path(torch, engine, runners, label: str, smi, obs=None,
+                     audit=None):
+    """Calibrate every edge at DEFERRAL and run phase 4's requests through
+    `engine`, the kernel counters set to 0 just before and read just
+    after and held to `_expected_launches` over the calls each tier's
+    runner made (the calibration's and the backends' generates, a
+    sampling signal's samples); every request DONE at exactly one tier,
+    `tier_served`, `tier_reach`, `edge_deferrals` and `compute_cost ==
+    ladder_compute_cost(reach, costs)` consistent. Returns (result, taus,
+    launches)."""
+    import numpy as np
+    from repro_torch.core.calibration import ladder_compute_cost
+    from repro_torch.serving import make_requests
+    from repro_torch.serving.request import DONE
+    cal, cal_len, live = ladder_prompts(runners[0].cfg)
+    n = len(runners)
+    reset_counts()
+    t0 = time.perf_counter()
+    with CallLog(runners) as cal_log:
+        taus = engine.calibrate(cal, cal_len, MAX_NEW, DEFERRAL)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    with CallLog(runners) as run_log:
+        res = engine.run(make_requests(live, MAX_NEW), MAX_NEW,
+                         audit_path=audit, obs=obs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    st = res.stats
+    print(f"[ladder] {label}: calibrated taus "
+          f"{', '.join(f'{t:.4f}' for t in taus)} for deferral {DEFERRAL} "
+          f"per edge in {t_cal:.2f} s; served {N_REQUESTS} requests in "
+          f"{st['makespan_s']:.3f} s ({st['throughput_tok_s']:.1f} tok/s): "
+          f"tier_served {st['tier_served']}, edge_deferrals "
+          f"{st['edge_deferrals']}, tier_reach "
+          f"{[round(x, 4) for x in st['tier_reach']]}, compute_cost "
+          f"{st['compute_cost']:.4f}, backends {st['ml_backends']} with "
+          f"{st['ml_batches_per_edge']} batches, {res.steps} decode steps, "
+          f"{st['prefill_dispatches']} prefill dispatches, early exits "
+          f"{int(res.early_exited.sum())}; phases (host wall s) "
+          + ", ".join(f"{k[6:-2]} {v:.3f}" for k, v in st.items()
+                      if k.startswith("phase_"))
+          + f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    tiers = [r.tier for r in res.requests]
+    served = [tiers.count(i) for i in range(n)]
+    deferrals = [sum(t > e for t in tiers) for e in range(n - 1)]
+    reach = [1.0] + [d / N_REQUESTS for d in deferrals]
+    if not all(r.state == DONE and len(r.tokens) == MAX_NEW
+               and r.deferred == (r.tier > 0) for r in res.requests):
+        raise AssertionError(f"{label}: a request unfinished or served "
+                             f"by no single tier")
+    if (st["tier_served"] != served or st["edge_deferrals"] != deferrals
+            or st["tier_reach"] != reach
+            or st["compute_cost"] != ladder_compute_cost(
+                reach, engine.spec.costs)
+            or res.tokens.shape != (N_REQUESTS, MAX_NEW)
+            or not np.isfinite(res.confidence).all()):
+        raise AssertionError(f"{label}: ladder stats {st['tier_served']}, "
+                             f"{st['edge_deferrals']}, {st['tier_reach']}, "
+                             f"{st['compute_cost']} against the requests' "
+                             f"tiers {served}")
+    batches = st["ml_batches_per_edge"]
+    run_gen = [c["generate"] for c in run_log.calls]
+    if run_gen != [0] + batches:
+        raise AssertionError(f"{label}: generates per tier {run_gen}, the "
+                             f"backends' batches {batches}")
+    extra = [(r, c["generate"], c["sample"] + rc["sample"])
+             for r, c, rc in zip(runners, cal_log.calls, run_log.calls)]
+    want = _expected_launches(runners[0], runners[1:], res,
+                              extra_calls=extra)
+    print(f"[ladder] {label}: kernel launches {launches}, expected {want} "
+          f"(calibration generates per tier "
+          f"{[c['generate'] for c in cal_log.calls]}, samples per tier "
+          f"{[k for _, _, k in extra]})")
+    if launches != want or res.steps == 0:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    return res, taus, launches
+
+
+def _by_length(reqs):
+    """Requests grouped by prompt length, each group rid-sorted: how a
+    backend batches a drain (`BatchPolicy`, `large_batch` None)."""
+    groups = {}
+    for r in reqs:
+        groups.setdefault(r.prompt_len, []).append(r)
+    return [sorted(g, key=lambda r: r.rid) for _, g in sorted(groups.items())]
+
+
+def _generate_groups(runner, reqs) -> dict:
+    import numpy as np
+    out = {}
+    for g in _by_length(reqs):
+        toks, conf = runner.generate(np.stack([r.prompt for r in g]),
+                                     g[0].prompt_len, MAX_NEW)
+        for r, t, c in zip(g, toks, conf):
+            out[r.rid] = (t, float(c))
+    return out
+
+
+def ladder_reference(torch, tfm, runners, res, taus, drift: float,
+                     conf_drift: float, label: str) -> None:
+    """`res` (early exit off) against the sequential reference of
+    tests/test_cascade_ladder.py: tier i's `generate` over what reached
+    it. Tier 0 generates every prompt (by length group, a dense cache);
+    its tokens and deferral must equal the engine's paged ones, except
+    under the width rule (ROADMAP.md §3): a row whose tokens differ
+    passes when the reference's top-2 margin at the first difference is
+    within twice `drift`, one whose deferral alone differs when its two
+    confidences lie within twice `conf_drift`. Each differing row is
+    printed. Tiers 1.. generate over exactly what the engine sent them,
+    by length group as its backends batch: tokens, confidences and
+    every gate bit for bit."""
+    import numpy as np
+    reqs = res.requests
+    n = len(runners)
+    ref0 = _generate_groups(runners[0], reqs)
+    bad, n_diff, dconf = [], 0, 0.0
+    for r in reqs:
+        t, c = ref0[r.rid]
+        ref_defer = c < taus[0]
+        if np.array_equal(r.small_tokens, t) and r.deferred == ref_defer:
+            dconf = max(dconf, abs(r.confidence - c))
+            continue
+        n_diff += 1
+        diff = np.nonzero(r.small_tokens != t)[0]
+        if diff.size:
+            j = int(diff[0])
+            margin = top2_margin(torch, tfm, runners[0], r.prompt, t[:j])
+            ok = margin <= 2 * drift
+            what = (f"rid {r.rid}: tier-0 token {j} {int(r.small_tokens[j])}"
+                    f" vs {int(t[j])}, reference top-2 margin {margin:.4g}")
+        else:
+            ok = abs(r.confidence - c) <= 2 * conf_drift
+            what = (f"rid {r.rid}: equal tier-0 tokens, deferred "
+                    f"{r.deferred} vs {ref_defer}, confidence "
+                    f"{r.confidence:.7g} vs {c:.7g} (tau {taus[0]:.7g})")
+        print(f"[ladder] {label} differs from the sequential reference, "
+              f"{what}: {'within' if ok else 'NOT within'} the width rule")
+        if not ok:
+            bad.append(what)
+    for r in reqs:
+        if r.deferred != (r.confidence < taus[0]):
+            bad.append(f"rid {r.rid}: edge 0 deferred {r.deferred} at "
+                       f"confidence {r.confidence} against tau {taus[0]}")
+    reached = [r for r in reqs if r.tier >= 1]
+    exact = 0
+    for i in range(1, n):
+        out = _generate_groups(runners[i], reached)
+        nxt = []
+        for r in reached:
+            t, c = out[r.rid]
+            if i < n - 1 and c < taus[i]:
+                nxt.append(r)
+                if r.tier <= i:
+                    bad.append(f"rid {r.rid}: edge {i} kept it at tier "
+                               f"{r.tier}, its confidence {c} < tau "
+                               f"{taus[i]}")
+            elif r.tier != i or not np.array_equal(r.tokens, t):
+                bad.append(f"rid {r.rid}: tier {r.tier} tokens against the "
+                           f"reference's tier {i}")
+            else:
+                exact += 1
+        reached = nxt
+    print(f"[ladder] {label} against the sequential reference: tier 0 "
+          f"{N_REQUESTS - n_diff} of {N_REQUESTS} rows equal (tokens and "
+          f"deferral; max|dconf| {dconf:.3g} on them), {n_diff} differ "
+          f"(width rule: drift {drift:.4g} logit, {conf_drift:.3g} "
+          f"neg-entropy); tiers 1..{n - 1}: {exact} served rows bit-equal, "
+          f"every gate equal; {len(bad)} beyond the rules")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+
+
+def check_prng_on_card(torch, smi) -> None:
+    """16c: `core.prng`'s draw on the card against its numpy version at
+    one sampled step's noise shape [k, vocab]: bits and uniforms exact,
+    gumbel within GUMBEL_ATOL, over seeds past 2^31 and several fold_in
+    steps; then its time and kernels per sampled step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import prng
+    for seed in PRNG_SEEDS:
+        key = prng.prng_key(seed)
+        for step in PRNG_STEPS:
+            k = prng.fold_in(key, step)
+            bits = prng.random_bits(k, PRNG_SHAPE, DEV).cpu().numpy()
+            u = prng.uniform(k, PRNG_SHAPE, DEV).cpu().numpy()
+            g = prng.gumbel(k, PRNG_SHAPE, DEV).cpu().numpy()
+            ok_bits = np.array_equal(bits, prng.random_bits_np(k, PRNG_SHAPE))
+            ok_u = np.array_equal(u, prng.uniform_np(k, PRNG_SHAPE))
+            dg = float(np.abs(g - prng.gumbel_np(k, PRNG_SHAPE)).max())
+            if not (ok_bits and ok_u and dg <= GUMBEL_ATOL):
+                raise AssertionError(f"PRNG seed {seed} step {step}: bits "
+                                     f"{ok_bits}, uniform {ok_u}, gumbel "
+                                     f"{dg}")
+    logits = torch.randn(PRNG_SHAPE, device=DEV)
+    key = prng.fold_in(prng.prng_key(PRNG_SEEDS[0]), 1)
+    ms = time_ms(lambda: prng.categorical(key, logits))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prng.categorical(key, logits)
+        torch.cuda.synchronize()
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[ladder] 16c PRNG: uint32 bits and uniforms equal to the numpy "
+          f"version, gumbel within {GUMBEL_ATOL}, at {list(PRNG_SHAPE)} "
+          f"for seeds {list(PRNG_SEEDS)} x fold_in steps "
+          f"{list(PRNG_STEPS)}; one categorical draw (a sampled step) "
+          f"{ms:.4f} ms and {n_kernels} kernel launches on {smi}")
+
+
+def ladder_obs_checks(torch, obs, trace_path: Path, smi) -> None:
+    """16e: the caller-owned runtime over 16a's run: /metrics scraped
+    after the run shows its 16 retirements, the profiler window's Chrome
+    trace parses and names the GQA decode kernel, and the engine's own
+    trace (exported at `finish`) passes `validate_chrome_trace`."""
+    import urllib.request
+
+    from repro_torch.serving.obs import validate_chrome_trace
+    with urllib.request.urlopen(obs.server.url, timeout=10) as resp:
+        body = resp.read().decode()
+    if f"serving_requests_retired {float(N_REQUESTS)}" not in body:
+        raise AssertionError(f"/metrics: no serving_requests_retired "
+                             f"{N_REQUESTS} in the scrape")
+    prof_path = obs.profiler.trace_path
+    if prof_path is None:
+        raise AssertionError("the profiler window wrote no trace")
+    events = json.loads(Path(prof_path).read_text())["traceEvents"]
+    gqa = [e for e in events if "gqa_decode_kernel" in str(e.get("name"))]
+    kernels = _kernel_intervals({"traceEvents": events})
+    if not gqa:
+        raise AssertionError("the profiler window's trace names no GQA "
+                             "decode kernel")
+    obs.finish()
+    spans = validate_chrome_trace(json.loads(trace_path.read_text()))
+    print(f"[ladder] 16e obs: /metrics ({len(body)} bytes) shows "
+          f"serving_requests_retired {N_REQUESTS}; the profiler window "
+          f"({OBS_PROFILE_ITERS} iterations) wrote "
+          f"{Path(prof_path).stat().st_size} bytes, "
+          f"{sum(len(v) for v in kernels.values())} kernel events, "
+          f"{len(gqa)} of them gqa_decode_kernel; the engine's trace "
+          f"validates ({len(spans)} spans) on {smi}")
+
+
+def ladder_cli(src) -> None:
+    """16e: the serve CLI with the slice's flags at the reduced size, in
+    a process of its own on the card; it must exit 0 and print its
+    endpoint and profiler trace."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--tiers", "3", "--signal", "semantic_agreement",
+                "--recalibrate", "--recalib-warmup", "2", "--metrics-port",
+                "0", "--profile-dir", str(Path(tmp) / "prof"),
+                "--requests", "8", "--max-new", "4"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, env=dict(os.environ, PYTHONPATH=str(src)),
+                              capture_output=True, text=True,
+                              timeout=LADDER_CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        shown = [ln for ln in lines if ln.startswith(
+            ("calibrated", "metrics endpoint", "served", "tier_served",
+             "online recalibration", "torch.profiler"))]
+        print("[ladder] 16e CLI: " + " | ".join(shown)
+              + f" (exit {proc.returncode}, {wall:.1f} s)")
+        traces = list((Path(tmp) / "prof").glob("*.json"))
+        if proc.returncode != 0 or len(traces) != 1:
+            raise AssertionError(f"serve CLI exit {proc.returncode}, "
+                                 f"{len(traces)} profiler traces: "
+                                 f"{proc.stderr[-2000:]}")
+
+
+def ladder_phase(torch, tfm, serve, rng, smi, src, t_start: float,
+                 probe=None) -> dict:
+    """Phase 16 (see the module docstring). `probe` is phase 13's width
+    probe of the same M_S (tier 0 keeps phase 4's seed); run alone, the
+    phase probes anew. Returns {path: launches}."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.recalibration import (EdgeRecalibrator,
+                                                RecalibConfig)
+    from repro_torch.serving.obs import ObsConfig, Observability
+    t_phase = time.perf_counter()
+    phase("16a", t_start)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runners = serve.build_ladder(ARCH, SEED, LADDER_TIERS, reduce=False,
+                                 device=DEV)
+    torch.cuda.synchronize()
+    print(f"[ladder] {LADDER_TIERS}-tier ladder at published width in "
+          f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"tier {i} {r.cfg.name} {r.cfg.n_layers} layers d_model "
+              f"{r.cfg.d_model} {r.cfg.n_heads}/{r.cfg.n_kv_heads} heads "
+              f"d_ff {r.cfg.d_ff}, "
+              f"{sum(t.numel() for t in _leaves(r.params)) / 1e9:.3f} B"
+              for i, r in enumerate(runners))
+          + f"; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if probe is None:
+        probe = width_probe(torch, tfm, runners[0], smi)
+    step_err = decode_step_check(torch, tfm, runners[0].params,
+                                 runners[0].cfg, rng)[0]
+    drift = max(probe["drift"], step_err)
+    print(f"[ladder] width rule: drift {drift:.4g} logit (the width "
+          f"probe's {probe['drift']:.4g}, a bf16 decode step kernel vs "
+          f"plain {step_err:.4g}), neg-entropy {probe['conf_drift']:.3g}")
+    counts = {}
+    tmp = Path(tempfile.mkdtemp(prefix="ladder_"))
+    # 16a + 16e: both edges on mean_confidence under a caller-owned
+    # observability runtime
+    obs = Observability(ObsConfig(
+        metrics_port=0, profile_dir=str(tmp / "prof"),
+        profile_iters=OBS_PROFILE_ITERS, trace_path=str(tmp / "trace.json")))
+    obs.start_server()
+    eng = ladder_engine(runners, ["mean_confidence"] * (LADDER_TIERS - 1))
+    try:
+        res, taus, counts["ladder"] = ladder_main_path(
+            torch, eng, runners, "16a", smi, obs=obs)
+        phase("16e", t_start)
+        ladder_obs_checks(torch, obs, tmp / "trace.json", smi)
+    finally:
+        obs.finish()
+    ladder_reference(torch, tfm, runners, res, taus, drift,
+                     probe["conf_drift"], "16a")
+    # 16b: recalibration, the last tier on a thread backend
+    phase("16b", t_start)
+    eng = ladder_engine(runners, ["mean_confidence"] * (LADDER_TIERS - 1),
+                        recalibrate=True, early_exit=True, thread_last=True)
+    audit = tmp / "audit.jsonl"
+    res, taus, counts["ladder_recal"] = ladder_main_path(
+        torch, eng, runners, "16b", smi, audit=str(audit))
+    rc = res.stats["recalibration"]
+    replay = EdgeRecalibrator(list(taus), DEFERRAL,
+                              RecalibConfig(warmup=LADDER_WARMUP))
+    events = [json.loads(ln) for ln in audit.read_text().splitlines()]
+    observed = [e for e in events if e["event"] == "recalibrate"]
+    for e in observed:
+        if replay.observe(e["edge"], e["confidence"]) != e["tau"]:
+            raise AssertionError("16b: the host replay's tau differs")
+    if (res.stats["edge_tau"] != rc["tau_final"] or replay.summary() != rc
+            or res.stats["ml_backends"] != ["sync", "thread"]):
+        raise AssertionError(f"16b: edge_tau {res.stats['edge_tau']}, "
+                             f"recalibration {rc}, replay "
+                             f"{replay.summary()}")
+    print(f"[ladder] 16b recalibration (warmup {LADDER_WARMUP}, target "
+          f"{DEFERRAL}): taus {[round(t, 4) for t in taus]} -> "
+          f"{[round(t, 4) for t in rc['tau_final']]}, updates "
+          f"{rc['tau_updates']}, ewma deferral {rc['ewma_ratio']}; "
+          f"edge_tau == tau_final; the host replay of the audit log's "
+          f"{len(observed)} observations gives the same summary; backends "
+          f"{res.stats['ml_backends']}")
+    # 16c: semantic agreement on edge 1
+    phase("16c", t_start)
+    check_prng_on_card(torch, smi)
+    prompt = ladder_prompts(runners[0].cfg)[2][0]
+    batch = np.tile(prompt, (SEMANTIC_K, 1))
+    a, b = (runners[1].sample(batch, len(prompt), MAX_NEW, seed=2 ** 31 + 7,
+                              temperature=SEMANTIC_T) for _ in range(2))
+    if not np.array_equal(a, b):
+        raise AssertionError("16c: two sample calls differ")
+    sig = timed_semantic()
+    eng = ladder_engine(runners, ["mean_confidence", sig])
+    res, taus, counts["ladder_semantic"] = ladder_main_path(
+        torch, eng, runners, "16c", smi)
+    run_recs = sig.records[-res.stats["edge_deferrals"][0]:] \
+        if res.stats["edge_deferrals"][0] else []
+    ms = [m for _, _, m in sig.records]
+    print(f"[ladder] 16c: two samples of [{SEMANTIC_K}, {MAX_NEW}] tokens "
+          f"equal; semantic agreement (k {SEMANTIC_K}, T {SEMANTIC_T}) on "
+          f"edge 1, tau {taus[1]:.4f}: {len(sig.records)} finalize calls "
+          f"(calibration and run), {np.mean(ms):.1f} ms each on average "
+          f"(min {min(ms):.1f}, max {max(ms):.1f}); the run's gated "
+          f"requests (rid, score, ms): "
+          + ", ".join(f"({rid}, {sc:.4f}, {m:.1f})"
+                      for rid, sc, m in run_recs) + f" on {smi}")
+    # the engines' run closures hold them in reference cycles: collect
+    # before the next phase needs the card's memory
+    del runners, eng, res, sig, a, b, obs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 16d: the reduced fp32 ladder, kernels on and off
+    phase("16d", t_start)
+    reduced_ladder(torch, serve)
+    phase("16e CLI", t_start)
+    ladder_cli(src)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ladder] phase 16: {time.perf_counter() - t_phase:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          f"at its end on {smi}")
+    return counts
+
+
+def reduced_ladder(torch, serve) -> None:
+    """16d: the reduced fp32 three-tier ladder with semantic agreement on
+    both edges and recalibration on, every kernel switched on and then
+    off by the engine's `paged_kernel`: the same tokens, tiers,
+    confidences and tau trace."""
+    import numpy as np
+    from repro_torch.serving import make_requests
+    from repro_torch.serving.request import DONE
+    runners = serve.build_ladder(ARCH, SEED, LADDER_TIERS, reduce=True,
+                                 device=DEV)
+    cal, cal_len, live = ladder_prompts(runners[0].cfg)
+    out = {}
+    for kernel in (True, False):
+        eng = ladder_engine(runners, [timed_semantic(), timed_semantic()],
+                            recalibrate=True, paged_kernel=kernel)
+        reset_counts()
+        taus = eng.calibrate(cal, cal_len, MAX_NEW, DEFERRAL)
+        res = eng.run(make_requests(live, MAX_NEW), MAX_NEW)
+        torch.cuda.synchronize()
+        n = sum(read_counts().values())
+        if kernel != (n > 0) or not all(r.state == DONE
+                                        for r in res.requests):
+            raise AssertionError(f"16d: kernels {kernel} launched {n}")
+        out[kernel] = (taus, res)
+    (ta, a), (tb, b) = out[True], out[False]
+    same = (ta == tb and np.array_equal(a.tokens, b.tokens)
+            and [r.tier for r in a.requests] == [r.tier for r in b.requests]
+            and np.array_equal(a.confidence, b.confidence)
+            and a.stats["recalibration"] == b.stats["recalibration"])
+    print(f"[ladder] 16d reduced fp32 ladder, semantic agreement on both "
+          f"edges and recalibration on: kernels on and off give "
+          f"{'the same' if same else 'DIFFERENT'} taus, tokens, tiers "
+          f"{a.stats['tier_served']}, confidences and tau trace "
+          f"({a.stats['recalibration']['tau_updates']} updates)")
+    if not same:
+        for ra, rb in zip(a.requests, b.requests):
+            if not (np.array_equal(ra.tokens, rb.tokens)
+                    and ra.tier == rb.tier):
+                print(f"[ladder] 16d rid {ra.rid}: tier {ra.tier} vs "
+                      f"{rb.tier}, confidence {ra.confidence} vs "
+                      f"{rb.confidence}")
+        raise AssertionError("16d: the kernel path differs from the plain")
 
 
 def profile_step(torch, label, cfg, split, params, loss) -> None:
@@ -4366,6 +4968,10 @@ def parse_args(argv=None):
                          "published widths) and their phase-5 fixtures "
                          "after the build: prints their lines, no contract "
                          "line")
+    ap.add_argument("--ladder", action="store_true",
+                    help="run only phase 16 (the three-tier ladder, "
+                         "recalibration, semantic agreement and obs) after "
+                         "the build: prints its lines, no contract line")
     ap.add_argument("--ml-server", action="store_true",
                     help="run as phase 14c's M_L server process (this "
                          "script starts it): the full-width large tier "
@@ -4422,6 +5028,14 @@ def main(argv=None) -> int:
 
     if args.ml_tier:
         return ml_tier_only(torch, smi, src, t_start)
+    if args.ladder:
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as tfm
+        with torch.inference_mode():
+            ladder_phase(torch, tfm, serve, np.random.default_rng(SEED),
+                         smi, src, t_start)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.decoders:
         from repro_torch.launch import serve
         from repro_torch.models import transformer as tfm
@@ -4491,6 +5105,11 @@ def main(argv=None) -> int:
             by_path["ml_reduced"] = reduced_ml_backends(torch, serve, procs)
         finally:
             kill_ml_processes(procs)
+
+        # -- 16. the three-tier ladder, recalibration, semantic agreement ---
+        by_path.update(ladder_phase(torch, tfm, serve, rng, smi, src,
+                                    t_start, probe))
+        torch.cuda.empty_cache()
 
         # -- 6. DeepSeek-V2 (MLA + MoE) at full width -----------------------
         phase("6", t_start)

@@ -135,7 +135,8 @@ def calibrate_edges(spec, val_prompts, *, max_new: Optional[int] = None,
             conf = np.array([
                 sig.finalize(SignalObservation(
                     prompt=sub[j], mean_confidence=float(mean_conf[j]),
-                    tokens=tokens[j], runner=runner, max_new=max_new))
+                    tokens=tokens[j], runner=runner, max_new=max_new,
+                    paged_kernel=paged_kernel))
                 for j in range(sub.shape[0])], np.float64)
         edge.tau = threshold_for_deferral_ratio(conf, ratio)
         taus.append(edge.tau)

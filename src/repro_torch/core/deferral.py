@@ -11,14 +11,19 @@ JAX-free copy of `repro.core.deferral`:
     `deferral_entropy` kernel on CUDA tensors, its plain version on CPU
     tensors); `margin_confidence` stays plain `topk` (no TPU kernel
     computes it).
-  * Serving-level signals: the `SignalObservation` an edge sees at its
-    decision point, the mean-confidence signal, and `resolve_signal`. The
-    k-sample semantic-agreement signal is not ported yet (see
-    ROADMAP.md).
+  * Serving-level signals (`SERVING_SIGNALS`): the `SignalObservation`
+    an edge sees at its decision point, the eq.-8 mean-confidence signal
+    (running form: in-flight early exit works under it) and the k-sample
+    semantic-agreement signal (arXiv 2509.21837: k stochastic
+    continuations from the tier's own runner, `ModelRunner.sample`, which
+    draws JAX's categorical noise through `core.prng`; scored by their
+    mean pairwise token agreement; no running form), and
+    `resolve_signal`.
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Any, Optional
 
 import numpy as np
@@ -90,13 +95,16 @@ def selective_predict(small_preds: torch.Tensor, large_preds: torch.Tensor,
 @dataclasses.dataclass
 class SignalObservation:
     """Everything a serving edge knows about one request at its deferral
-    decision point (see `repro.core.deferral.SignalObservation`)."""
+    decision point (see `repro.core.deferral.SignalObservation`).
+    `paged_kernel` is the engine's kernel switch, which a sampling signal
+    hands to the runner (None: resolved from the runner's device)."""
     prompt: np.ndarray
     mean_confidence: float
     tokens: Optional[np.ndarray] = None
     runner: Any = None
     max_new: int = 0
     rid: int = 0
+    paged_kernel: Optional[bool] = None
 
 
 class MeanConfidenceSignal:
@@ -114,16 +122,72 @@ class MeanConfidenceSignal:
         return float(obs.mean_confidence)
 
 
-SERVING_SIGNALS = {"mean_confidence": MeanConfidenceSignal}
+class SemanticAgreementSignal:
+    """k-sample semantic-agreement voting (arXiv 2509.21837): sample k
+    stochastic continuations of the prompt from the tier's own model and
+    return the mean pairwise per-token agreement in [0, 1]. Costs k
+    sampled generations per gated request, paid once at the decision
+    point: there is no running form, so an edge using it never
+    early-exits. The sampling seed is ``crc32(prompt bytes) ^ seed``, as
+    in JAX, so a score depends on the prompt alone, not on the batch or
+    the decision order."""
+
+    name = "semantic_agreement"
+    supports_running = False
+
+    def __init__(self, k: int = 4, temperature: float = 0.8,
+                 seed: int = 0):
+        if k < 2:
+            raise ValueError(f"semantic agreement needs k >= 2 samples, "
+                             f"got {k}")
+        self.k = k
+        self.temperature = temperature
+        self.seed = seed
+
+    def running(self, mean_confidence: float, n_gen: int) -> None:
+        return None
+
+    def finalize(self, obs: SignalObservation) -> float:
+        if obs.runner is None:
+            raise ValueError(
+                "semantic_agreement needs the tier's local ModelRunner "
+                "to draw samples; this tier only has a remote backend")
+        prompt = np.asarray(obs.prompt, np.int32)
+        seed = zlib.crc32(prompt.tobytes()) ^ self.seed
+        max_new = obs.max_new or (len(obs.tokens)
+                                  if obs.tokens is not None else 1)
+        samples = obs.runner.sample(
+            np.tile(prompt, (self.k, 1)), int(prompt.shape[0]),
+            int(max_new), seed=seed, temperature=self.temperature,
+            paged_kernel=obs.paged_kernel)
+        return float(pairwise_agreement(samples))
+
+
+def pairwise_agreement(samples: np.ndarray) -> float:
+    """Mean pairwise per-token agreement of a [k, T] sample matrix, in
+    [0, 1]: 1.0 when all k samples are identical token for token."""
+    s = np.asarray(samples)
+    k = s.shape[0]
+    if k < 2:
+        return 1.0
+    total, pairs = 0.0, 0
+    for i in range(k):
+        for j in range(i + 1, k):
+            total += float((s[i] == s[j]).mean())
+            pairs += 1
+    return total / pairs
+
+
+SERVING_SIGNALS = {
+    "mean_confidence": MeanConfidenceSignal,
+    "semantic_agreement": SemanticAgreementSignal,
+}
 
 
 def resolve_signal(signal: Any) -> Any:
-    """Accept a serving-signal name or an instance; return the instance."""
+    """Accept a serving-signal name or an instance; return the instance.
+    Names construct with defaults; pass an instance for custom knobs."""
     if isinstance(signal, str):
-        if signal == "semantic_agreement":
-            raise NotImplementedError(
-                "the semantic_agreement signal is not ported yet (see "
-                "ROADMAP.md); use mean_confidence")
         try:
             return SERVING_SIGNALS[signal]()
         except KeyError:

@@ -2,11 +2,17 @@
 deferral, on CUDA by default.
 
 Counterpart of `repro.launch.serve` with the same flags, defaults and
-argparse-time rejections of contradictory combinations. Flags for what
-the port does not run yet are rejected by name at argparse time (see
-ROADMAP.md): architectures of unported families, ladders of more than
-two tiers, the semantic-agreement signal, online recalibration, and the
-/metrics endpoint and profiler flags. Memory pressure (--oversubscribe,
+argparse-time rejections of contradictory combinations. --tiers N serves
+an N-tier ladder (intermediate tiers interpolated between M_S and M_L,
+as `build_ladder` makes them), each adjacent pair gated by its own
+calibrated edge; --signal picks the edges' signal (eq.-8 mean
+confidence, or k-sample semantic agreement with --signal-k and
+--signal-temperature, drawing as JAX draws); --recalibrate turns on the
+online tau controller (--recalib-target, --recalib-step,
+--recalib-deadband, --recalib-warmup). Observability: --trace-out,
+--metrics-out, --metrics-port (a live /metrics endpoint), --device-timing
+and --profile-dir / --profile-iters (a torch.profiler window). Memory
+pressure (--oversubscribe,
 --pressure-policy, --max-preemptions, --swap-blocks), admission overload
 control (--max-queue, --deadline-ms) and the M_L backends run as in JAX,
 with its validations: --large-backend sync (inline), thread (a worker
@@ -43,27 +49,17 @@ import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig, get_config, reduced
+from repro_torch.core.deferral import SemanticAgreementSignal
 from repro_torch.data.synthetic import make_lm_stream, make_ragged_lm_stream
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import (CascadeEngine, CascadeSpec, CascadeTier,
                                  ContinuousCascadeEngine, DeferralEdge,
                                  EngineConfig, MLBackendConfig, ModelRunner,
-                                 PagedConfig, PressureConfig, make_requests,
-                                 poisson_arrivals)
+                                 PagedConfig, PressureConfig, RecalibConfig,
+                                 make_requests, poisson_arrivals)
 from repro_torch.serving.obs import (Observability, add_obs_args,
                                      obs_config_from_args)
-from repro_torch.serving.obs.config import UNPORTED_FLAGS
 from repro_torch.serving.paged_pool import validate_pageable
-
-# flags of the JAX CLI whose features are not ported yet (dest, flag)
-_UNPORTED = (("recalibrate", "--recalibrate"),
-             ("recalib_target", "--recalib-target"),
-             ("recalib_step", "--recalib-step"),
-             ("recalib_deadband", "--recalib-deadband"),
-             ("recalib_warmup", "--recalib-warmup"),
-             ("signal_k", "--signal-k"),
-             ("signal_temperature", "--signal-temperature"),
-             ) + UNPORTED_FLAGS
 
 
 def _tier_seed(seed: int, tier: int) -> int:
@@ -72,15 +68,13 @@ def _tier_seed(seed: int, tier: int) -> int:
 
 def build_ladder(arch: str, seed: int, n_tiers: int, reduce: bool = True,
                  device=None):
-    """One ModelRunner per tier: tier 0 is `arch` (its `reduced` variant
-    unless reduce=False, which keeps the published widths), the last tier
-    the demo "large" model (see `ladder_from_config`)."""
-    if n_tiers != 2:
-        raise NotImplementedError(f"{n_tiers}-tier ladders are not ported "
-                                  f"yet (see ROADMAP.md)")
+    """One ModelRunner per tier, as JAX's `build_ladder` makes the ladder:
+    tier 0 is `arch` (its `reduced` variant unless reduce=False, which
+    keeps the published widths), the last tier the demo "large" model, and
+    each tier between them interpolated (see `tier_config`)."""
     small_cfg = get_config(arch)
     return ladder_from_config(reduced(small_cfg) if reduce else small_cfg,
-                              seed, device)
+                              seed, device, n_tiers)
 
 
 def build_runners(arch: str, seed: int, device=None):
@@ -109,21 +103,48 @@ def large_tier_config(small_cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-def tier_runner(small_cfg: ModelConfig, seed: int, tier: int, device=None
-                ) -> ModelRunner:
+def tier_config(small_cfg: ModelConfig, tier: int, n_tiers: int = 2
+                ) -> ModelConfig:
+    """Tier `tier`'s config in an `n_tiers` ladder over `small_cfg`: tier
+    0 is `small_cfg`, the last `large_tier_config(small_cfg)`, and tier i
+    between them grows depth and FFN only, as in JAX's `build_ladder`:
+    ``n_layers = round(L0 + f * (L_last - L0))`` and ``d_ff = round(d_ff0 *
+    (1 + f))`` with ``f = i / (n_tiers - 1)``."""
+    if n_tiers < 2 or not 0 <= tier < n_tiers:
+        raise ValueError(f"tier {tier} of a {n_tiers}-tier ladder: a "
+                         f"ladder has at least 2 tiers")
+    if tier == 0:
+        return small_cfg
+    large_cfg = large_tier_config(small_cfg)
+    if tier == n_tiers - 1:
+        return large_cfg
+    f = tier / (n_tiers - 1)
+    return small_cfg.replace(
+        name=f"{small_cfg.name}-mid{tier}",
+        n_layers=round(small_cfg.n_layers
+                       + f * (large_cfg.n_layers - small_cfg.n_layers)),
+        d_ff=round(small_cfg.d_ff * (1 + f)))
+
+
+def tier_runner(small_cfg: ModelConfig, seed: int, tier: int, device=None,
+                *, n_tiers: int = 2) -> ModelRunner:
     """One tier of `ladder_from_config`'s ladder alone, with the same
-    seeded weights (an M_L server process builds only tier 1): tier 0 is
-    `small_cfg`, tier 1 `large_tier_config(small_cfg)`."""
-    cfg = small_cfg if tier == 0 else large_tier_config(small_cfg)
+    seeded weights (an M_L server process builds only tier 1 of a 2-tier
+    ladder): `tier_config(small_cfg, tier, n_tiers)` on the seed
+    `_tier_seed(seed, tier)`, so a 2-tier ladder's two tiers keep their
+    weights in any deeper ladder's tier 0 and tier 1 seeds."""
+    cfg = tier_config(small_cfg, tier, n_tiers)
     return ModelRunner(cfg, tfm.init_params(cfg, _tier_seed(seed, tier),
                                             resolve_device(device)))
 
 
-def ladder_from_config(small_cfg: ModelConfig, seed: int, device=None):
-    """The two-tier ladder over a resolved tier-0 config (`tier_runner`'s
-    two tiers). Weights are random, seeded per tier."""
+def ladder_from_config(small_cfg: ModelConfig, seed: int, device=None,
+                       n_tiers: int = 2):
+    """The `n_tiers` ladder over a resolved tier-0 config (`tier_runner`'s
+    tiers). Weights are random, seeded per tier."""
     device = resolve_device(device)
-    return [tier_runner(small_cfg, seed, i, device) for i in (0, 1)]
+    return [tier_runner(small_cfg, seed, i, device, n_tiers=n_tiers)
+            for i in range(n_tiers)]
 
 
 def make_remote_factory(kind: str, addresses, *, connect_timeout: float,
@@ -169,18 +190,37 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--margin", type=float, default=0.0)
     ap.add_argument("--no-early-exit", action="store_true")
     ap.add_argument("--tiers", type=int, default=2,
-                    help="cascade ladder depth (only 2 is ported)")
+                    help="cascade ladder depth (continuous engine): 2 = "
+                         "the paper's M_S/M_L pair; >2 inserts "
+                         "intermediate tiers, each with its own "
+                         "calibrated deferral edge")
     ap.add_argument("--signal",
                     choices=("mean_confidence", "semantic_agreement"),
                     default="mean_confidence",
-                    help="deferral signal (only mean_confidence is ported)")
-    ap.add_argument("--signal-k", type=int, default=4)
-    ap.add_argument("--signal-temperature", type=float, default=0.8)
-    ap.add_argument("--recalibrate", action="store_true")
-    ap.add_argument("--recalib-target", type=float, default=-1.0)
-    ap.add_argument("--recalib-step", type=float, default=0.08)
-    ap.add_argument("--recalib-deadband", type=float, default=0.1)
-    ap.add_argument("--recalib-warmup", type=int, default=32)
+                    help="per-edge deferral signal: eq.-8 mean negative "
+                         "entropy (running form, supports in-flight "
+                         "early exit) or k-sample semantic-agreement "
+                         "voting (finalize-only)")
+    ap.add_argument("--signal-k", type=int, default=4,
+                    help="semantic_agreement: samples per vote")
+    ap.add_argument("--signal-temperature", type=float, default=0.8,
+                    help="semantic_agreement: sampling temperature")
+    ap.add_argument("--recalibrate", action="store_true",
+                    help="continuous engine: recalibrate each edge's tau "
+                         "online (EWMA quantile tracker with hysteresis) "
+                         "toward --recalib-target under arrival drift")
+    ap.add_argument("--recalib-target", type=float, default=-1.0,
+                    help="target deferral ratio the online controller "
+                         "holds per edge (default: --deferral-ratio)")
+    ap.add_argument("--recalib-step", type=float, default=0.08,
+                    help="recalibration: Robbins-Monro step scale")
+    ap.add_argument("--recalib-deadband", type=float, default=0.1,
+                    help="recalibration: hysteresis deadband; the "
+                         "controller stays idle until |ewma - target| "
+                         "exceeds this")
+    ap.add_argument("--recalib-warmup", type=int, default=32,
+                    help="recalibration: observations before the "
+                         "controller may move tau")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="Poisson arrivals/s; 0 = all at t=0")
     ap.add_argument("--large-backend",
@@ -288,8 +328,8 @@ def main(argv=None):
                  "(the static engine serves lock-step uniform batches)")
     obs_cfg = obs_config_from_args(args)
     if args.engine == "static" and obs_cfg.any_enabled:
-        ap.error("observability flags (--trace-out/--metrics-out/"
-                 "--device-timing) need --engine continuous")
+        ap.error("observability flags (--trace-out/--metrics-*/"
+                 "--device-timing/--profile-dir) need --engine continuous")
     # reject contradictory flag combinations up front: a tuning flag that
     # the selected backend/engine would silently ignore is a user error,
     # not a no-op
@@ -338,8 +378,26 @@ def main(argv=None):
         ap.error(f"--max-queue must be >= 0, got {args.max_queue}")
     if args.deadline_ms < 0:
         ap.error(f"--deadline-ms must be >= 0, got {args.deadline_ms}")
+    if not args.recalibrate:
+        for dest in ("recalib_target", "recalib_step",
+                     "recalib_deadband", "recalib_warmup"):
+            if given(dest):
+                ap.error(f"--{dest.replace('_', '-')} needs "
+                         f"--recalibrate")
     if args.tiers < 2:
         ap.error(f"--tiers must be >= 2, got {args.tiers}")
+    if args.engine == "static":
+        for dest, flag in (("tiers", "--tiers"), ("signal", "--signal"),
+                           ("recalibrate", "--recalibrate"),
+                           ("max_queue", "--max-queue"),
+                           ("deadline_ms", "--deadline-ms")):
+            if given(dest):
+                ap.error(f"{flag} needs --engine continuous")
+    if args.signal != "semantic_agreement":
+        for dest in ("signal_k", "signal_temperature"):
+            if given(dest):
+                ap.error(f"--{dest.replace('_', '-')} needs "
+                         f"--signal semantic_agreement")
     if remote:
         if args.tiers != 2:
             ap.error("--large-backend socket|pool drives the final "
@@ -352,15 +410,6 @@ def main(argv=None):
                 and len(args.ml_address.split(",")) != 1):
             ap.error("--large-backend socket takes exactly one "
                      "--ml-address; use --large-backend pool for several")
-    # what the port does not run yet: rejected by name, never ignored
-    unported = [flag for dest, flag in _UNPORTED if given(dest)]
-    if args.tiers != 2:
-        unported.append(f"--tiers {args.tiers}")
-    if args.signal != "mean_confidence":
-        unported.append(f"--signal {args.signal}")
-    if unported:
-        ap.error(f"{', '.join(unported)}: not ported to repro_torch yet "
-                 f"(see ROADMAP.md)")
     try:
         arch_cfg = get_config(args.arch)
         tfm.check_ported(arch_cfg, engine=True)
@@ -373,7 +422,8 @@ def main(argv=None):
             ap.error(f"--backend paged --arch {args.arch}: {e}")
 
     device = resolve_device(args.device)
-    small, large = build_ladder(args.arch, args.seed, 2, device=device)
+    runners = build_ladder(args.arch, args.seed, args.tiers, device=device)
+    small, large = runners[0], runners[-1]
     small_cfg = small.cfg
 
     ragged = args.ragged_min > 0
@@ -426,11 +476,31 @@ def main(argv=None):
             retries=args.ml_retries,
             health_interval=args.ml_health_interval)
 
+    # declarative ladder: one tier per runner, cost interpolated
+    # geometrically from the paper's M_S (0.2) to M_L (1.0) units; one
+    # deferral edge per adjacent pair, all carrying the same signal
+    n = len(runners)
+    costs = [0.2 * (1.0 / 0.2) ** (i / (n - 1)) for i in range(n)]
+    tiers = [CascadeTier(r.cfg.name, runner=r, cost=costs[i])
+             for i, r in enumerate(runners)]
+    if remote:                            # socket/pool factory (2-tier)
+        tiers[-1] = CascadeTier(tiers[-1].name, runner=large,
+                                cost=costs[-1], backend=large_backend)
+
+    def make_signal():
+        if args.signal == "semantic_agreement":
+            return SemanticAgreementSignal(
+                k=args.signal_k, temperature=args.signal_temperature,
+                seed=args.seed)
+        return "mean_confidence"
+
     spec = CascadeSpec(
-        tiers=[CascadeTier(small_cfg.name, runner=small, cost=0.2),
-               CascadeTier(large.cfg.name, runner=large, cost=1.0,
-                           backend=large_backend if remote else None)],
-        edges=[DeferralEdge(margin=args.margin, min_tokens=args.min_tokens)])
+        tiers=tiers,
+        edges=[DeferralEdge(signal=make_signal(), margin=args.margin,
+                            min_tokens=args.min_tokens)
+               for _ in range(n - 1)])
+    recalib_target = (args.recalib_target if args.recalib_target >= 0
+                      else args.deferral_ratio)
     pressure = (PressureConfig(oversubscribe=args.oversubscribe,
                                policy=args.pressure_policy,
                                max_preemptions=args.max_preemptions,
@@ -454,15 +524,29 @@ def main(argv=None):
         ml=MLBackendConfig(kind="sync" if remote else args.large_backend,
                            large_batch=args.large_batch or None,
                            max_wait=args.large_max_wait or None,
-                           stub_latency=args.stub_latency))
+                           stub_latency=args.stub_latency),
+        recalibration=(RecalibConfig(step=args.recalib_step,
+                                     deadband=args.recalib_deadband,
+                                     warmup=args.recalib_warmup)
+                       if args.recalibrate else None),
+        recalib_target=recalib_target)
     engine = ContinuousCascadeEngine(spec, config)
-    tau = engine.calibrate(cal, cal_len, args.max_new, args.deferral_ratio)
-    print(f"calibrated tau {tau:.4f} for target deferral "
-          f"{args.deferral_ratio}")
+    taus = engine.calibrate(cal, cal_len, args.max_new, args.deferral_ratio)
+    taus = taus if isinstance(taus, list) else [taus]
+    print(f"calibrated tau(s) "
+          f"{', '.join(f'{t:.4f}' for t in taus)} for target deferral "
+          f"{args.deferral_ratio} per edge"
+          + (" (online recalibration on)" if args.recalibrate else ""))
     arrivals = (poisson_arrivals(len(live), args.arrival_rate, args.seed)
                 if args.arrival_rate > 0 else None)
     reqs = make_requests(live, args.max_new, arrivals)
+    # caller-owned observability runtime: the /metrics endpoint is up
+    # (and announced) before the run starts and until the final scrape
+    # is dumped
     obs = Observability(obs_cfg)
+    server = obs.start_server()
+    if server is not None:
+        print(f"metrics endpoint: {server.url}")
     try:
         res = engine.run(reqs, args.max_new, audit_path=args.audit_log,
                          obs=obs)
@@ -471,11 +555,15 @@ def main(argv=None):
         for srv in ml_servers:
             srv.stop()
     print(f"served {len(live)} requests on {args.slots} slots "
-          f"({args.backend} backend, M_L via {args.large_backend}, "
-          f"{device}) in "
+          f"({args.backend} backend, {args.tiers}-tier ladder, upper "
+          f"tiers via {args.large_backend}, {device}) in "
           f"{res.steps} M_S steps: deferral_ratio={res.deferral_ratio:.3f}, "
           f"early_exits={int(res.early_exited.sum())}, "
           f"saved_M_S_steps={res.saved_steps}")
+    if args.tiers > 2:
+        print(f"tier_served={res.stats['tier_served']} over tiers "
+              f"{res.stats['tier_names']}, per-edge deferrals "
+              f"{res.stats['edge_deferrals']}")
     if pressure is not None or args.max_queue or args.deadline_ms:
         st = res.stats
         print(f"pressure/overload: preemptions={st['n_preemptions']}, "
@@ -483,6 +571,13 @@ def main(argv=None):
               f"rejected={st['n_rejected']}, expired={st['n_expired']}, "
               f"swap_outs={st.get('swap_outs', 0)}, "
               f"swap_ins={st.get('swap_ins', 0)}")
+    if args.recalibrate:
+        rc = res.stats["recalibration"]
+        drift = [f"{a:.4f}->{b:.4f}"
+                 for a, b in zip(taus, rc["tau_final"])]
+        print(f"online recalibration: tau drift {', '.join(drift)} "
+              f"({rc['tau_updates']} updates, ewma deferral "
+              f"{rc['ewma_ratio']})")
     print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                       for k, v in res.stats.items()}, indent=1))
     if args.audit_log:
@@ -491,6 +586,8 @@ def main(argv=None):
         print(f"trace written to {args.trace_out}")
     if args.metrics_out:
         print(f"metrics scrape written to {args.metrics_out}")
+    if obs.profiler.trace_path:
+        print(f"torch.profiler trace written to {obs.profiler.trace_path}")
     print("first tokens:", res.tokens[:4].tolist())
     return res
 

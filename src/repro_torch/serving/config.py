@@ -11,12 +11,14 @@ Copy of `repro.serving.config` for the features the port serves:
 The old flat-kwargs constructor still works through a back-compat shim
 that maps every legacy name onto these fields (`LEGACY_KWARG_MAP` below
 is the table) and emits one `DeprecationWarning` with the migration
-hint. Not ported yet (see ROADMAP.md): online recalibration.
+hint.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+from repro_torch.core.recalibration import RecalibConfig
 
 
 @dataclasses.dataclass
@@ -93,8 +95,8 @@ class PagedConfig:
 
 @dataclasses.dataclass
 class MLBackendConfig:
-    """Default execution backend for tier 1 (M_L); a tier's own
-    `CascadeTier.backend` overrides `kind`.
+    """Default execution backend for tiers >= 1 (a tier's own
+    `CascadeTier.backend` overrides `kind` per tier).
 
     kind         — "sync" | "thread" | "stub", or a callable factory
                    (the socket / replica-pool path).
@@ -120,7 +122,12 @@ class EngineConfig:
     steps_per_sync — decode steps per host sync (multi-step scheduling).
     backend        — tier-0 KV-cache backend: "slot" | "paged".
     paged          — `PagedConfig` (used when backend="paged").
-    ml             — `MLBackendConfig` defaults for tier 1.
+    ml             — `MLBackendConfig` defaults for tiers >= 1.
+    recalibration  — `RecalibConfig` to recalibrate each edge's tau
+                     online toward `recalib_target` (None: taus are
+                     fixed, the parity-pinned default).
+    recalib_target — target deferral ratio(s) the online controller
+                     holds: a float for every edge or a per-edge list.
     max_queue      — admission overload control: bound on the READY
                      arrival queue; overflow is shed newest-first as
                      REJECTED (None: unbounded, the default).
@@ -135,6 +142,8 @@ class EngineConfig:
     backend: str = "slot"
     paged: PagedConfig = dataclasses.field(default_factory=PagedConfig)
     ml: MLBackendConfig = dataclasses.field(default_factory=MLBackendConfig)
+    recalibration: Optional[RecalibConfig] = None
+    recalib_target: Any = 0.2
     max_queue: Optional[int] = None
     deadline_s: Optional[float] = None
 

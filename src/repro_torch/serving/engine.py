@@ -5,16 +5,18 @@ Counterpart of `repro.serving.engine` (see its docstring for the design).
 
 `ModelRunner` — greedy prefill + decode for one model; `generate` keeps
 the tokens and the eq.-8 confidence sum on the device and copies them to
-the host once per batch.
+the host once per batch; `sample` draws tokens as JAX's runner does
+(`core.prng`, for the semantic-agreement signal).
 
 `CascadeEngine` — the static reference path: M_S generates every request
 in full, requests whose mean confidence falls below tau are regenerated
 by M_L.
 
-`ContinuousCascadeEngine` — continuous batching over a slot or block-paged
-KV pool. Every decode step decodes ALL slots at per-slot positions and
-accumulates the confidence sum on the device; only small per-slot control
-vectors cross to the host each sync. Once a request has decoded
+`ContinuousCascadeEngine` — an N-tier cascade (`CascadeSpec`) with
+continuous batching of tier 0 over a slot or block-paged KV pool. Every
+decode step decodes ALL slots at per-slot positions and accumulates
+the confidence sum on the device; only small per-slot control vectors
+cross to the host each sync. Once a request has decoded
 `min_tokens` tokens, a running mean confidence below ``tau - margin``
 evicts it in flight, and it is regenerated on M_L. On the paged backend
 (`backend="paged"`), prompts prefill in chunks batched across same-offset
@@ -59,10 +61,18 @@ passes its `paged_kernel` to `ModelRunner.generate` for M_S calibration
 and for M_L behind its backend. The plain path is
 `deferral_entropy_plain`, `_attend` and `wkv_scan_plain`.
 
-What the port does not run yet is rejected (see ROADMAP.md): ladders of
-more than two tiers, and recalibration. The legacy flat-kwargs
-constructor `ContinuousCascadeEngine(small, large, tau=..., ...)` maps
-every old name onto the spec and config (`config.LEGACY_KWARG_MAP`).
+Ladders (as in the JAX engine): each edge e hands its deferrals to its
+own backend running tier e+1, and an intermediate tier's results are
+gated by the next edge, whose deferrals are arrival traffic for the next
+backend; the final drain flushes backend e only once every backend
+upstream of it is empty. A 2-tier spec is the two-model cascade. With
+`EngineConfig.recalibration` an `EdgeRecalibrator` moves each edge's tau
+toward `recalib_target` online from the confidences it gates on. The
+legacy flat-kwargs constructor `ContinuousCascadeEngine(small, large,
+tau=..., ...)` maps every old name onto the spec and config
+(`config.LEGACY_KWARG_MAP`). An observability runtime the engine builds
+itself (`obs` None or an `ObsConfig`) starts its /metrics endpoint with
+the run; its profiler window ticks once per engine iteration.
 
 Differences from the JAX engine: PyTorch runs eagerly (no jit; the decode
 loop is a Python loop of device ops), and the KV caches are updated in
@@ -85,8 +95,10 @@ import torch
 from repro_torch.core.calibration import (calibrate_edges,
                                           expected_compute_cost,
                                           ladder_compute_cost)
+from repro_torch.core import prng
 from repro_torch.core.cascade_spec import CascadeSpec
 from repro_torch.core.deferral import SignalObservation
+from repro_torch.core.recalibration import EdgeRecalibrator
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
 from repro_torch.models import transformer as tfm
@@ -184,6 +196,44 @@ class ModelRunner:
         tokens, conf = _to_host(buf, conf_sum / max_new)
         return tokens, conf[:, 0]
 
+    @torch.inference_mode()
+    def sample(self, prompts: np.ndarray, prompt_len: int, max_new: int,
+               seed: int = 0, temperature: float = 1.0,
+               paged_kernel: Optional[bool] = None) -> np.ndarray:
+        """Temperature sampling for agreement-style deferral signals:
+        `generate`'s prefill and decode steps, each step's tokens drawn as
+        JAX's runner draws them, `jax.random.categorical(fold_in(PRNGKey(
+        seed), i), logits * (1 / temperature))`, by `core.prng` on the
+        logits' device. The same (prompts, seed) always gives the same
+        samples; rows draw independent noise. Returns [B, max_new] int32
+        tokens in one device->host copy."""
+        if temperature <= 0:
+            raise ValueError(f"temperature must be > 0, got {temperature}")
+        cfg, params = self.cfg, self.params
+        use_kernel = kernel_ops.paged_kernel_enabled(paged_kernel,
+                                                     self.device)
+        key = prng.prng_key(int(seed) & prng.MASK32)
+        inv_t = 1.0 / float(temperature)
+        toks = torch.from_numpy(np.ascontiguousarray(prompts, np.int64)
+                                ).to(self.device)
+        B = toks.shape[0]
+        cache = tfm.init_cache(cfg, B, prompt_len + max_new,
+                               device=self.device)
+        logits, cache = tfm.prefill(params, cfg, toks, cache, last_only=True,
+                                    paged_kernel=use_kernel)
+        tok = prng.categorical(prng.fold_in(key, 0),
+                               logits[:, -1, :].float() * inv_t)
+        buf = torch.zeros((B, max_new), dtype=torch.int32, device=self.device)
+        buf[:, 0] = tok
+        for i in range(max_new - 1):
+            step_logits, cache = tfm.decode_step(params, cfg, tok,
+                                                 prompt_len + i, cache,
+                                                 paged_kernel=use_kernel)
+            tok = prng.categorical(prng.fold_in(key, i + 1),
+                                   step_logits.float() * inv_t)
+            buf[:, i + 1] = tok
+        return buf.cpu().numpy()
+
 
 class CascadeEngine:
     """Two-ModelRunner cascade with a calibrated threshold (static,
@@ -250,9 +300,11 @@ class ContinuousServeResult:
 
 
 class ContinuousCascadeEngine:
-    """Continuous-batching two-tier cascade over a slot or block-paged KV
-    pool, built from a `CascadeSpec` (tiers + the deferral edge) and an
-    `EngineConfig` (slots, KV backend, M_L batching).
+    """Continuous-batching N-tier cascade over a slot or block-paged KV
+    pool, built from a `CascadeSpec` (tiers + one deferral edge per
+    adjacent pair) and an `EngineConfig` (slots, KV backend, the upper
+    tiers' batching, online recalibration). Tier 0 decodes in the slots;
+    tier e+1 runs behind edge e's backend.
 
     Per-slot device state (all [n_slots] unless noted): last_tok, pos,
     n_gen (prefill token counts as 1), budget (the request's max_new; a
@@ -320,10 +372,6 @@ class ContinuousCascadeEngine:
                     large_batch=legacy.get("large_batch"),
                     max_wait=legacy.get("large_max_wait"),
                     stub_latency=legacy.get("stub_latency", 0.0)))
-        if self.spec.n_tiers != 2:
-            raise NotImplementedError(
-                f"{self.spec.n_tiers}-tier ladders are not ported yet (see "
-                f"ROADMAP.md); the port serves the two-tier cascade")
 
     # -- back-compat attribute surface (the legacy flat-kwarg names read —
     # and where old code mutated them, write — through to spec/config) ----
@@ -428,12 +476,17 @@ class ContinuousCascadeEngine:
         return self.spec.tiers[1].cost
 
     def calibrate(self, val_prompts: np.ndarray, prompt_len: int,
-                  max_new: int, deferral_ratio: float = 0.2) -> float:
-        """Calibrate the edge's tau on a uniform validation batch."""
-        return calibrate_edges(self.spec, val_prompts, max_new=max_new,
+                  max_new: int, deferral_ratio=0.2):
+        """Calibrate every edge's tau on a uniform validation batch
+        (`core.calibration.calibrate_edges`: edge i calibrates on the
+        prompts the edges before it would defer that far). Returns the
+        single tau for a 2-tier spec, the per-edge list for a deeper
+        ladder; `deferral_ratio` may be per edge."""
+        taus = calibrate_edges(self.spec, val_prompts, max_new=max_new,
                                deferral_ratio=deferral_ratio,
                                prompt_len=prompt_len,
-                               paged_kernel=self.config.paged.paged_kernel)[0]
+                               paged_kernel=self.config.paged.paged_kernel)
+        return taus[0] if len(taus) == 1 else taus
 
     # -- device programs -----------------------------------------------------
     def _decode_body(self, cache, state, pages, max_new: int,
@@ -576,17 +629,40 @@ class ContinuousCascadeEngine:
                     r.deadline = r.arrival_time + ecfg.deadline_s
         overload_on = (queue.max_queue is not None
                        or any(r.deadline is not None for r in requests))
+        spec = self.spec
+        n_edges = len(spec.edges)
+        last_tier = spec.n_tiers - 1
+        edge0 = spec.edges[0]
+        sig0 = edge0.signal
+        # online tau recalibration: one controller per edge, seeded from
+        # the configured (offline) taus; None keeps the taus fixed
+        recal = None
+        if ecfg.recalibration is not None:
+            recal = EdgeRecalibrator(list(spec.taus), ecfg.recalib_target,
+                                     ecfg.recalibration)
+        # a passed-in Observability is caller-owned; anything else (None
+        # or an ObsConfig) the engine builds, starts and finishes itself
         own_obs = not isinstance(obs, Observability)
         obs_rt = obs if isinstance(obs, Observability) else Observability(obs)
+        if own_obs:
+            obs_rt.start_server()
         tr = obs_rt.tracer
         dev_timer = obs_rt.device_timer
+        profiler = obs_rt.profiler
         tel = ServingTelemetry(audit_path, obs=obs_rt)
-        edge0 = self.spec.edges[0]
-        sig0 = edge0.signal
-        tier1 = self.spec.tiers[1]
-        ml_kind = (tier1.backend if tier1.backend is not None
-                   else ecfg.ml.kind)
 
+        def edge_tau(e: int) -> float:
+            return recal.tau(e) if recal is not None else spec.edges[e].tau
+
+        def observe_tau(e: int, conf: float) -> None:
+            """Feed edge e's decision back to its controller (right after
+            deciding, as `TauController.observe` asks), with an audit event
+            carrying the unrounded confidence, so that the log replays
+            the controller exactly."""
+            tau = recal.observe(e, conf)
+            tel.event("recalibrate", edge=e, confidence=conf, tau=tau)
+
+        backends: List[Any] = []
         try:
             S = ecfg.n_slots
             zi = dict(dtype=torch.int32, device=dev)
@@ -609,16 +685,23 @@ class ContinuousCascadeEngine:
             n_prefill_tokens = 0
             n_shared_tokens = 0
             peak_active = 0
-            n_deferrals = 0
             n_relief = 0        # pressure-policy evictions (paged only)
-            # tier 1's execution backend: the tier's own `backend` wins,
-            # else config.ml.kind; the engine's kernel switch reaches a
-            # local runner's generate (a remote server keeps its own)
-            ml = make_large_backend(ml_kind, tier1.runner, max_new,
-                                    ecfg.ml.large_batch, ecfg.ml.max_wait,
-                                    ecfg.ml.stub_latency,
-                                    registry=tel.registry,
-                                    paged_kernel=use_kernel)
+            # one execution backend per edge: backends[e] runs tier e+1.
+            # A tier's own `backend` wins, else config.ml.kind; only edge
+            # 0's backend registers metrics (the registry's names are
+            # unique per run). The engine's kernel switch reaches a local
+            # runner's generate (a remote server keeps its own); each
+            # worker backend runs on a CUDA stream of its own
+            for e in range(n_edges):
+                tier = spec.tiers[e + 1]
+                kind = (tier.backend if tier.backend is not None
+                        else ecfg.ml.kind)
+                backends.append(make_large_backend(
+                    kind, tier.runner, max_new, ecfg.ml.large_batch,
+                    ecfg.ml.max_wait, ecfg.ml.stub_latency,
+                    registry=tel.registry if e == 0 else None,
+                    paged_kernel=use_kernel))
+            ml = backends[0]
             by_rid = {r.rid: r for r in requests}
             ml_depths: List[int] = []
             reg = tel.registry
@@ -644,34 +727,76 @@ class ContinuousCascadeEngine:
             ngen_prev = np.zeros(S, np.int64)
             tel.reset_clock()
 
-            def submit_large(req: Request):
-                nonlocal n_deferrals
-                n_deferrals += 1
-                req.tier = 1
+            edge_deferrals = [0] * n_edges
+
+            def submit_large(req: Request, edge: int):
+                """Stream one deferral across `edge` into tier edge+1's
+                backend the moment the tier below lets go of it."""
+                edge_deferrals[edge] += 1
+                req.tier = edge + 1
                 req.state = DEFERRED_PENDING
                 req.t_submit_large = tel.now
-                ml.submit([req])
-                tel.event("large_submit", rid=req.rid, edge=0,
-                          depth=ml.n_pending)
+                backends[edge].submit([req])
+                tel.event("large_submit", rid=req.rid, edge=edge,
+                          depth=backends[edge].n_pending)
+
+            def total_pending() -> int:
+                return sum(b.n_pending for b in backends)
 
             def poll_large(timeout: Optional[float] = None):
-                """Fold completed M_L regenerations back into the run (a
+                """Fold completed regenerations back into the run (a
                 worker or remote backend's results arrive while M_S
-                decodes); `timeout` waits that long for the first."""
-                for res in ml.poll(timeout=timeout):
-                    req = by_rid[res.rid]
-                    now = tel.now
-                    req.tier = 1
-                    req.tokens = np.asarray(
-                        res.tokens, np.int32)[:req.max_new].copy()
-                    req.state = DONE
-                    req.t_done = now
-                    tel.m_tokens.labels(model="large").inc(len(req.tokens))
-                    tel.event("large_complete", rid=req.rid, tier=1,
-                              batch_id=res.batch_id, n_real=res.n_real,
-                              pad_to=res.pad_to, reason=res.reason,
-                              wait_ms=round(
-                                  (now - req.t_submit_large) * 1e3, 3))
+                decodes). A result from backends[e] is tier e+1's output:
+                final at the last tier; at an intermediate tier gated by
+                edge e+1, below tau it becomes arrival traffic for the
+                next backend. `timeout` waits that long for the first
+                result of the first backend with work pending (in the
+                drain, the one flushed last)."""
+                first = next((e for e, be in enumerate(backends)
+                              if be.n_pending), None)
+                for e, be in enumerate(backends):
+                    wait = timeout if e == first else None
+                    for res in be.poll(timeout=wait):
+                        req = by_rid[res.rid]
+                        tier = e + 1
+                        now = tel.now
+                        if tier < last_tier:
+                            edge = spec.edges[tier]
+                            sig = edge.signal
+                            if sig.supports_running:
+                                conf = float(res.confidence)
+                            else:
+                                conf = float(sig.finalize(SignalObservation(
+                                    prompt=req.prompt,
+                                    mean_confidence=float(res.confidence),
+                                    tokens=np.asarray(res.tokens, np.int32),
+                                    runner=spec.tiers[tier].runner,
+                                    max_new=max_new, rid=req.rid,
+                                    paged_kernel=use_kernel)))
+                            tau_e = edge_tau(tier)
+                            defer = conf < tau_e
+                            if recal is not None:
+                                observe_tau(tier, conf)
+                            tel.event("tier_gate", rid=req.rid, tier=tier,
+                                      edge=tier, confidence=round(conf, 6),
+                                      tau=round(tau_e, 6), deferred=defer)
+                            if defer:
+                                submit_large(req, tier)
+                                continue
+                        # accepted at this tier: final tokens, trimmed to
+                        # the request's own budget
+                        req.tier = tier
+                        req.tokens = np.asarray(
+                            res.tokens, np.int32)[:req.max_new].copy()
+                        req.state = DONE
+                        req.t_done = now
+                        tel.m_tokens.labels(model="large").inc(
+                            len(req.tokens))
+                        tel.event("large_complete", rid=req.rid, tier=tier,
+                                  batch_id=res.batch_id, n_real=res.n_real,
+                                  pad_to=res.pad_to, reason=res.reason,
+                                  wait_ms=round(
+                                      (now - req.t_submit_large) * 1e3, 3))
 
             def sync_retire():
                 """Pull the small control vectors, retire finished and
@@ -683,7 +808,6 @@ class ContinuousCascadeEngine:
                 toks = None
                 retired: List[int] = []
                 now = tel.now
-                tau0 = edge0.tau
                 for slot in sched.active_slots:
                     if slot in mid_prefill:
                         continue
@@ -691,6 +815,10 @@ class ContinuousCascadeEngine:
                     n = int(n_gen[slot])
                     mean = float(conf_sum[slot]) / max(n, 1)
                     finished = n >= req.max_new
+                    tau0 = edge_tau(0)
+                    # in-flight deferral needs a running form of the
+                    # signal; one without (k-sample agreement) gates only
+                    # at full retirement
                     evict = (not finished and ecfg.early_exit
                              and sig0.supports_running
                              and n >= edge0.min_tokens
@@ -708,12 +836,15 @@ class ContinuousCascadeEngine:
                                   else float(sig0.finalize(SignalObservation(
                                       prompt=req.prompt, mean_confidence=mean,
                                       tokens=req.small_tokens, runner=small,
-                                      max_new=req.max_new, rid=req.rid))))
+                                      max_new=req.max_new, rid=req.rid,
+                                      paged_kernel=use_kernel))))
                         defer = conf_r < tau0
                     req.confidence = conf_r
+                    if recal is not None:
+                        observe_tau(0, conf_r)
                     sched.retire(slot, now, deferred=defer, early=evict)
                     if defer:
-                        submit_large(req)
+                        submit_large(req, 0)
                     else:
                         req.tokens = toks[slot, :req.max_new].copy()
                     reason = ("defer_early" if evict else
@@ -976,7 +1107,7 @@ class ContinuousCascadeEngine:
                 tel.event("defer_oom", rid=req.rid, slot=slot,
                           n_gen=req.n_small_steps)
                 tel.m_requests.labels(outcome="defer_oom").inc()
-                submit_large(req)
+                submit_large(req, 0)
 
             def finalize_shed(req: Request, terminal: str,
                               reason: str) -> None:
@@ -1035,6 +1166,8 @@ class ContinuousCascadeEngine:
             try:
                 while len(queue) or sched.n_active:
                     t_it = tel.now
+                    if profiler.enabled:
+                        profiler.tick()
                     if overload_on:
                         # admission overload control BEFORE admitting:
                         # release arrivals, shed deadline-expired entries,
@@ -1207,21 +1340,30 @@ class ContinuousCascadeEngine:
                                     args={"n_active": sched.n_active,
                                           "ml_pending": ml.n_pending})
 
-                # all M_S work is done: release M_L's partial batches and
-                # drain, each poll waiting for the next result (a worker's
-                # queue, a server's long poll) rather than waking on a
-                # timer that takes the GIL from the M_L worker. Remote
+                # all M_S work is done: drain the ladder edge by edge.
+                # Backend e is flushed only once every backend upstream of
+                # it is empty (edge e-1's deferrals are edge e's arrivals,
+                # so an earlier flush would cut partial batches that a
+                # sequential run batches together). Each poll waits for
+                # the next result of the first backend with work (a
+                # worker's queue, a server's long poll) rather than waking
+                # on a timer that takes the GIL from an M_L worker. Remote
                 # backends advertise drain_stall_timeout: when a replica
-                # dies mid-drain and nothing can make progress, abort
-                # with the pending count instead of spinning forever
+                # dies mid-drain and nothing can make progress, abort with
+                # the pending counts instead of spinning forever
                 t_drain = tel.now
-                stall_s = getattr(ml, "drain_stall_timeout", None)
-                last_pending = ml.n_pending
+                stall_s = min((s for s in (
+                    getattr(b, "drain_stall_timeout", None)
+                    for b in backends) if s is not None), default=None)
+                last_pending = total_pending()
                 t_progress = time.perf_counter()
                 while True:
-                    ml.flush()
+                    for e, be in enumerate(backends):
+                        if all(backends[u].n_pending == 0
+                               for u in range(e)):
+                            be.flush()
                     poll_large(timeout=_DRAIN_POLL_S)
-                    pending = ml.n_pending
+                    pending = total_pending()
                     if not pending:
                         break
                     if pending != last_pending:
@@ -1229,10 +1371,11 @@ class ContinuousCascadeEngine:
                         t_progress = time.perf_counter()
                     elif (stall_s is not None
                           and time.perf_counter() - t_progress > stall_s):
+                        names = [f"{getattr(b, 'name', '?')}:"
+                                 f"{b.n_pending}" for b in backends]
                         raise RuntimeError(
                             f"M_L drain stalled: {pending} deferral(s) "
-                            f"still pending on the "
-                            f"{getattr(ml, 'name', '?')} backend with no "
+                            f"still pending ({', '.join(names)}) with no "
                             f"progress for {stall_s}s")
                 makespan = tel.now
                 tel.phase_add("drain", makespan - t_drain)
@@ -1240,19 +1383,21 @@ class ContinuousCascadeEngine:
                     tr.complete("drain", "engine", t_drain,
                                 makespan - t_drain, 0)
             finally:
-                ml.close()
+                for be in backends:
+                    be.close()
         finally:
+            # an open profiler window is stopped even when the run raises
+            profiler.close()
             tel.close()
 
         reqs = sorted(requests, key=lambda r: r.rid)
         if tr is not None:
             emit_request_spans(tr, reqs)
-        cost_small, cost_large = self.spec.costs
-        stats = tel.summary(reqs, makespan, cost_small, cost_large)
+        stats = tel.summary(reqs, makespan, self.cost_small, self.cost_large)
         stats["backend"] = ecfg.backend
         stats["cache_bytes"] = pool.footprint_bytes()
         stats["peak_active"] = peak_active
-        stats["ml_backend"] = getattr(ml, "name", str(ml_kind))
+        stats["ml_backend"] = getattr(ml, "name", str(self.large_backend))
         stats["ml_batches"] = len(ml.batch_log)
         stats["ml_batch_occupancy"] = (
             float(np.mean([b["n_real"] / max(b["pad_to"], 1)
@@ -1261,16 +1406,27 @@ class ContinuousCascadeEngine:
         stats["ml_queue_depth_peak"] = int(max(ml_depths, default=0))
         stats["ml_queue_depth_mean"] = (float(np.mean(ml_depths))
                                         if ml_depths else 0.0)
-        reach = [1.0, n_deferrals / len(reqs)]
-        stats["n_tiers"] = 2
-        stats["tier_names"] = [t.name for t in self.spec.tiers]
+        # ladder accounting: reach[i] is the share of traffic that paid
+        # tier i (tier 0 always 1.0); compute_cost generalizes
+        # cost_small + r * cost_large, bitwise identical for 2 tiers
+        n_req = len(reqs)
+        reach = [1.0] + [edge_deferrals[e] / n_req for e in range(n_edges)]
+        stats["n_tiers"] = spec.n_tiers
+        stats["tier_names"] = [t.name for t in spec.tiers]
         stats["tier_served"] = [sum(1 for r in reqs if r.tier == i)
-                                for i in range(2)]
-        stats["edge_deferrals"] = [n_deferrals]
-        stats["edge_tau"] = [edge0.tau]
-        stats["edge_signal"] = [sig0.name]
+                                for i in range(spec.n_tiers)]
+        stats["edge_deferrals"] = list(edge_deferrals)
+        stats["edge_tau"] = [edge_tau(e) for e in range(n_edges)]
+        stats["edge_signal"] = [ed.signal.name for ed in spec.edges]
         stats["tier_reach"] = reach
-        stats["compute_cost"] = ladder_compute_cost(reach, self.spec.costs)
+        stats["compute_cost"] = ladder_compute_cost(reach, spec.costs)
+        if n_edges > 1:
+            stats["ml_backends"] = [getattr(b, "name", "?")
+                                    for b in backends]
+            stats["ml_batches_per_edge"] = [len(b.batch_log)
+                                            for b in backends]
+        if recal is not None:
+            stats["recalibration"] = recal.summary()
         stats["prefill_seed_dispatches"] = n_seed_dispatches
         if paged:
             stats.update(block_size=pc.block_size,

@@ -147,3 +147,54 @@ def emit_request_spans(tracer: Tracer, requests) -> None:
                             r.t_done - r.t_submit_large, tid, PID_REQUESTS)
         if fin(r.t_done):
             tracer.instant("done", "request", r.t_done, tid, PID_REQUESTS)
+
+
+def validate_chrome_trace(obj: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Assert `obj` is schema-valid Chrome trace-event JSON and that
+    spans nest properly per (pid, tid) track. Returns the "X" spans
+    (ts-sorted) for further inspection. Raises AssertionError with a
+    specific message on the first violation."""
+    assert isinstance(obj, dict), "trace must be a JSON object"
+    assert "traceEvents" in obj, "missing traceEvents"
+    events = obj["traceEvents"]
+    assert isinstance(events, list) and events, "traceEvents empty"
+    spans = []
+    for ev in events:
+        assert isinstance(ev, dict), f"event not an object: {ev!r}"
+        assert "ph" in ev and "pid" in ev and "name" in ev, \
+            f"event missing required keys: {ev!r}"
+        ph = ev["ph"]
+        if ph == "M":
+            continue
+        assert "ts" in ev and "tid" in ev, f"event missing ts/tid: {ev!r}"
+        assert isinstance(ev["ts"], (int, float)) and ev["ts"] >= 0, \
+            f"bad ts: {ev!r}"
+        if ph == "X":
+            assert isinstance(ev.get("dur"), (int, float)) \
+                and ev["dur"] >= 0, f"X event needs dur >= 0: {ev!r}"
+            spans.append(ev)
+        else:
+            assert ph in ("i", "I", "B", "E", "C"), f"unknown ph: {ev!r}"
+    # nesting: within one track, sorted by (ts, -dur), every span must
+    # either start at/after the enclosing span's end (sibling) or end
+    # within it (child) — partial overlap is a malformed trace
+    by_track: Dict[tuple, List[Dict[str, Any]]] = {}
+    for s in spans:
+        by_track.setdefault((s["pid"], s["tid"]), []).append(s)
+    eps = 0.5  # µs slack for the export rounding
+    for track, tr_spans in by_track.items():
+        tr_spans.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack: List[Dict[str, Any]] = []
+        for s in tr_spans:
+            while stack and s["ts"] >= stack[-1]["ts"] + stack[-1]["dur"] \
+                    - eps:
+                stack.pop()
+            if stack:
+                parent_end = stack[-1]["ts"] + stack[-1]["dur"]
+                assert s["ts"] + s["dur"] <= parent_end + eps, (
+                    f"span {s['name']!r} [{s['ts']}, "
+                    f"{s['ts'] + s['dur']}] overlaps parent "
+                    f"{stack[-1]['name']!r} ending {parent_end} on track "
+                    f"{track}")
+            stack.append(s)
+    return sorted(spans, key=lambda e: e["ts"])

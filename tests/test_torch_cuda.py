@@ -1363,3 +1363,52 @@ def test_launch_counters_exact_after_concurrent_launches(cuda):
     assert not errors, errors
     assert de.deferral_entropy.launches == n_threads * n_each
     assert fa.flash_attention.launches == n_threads * n_each
+
+
+@pytest.mark.parametrize("shape", [(4, 92544), (3, 97), (2, 3, 511)],
+                         ids=str)
+@pytest.mark.parametrize("seed", [0, 12345, 2 ** 31, 2 ** 32 - 1])
+def test_prng_draw_on_the_card_matches_numpy(cuda, seed, shape):
+    """`core.prng`'s draw on CUDA tensors against its numpy version: the
+    bits and uniforms exact over several fold_in steps (seeds at and past
+    2^31 included), the gumbel noise within the fp32 logs' few ulp, and
+    the categorical draw equal on std-3 logits."""
+    from repro_torch.core import prng
+    key = prng.prng_key(seed)
+    logits = (np.random.default_rng(seed % 991).normal(size=shape) * 3
+              ).astype(np.float32)
+    for step in (0, 1, 31):
+        k = prng.fold_in(key, step)
+        np.testing.assert_array_equal(
+            prng.random_bits(k, shape, cuda).cpu().numpy(),
+            prng.random_bits_np(k, shape))
+        np.testing.assert_array_equal(prng.uniform(k, shape, cuda).cpu()
+                                      .numpy(), prng.uniform_np(k, shape))
+        np.testing.assert_allclose(prng.gumbel(k, shape, cuda).cpu().numpy(),
+                                   prng.gumbel_np(k, shape), atol=2e-6,
+                                   rtol=0)
+        got = prng.categorical(k, torch.from_numpy(logits).to(cuda))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      prng.categorical_np(k, logits))
+
+
+def test_sample_kernel_path_matches_plain(cuda):
+    """`ModelRunner.sample` on the card with the kernels on (flash
+    prefill) and off: the same tokens, twice the same, and each wrapper
+    launched only on the kernel path."""
+    small, _ = _reduced_pair(cuda)
+    prompts = np.random.default_rng(5).integers(
+        0, small.cfg.vocab_size, size=(4, 12)).astype(np.int32)
+    fa.flash_attention.launches = 0
+    on = small.sample(prompts, 12, 6, seed=2 ** 31 + 9, temperature=0.8,
+                      paged_kernel=True)
+    assert fa.flash_attention.launches == small.cfg.n_layers
+    again = small.sample(prompts, 12, 6, seed=2 ** 31 + 9, temperature=0.8,
+                         paged_kernel=True)
+    fa.flash_attention.launches = 0
+    off = small.sample(prompts, 12, 6, seed=2 ** 31 + 9, temperature=0.8,
+                       paged_kernel=False)
+    assert fa.flash_attention.launches == 0
+    np.testing.assert_array_equal(on, again)
+    np.testing.assert_array_equal(on, off)
+    assert on.shape == (4, 6) and on.dtype == np.int32

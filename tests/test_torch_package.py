@@ -1,10 +1,11 @@
 """The port stands alone: no file of src/repro_torch, and not chip_smoke.py,
 imports `jax` or the JAX package `repro` (the SSM and classifier slices'
 modules named among them); its entry points run on CUDA
-unless told otherwise and raise without it; its CLI rejects by name what
-is not ported yet (the M_L backends' flags are ported: see
-tests/test_torch_remote.py); chip_smoke.py refuses to run without a card or outside
-a checkout."""
+unless told otherwise and raise without it; its CLI serves every flag of
+JAX's (the M_L backends' flags: see tests/test_torch_remote.py; the
+ladder's: tests/test_torch_cascade_ladder.py) and refuses by name only
+the archs the engine does not take; chip_smoke.py refuses to run without
+a card or outside a checkout."""
 import ast
 import shutil
 import subprocess
@@ -134,20 +135,43 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--tiers", "3"],
-    ["--signal-k", "8"],
+    ["--signal-k", "3", "--signal", "semantic_agreement"],
     ["--signal", "semantic_agreement"],
     ["--recalibrate"],
-    ["--recalib-step", "0.1"],
+    ["--recalib-step", "0.1", "--recalibrate"],
     ["--profile-dir", "prof"],
     ["--metrics-port", "0"],
     ["--arch", "whisper-small"],
 ], ids=lambda a: a[0] if a[0] != "--backend" else a[-2])
-def test_cli_rejects_unported_features_by_name(argv, capsys):
+def test_cli_rejects_unported_features_by_name(argv, capsys, tmp_path):
+    """The flags this test once held refused by name are served now (the
+    ladder, the semantic-agreement signal, recalibration, the profiler
+    window and the /metrics endpoint); what stays refused by name is an
+    arch the engine does not take (frames or patches)."""
     from repro_torch.launch import serve
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--device", "cpu"] + argv)
-    assert exc.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    if argv[0] == "--arch":
+        with pytest.raises(SystemExit) as exc:
+            serve.main(["--device", "cpu"] + argv)
+        assert exc.value.code == 2
+        assert "ROADMAP.md" in capsys.readouterr().err
+        return
+    argv = [str(tmp_path / a) if a == "prof" else a for a in argv]
+    res = serve.main(["--device", "cpu", "--requests", "4", "--max-new",
+                      "3"] + argv)
+    out = capsys.readouterr().out
+    assert len(res.requests) == 4 and "ROADMAP.md" not in out
+    st = res.stats
+    if argv[0] == "--tiers":
+        assert st["n_tiers"] == 3 and len(st["edge_tau"]) == 2
+    elif argv[0].startswith("--signal"):
+        assert st["edge_signal"] == ["semantic_agreement"]
+    elif argv[0].startswith("--recalib"):
+        assert st["edge_tau"] == st["recalibration"]["tau_final"]
+    elif argv[0] == "--profile-dir":
+        traces = list((tmp_path / "prof").glob("*.json"))
+        assert len(traces) == 1 and str(traces[0]) in out
+    else:
+        assert "metrics endpoint: http://127.0.0.1:" in out
 
 
 @pytest.mark.parametrize("arch", ["whisper-small", "phi-3-vision-4.2b"])
@@ -162,6 +186,34 @@ def test_cli_refuses_the_encdec_and_vlm_families(arch, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert f"--arch {arch}" in err and "ROADMAP.md" in err
+
+
+def test_cli_has_every_option_string_of_jax_serve():
+    """The port's serve parser takes every option string of JAX's
+    `repro.launch.serve` parser (read from its argparse calls), with the
+    same defaults, plus --device."""
+    import argparse
+    from unittest import mock
+
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve
+    seen = {}
+
+    def capture(self, args=None, namespace=None):
+        seen["parser"] = self
+        raise SystemExit(0)
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", capture):
+        with pytest.raises(SystemExit):
+            jserve.main([])
+    jparser = seen["parser"]
+    tparser = serve.build_parser()
+    jopts = {o: a for a in jparser._actions for o in a.option_strings}
+    topts = {o: a for a in tparser._actions for o in a.option_strings}
+    assert set(jopts) - set(topts) == set()
+    assert set(topts) - set(jopts) == {"--device"}
+    for o, a in jopts.items():
+        assert (topts[o].default, topts[o].choices) == (a.default,
+                                                        a.choices), o
 
 
 def test_cli_rejects_paged_knobs_on_slot_backend(capsys):

@@ -785,14 +785,23 @@ def test_cli_serves_through_each_ml_backend(argv, cli_sync):
      "exactly one --ml-address"),
     (["--large-backend", "pool", "--ml-spawn", "2", "--tiers", "3"],
      "2-tier cascade"),
-    (["--tiers", "3", "--large-backend", "thread"], "ROADMAP.md"),
+    (["--tiers", "3", "--large-backend", "thread"], None),
 ], ids=["address-sync", "retries-thread", "latency-thread",
         "socket-no-address", "socket-two-addresses", "pool-tiers",
         "tiers-thread"])
 def test_cli_rejects_contradictory_ml_flags(argv, msg, capsys):
-    """JAX's argparse-time validations of the M_L flags; --tiers 3 stays
-    refused by name."""
+    """JAX's argparse-time validations of the M_L flags. A local worker
+    backend under a 3-tier ladder is no contradiction: it is served, one
+    thread backend per edge (msg None)."""
     from repro_torch.launch import serve
+    if msg is None:
+        res = serve.main(["--device", "cpu", "--requests", "6",
+                          "--max-new", "3", "--deferral-ratio", "0.5"]
+                         + argv)
+        assert all(r.state == DONE for r in res.requests)
+        assert res.stats["n_tiers"] == 3
+        assert res.stats["ml_backends"] == ["thread", "thread"]
+        return
     with pytest.raises(SystemExit) as exc:
         serve.main(["--device", "cpu"] + argv)
     assert exc.value.code == 2
