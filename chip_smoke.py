@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ml-tier
     python3 chip_smoke.py --decoders
     python3 chip_smoke.py --ladder
+    python3 chip_smoke.py --train-recurrent
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
@@ -15,7 +16,9 @@ JSON record): phases 3d and 7a then print each case's parent time beside
 the case's own (3d its fp32 cases). The third form runs phase 4's main
 path and phase 14 (the M_L tier) alone after the build, with no contract
 line; the fourth phase 15 (the four remaining decoders) and those archs'
-phase-5 fixtures, the same way; the fifth phase 16 (the ladder) alone.
+phase-5 fixtures, the same way; the fifth phase 16 (the ladder) alone;
+the sixth phase 17 (recurrent training, remat, attn_chunk) alone, after
+phase 7a's loss-kernel checks at its two Stage-2 shapes.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -311,7 +314,9 @@ non-zero:
          same at phase 12's Stage-2 shapes (whisper-small: 8 x 16 tokens,
          d 768, vocab 51865; phi-3-vision: 8 x (576 + 3) positions, d
          3072, vocab 32064, with `gatekeeper_loss_fused`'s loss under the
-         patch mask held against the plain reduction); phi-3-vision's
+         patch mask held against the plain reduction), and phase 17's
+         (rwkv6-3b: 16 x 128 tokens, d 2560, vocab 65536; zamba2-1.2b: d
+         2048, vocab 32000); phi-3-vision's
          Stage-2 loss forward + backward through `launch.steps`, which
          hands the kernel only its 24 loss rows, against autograd through
          the plain version, and timed; and the gradients of
@@ -326,6 +331,33 @@ non-zero:
          gradient through the kernel against `loss_kernel=False`; then a
          reduced `launch.train.run` with --ckpt whose Stage-2 checkpoint
          restores bit for bit.
+  17. Training the recurrent families, remat and attn_chunk (autograd):
+     17a. `launch.train.run --arch rwkv6-3b --remat full` at its published
+         width (32 layers, d 2560, 3.100 B; 49.6 GB of fp32 weight,
+         gradient and AdamW state, printed with the reason for full
+         remat), 2 Stage-1 and 3 Stage-2 steps of 16 x 128 tokens, the
+         counters set to 0 just before and read after every step:
+         `wkv_scan` (`wkv_scan_fused`'s forward, all chunked) 32 x (1 +
+         1 recompute) a step, one loss kernel a Stage-2 step; peak memory
+         per stage, step walls, finite metrics.
+     17b. The same for zamba2-1.2b (38 Mamba2 layers and the shared block
+         every 6, 1.170 B) with remat none: 38 `wkv_scan` (mode "mamba")
+         a step; then one Stage-2 step profiled (device busy and idle,
+         top kernels).
+     17c. One internlm2-1.8b Stage-2 loss and gradient (16 x 128) under
+         remat none, full and dots from the same parameters: each one's
+         peak and host wall, full's and dots' gradients held leaf by leaf
+         to none's (REMAT_GRAD_RTOL_OF_MAX); then rwkv6-3b's widths at 2
+         layers the same way, `wkv_scan` launched 2 x (1 + recomputes)
+         times in each mode.
+     17d. DeepSeek-V2's published widths, one layer, fp32 activations,
+         one 4,096-token prompt with `attn_chunk` 1024 and 0: each one's
+         peak, the logits within ATTN_CHUNK_LOGIT_ATOL.
+     17e. Reduced fp32 rwkv6-3b and zamba2-1.2b: a Stage-2 loss and
+         gradient with the `wkv_scan` kernel forward against the plain
+         forward under autograd, every leaf within
+         KERNEL_GRAD_RTOL_OF_MAX; then one full-width rwkv6-3b layer in
+         its bf16 types under RWKV_LAYER_GRAD_GUARD.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -484,17 +516,22 @@ RWKV_LOGIT_GUARD = 1.0  # the same checks in the config's own types: the
 
 # phase 11: zamba2-1.2b serving (the phase 9 checks on a Mamba2 hybrid)
 ZAMBA_ARCH = "zamba2-1.2b"
-ZAMBA_LOGIT_GUARD = 1.0  # the kernel-vs-plain checks in the config's own
-                        # types: the residual stream stays bf16 through all
-                        # 38 Mamba2 layers and 6 shared-block calls, so a
+ZAMBA_LOGIT_GUARD = {"prefill": 0.95, "decode step": 0.28}  # the
+                        # kernel-vs-plain checks in the config's own types:
+                        # the residual stream stays bf16 through all 38
+                        # Mamba2 layers and 6 shared-block calls, so a
                         # last-bit difference of a recurrence's or an
-                        # attention's output can flip a bf16 rounding that
-                        # every later layer carries. Sound readings on an
-                        # H100 were 0.291 (prefill) and 0.080 (decode). The
-                        # guard is as large as a logit's spread (std ~1), so
-                        # it catches only gross failures (NaN, a wrong
-                        # layout); the binding check of this path's kernels
-                        # is the fp32-activation one at STEP_LOGIT_ATOL
+                        # attention's output flips a bf16 rounding that
+                        # every later layer carries. tools/zamba_bf16_probe.py
+                        # (three seeds, H100) found it: 0.7% of layer 0's
+                        # bf16 outputs differ by one step, 96% of layer
+                        # 37's; the plain recurrence summed in another
+                        # order, with no kernel, moves the logits as much
+                        # (0.265-0.297 prefill, 0.073-0.093 decode) as the
+                        # kernels (0.270-0.318, 0.083-0.091), and fp32
+                        # activations hold them to 1.7e-4. Each guard is
+                        # about 3x the largest reading; the binding check
+                        # of the kernels is the fp32 one at STEP_LOGIT_ATOL
 
 # phase 15: the four remaining decoders at published widths, the depth
 # cut only where one card forces it. Per arch: (M_S layers, or None for
@@ -595,6 +632,35 @@ VLM_TRAIN_LAYERS = 8    # phi-3-vision's Stage-2 step: the depth cut. fp32
                         # and probabilities (8 x 32 x 579^2 fp32, 0.34 GB
                         # each, per layer) and the MLP's activations leave
                         # a wide margin on the 80 GB card
+
+# phase 17: training RWKV6 and the Mamba2 hybrid at published widths, remat
+# and attn_chunk
+REMAT_RECOMPUTES = {"none": 0, "full": 1, "dots": 1}  # forwards of each
+                        # layer the backward reruns: the port's remat
+                        # recomputes a layer once, whatever it saved
+RECURRENT_TRAIN = ((RWKV_ARCH, "full"), (ZAMBA_ARCH, "none"))
+STATE_BYTES_PER_PARAM = 16  # fp32 weights, gradients and AdamW's two moments
+REMAT_REASON = {
+    "full": "fp32 weights, gradients and two AdamW moments take 16 B a "
+            "parameter before any activation, so each layer keeps only "
+            "its input and recomputes the rest in the backward",
+    "none": "its weights, gradients and moments leave room for every "
+            "layer's activations"}
+REMAT_LAYERS_RWKV = 2   # 17c's recurrent case: rwkv6-3b's widths, 2 layers
+REMAT_GRAD_RTOL_OF_MAX = 1e-5  # 17c: full and dots against none, per leaf
+                        # (readings on an H100: 0, every leaf bit-equal at
+                        # both configs: the recompute reruns the same ops)
+ATTN_CHUNK, ATTN_CHUNK_PROMPT = 1024, 4096  # 17d: DeepSeek-V2, one layer
+ATTN_CHUNK_LOGIT_ATOL = 1e-4  # tests/test_torch_remat.py's chunked-vs-
+                        # unchunked logits bound, fp32 activations
+KERNEL_GRAD_RTOL_OF_MAX = 1e-4  # 17e: reduced fp32, kernel forward vs plain
+RWKV_LAYER_GRAD_GUARD = 2e-2  # 17e: one full-width rwkv6-3b layer in its
+                        # own bf16 types, kernel forward vs plain, per leaf:
+                        # the kernel's fp32 output, a last bit apart from
+                        # the plain one's, flips bf16 roundings of the
+                        # layer's residual add, which the loss's gradients
+                        # carry back; about 3x the H100 reading of 0.0060
+                        # (the reduced fp32 readings: 2.1e-5 and 1.2e-5)
 
 
 def phase(name: str, t_start: float) -> None:
@@ -3911,19 +3977,21 @@ def slot_prefill(torch, tfm, params, cfg, toks, paged_kernel: bool):
     return logits[:, -1], cache
 
 
-def check_slot_paths(torch, tfm, small, tag: str, guard: float) -> None:
+def check_slot_paths(torch, tfm, small, tag: str, guard) -> None:
     """One full-width prefill of N_SLOTS prompts of RWKV_PROMPT tokens and
     one decode step from the prefilled state, the kernels (`wkv_scan`, and
     the hybrid's shared-block `flash_attention`) against the plain
     recurrence and attention, by logits: with fp32 activations (isolates
     the kernels) and with the config's own types, where a bf16 residual
     stream (RWKV6's layer 0, every layer of the hybrid) can flip a bf16
-    rounding on a last-bit difference, which the layers after it carry."""
+    rounding on a last-bit difference, which the layers after it carry
+    (`guard`: one bound, or one for "prefill" and one for "decode
+    step")."""
     import numpy as np
     cfg = small.cfg
     toks = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
         0, cfg.vocab_size, (N_SLOTS, RWKV_PROMPT))).to(DEV)
-    for label, pcfg, tol in (
+    for label, pcfg, tol_of in (
             ("fp32 activations", cfg.replace(compute_dtype="float32"),
              STEP_LOGIT_ATOL),
             (f"{cfg.compute_dtype} activations", cfg, guard)):
@@ -3941,6 +4009,7 @@ def check_slot_paths(torch, tfm, small, tag: str, guard: float) -> None:
                                               paged_kernel=kernel)
         torch.cuda.synchronize()
         for what, out in (("prefill", pre), ("decode step", step)):
+            tol = tol_of[what] if isinstance(tol_of, dict) else tol_of
             err = float((out[True] - out[False]).abs().max())
             agree = float((out[True].argmax(-1) == out[False].argmax(-1))
                           .float().mean())
@@ -4398,7 +4467,8 @@ def train_main_path(torch, gk, train, smi) -> int:
     return launches
 
 
-def profile_train_step(torch, train, params, args, smi) -> None:
+def profile_train_step(torch, train, params, args, smi,
+                       label: str = "full-width Stage-2 step") -> None:
     """One more full-width Stage-2 step on the trained parameters, timed
     on the host clock and under torch.profiler: device busy and idle
     share, and the kernels that take the step's device time."""
@@ -4421,7 +4491,7 @@ def profile_train_step(torch, train, params, args, smi) -> None:
     busy = ("not measured (profiler saw no device time)" if busy_ms is None
             else f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}, "
                  f"idle {1 - busy_ms / wall_ms:.1%})")
-    print(f"[train] full-width Stage-2 step ({TRAIN_BATCH} x {TRAIN_SEQ} "
+    print(f"[train] {label} ({TRAIN_BATCH} x {TRAIN_SEQ} "
           f"tokens): host wall {wall_ms:.1f} ms, {busy} on {smi}")
     for name, ms in ranked[:8]:
         print(f"[train]   {ms:.3f} ms/step  {name[:90]}")
@@ -4823,9 +4893,11 @@ def steps_families(torch, smi) -> tuple:
 
 
 def loss_phase(torch, gk, smi, parent=None) -> dict:
-    """Phase 7a: the loss kernel at internlm2-1.8b's Stage-2 shape and
-    phase 12's (whisper-small's 8 x 16 decoder tokens, phi-3-vision's 8 x
-    (576 + 3) positions with the patches masked), phi-3-vision's Stage-2
+    """Phase 7a: the loss kernel at internlm2-1.8b's Stage-2 shape, phase
+    12's (whisper-small's 8 x 16 decoder tokens, phi-3-vision's 8 x
+    (576 + 3) positions with the patches masked) and phase 17's (rwkv6-3b's
+    and zamba2-1.2b's 16 x 128 tokens at d 2560 / V 65536 and d 2048 / V
+    32000), phi-3-vision's Stage-2
     loss forward + backward through `launch.steps`, and the fused loss's
     gradients at internlm2's shape. `parent` is a parent tree's kernels
     record (`--parent`): every case prints its parent's time beside its
@@ -4845,7 +4917,8 @@ def loss_phase(torch, gk, smi, parent=None) -> dict:
     for arch, T, invalid in (
             (WHISPER_ARCH, N_SLOTS * ENC_PROMPT, 0),
             (VLM_ARCH, N_SLOTS * (get_config(VLM_ARCH).vision.n_patches
-                                  + 3), get_config(VLM_ARCH).vision.n_patches)):
+                                  + 3), get_config(VLM_ARCH).vision.n_patches),
+            (RWKV_ARCH, LOSS_T, 0), (ZAMBA_ARCH, LOSS_T, 0)):
         c = get_config(arch)
         r = check_loss_kernel(torch, gk, smi, c.vocab_size, c.d_model, T,
                               N_SLOTS, invalid, arch, parent_cases)
@@ -4858,6 +4931,308 @@ def loss_phase(torch, gk, smi, parent=None) -> dict:
     check_loss_gradients(torch, gk, cfg.vocab_size, cfg.d_model)
     torch.cuda.empty_cache()
     return rec
+
+
+def state_gb(params) -> float:
+    """GB of fp32 weights, gradients and AdamW moments for `params`."""
+    from repro_torch.training import optim
+    n = sum(p.numel() for p in optim.tree_leaves(params))
+    return n * STATE_BYTES_PER_PARAM / 1e9
+
+
+def train_recurrent(torch, train, smi, arch: str, remat: str):
+    """`launch.train.run` at `arch`'s published width with --remat
+    `remat`: STAGE1_STEPS Stage-1 and STAGE2_STEPS Stage-2 steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens, the counters set to 0 just before and
+    read after every step: `wkv_scan` n_layers x (1 + the mode's
+    recomputes) a step, every launch on the chunked path, and one loss
+    kernel launch a Stage-2 step. Prints each stage's step walls, peak
+    memory and finite metrics. Returns (params, args, {kernel: launches
+    of the run})."""
+    from repro_torch.kernels import gatekeeper_loss as gk
+    from repro_torch.kernels import wkv_scan as wk
+    args = train.build_parser().parse_args([
+        "--arch", arch, "--remat", remat, "--batch", str(TRAIN_BATCH),
+        "--seq-len", str(TRAIN_SEQ), "--task", "stream", "--stage1-steps",
+        str(STAGE1_STEPS), "--stage2-steps", str(STAGE2_STEPS),
+        "--log-every", "1", "--n-train", "256", "--seed", str(SEED),
+        "--device", DEV])
+    cfg = train.build_cfg(args)
+    per_step = cfg.n_layers * (1 + REMAT_RECOMPUTES[remat])
+    peaks, seen = {}, []
+
+    def on_step(stage, rec):
+        done = rec["step"] + (STAGE1_STEPS if stage == 2 else 0)
+        want = (done * per_step, done * per_step,
+                rec["step"] if stage == 2 else 0)
+        got = (wk.wkv_scan.launches, wk.wkv_scan.launches_chunked,
+               gk.gatekeeper_loss_tokens.launches)
+        seen.append(got)
+        if got != want:
+            raise AssertionError(
+                f"{arch} stage {stage} step {rec['step']}: (wkv_scan, "
+                f"chunked, loss kernel) launches {got}, want {want}")
+        if rec["step"] == (STAGE1_STEPS if stage == 1 else STAGE2_STEPS):
+            peaks[stage] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wk.wkv_scan.launches = wk.wkv_scan.launches_chunked = 0
+    gk.gatekeeper_loss_tokens.launches = 0
+    t0 = time.perf_counter()
+    params, hist = train.run(args, log_fn=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"wkv_scan_chunked": wk.wkv_scan.launches_chunked,
+              "gatekeeper_loss_tokens": gk.gatekeeper_loss_tokens.launches}
+    print(f"[train-recurrent] {arch}: {cfg.n_layers} layers, d {cfg.d_model}"
+          f", vocab {cfg.vocab_size}, {state_gb(params):.1f} GB of weight, "
+          f"gradient and moment state; remat {remat!r}: {REMAT_REASON[remat]}"
+          f"; run {wall:.1f} s on {smi}")
+    for stage, log in hist.items():
+        times = [r["time_s"] for r in log]
+        steps = [b - a for a, b in zip([0.0] + times, times)]
+        print(f"[train-recurrent] {arch} stage {stage}: {len(log)} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, step wall s "
+              + ", ".join(f"{t:.3f}" for t in steps)
+              + f"; peak device memory {peaks[stage]:.2f} GiB on {smi}")
+        for r in log:
+            if not all(math.isfinite(v) for v in r.values()):
+                raise AssertionError(f"{arch} stage {stage}: non-finite {r}")
+    last = hist[2][-1]
+    print(f"[train-recurrent] {arch} stage 2 last step: loss {last['loss']}, "
+          f"frac_correct {last['frac_correct']}, grad_norm "
+          f"{last['grad_norm']}; (wkv_scan, chunked, loss kernel) launches "
+          f"after each step {seen} (cumulative; {per_step} wkv_scan a step "
+          f"= {cfg.n_layers} layers x (1 + {REMAT_RECOMPUTES[remat]} "
+          f"recompute))")
+    return params, args, counts
+
+
+def _grad_diff(torch, grads, ref) -> tuple:
+    """(largest leaf max|d| / max|ref leaf|, leaves bit-equal, leaves)."""
+    from repro_torch.training import optim
+    worst, equal, n = 0.0, 0, 0
+    for a, b in zip(optim.tree_leaves(grads), optim.tree_leaves(ref)):
+        d = float((a.float() - b.float()).abs().max())
+        worst = max(worst, d / max(float(b.float().abs().max()), 1e-30))
+        equal += d == 0.0
+        n += 1
+    return worst, equal, n
+
+
+def remat_step(torch, cfg, smi, tag: str) -> None:
+    """17c: one Stage-2 loss and gradient of `cfg` (TRAIN_BATCH x
+    TRAIN_SEQ tokens, the loss kernel on) under remat none, full and dots
+    from the same parameters, each run twice (the first warms up the
+    allocator's cache for the mode): the memory the forward leaves for
+    the backward (allocated once the loss is computed, over what was
+    held before), the peak of the whole call (the gradients included)
+    and the host wall of the second run;
+    full's and dots' gradients held leaf by leaf to none's within
+    REMAT_GRAD_RTOL_OF_MAX of the leaf's largest entry, and `wkv_scan`
+    (a recurrent cfg) launched n_layers x (1 + recomputes) times a run:
+    a recompute launches the kernel again into a buffer it allocates."""
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.kernels import wkv_scan as wk
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optim
+    params = tfm.init_params(cfg, SEED, DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=g, device=DEV)
+             for k in ("tokens", "targets")}
+    ref = None
+    for mode in ("none", "full", "dots"):
+        loss_fn = steps.make_loss_fn(cfg.replace(remat=mode),
+                                     GatekeeperConfig(alpha=0.3))
+        saved = {}
+
+        def fn(p, b):
+            out = loss_fn(p, b)
+            torch.cuda.synchronize()
+            saved["bytes"] = torch.cuda.memory_allocated() - saved["base"]
+            return out
+        torch.cuda.empty_cache()
+        for _ in range(2):
+            grads = None
+            torch.cuda.synchronize()
+            saved["base"] = base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            n = wk.wkv_scan.launches
+            t0 = time.perf_counter()
+            (loss, _), grads = optim.value_and_grad(fn, params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        launched = wk.wkv_scan.launches - n
+        want = (cfg.n_layers * (1 + REMAT_RECOMPUTES[mode])
+                if cfg.recurrent else 0)
+        line = (f"[remat] {tag} Stage-2 step ({TRAIN_BATCH} x {TRAIN_SEQ}) "
+                f"remat {mode!r}: loss {float(loss):.6f}, the forward leaves "
+                f"{saved['bytes'] / 2**30:.3f} GiB for the backward, peak "
+                f"{peak:.2f} GiB (gradients included) above the "
+                f"{base / 2**30:.2f} GiB held before, host wall "
+                f"{wall * 1e3:.1f} ms, wkv_scan launches {launched} (want "
+                f"{want}) on {smi}")
+        if ref is None:
+            ref = (loss, grads)
+            print(line)
+        else:
+            worst, equal, n_leaves = _grad_diff(torch, grads, ref[1])
+            print(line + f"; against none: |dloss| "
+                  f"{abs(float(loss) - float(ref[0])):.3g}, largest leaf "
+                  f"max|dg| / max|g| {worst:.3g} (<= "
+                  f"{REMAT_GRAD_RTOL_OF_MAX}), {equal} of {n_leaves} leaves "
+                  f"bit-equal")
+            if worst > REMAT_GRAD_RTOL_OF_MAX:
+                raise AssertionError(f"{tag} remat {mode}: gradients differ "
+                                     f"by {worst} of a leaf's max")
+        if launched != want or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"{tag} remat {mode}: {launched} wkv_scan "
+                                 f"launches (want {want}), loss {loss}")
+        del grads
+    del params, ref
+    torch.cuda.empty_cache()
+
+
+def attn_chunk_prefill(torch, smi) -> None:
+    """17d: DeepSeek-V2's published widths, one (dense-FFN) layer, fp32
+    activations, one ATTN_CHUNK_PROMPT-token prompt through
+    `transformer.forward` with `attn_chunk` ATTN_CHUNK and then 0 (MLA's
+    prefill is always the plain attention): each one's peak memory, and
+    the logits held together within ATTN_CHUNK_LOGIT_ATOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(MLA_ARCH).replace(n_layers=1, compute_dtype="float32")
+    params = tfm.init_params(cfg, SEED, DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    tok = torch.randint(0, cfg.vocab_size, (1, ATTN_CHUNK_PROMPT),
+                        generator=g, device=DEV)
+    out = {}
+    for chunk in (ATTN_CHUNK, 0):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out[chunk] = tfm.forward(params, cfg.replace(attn_chunk=chunk),
+                                     tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        print(f"[attn-chunk] {MLA_ARCH} 1 layer, 1 x {ATTN_CHUNK_PROMPT} "
+              f"tokens, attn_chunk {chunk}: peak {peak:.2f} GiB above the "
+              f"{base / 2**30:.2f} GiB of weights, host wall "
+              f"{wall * 1e3:.1f} ms on {smi}")
+    err = float((out[ATTN_CHUNK] - out[0]).abs().max())
+    print(f"[attn-chunk] logits, chunk {ATTN_CHUNK} vs unchunked: max|d| "
+          f"{err:.3g} (atol {ATTN_CHUNK_LOGIT_ATOL}; logit std "
+          f"{float(out[0].std()):.3g})")
+    if not (bool(torch.isfinite(out[ATTN_CHUNK]).all())
+            and out[ATTN_CHUNK].shape == (1, ATTN_CHUNK_PROMPT,
+                                          cfg.vocab_size)
+            and err <= ATTN_CHUNK_LOGIT_ATOL):
+        raise AssertionError(f"attn_chunk logits differ by {err}")
+    del params, out
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def kernel_switch(on: bool):
+    """REPRO_PAGED_KERNEL set to `on` (the recurrence's kernel or its plain
+    version in a training step), restored after."""
+    import os
+    old = os.environ.get("REPRO_PAGED_KERNEL")
+    os.environ["REPRO_PAGED_KERNEL"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_PAGED_KERNEL"]
+        else:
+            os.environ["REPRO_PAGED_KERNEL"] = old
+
+
+def kernel_vs_plain_step(torch, cfg, tag: str, tol: float, B: int,
+                         T: int) -> None:
+    """17e: a Stage-2 loss and gradient of `cfg` (B x T tokens, the
+    chunked plain loss on both sides) with the recurrence's kernel
+    forward (`wkv_scan_fused`: n_layers launches, all chunked) against the
+    plain forward under autograd (none): the loss and every leaf within
+    `tol` of the leaf's largest entry."""
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.kernels import wkv_scan as wk
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optim
+    params = tfm.init_params(cfg, SEED, DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                              device=DEV) for k in ("tokens", "targets")}
+    fn = steps.make_loss_fn(cfg, GatekeeperConfig(alpha=0.3), 0.01,
+                            loss_kernel=False)
+    out, launched = {}, {}
+    for kernel in (True, False):
+        n, nc = wk.wkv_scan.launches, wk.wkv_scan.launches_chunked
+        with kernel_switch(kernel):
+            out[kernel] = optim.value_and_grad(fn, params, batch)
+        torch.cuda.synchronize()
+        launched[kernel] = (wk.wkv_scan.launches - n,
+                            wk.wkv_scan.launches_chunked - nc)
+    (lk, _), gk_ = out[True]
+    (lp, _), gp = out[False]
+    worst, equal, n_leaves = _grad_diff(torch, gk_, gp)
+    dloss = abs(float(lk) - float(lp))
+    want = (cfg.n_layers, cfg.n_layers)
+    print(f"[train-recurrent] {tag} Stage-2 step ({B} x {T}), wkv_scan "
+          f"kernel forward vs plain forward under autograd: |dloss| "
+          f"{dloss:.3g}, largest leaf max|dg| / max|g| {worst:.3g} (<= "
+          f"{tol}), {equal} of {n_leaves} leaves bit-equal; (launches, "
+          f"chunked) kernel side {launched[True]} (want {want}), plain side "
+          f"{launched[False]}")
+    if (launched[True] != want or launched[False] != (0, 0) or worst > tol
+            or dloss > tol * max(1.0, abs(float(lp)))):
+        raise AssertionError(f"{tag}: kernel vs plain step: {worst}, "
+                             f"{dloss}, launches {launched}")
+    del params, out, gk_, gp
+    torch.cuda.empty_cache()
+
+
+def train_recurrent_phase(torch, smi, t_start: float) -> dict:
+    """Phase 17 (autograd: outside inference mode). Returns {path:
+    {kernel: launches}} of 17a and 17b's main-path runs."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train
+    by_path = {}
+    for arch, remat in RECURRENT_TRAIN:
+        phase(f"17{'a' if arch == RWKV_ARCH else 'b'}", t_start)
+        params, args, counts = train_recurrent(torch, train, smi, arch,
+                                               remat)
+        by_path[f"train {arch}"] = counts
+        if arch == ZAMBA_ARCH:
+            profile_train_step(torch, train, params, args, smi,
+                               f"{arch} Stage-2 step")
+        del params
+        torch.cuda.empty_cache()
+    phase("17c", t_start)
+    remat_step(torch, get_config(ARCH), smi, ARCH)
+    remat_step(torch, get_config(RWKV_ARCH).replace(
+        n_layers=REMAT_LAYERS_RWKV), smi,
+        f"{RWKV_ARCH} ({REMAT_LAYERS_RWKV} layers)")
+    phase("17d", t_start)
+    attn_chunk_prefill(torch, smi)
+    phase("17e", t_start)
+    for arch in (RWKV_ARCH, ZAMBA_ARCH):
+        kernel_vs_plain_step(torch, reduced(get_config(arch)),
+                             f"reduced {arch}", KERNEL_GRAD_RTOL_OF_MAX, 4,
+                             TRAIN_SEQ)
+    kernel_vs_plain_step(torch, get_config(RWKV_ARCH).replace(n_layers=1),
+                         f"{RWKV_ARCH} 1 layer, bf16 activations",
+                         RWKV_LAYER_GRAD_GUARD, TRAIN_BATCH, TRAIN_SEQ)
+    return by_path
 
 
 KERNEL_PHASES = ("3", "3b", "3c", "3d", "3e", "7a")
@@ -4972,6 +5347,12 @@ def parse_args(argv=None):
                     help="run only phase 16 (the three-tier ladder, "
                          "recalibration, semantic agreement and obs) after "
                          "the build: prints its lines, no contract line")
+    ap.add_argument("--train-recurrent", action="store_true",
+                    help="run only phase 17 (training rwkv6-3b and "
+                         "zamba2-1.2b at published widths, remat and "
+                         "attn_chunk) and phase 7a's loss kernel at their "
+                         "two Stage-2 shapes after the build: prints their "
+                         "lines, no contract line")
     ap.add_argument("--ml-server", action="store_true",
                     help="run as phase 14c's M_L server process (this "
                          "script starts it): the full-width large tier "
@@ -5034,6 +5415,18 @@ def main(argv=None) -> int:
         with torch.inference_mode():
             ladder_phase(torch, tfm, serve, np.random.default_rng(SEED),
                          smi, src, t_start)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.train_recurrent:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import gatekeeper_loss as gk
+        phase("7a (phase 17's loss shapes)", t_start)
+        for arch in (RWKV_ARCH, ZAMBA_ARCH):
+            c = get_config(arch)
+            check_loss_kernel(torch, gk, smi, c.vocab_size, c.d_model,
+                              LOSS_T, N_SLOTS, 0, arch)
+            torch.cuda.empty_cache()
+        train_recurrent_phase(torch, smi, t_start)
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.decoders:
@@ -5198,6 +5591,17 @@ def main(argv=None) -> int:
                launches_by_path={"train": n, **stage2})
     torch.cuda.empty_cache()
     reduced_training_fixture(torch, train)
+
+    # -- 17. training RWKV6 and the Mamba2 hybrid, remat, attn_chunk --------
+    by_train = train_recurrent_phase(torch, smi, t_start)
+    rec["launches"] += sum(c["gatekeeper_loss_tokens"]
+                           for c in by_train.values())
+    chunked = records["wkv_scan_chunked"]
+    chunked["launches"] += sum(c["wkv_scan_chunked"]
+                               for c in by_train.values())
+    for path, counts in by_train.items():
+        rec["launches_by_path"][path] = counts["gatekeeper_loss_tokens"]
+        chunked["launches_by_path"][path] = counts["wkv_scan_chunked"]
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[k] for k in KERNELS] + [rec]}))

@@ -75,13 +75,23 @@ class ModelConfig:
     encoder: Optional[EncoderSpec] = None
     vision: Optional[VisionSpec] = None
     sliding_window: Optional[int] = None
+    # runtime policy
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: str = "none"              # none | full | dots
+    scan_layers: bool = True         # accepted: the port loops over layers
+    attn_chunk: int = 0              # >0: online-softmax KV-chunked attention
+    microbatches: int = 1            # train-step gradient accumulation
     source: str = ""                 # citation
 
     @property
     def attention_free(self) -> bool:
         return self.family == "ssm_rwkv"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return (self.family in ("ssm_rwkv", "hybrid")
+                or self.sliding_window is not None)
 
     @property
     def recurrent(self) -> bool:

@@ -26,12 +26,21 @@ re-exports them. Per (batch, head) stream, with an fp32 [K, V] state:
   * `wkv_scan_plain` — the JAX package's own algorithms, chosen by the
     JAX RWKV block's rule: `linear_attention_chunked` when `chunk` divides
     T, else `linear_attention_scan`.
+  * `wkv_scan_fused` — the recurrence under autograd (training): its
+    forward is `wkv_scan` (the kernel, on CUDA tensors), and its backward
+    recomputes `wkv_scan_plain` by the JAX block's chunk rule and
+    differentiates that. The JAX package has no backward kernel for
+    `wkv_scan` (its models differentiate the XLA recurrence), so that
+    recompute is the only plain use of the recurrence on the card. On
+    CPU tensors it is `wkv_scan_plain` under ordinary autograd.
 
 The wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches a kernel or raises, on any shape it refuses too.
 `wkv_scan.launches` counts calls that launched (never plain calls), one
 per call whichever path ran; `wkv_scan.launches_chunked` counts those that
-took the chunked path (the rest took the per-token kernel).
+took the chunked path (the rest took the per-token kernel). A
+`wkv_scan_fused` call counts once there, for its forward (a remat
+recompute of the layer launches, and counts, again).
 """
 from __future__ import annotations
 
@@ -55,6 +64,12 @@ MODES = ("rwkv", "mamba")
 # Plain versions: the JAX package's linear-attention core
 # ---------------------------------------------------------------------------
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """fp32, as the JAX package computes the recurrence, or float64 kept
+    as it is (gradient checks in float64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _expand(cum: torch.Tensor, K: int) -> torch.Tensor:
     """Broadcast a [..., Kw] decay (Kw in {1, K}) to [..., K]."""
     if cum.shape[-1] == 1:
@@ -65,11 +80,11 @@ def _expand(cum: torch.Tensor, K: int) -> torch.Tensor:
 def linear_attention_scan(q, k, v, logw, state0, *, mode="mamba", u=None):
     """Naive per-step scan, the oracle. q, k [B,T,H,K]; v [B,T,H,V]; logw
     broadcastable to [B,T,H,K]; state0 [B,H,K,V]. Returns fp32 (y
-    [B,T,H,V], state [B,H,K,V])."""
+    [B,T,H,V], state [B,H,K,V]); float64 for float64 inputs."""
     B, T, H, K = q.shape
-    logw = torch.broadcast_to(logw, (B, T, H, K)).float()
-    q, k, v = q.float(), k.float(), v.float()
-    S = state0.float()
+    logw = _wide(torch.broadcast_to(logw, (B, T, H, K)))
+    q, k, v = _wide(q), _wide(k), _wide(v)
+    S = _wide(state0)
     ys = []
     for t in range(T):
         qt, kt, vt = q[:, t], k[:, t], v[:, t]
@@ -91,7 +106,12 @@ def linear_attention_chunked(q, k, v, logw, state0, *, mode="mamba", u=None,
     """Chunk-parallel evaluation of the same recurrence (shapes as in
     `linear_attention_scan`; logw [B,T,H,1] scalar or [B,T,H,K] per-channel
     decay). T must be divisible by `chunk`. Every decay is exp(cum_t -
-    cum_s) with t >= s: nothing is exponentiated positively."""
+    cum_s) with t >= s: nothing is exponentiated positively. The pairs
+    the causal mask drops (t < s, whose differences are positive) take
+    exp(-inf) = 0 where JAX's takes exp of the difference and selects 0:
+    the same values, but JAX's gradient there is 0 * inf = NaN once a
+    chunk's decays sum past fp32's exp range (about 88 nats), as
+    rwkv6-3b's strongest channels do at full width; this one's is 0."""
     B, T, H, K = q.shape
     V = v.shape[-1]
     assert T % chunk == 0, (T, chunk)
@@ -99,13 +119,14 @@ def linear_attention_chunked(q, k, v, logw, state0, *, mode="mamba", u=None,
     scalar_decay = logw.shape[-1] == 1
 
     def reshape(x):                      # [NC, B, c, H, *]
-        return x.float().reshape(B, NC, c, H, x.shape[-1]).transpose(0, 1)
+        return _wide(x).reshape(B, NC, c, H, x.shape[-1]).transpose(0, 1)
 
     qc, kc, vc = reshape(q), reshape(k), reshape(v)
     lw = reshape(torch.broadcast_to(logw, (B, T, H, logw.shape[-1])))
     ones = torch.ones((c, c), dtype=torch.bool, device=q.device)
     tri = torch.tril(ones) if mode == "mamba" else torch.tril(ones, -1)
-    S = state0.float()
+    neg = float("-inf")
+    S = _wide(state0)
     ys = []
     for i in range(NC):
         qt, kt, vt, lwt = qc[i], kc[i], vc[i], lw[i]   # [B, c, H, *]
@@ -117,12 +138,12 @@ def linear_attention_chunked(q, k, v, logw, state0, *, mode="mamba", u=None,
                          qt * torch.exp(_expand(out_cum, K)), S)
         if scalar_decay:                               # A [B, c, c, H]
             diff = out_cum[:, :, None, :, 0] - cum[:, None, :, :, 0]
-            amat = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+            amat = torch.exp(torch.where(tri[None, :, :, None], diff, neg))
             scores = torch.einsum("bthk,bshk->btsh", qt, kt) * amat
         else:                                          # A [B, c, c, H, K]
             diff = out_cum[:, :, None] - cum[:, None]
-            amat = torch.where(tri[None, :, :, None, None], torch.exp(diff),
-                               0.0)
+            amat = torch.exp(torch.where(tri[None, :, :, None, None], diff,
+                                         neg))
             scores = (qt[:, :, None] * kt[:, None] * amat).sum(-1)
         y = y + torch.einsum("btsh,bshv->bthv", scores, vt)
         if mode == "rwkv":
@@ -159,7 +180,7 @@ def wkv_scan_plain(q, k, v, logw, u, state0, *, mode: str = "rwkv",
     mode="mamba"; `out` receives the final state in place."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    uf = u.float() if mode == "rwkv" else None
+    uf = _wide(u) if mode == "rwkv" else None
     if q.shape[1] % chunk == 0:
         y, S = linear_attention_chunked(q, k, v, logw, state0, mode=mode,
                                         u=uf, chunk=chunk)
@@ -302,3 +323,46 @@ def wkv_scan_path(q, k, v, logw, u, state0, *, chunked: bool,
 
 
 wkv_scan_path.launches = 0
+
+
+class _WKVScanFused(torch.autograd.Function):
+    """y, S = wkv_scan(...) forward; backward through the plain recurrence
+    recomputed from the saved inputs (no backward kernel exists)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logw, u, state0, mode: str, chunk: int):
+        ctx.save_for_backward(q, k, v, logw, u, state0)
+        ctx.mode, ctx.chunk = mode, chunk
+        return wkv_scan(q, k, v, logw, u, state0, mode=mode)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        want = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(w)
+                   for t, w in zip(ctx.saved_tensors, want)]
+            outs = wkv_scan_plain(*ins, mode=ctx.mode, chunk=ctx.chunk)
+            pairs = [(o, g) for o, g in zip(outs, (g_y, g_state))
+                     if o.requires_grad]
+            need = [t for t in ins if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], need, [g for _, g in pairs],
+                allow_unused=True) if need else ())
+        grads = [next(got) if t is not None and t.requires_grad else None
+                 for t in ins]
+        return (*grads, None, None)
+
+
+def wkv_scan_fused(q, k, v, logw, u, state0, *, mode: str = "rwkv",
+                   chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`wkv_scan`'s function, differentiable in q, k, v, logw, u and
+    state0: the kernel forward on CUDA tensors (saving only the inputs)
+    and a backward through `wkv_scan_plain` with `chunk` (the block's:
+    32 for RWKV6, 64 for Mamba2) recomputed; on CPU tensors
+    `wkv_scan_plain` itself. Writes nothing in place. Returns fp32 (y
+    [B,T,H,V], final state [B,H,K,V])."""
+    _require(mode in MODES, f"mode must be one of {MODES}, got {mode!r}")
+    if not q.is_cuda:
+        return wkv_scan_plain(q, k, v, logw, u, state0, mode=mode,
+                              chunk=chunk)
+    return _WKVScanFused.apply(q, k, v, logw, u, state0, mode, chunk)

@@ -10,9 +10,15 @@ JAX's learning rates, warmup and schedule, and a checkpoint in the JAX
 package's format is written after each stage with --ckpt.
 
 Same flags as `repro.launch.train` plus --device (default: cuda, which must
-exist). --arch takes the dense and MoE decoders (internlm2-1.8b,
-qwen1.5-4b, qwen1.5-32b, llama3-405b, deepseek-v2-236b, kimi-k2-1t-a32b);
-others are rejected at argparse time.
+exist). --arch takes the eight decoders: the dense and MoE ones
+(internlm2-1.8b, qwen1.5-4b, qwen1.5-32b, llama3-405b, deepseek-v2-236b,
+kimi-k2-1t-a32b), RWKV6 (rwkv6-3b) and the Mamba2 hybrid (zamba2-1.2b),
+whose recurrence runs the `wkv_scan` kernel forward on CUDA. The config's
+`remat` and `attn_chunk` apply as in JAX; --remat (none, full or dots)
+replaces the config's `remat`, a flag JAX's trainer lacks (its dry run
+has one). whisper-small and
+phi-3-vision-4.2b take frames or patches, which this CLI (like JAX's)
+cannot feed: they are rejected at argparse time, by name.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --stage1-steps 200 --stage2-steps 100 --alpha 0.3
@@ -44,9 +50,12 @@ PRESET_100M = ModelConfig(
 
 def build_cfg(args) -> ModelConfig:
     if args.preset == "100m":
-        return PRESET_100M
-    cfg = get_config(args.arch)
-    return reduced(cfg) if args.reduced else cfg
+        cfg = PRESET_100M
+    else:
+        cfg = get_config(args.arch)
+        cfg = reduced(cfg) if args.reduced else cfg
+    remat = getattr(args, "remat", None)
+    return cfg.replace(remat=remat) if remat else cfg
 
 
 def make_data(cfg: ModelConfig, args, seed) -> dict:
@@ -114,6 +123,7 @@ def run(args, log_fn=None):
             path = f"{args.ckpt}/stage{stage}"
             checkpoint.save_checkpoint(path, params, step=steps)
             print(f"checkpoint -> {path}")
+        opt_state = None        # free the moments before the next stage's
     return params, history
 
 
@@ -133,6 +143,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--remat", default=None, choices=["none", "full", "dots"],
+                    help="activation checkpointing per layer (default: the "
+                         "config's, none)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     return ap

@@ -3,9 +3,8 @@ for an encoder), cross-attention over encoder states, and DeepSeek-style
 MLA (multi-head latent attention: kv_lora compression, decoupled RoPE,
 weight-absorbed decode), each with dense and block-paged caches.
 
-Counterpart of `repro.models.attention` (MLA's KV-chunked prefill is not
-ported; see ROADMAP.md). Functions take ONE layer's parameters; the
-caller slices the stacked layer axis.
+Counterpart of `repro.models.attention`. Functions take ONE layer's
+parameters; the caller slices the stacked layer axis.
 
 Cache layouts (per layer; GQA leaves end in ``[KV, hd]``, MLA's two
 leaves ``ckv``/``kr`` in ``[kv_lora]``/``[rope_dim]``):
@@ -52,6 +51,16 @@ activations the two paths differ by about one bf16 rounding. MLA prefill
 stays plain: its value width (128)
 differs from its query/key width (192), and the kernel takes one head
 width.
+
+``AttnConfig.attn_chunk`` (the config's `attn_chunk`) is JAX's
+online-softmax KV-chunked schedule for the plain attention: `_attend`
+with a chunk walks the keys a chunk at a time (`_attend_chunked`), so
+the [Tq, Tk] scores are never live in full. Every plain branch of
+`gqa_forward` passes it, and `mla_forward` with a chunk scores its
+nope and rope halves as one concatenated head (JAX's branch, which
+rounds differently from the two-term score even when no chunking
+happens). The flash kernel is online-softmax already and takes none;
+decode and cross-attention take none, as in JAX.
 """
 from __future__ import annotations
 
@@ -84,6 +93,7 @@ class AttnConfig:
     kv_lora: int = 0
     rope_dim: int = 64
     v_head_dim: int = 0
+    attn_chunk: int = 0                      # >0: KV-chunked `_attend`
 
 
 # ---------------------------------------------------------------------------
@@ -119,17 +129,64 @@ def _paged_write(leaf: torch.Tensor, pages: torch.Tensor, tpos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor, scale: float) -> torch.Tensor:
+            mask: torch.Tensor, scale: float,
+            chunk: Optional[int] = None) -> torch.Tensor:
     """q [B,Tq,H,hd]; k,v [B,Tk,KV,hd]; mask [Tq,Tk] or [B,Tq,Tk] bool.
-    Scores and softmax in fp32."""
+    Scores and softmax in fp32. With `chunk`, JAX's rule: the chunk is
+    halved until it divides Tk, and the online-softmax schedule
+    (`_attend_chunked`) runs when it is still >= 128 and below Tk."""
     B, Tq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Tq, KV, H // KV, hd)
+    if chunk:
+        while k.shape[1] % chunk:
+            chunk //= 2
+    if chunk and chunk >= 128 and k.shape[1] > chunk:
+        out = _attend_chunked(qg, k, v, mask, scale, chunk)
+        return out.reshape(B, Tq, H, v.shape[-1]).to(q.dtype)
     scores = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float()) * scale
     m = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
     probs = torch.softmax(torch.where(m, scores, NEG_INF), dim=-1)
     out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
     return out.reshape(B, Tq, H, v.shape[-1]).to(q.dtype)
+
+
+def _attend_chunked(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor, scale: float,
+                    chunk: int) -> torch.Tensor:
+    """Online softmax over KV chunks of `chunk` keys (which divides Tk):
+    a running max, sum and fp32 accumulator, one [Tq, chunk] score tile
+    live at a time. qg [B,Tq,KV,g,hd]; returns [B,Tq,KV,g,hd] fp32. A
+    row with no visible key so far keeps weight 0 (JAX's guards: a fully
+    masked row comes out 0); its exponents are taken of -inf, never of
+    -inf minus -inf, so the backward stays finite too."""
+    B, Tq, KV, g, _ = qg.shape
+    nc = k.shape[1] // chunk
+    neg = float("-inf")
+    m = torch.full((B, KV, g, Tq), neg, dtype=torch.float32, device=qg.device)
+    l = torch.zeros((B, KV, g, Tq), dtype=torch.float32, device=qg.device)
+    acc = torch.zeros((B, KV, g, Tq, v.shape[-1]), dtype=torch.float32,
+                      device=qg.device)
+    for i in range(nc):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        ks, vs, mk = k[:, sl], v[:, sl], mask[..., sl]
+        s = torch.einsum("btkgh,bskh->bkgts", qg.float(), ks.float()) * scale
+        mb = mk[None, None, None] if mk.dim() == 2 else mk[:, None, None]
+        s = torch.where(mb, s, neg)
+        nm = torch.maximum(m, s.amax(-1))                 # [B,KV,g,Tq]
+        safe = torch.isfinite(nm)
+        nm0 = torch.where(safe, nm, 0.0)
+        p = torch.exp(torch.where(safe[..., None], s - nm0[..., None], neg))
+        live = safe & torch.isfinite(m)
+        alpha = torch.exp(torch.where(live, torch.clamp(m - nm0, max=0.0),
+                                      neg))
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bkgts,bskh->bkgth", p.to(vs.dtype).float(),
+                          vs.float())
+        acc = acc * alpha[..., None] + pv
+        m = nm
+    out = acc / torch.clamp(l, min=1e-30)[..., None]     # [B,KV,g,Tq,hd]
+    return out.permute(0, 3, 1, 2, 4)
 
 
 def _qkv(params: dict, cfg: AttnConfig, x: torch.Tensor):
@@ -150,13 +207,13 @@ def _out_proj(params: dict, out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def _prefill_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int, scale: float, kernel: bool,
                     window: Optional[int] = None,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, chunk: int = 0) -> torch.Tensor:
     """Attention of q [B,T,H,hd] (query t at position q_offset + t) over
     k, v [B,S,KV,hd] (key s at position s), both in q's type: causal,
     each query seeing only keys less than `window` positions back when
     one is given, or every key when not `causal`. The flash kernel, or
     `_attend` over the same mask (`make_causal_mask`,
-    `make_sliding_mask` or all true)."""
+    `make_sliding_mask` or all true) with the KV `chunk`."""
     k, v = k.to(q.dtype), v.to(q.dtype)
     if kernel:
         return kernel_ops.flash_attention(q, k, v, causal=causal,
@@ -169,7 +226,7 @@ def _prefill_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = make_sliding_mask(T, S, q_offset, window, q.device)
     else:
         mask = make_causal_mask(T, S, q_offset, q.device)
-    return _attend(q, k, v, mask, scale)
+    return _attend(q, k, v, mask, scale, chunk)
 
 
 def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
@@ -203,7 +260,7 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
         cv = _paged_write(cache["v"], pages, tpos, v)
         out = _prefill_attend(q, gather_blocks(ck, pages),
                               gather_blocks(cv, pages), cache_offset, scale,
-                              kernel)
+                              kernel, chunk=cfg.attn_chunk)
         new_cache = {"k": ck, "v": cv}
     elif cache is not None and cache["k"].shape[1] < T:
         # ring cache shorter than the prompt: the last S tokens, rolled so
@@ -214,19 +271,20 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
         ck.copy_(torch.roll(k[:, T - S:].to(ck.dtype), shift, dims=1))
         cv.copy_(torch.roll(v[:, T - S:].to(cv.dtype), shift, dims=1))
         out = _prefill_attend(q, k, v, cache_offset, scale, kernel,
-                              window or S)
+                              window or S, chunk=cfg.attn_chunk)
         new_cache = {"k": ck, "v": cv}
     elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         ck[:, cache_offset:cache_offset + T] = k.to(ck.dtype)
         cv[:, cache_offset:cache_offset + T] = v.to(cv.dtype)
-        out = _prefill_attend(q, ck, cv, cache_offset, scale, kernel, window)
+        out = _prefill_attend(q, ck, cv, cache_offset, scale, kernel, window,
+                              chunk=cfg.attn_chunk)
         new_cache = {"k": ck, "v": cv}
     else:
         recording = torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)
         out = _prefill_attend(q, k, v, 0, scale, kernel and not recording,
-                              window, cfg.causal)
+                              window, cfg.causal, cfg.attn_chunk)
         new_cache = None
     return _out_proj(params, out, x), new_cache
 
@@ -396,6 +454,17 @@ def mla_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
     k_nope = einsum("bsr,rhk->bshk", ckv_n, params["wuk"])
     v = einsum("bsr,rhk->bshk", ckv_n, params["wuv"])
     scale = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_dim)
+    if cfg.attn_chunk:
+        # JAX's chunked branch: one GQA score over the concatenated
+        # (nope || rope) head dims, through `_attend` with the chunk
+        qt = torch.promote_types(q_nope.dtype, q_rope.dtype)
+        kt = torch.promote_types(k_nope.dtype, kr_all.dtype)
+        q_cat = torch.cat([q_nope.to(qt), q_rope.to(qt)], dim=-1)
+        k_cat = torch.cat([k_nope.to(kt), kr_all[:, :, None, :].to(kt)
+                           .expand(*k_nope.shape[:3], cfg.rope_dim)], dim=-1)
+        out = _attend(q_cat, k_cat, v, mask, scale,
+                      cfg.attn_chunk).to(x.dtype)
+        return _out_proj(params, out, x), new_cache
     scores = (torch.einsum("bthk,bshk->bhts", q_nope.float(), k_nope.float())
               + torch.einsum("bthk,bsk->bhts", q_rope.float(),
                              kr_all.float())) * scale

@@ -44,20 +44,25 @@ from repro_torch.models.common import (rms_norm, sinusoidal_positions,
 def encode(params, cfg: ModelConfig, frames: torch.Tensor,
            paged_kernel: Optional[bool] = None) -> torch.Tensor:
     """frames [B, n_frames, d] (the stub frontend's output) -> the
-    encoder's final-normed states [B, n_frames, d] in the compute type."""
+    encoder's final-normed states [B, n_frames, d] in the compute type;
+    each encoder layer under `tfm._maybe_remat` (JAX `encdec.py:53`)."""
     enc = params["encoder"]
     x = frames.to(cfg.cdtype())
     T, d = x.shape[1], x.shape[2]
     x = x + sinusoidal_positions(T, d, x.device).to(x.dtype)
     ac = dataclasses.replace(tfm.attn_config(cfg), causal=False)
     positions = torch.arange(T, device=x.device)[None, :]
-    for p in tfm._layers(enc["stack"], cfg.encoder.n_layers):
+
+    def block(p, x):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         y, _ = attn_lib.gqa_forward(p["attn"], ac, h, positions,
                                     paged_kernel=paged_kernel)
         x = x + y
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + ffn_lib.mlp_forward(p["mlp"], h, "gelu")
+        return x + ffn_lib.mlp_forward(p["mlp"], h, "gelu")
+    blk = tfm._maybe_remat(block, cfg)
+    for p in tfm._layers(enc["stack"], cfg.encoder.n_layers):
+        x = blk(p, x)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -84,16 +89,15 @@ def _decoder_trunk(params, cfg: ModelConfig, x, positions, kv: List[dict],
     without a cache; over the slot cache `cache` {"k", "v"} of [L, ...]
     written in place, at a prefill or, with `decode`, a one-token step at
     `position`), cross-attention over layer i's `kv[i]` after its
-    cross_norm, GELU MLP. Returns x before the final norm."""
+    cross_norm, GELU MLP, each layer under `tfm._maybe_remat` (as the
+    encoder's). Returns x before the final norm."""
     ac = tfm.attn_config(cfg)
     L = cfg.n_layers
     blocks = tfm._layers(params["blocks"]["dense"], L)
     cross = tfm._layers(params["encoder"]["cross"], L)
     cross_norm = torch.unbind(params["encoder"]["cross_norm"])
-    for i in range(L):
-        p = blocks[i]
-        c = None if cache is None else {n: leaf[i] for n, leaf in
-                                        cache.items()}
+
+    def block(p, cp, cn, kv_l, x, c):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         if decode:
             y, _ = attn_lib.gqa_decode(p["attn"], ac, h, position, c)
@@ -102,11 +106,15 @@ def _decoder_trunk(params, cfg: ModelConfig, x, positions, kv: List[dict],
                                         cache_offset,
                                         paged_kernel=paged_kernel)
         x = x + y
-        h = rms_norm(x, cross_norm[i], cfg.norm_eps)
-        x = x + attn_lib.cross_attn_forward(cross[i], ac, h, kv[i],
-                                            paged_kernel)
+        h = rms_norm(x, cn, cfg.norm_eps)
+        x = x + attn_lib.cross_attn_forward(cp, ac, h, kv_l, paged_kernel)
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + ffn_lib.mlp_forward(p["mlp"], h, "gelu")
+        return x + ffn_lib.mlp_forward(p["mlp"], h, "gelu")
+    blk = tfm._maybe_remat(block, cfg)
+    for i in range(L):
+        c = None if cache is None else {n: leaf[i] for n, leaf in
+                                        cache.items()}
+        x = blk(blocks[i], cross[i], cross_norm[i], kv[i], x, c)
     return x
 
 

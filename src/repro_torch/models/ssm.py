@@ -16,7 +16,10 @@ beside the kernel in `kernels/wkv_scan.py` and are re-exported here. Each
 block's `paged_kernel=True` runs the recurrence through `wkv_scan` (the
 CUDA kernel on CUDA tensors), otherwise through `wkv_scan_plain` by the
 JAX block's own rule (chunked when the block's chunk, 32 for RWKV6 and 64
-for Mamba2, divides T, else the per-step scan).
+for Mamba2, divides T, else the per-step scan). When autograd records
+(training), `paged_kernel=True` takes `wkv_scan_fused`: the kernel
+forward, and a backward through `wkv_scan_plain` by that same rule.
+Without a state nothing is written in place.
 
 RWKV6 types follow the JAX block as JAX's unscanned layer loop runs it
 (its scanned loop refuses a bf16 RWKV model): r/k/v/g/logw are fp32 from
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.wkv_scan import (linear_attention_chunked,
                                           linear_attention_scan,
                                           linear_attention_step, wkv_scan,
-                                          wkv_scan_plain)
+                                          wkv_scan_fused, wkv_scan_plain)
 from repro_torch.models.common import ParamInit, rms_norm
 
 __all__ = ["Mamba2Config", "RWKVConfig", "init_mamba2_block",
@@ -113,6 +116,29 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
+def _recording(*tensors: Optional[torch.Tensor]) -> bool:
+    """Autograd records an op on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _recurrence(q, k, v, logw, u, S0, mode: str, chunk: int,
+                paged_kernel: bool, out: Optional[torch.Tensor]):
+    """A block's recurrence: `wkv_scan_fused` when `paged_kernel` and
+    autograd records, else `wkv_scan` (`paged_kernel`) or
+    `wkv_scan_plain` with the block's chunk; `out` takes the final
+    state in place (a carried state's "S")."""
+    if paged_kernel and _recording(q, k, v, logw, u, S0):
+        if out is not None:
+            raise ValueError("a recorded recurrence writes no state in "
+                             "place: train without a cache")
+        return wkv_scan_fused(q, k, v, logw, u, S0, mode=mode, chunk=chunk)
+    if paged_kernel:
+        return wkv_scan(q, k, v, logw, u, S0, mode=mode, out=out)
+    return wkv_scan_plain(q, k, v, logw, u, S0, mode=mode, chunk=chunk,
+                          out=out)
+
+
 def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     """shifted[t] = x[t-1]; shifted[0] = last (carry from the previous
     segment)."""
@@ -154,8 +180,9 @@ def rwkv_block_forward(p: dict, cfg: RWKVConfig, x: torch.Tensor,
     """Full-sequence RWKV6 block (time mix, then channel mix), pre-norm
     residual. `state` ({"shift1", "shift2" [B, d], "S" [B, H, K, V] fp32})
     carries a previous segment; its "S" receives the final state in
-    place. `paged_kernel` runs the recurrence through `wkv_scan`. Returns
-    (x, {"shift1", "shift2", "S"})."""
+    place. `paged_kernel` runs the recurrence through `wkv_scan` (through
+    `wkv_scan_fused` when autograd records). Returns (x, {"shift1",
+    "shift2", "S"})."""
     B, T, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     h = rms_norm(x, p["norm1"])
@@ -168,11 +195,8 @@ def rwkv_block_forward(p: dict, cfg: RWKVConfig, x: torch.Tensor,
     else:
         S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
         out = None
-    if paged_kernel:
-        y, S = wkv_scan(rr, kk, vv, logw, p["u"], S0, mode="rwkv", out=out)
-    else:
-        y, S = wkv_scan_plain(rr, kk, vv, logw, p["u"], S0, mode="rwkv",
-                              chunk=cfg.chunk, out=out)
+    y, S = _recurrence(rr, kk, vv, logw, p["u"], S0, "rwkv", cfg.chunk,
+                       paged_kernel, out)
     # per-head group norm, gate, project out
     y = rms_norm(y.to(x.dtype), p["ln_x"]) * gg
     x = x + _mm(y.reshape(B, T, H * hd).float(),
@@ -269,8 +293,9 @@ def mamba2_block_forward(p: dict, cfg: Mamba2Config, x: torch.Tensor,
     [B, W-1, C], "S" [B, H, N, P] fp32}) carries a previous segment; its
     "S" receives the final state in place. `paged_kernel` runs the
     recurrence through `wkv_scan` (mode "mamba": q = C and k = B
-    broadcast over the heads, v = x dt, logw = dt A a scalar per head).
-    Returns (x, {"conv", "S"})."""
+    broadcast over the heads, v = x dt, logw = dt A a scalar per head;
+    `wkv_scan_fused` when autograd records). Returns (x, {"conv",
+    "S"})."""
     B, T, d = x.shape
     di, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
     h = rms_norm(x, p["norm"])
@@ -295,11 +320,8 @@ def mamba2_block_forward(p: dict, cfg: Mamba2Config, x: torch.Tensor,
     else:
         S0 = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
         out = None
-    if paged_kernel:
-        y, S = wkv_scan(q, k, v, logw, None, S0, mode="mamba", out=out)
-    else:
-        y, S = wkv_scan_plain(q, k, v, logw, None, S0, mode="mamba",
-                              chunk=cfg.chunk, out=out)
+    y, S = _recurrence(q, k, v, logw, None, S0, "mamba", cfg.chunk,
+                       paged_kernel, out)
     y = y + p["D"][None, None, :, None].float() * xh.float()
     y = y.reshape(B, T, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm"])

@@ -14,12 +14,14 @@ dense layers, then its MoE layers), ``["rwkv"]`` or ``["mamba"]``, the
 hybrid's ONE shared attention + MLP block under ``["shared_attn"]`` with
 no layer axis — and the layers run as a Python loop over each group (the
 JAX package folds them with `lax.scan` unless ``scan_layers=False``; the
-loop follows that unscanned path, the only one JAX defines for a bf16
-RWKV model). Caches are stacked the same way, ``[L, batch, ...]``, and
-are written in place: GQA / MLA K/V, the RWKV state (token-shift rows in
-the cache type, the recurrence state S in fp32), or the Mamba2 state
-(the convolution's history in the cache type, S in fp32) and the shared
-block's K/V, one entry per call of the block, ``[n_calls, batch, ...]``.
+loop computes what that unscanned path computes, the only one JAX defines
+for a bf16 RWKV model, so the port accepts either value of `scan_layers`
+and refuses no bf16 RWKV model). Caches are stacked the same way,
+``[L, batch, ...]``, and are written in place: GQA / MLA K/V, the RWKV
+state (token-shift rows in the cache type, the recurrence state S in
+fp32), or the Mamba2 state (the convolution's history in the cache type,
+S in fp32) and the shared block's K/V, one entry per call of the block,
+``[n_calls, batch, ...]``.
 An encoder-decoder's decoder layers sit under ``["dense"]`` with GELU
 MLPs, and its encoder under ``params["encoder"]``: ``"stack"`` (its
 ``[E, ...]`` self-attention + GELU MLP blocks), ``"final_norm"``, and
@@ -40,15 +42,20 @@ API:
     decode_step(params, cfg, token, position, cache, ...) -> (logits, cache)
 
 `forward` and `final_hidden` are the training entry points: they record
-autograd's graph when the parameters require grad. `prefill` and
-`decode_step` serve, under `torch.inference_mode()`.
+autograd's graph when the parameters require grad, and then apply the
+config's `remat` to every layer of a group loop (`_maybe_remat`; not to
+the hybrid's shared block, as in JAX). `prefill` and `decode_step`
+serve, under `torch.inference_mode()`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
@@ -69,14 +76,16 @@ def check_ported(cfg: ModelConfig, training: bool = False,
                  engine: bool = False) -> None:
     """Raise NotImplementedError, naming ROADMAP.md, unless the port runs
     `cfg`: dense and MoE decoders (GQA or MLA), RWKV6 and the Mamba2
-    hybrid for serving, a sliding window on GQA included (slot backend);
-    full-causal dense and MoE only for training. The encoder-decoder and
-    VLM families take frames or patches, which only `launch.steps`'
-    builders take: they pass for serving and training there, and fail
-    with `engine` (the serving engine and the serve and train CLIs, which
-    take token prompts, as the JAX package's do). Raise ValueError for an
-    encdec config without its EncoderSpec or a vlm one without its
-    VisionSpec."""
+    hybrid, for serving (slot backend for the recurrent ones) and for
+    training alike, a sliding window on GQA included. A window on MLA is
+    refused either way: JAX's `mla_forward` has none. The
+    encoder-decoder and VLM families take frames or patches, which only
+    `launch.steps`' builders take: they pass for serving and training
+    there, and fail with `engine` (the serving engine and the serve and
+    train CLIs, which take token prompts, as the JAX package's do).
+    Raise ValueError for an encdec config without its EncoderSpec or a
+    vlm one without its VisionSpec. (`training` is kept for callers that
+    name the path; every family passes both ways.)"""
     if cfg.family == "encdec" and cfg.encoder is None:
         raise ValueError(f"{cfg.name}: an encdec config needs an EncoderSpec")
     if cfg.family == "vlm" and cfg.vision is None:
@@ -89,19 +98,15 @@ def check_ported(cfg: ModelConfig, training: bool = False,
             f"(nor do the JAX package's): it runs through launch.steps' "
             f"make_prefill, make_serve_step and make_train_step (see "
             f"ROADMAP.md)")
-    families = ((_ATTN_FAMILIES if training else _SERVED_FAMILIES)
-                + _STEP_FAMILIES)
-    windowed = cfg.sliding_window is not None
-    if (cfg.family not in families or (windowed and training)
-            or (windowed and cfg.mla is not None)):
+    families = _SERVED_FAMILIES + _STEP_FAMILIES
+    if cfg.family not in families or (cfg.sliding_window is not None
+                                      and cfg.mla is not None):
         raise NotImplementedError(
             f"family {cfg.family!r} (sliding_window={cfg.sliding_window}"
             f"{', MLA' if cfg.mla else ''}) is not ported for "
-            f"{'training' if training else 'serving'}: the port "
-            f"{'trains' if training else 'serves'} families {families}"
-            f"{' without a sliding window' if training else ''} (training "
-            f"RWKV, Mamba2/hybrid and sliding-window models and a window "
-            f"on MLA are queued in ROADMAP.md)")
+            f"{'training' if training else 'serving'}: the port runs "
+            f"families {families}, a sliding window on GQA only (JAX's "
+            f"MLA has no window; see ROADMAP.md)")
 
 
 def attn_config(cfg: ModelConfig) -> attn_lib.AttnConfig:
@@ -119,7 +124,8 @@ def attn_config(cfg: ModelConfig) -> attn_lib.AttnConfig:
         q_lora=mla.q_lora if mla else 0,
         kv_lora=mla.kv_lora if mla else 0,
         rope_dim=mla.rope_dim if mla else 64,
-        v_head_dim=mla.v_head_dim if mla else 0)
+        v_head_dim=mla.v_head_dim if mla else 0,
+        attn_chunk=cfg.attn_chunk)
 
 
 def rwkv_config(cfg: ModelConfig) -> ssm_lib.RWKVConfig:
@@ -334,6 +340,67 @@ def param_device(params: dict) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "full", "dots")
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _is_param(t) -> bool:
+    """A parameter (a leaf that requires grad) or a view of one."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    base = t._base if t._base is not None else t
+    return base.is_leaf and base.requires_grad
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's `checkpoint_dots_with_no_batch_dims` for the port's ops: keep
+    the output of a weight product with no batch dimension, recompute
+    everything else. At the aten level `torch.einsum` lowers a projection
+    ("btd,dhk->bthk") and an attention score ("btkgh,bskh->bkgts") alike
+    to `bmm`, so the rule goes by the operands: a product is kept when
+    one operand is a parameter or a view of one (what `models.common.
+    einsum` and `models.ssm._mm` pass for every weight: its stacked
+    layer's `unbind` view, reshaped) and it has no batch, i.e. it is an
+    `mm` / `addmm`, or a `bmm` of batch 1 (an einsum without batch
+    dimensions folds every free one into the matrices). Scores, P @ V and
+    the recurrence multiply activations only; RWKV6's per-stream mixing
+    ("btsr,srd->btsd", batch 5) has a batch dimension, as in JAX. The MoE
+    experts' products are kept here (JAX's `ragged_dot` is no
+    `dot_general`, so JAX recomputes them): a memory choice, not a change
+    of value."""
+    if (op in _MATMULS and any(_is_param(a) for a in args)
+            and (op is not torch.ops.aten.bmm.default
+                 or args[0].shape[0] == 1)):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """`fn` (one layer) under the config's `remat`, JAX's `_maybe_remat`:
+    "none" is `fn`; "full" keeps only the layer's inputs and recomputes
+    the rest in the backward (`torch.utils.checkpoint`, non-reentrant);
+    "dots" also keeps the weight products' outputs (`_dots_policy`). Any
+    other value raises ValueError, as JAX does. Applied only when autograd
+    records: under inference mode or `no_grad` it is `fn`. A kernel the
+    recompute reaches (`wkv_scan` through `wkv_scan_fused`) launches
+    again, writing a buffer it allocates then."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(cfg.remat)
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {"context_fn": _dots_contexts} if cfg.remat == "dots" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Trunk
 # ---------------------------------------------------------------------------
 
@@ -379,7 +446,8 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
            pages=None, paged_kernel=None):
     """Pre-norm blocks over each stacked layer group in order (attention or
     MLA, then the dense MLP or the MoE FFN; or RWKV6 blocks; or Mamba2
-    blocks with the shared block between them). Returns (x, cache, aux):
+    blocks with the shared block between them), each layer under
+    `_maybe_remat`. Returns (x, cache, aux):
     aux is the fp32 sum of the MoE layers' load-balance losses (0 for the
     other families)."""
     if cfg.family == "encdec":
@@ -397,13 +465,15 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
         if not L:
             continue
         stacked = cache[kind] if cache is not None else None
+
+        def block(p, x, c, _mc=mc if kind == "moe" else None):
+            return _attn_ffn_block(p, cfg, ac, x, positions, c, cache_offset,
+                                   decode, position, pages, paged_kernel, _mc)
+        blk = _maybe_remat(block, cfg)
         for i, p in enumerate(_layers(params["blocks"][kind], L)):
             c = (None if stacked is None
                  else {name: leaf[i] for name, leaf in stacked.items()})
-            x, aux = _attn_ffn_block(p, cfg, ac, x, positions, c,
-                                     cache_offset, decode, position, pages,
-                                     paged_kernel,
-                                     mc if kind == "moe" else None)
+            x, aux = blk(p, x, c)
             if aux is not None:
                 aux_sum = aux_sum + aux
     return x, cache, aux_sum
@@ -422,17 +492,20 @@ def _recurrent_rows(cache, kind: str, i: int, pages):
 
 
 def _rwkv_trunk(params, cfg: ModelConfig, x, cache, pages, paged_kernel):
-    """The RWKV6 layer loop. A cache's rows are this call's carried state,
-    written back in place (the shift rows cast to the cache's type); no
-    cache means a fresh zero state. `paged_kernel` (None: on for CUDA)
-    runs the recurrence through the `wkv_scan` kernel."""
+    """The RWKV6 layer loop, each layer under `_maybe_remat`. A cache's
+    rows are this call's carried state, written back in place (the shift
+    rows cast to the cache's type); no cache means a fresh zero state.
+    `paged_kernel` (None: on for CUDA) runs the recurrence through the
+    `wkv_scan` kernel."""
     rc = rwkv_config(cfg)
     use_kernel = kernel_ops.paged_kernel_enabled(paged_kernel, x.device)
     L = _group_sizes(cfg)["rwkv"]
+    blk = _maybe_remat(functools.partial(ssm_lib.rwkv_block_forward,
+                                         cfg=rc, paged_kernel=use_kernel),
+                       cfg)
     for i, p in enumerate(_layers(params["blocks"]["rwkv"], L)):
         st = _recurrent_rows(cache, "rwkv", i, pages)
-        x, new = ssm_lib.rwkv_block_forward(p, rc, x, st,
-                                            paged_kernel=use_kernel)
+        x, new = blk(p, x=x, state=st)
         if st is not None:
             st["shift1"].copy_(new["shift1"])
             st["shift2"].copy_(new["shift2"])
@@ -441,9 +514,10 @@ def _rwkv_trunk(params, cfg: ModelConfig, x, cache, pages, paged_kernel):
 
 def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache,
                   cache_offset, decode, position, pages, paged_kernel):
-    """The Mamba2 layer loop, with the ONE shared attention + MLP block
-    after every `shared_attn_every` layers (zamba2's super-blocks; none
-    when the period is 0). A cache's Mamba2 rows are this call's carried
+    """The Mamba2 layer loop, each Mamba2 layer under `_maybe_remat`, with
+    the ONE shared attention + MLP block (not remat'd, as in JAX) after
+    every `shared_attn_every` layers (zamba2's super-blocks; none when
+    the period is 0). A cache's Mamba2 rows are this call's carried
     state, written back in place (the convolution's history cast to the
     cache's type); the shared block's g-th call reads and writes entry g
     of the "shared_attn" cache, a window of its length (4096 positions
@@ -459,10 +533,12 @@ def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache,
                   else SHARED_ATTN_MAX_LEN)
         ac = dataclasses.replace(attn_config(cfg), sliding_window=window)
     L = _group_sizes(cfg)["mamba"]
+    blk = _maybe_remat(functools.partial(ssm_lib.mamba2_block_forward,
+                                         cfg=mc, paged_kernel=use_kernel),
+                       cfg)
     for i, p in enumerate(_layers(params["blocks"]["mamba"], L)):
         st = _recurrent_rows(cache, "mamba", i, pages)
-        x, new = ssm_lib.mamba2_block_forward(p, mc, x, st,
-                                              paged_kernel=use_kernel)
+        x, new = blk(p, x=x, state=st)
         if st is not None:
             st["conv"].copy_(new["conv"])
         if every and (i + 1) % every == 0:

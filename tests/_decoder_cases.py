@@ -55,8 +55,11 @@ def set_biases(jparams, seed):
 
 
 def fields_equal(t, j):
-    """Every field of the port's dataclass equals JAX's (the port keeps
-    the fields its code reads; JAX's runtime-policy fields stay there)."""
+    """Every field of the port's dataclass equals JAX's: the model's
+    fields and the runtime policy (`remat`, `scan_layers`, `attn_chunk`,
+    `microbatches`) alike. MoESpec's `capacity_factor` and
+    `router_aux_weight`, read only by JAX's sharded MoE paths, are the
+    fields the port leaves out."""
     for f in dataclasses.fields(t):
         tv, jv = getattr(t, f.name), getattr(j, f.name)
         if dataclasses.is_dataclass(tv):

@@ -383,6 +383,8 @@ LOSS_SHAPES = {
     "d36-blocks": (300, 36, 1100, 1.0),
     "d100-narrow": (9, 100, 777, 1.0),
     "peaked": (256, 768, 4000, 8.0),
+    "rwkv6-3b-train": (2048, 2560, 65536, 1.0),   # Stage-2 shapes of the
+    "zamba2-train": (2048, 2048, 32000, 1.0),     # recurrent trainers
 }
 
 
@@ -1241,6 +1243,100 @@ def test_zamba2_prefill_and_decode_step_kernel_matches_plain(cuda, T):
     assert wk.wkv_scan.launches == n + 2 * cfg.n_layers
     assert fa.flash_attention.launches == n_fa + tfm.shared_attn_calls(cfg)
     torch.testing.assert_close(out[True], out[False], atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Training through the recurrence: wkv_scan_fused and remat
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode,H,K,V", [("rwkv", 40, 64, 64),
+                                        ("mamba", 64, 64, 64)],
+                         ids=["rwkv6-3b", "zamba2"])
+def test_wkv_scan_fused_forward_equals_wkv_scan(cuda, mode, H, K, V):
+    """`wkv_scan_fused`'s forward is `wkv_scan`'s launch: the same bits,
+    counted once, on the chunked path at T 128; no input written."""
+    q, k, v, logw, u, s0 = _wkv_case(cuda, 2, 128, H, K, V, mode == "mamba")
+    keep = s0.clone()
+    n, nc = wk.wkv_scan.launches, wk.wkv_scan.launches_chunked
+    y, st = wk.wkv_scan_fused(q, k, v, logw, u, s0, mode=mode, chunk=32)
+    torch.cuda.synchronize()
+    assert (wk.wkv_scan.launches - n, wk.wkv_scan.launches_chunked - nc) \
+        == (1, 1)
+    y2, st2 = wk.wkv_scan(q, k, v, logw, u, s0, mode=mode)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert torch.equal(s0, keep)
+
+
+@pytest.mark.parametrize("T", [128, 97])
+@pytest.mark.parametrize("mode,H,K,V,chunk", [("rwkv", 40, 64, 64, 32),
+                                              ("mamba", 64, 64, 64, 64)],
+                         ids=["rwkv6-3b", "zamba2"])
+def test_wkv_scan_fused_grads_match_plain_autograd(cuda, mode, H, K, V,
+                                                   chunk, T):
+    """Gradients of sum(y * gy) + sum(S * gS) in q, k, v, logw, u and
+    state0 through `wkv_scan_fused` (the kernel forward, the plain
+    recurrence recomputed by the block's chunk rule in the backward)
+    against autograd through `wkv_scan_plain` with that chunk: the same
+    backward on the same inputs, within 1e-6 of each gradient's largest
+    entry (T 128: the chunked recompute; T 97: the per-step scan)."""
+    ins = list(_wkv_case(cuda, 2, T, H, K, V, mode == "mamba", seed=T))
+    if mode == "mamba":
+        ins[4] = None
+    g = torch.Generator(device=cuda).manual_seed(1)
+    gy = torch.randn((2, T, H, V), generator=g, device=cuda)
+    gs = torch.randn((2, H, K, V), generator=g, device=cuda)
+    grads = {}
+    for fused in (True, False):
+        leaves = [None if t is None else t.clone().requires_grad_(True)
+                  for t in ins]
+        fn = wk.wkv_scan_fused if fused else wk.wkv_scan_plain
+        y, st = fn(*leaves, mode=mode, chunk=chunk)
+        ((y * gy).sum() + (st * gs).sum()).backward()
+        grads[fused] = [None if t is None else t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for a, b in zip(grads[True], grads[False]):
+        if b is None:
+            continue
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_remat_with_the_wkv_kernel_matches_none(cuda, arch, remat):
+    """A reduced fp32 Stage-2 loss and gradient with the recurrence's
+    kernel inside each layer: remat full and dots against none. The
+    recompute launches `wkv_scan` again (n_layers launches under none,
+    twice that under full and dots: a ctypes launch is invisible to the
+    dispatcher, so "dots" must rerun it into a buffer it allocates, never
+    reuse a stale one), and every gradient leaf equals none's within 1e-6
+    of its largest entry."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optim
+    cfg = reduced(get_config(arch))
+    params = tfm.init_params(cfg, 0, cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 128), generator=g,
+                              device=cuda) for k in ("tokens", "targets")}
+    out, launched = {}, {}
+    for mode in ("none", remat):
+        fn = steps.make_loss_fn(cfg.replace(remat=mode),
+                                GatekeeperConfig(alpha=0.3))
+        n = wk.wkv_scan.launches
+        out[mode] = optim.value_and_grad(fn, params, batch)
+        torch.cuda.synchronize()
+        launched[mode] = wk.wkv_scan.launches - n
+    assert launched == {"none": cfg.n_layers, remat: 2 * cfg.n_layers}
+    (l0, _), g0 = out["none"]
+    (l1, _), g1 = out[remat]
+    torch.testing.assert_close(l1, l0, rtol=0, atol=1e-6)
+    for a, b in zip(optim.tree_leaves(g1), optim.tree_leaves(g0)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()) + 1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -552,14 +552,16 @@ def test_cli_rejects_paged_backend_for_zamba2(capsys):
 
 
 def test_training_gate_stays_closed_for_the_hybrid_and_windows():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttfm.check_ported(t_get_config(ARCH), training=True)
+    """The hybrid and a window on GQA now pass the training gate; a window
+    on MLA stays refused for serving and training (JAX's `mla_forward`
+    has none)."""
+    ttfm.check_ported(t_get_config(ARCH), training=True)
     windowed = t_get_config("internlm2-1.8b").replace(sliding_window=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttfm.check_ported(windowed, training=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttfm.check_ported(t_get_config("deepseek-v2-236b").replace(
-            sliding_window=64))
+    ttfm.check_ported(windowed, training=True)
+    mla_windowed = t_get_config("deepseek-v2-236b").replace(sliding_window=64)
+    for training in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ttfm.check_ported(mla_windowed, training=training)
     ttfm.check_ported(t_get_config(ARCH))
     ttfm.check_ported(windowed)
 
@@ -568,15 +570,21 @@ def test_training_gate_stays_closed_for_the_hybrid_and_windows():
                                          ("internlm2-1.8b", 2),
                                          (ARCH, None)])
 def test_trainer_refuses_windows_and_the_hybrid(arch, window):
-    """The trainer's own entry holds the gate: a train step on a windowed
-    dense config, or on the hybrid, raises before it computes a loss."""
+    """The trainer's own entry, which refused these before they were
+    ported, now trains them: a train step on a windowed dense config (a
+    window wider than the 4 tokens, and one of 2) or on the hybrid gives
+    a finite loss and moves the parameters in place (against JAX:
+    tests/test_torch_train_recurrent.py)."""
     tcfg = t_reduced(t_get_config(arch)).replace(sliding_window=window)
     params = ttfm.init_params(tcfg, 0, "cpu")
+    before = [t.clone() for t in toptim.tree_leaves(params)]
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
              "targets": torch.zeros((1, 4), dtype=torch.long)}
     step = tsteps.make_train_step(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        step(params, toptim.adamw_init(params), batch)
+    out, _, metrics = step(params, toptim.adamw_init(params), batch)
+    assert out is params and torch.isfinite(metrics["loss"])
+    assert any(not torch.equal(a, b)
+               for a, b in zip(toptim.tree_leaves(params), before))
 
 
 # ---------------------------------------------------------------------------

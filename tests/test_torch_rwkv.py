@@ -461,6 +461,9 @@ def test_cli_rejects_paged_backend_for_rwkv(capsys):
 
 
 def test_training_gate_stays_closed_for_rwkv():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttfm.check_ported(t_get_config(ARCH), training=True)
+    """The gate that refused RWKV6 training now passes it, for serving and
+    training alike (its training against JAX:
+    tests/test_torch_train_recurrent.py)."""
+    ttfm.check_ported(t_get_config(ARCH), training=True)
+    ttfm.check_ported(t_get_config(ARCH), training=True, engine=True)
     ttfm.check_ported(t_get_config(ARCH))
