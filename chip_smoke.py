@@ -6,6 +6,7 @@
     python3 chip_smoke.py --decoders
     python3 chip_smoke.py --ladder
     python3 chip_smoke.py --train-recurrent
+    python3 chip_smoke.py --scale-out
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
@@ -18,7 +19,8 @@ path and phase 14 (the M_L tier) alone after the build, with no contract
 line; the fourth phase 15 (the four remaining decoders) and those archs'
 phase-5 fixtures, the same way; the fifth phase 16 (the ladder) alone;
 the sixth phase 17 (recurrent training, remat, attn_chunk) alone, after
-phase 7a's loss-kernel checks at its two Stage-2 shapes.
+phase 7a's loss-kernel checks at its two Stage-2 shapes; the seventh
+phase 18 (sharding and the expert- and sequence-parallel paths) alone.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -358,6 +360,45 @@ non-zero:
          forward under autograd, every leaf within
          KERNEL_GRAD_RTOL_OF_MAX; then one full-width rwkv6-3b layer in
          its bf16 types under RWKV_LAYER_GRAD_GUARD.
+  18. Sharding, ParallelContext and the expert- and sequence-parallel
+      paths. First two processes try one NCCL all_reduce on the card and
+      the phase prints what NCCL says (it refuses two ranks on one
+      device), so 18b-18e run 8 ranks as threads of this process in
+      torch's "threaded" process group (created here, not by the port):
+      their tensors are on the card and their collectives torch ops, so
+      no byte crosses NVLink. Every line names its backend.
+     18a. A world of one over NCCL on a (1, 1) DeviceMesh: internlm2-1.8b
+         at its widths, depth cut to SCALE_LAYERS, through SCALE_STEPS
+         make_serve_step steps and one Stage-2 make_train_step with the
+         context, every output, cache leaf and updated parameter bit-equal
+         to ctx=None, the launches set to 0 just before and exact after
+         (one `deferral_entropy` a step, one loss kernel); one NCCL
+         all_to_all_single and one all_reduce.
+     18b. One DeepSeek-V2 MoE layer at published width (d 5120, 160
+         experts top-6, d_ff 1536, 2 shared of 3072, bf16) on a (2, 4)
+         mesh: the scatter path (8 x 128 tokens) and the decode path
+         (8 x 1) at capacity factor 8 against `_moe_local_math` on the
+         same card (MOE_BF16_GUARD); the dropped share at the published
+         1.25.
+     18c. One kimi-k2-1t-a32b MoE layer (384 experts top-8, d 7168, d_ff
+         2048, 31.6 GiB) through the decode path under expert_ffn ->
+         data: weight blocks as views, the peak above the weights under
+         one rank's block.
+     18d. The sequence-sharded GQA decode against the dense decode (fp32
+         activations, bf16 cache, SHARD_DECODE_ATOL), the owner ranks'
+         cache write against the dense path's, and the rest of the cache
+         against a copy taken before: kimi-k2's 64/8 x 112 at
+         `decode_32k` (B 128, S 32768, cache_seq -> (data, model)) and
+         llama3-405b's 128/8 x 128 at B 1 over 524,288 positions
+         (default rules: the KV heads shard over model).
+     18e. Kimi-k2's serve-step signal with unembed_d -> data: each rank's
+         summed partial logits through one `deferral_entropy` launch,
+         8 launches. The summed logits against the full product
+         (SHARD_LOGIT_ATOL); each rank's kernel result against
+         `deferral_entropy_plain` on its logits at these 128 rows
+         (SIGNAL_ATOL); the sharded signal against the unsharded one
+         within twice the first-order effect of the measured logit
+         error plus the two kernels' measured errors.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -5320,6 +5361,625 @@ def check_kernels(torch, np, rng, smi, phases, t_start,
     return records
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: logical-axis sharding and the expert- and sequence-parallel paths
+# ---------------------------------------------------------------------------
+
+SCALE_MESH, SCALE_AXES = (2, 4), ("data", "model")
+SCALE_WORLD = 8
+WORLD1_BACKEND = "nccl"          # 18a's world of one on the card
+SCALE_LAYERS = 4                 # 18a: internlm2-1.8b's widths, depth cut
+SCALE_STEPS, SCALE_B, SCALE_T = 4, 8, 128
+MOE_TOKENS = (8, 128)            # 18b's scatter batch; its decode 8 x 1
+KIMI_ARCH = "kimi-k2-1t-a32b"
+LLAMA_ARCH = "llama3-405b"
+LONG_POSITIONS = 524_288         # 18d: llama3-405b's batch-1 long decode
+SHARD_POSITION_FRAC = 0.61       # 18d: the decoded position, as a share of S
+MOE_BF16_GUARD = 0.05            # 18b, 18c: bf16 MoE against the local
+                                 # path on the same rows: the expert GEMMs'
+                                 # bf16 outputs round after another fp32
+                                 # accumulation order (a batched product
+                                 # over the capacity buffer against one
+                                 # per expert) and, in 18c, after summing
+                                 # two bf16 f-halves: a few bf16 roundings
+                                 # of outputs of magnitude ~1 (ulp 2^-7)
+SHARD_DECODE_ATOL = 1e-5         # 18d: fp32 activations over a bf16 cache,
+                                 # the softmax sums split over 8 or 4
+                                 # blocks: fp32 reordering through the
+                                 # output projection; readings on an H100
+                                 # 1.9e-7 and 1.58e-8, the CPU test's 1e-5
+SHARD_LOGIT_ATOL = 5e-4          # 18e: kimi-k2's logits (fp32 sums over
+                                 # d 7168, |logit| up to 22.6) summed from
+                                 # two d-halves against one product; read
+                                 # 5.72e-5 on an H100 (30 fp32 ulps at 22),
+                                 # the limit ~9x that; a missing or doubled
+                                 # half moves them by O(1)
+SCALE_TIMEOUT = 600.0            # a threaded world's join
+
+
+def _free_port() -> int:
+    import socket as socket_lib
+    with socket_lib.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+NCCL_PAIR_CHILD = r"""
+import datetime, sys, torch, torch.distributed as dist
+r, addr = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=addr, rank=r, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+t = torch.full((4,), float(r + 1), device="cuda")
+try:
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(f"rank {r}: all_reduce gave {t.tolist()}")
+except Exception as e:
+    print(f"rank {r}: {type(e).__name__}: "
+          + " | ".join(str(e).splitlines()[:4]))
+dist.destroy_process_group()
+"""
+
+
+def nccl_pair_probe() -> str:
+    """Two processes, one card, one NCCL all_reduce: what NCCL says."""
+    addr = f"tcp://localhost:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_PAIR_CHILD, str(r),
+                               addr], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    lines = []
+    for p in procs:
+        try:
+            out = p.communicate(timeout=120)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0] + "\n[killed after 120 s]"
+        lines += [l for l in out.splitlines() if l.startswith("rank ")]
+    return " / ".join(lines) or "no output"
+
+
+def threaded_world(torch, fn, n: int = SCALE_WORLD) -> list:
+    """`fn(rank)` in `n` threads of this process joined in torch's
+    in-process "threaded" process group (registered for cuda and cpu by
+    `torch.testing._internal.distributed.multi_threaded_pg`; the port
+    imports none of it): each rank's tensors are on this card and every
+    collective is a torch copy or reduction on it, so no byte crosses
+    NVLink. Returns the ranks' results; a rank's exception is raised."""
+    import threading
+    import traceback
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mtp
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    world = mtp._install_threaded_pg()
+    if not hasattr(world, "comms"):
+        # torch 2.11's destroy_process_group walks `comms`, which its
+        # thread-local world lacks; the threaded backend has none
+        world.comms = []
+    store = dist.HashStore()
+    results, errors = [None] * n, []
+
+    def run(r):
+        try:
+            dist.init_process_group("threaded", rank=r, world_size=n,
+                                    store=store)
+            try:
+                results[r] = fn(r)
+            finally:
+                dist.destroy_process_group()
+        except BaseException as e:          # reported and re-raised below
+            errors.append((r, traceback.format_exc()))
+            mtp.ProcessLocalGroup.exception_handle(e)
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True)
+               for r in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SCALE_TIMEOUT)
+    finally:
+        mtp._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        mtp.ProcessLocalGroup.reset()
+    if errors:
+        raise RuntimeError(f"rank {errors[0][0]} of the threaded world "
+                           f"failed:\n{errors[0][1]}")
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError(f"the threaded world did not finish in "
+                           f"{SCALE_TIMEOUT} s")
+    return results
+
+
+def _scale_ctx(rules=None):
+    from repro_torch.launch.mesh import make_context
+    from repro_torch.sharding import make_mesh, rules_dict
+    return make_context(make_mesh(SCALE_MESH, SCALE_AXES, DEV),
+                        rules_dict(rules))
+
+
+def _same(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def world_of_one(torch, smi) -> dict:
+    """18a: a world of one over `WORLD1_BACKEND` on a (1, 1) DeviceMesh:
+    internlm2-1.8b's widths (depth cut to SCALE_LAYERS) through
+    `make_serve_step` and one Stage-2 `make_train_step` with the context,
+    bit-equal to ctx=None, launches exact; one all_to_all_single and one
+    all_reduce on the card. Returns the main path's launch counts."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.gatekeeper import GatekeeperConfig
+    from repro_torch.kernels import gatekeeper_loss as gk
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_context, make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optim
+    dist.init_process_group(WORLD1_BACKEND, rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{_free_port()}")
+    try:
+        ctx = make_context(make_host_mesh(DEV))
+        cfg = get_config(ARCH).replace(n_layers=SCALE_LAYERS)
+        g = torch.Generator(device=DEV).manual_seed(SEED)
+        tok0 = torch.randint(0, cfg.vocab_size, (SCALE_B,), generator=g,
+                             device=DEV)
+        with torch.inference_mode():
+            params = tfm.init_params(cfg, SEED, DEV)
+
+            def serve(c):
+                step = steps.make_serve_step(cfg, tau=-1.0, ctx=c)
+                cache = tfm.init_cache(cfg, SCALE_B, 2 * SCALE_STEPS,
+                                       device=DEV)
+                tok, outs = tok0, []
+                for pos in range(SCALE_STEPS):
+                    tok, conf, defer, cache = step(params, cache, tok, pos)
+                    outs += [tok, conf, defer]
+                return outs + [cache["dense"]["k"], cache["dense"]["v"]]
+
+            ref = serve(None)
+            reset_counts()
+            got = serve(ctx)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            del params
+        want = {k: (SCALE_STEPS if k == "deferral_entropy" else 0)
+                for k in counts}
+        same = all(_same(torch, a, b) for a, b in zip(got, ref))
+        print(f"[18a] backend {dist.get_backend()}, (1, 1) DeviceMesh: "
+              f"{cfg.name} at d {cfg.d_model} x {cfg.n_layers} layers, "
+              f"{SCALE_STEPS} make_serve_step steps of {SCALE_B} rows with "
+              f"ctx bit-equal to ctx=None: {same}; launches {counts}")
+        if not same or counts != want:
+            raise AssertionError(f"18a serve: bit-equal {same}, launches "
+                                 f"{counts} (want {want})")
+        batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (SCALE_B, SCALE_T), generator=g,
+                                         device=DEV)}
+        batch["targets"] = torch.roll(batch["tokens"], -1, dims=1)
+
+        def train(c):
+            p = tfm.init_params(cfg, SEED + 3, DEV)
+            opt = optim.adamw_init(p)
+            step = steps.make_train_step(cfg, GatekeeperConfig(alpha=0.3),
+                                         optim.AdamWConfig(), ctx=c)
+            p, opt, m = step(p, opt, batch)
+            return p, m
+
+        p_ref, m_ref = train(None)
+        gk.gatekeeper_loss_tokens.launches = 0
+        p_got, m_got = train(ctx)
+        torch.cuda.synchronize()
+        n_loss = gk.gatekeeper_loss_tokens.launches
+        same = (all(_same(torch, a, b) for a, b in
+                    zip(_leaves(p_got), _leaves(p_ref)))
+                and all(_same(torch, m_got[k], m_ref[k]) for k in m_ref))
+        print(f"[18a] one Stage-2 make_train_step with ctx: loss "
+              f"{float(m_got['loss']):.6f}, every updated parameter and "
+              f"metric bit-equal to ctx=None: {same}; loss kernel launches "
+              f"{n_loss}")
+        if not same or n_loss != 1:
+            raise AssertionError(f"18a train: bit-equal {same}, "
+                                 f"{n_loss} loss kernel launches")
+        del p_ref, p_got
+        x = torch.arange(8, dtype=torch.float32, device=DEV)
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=ctx.group("model"))
+        z = x.clone()
+        dist.all_reduce(z, group=ctx.group("data"))
+        torch.cuda.synchronize()
+        ok = torch.equal(y, x) and torch.equal(z, x)
+        from repro_torch.launch import mesh
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"[18a] {dist.get_backend()} all_to_all_single over 'model' "
+              f"and all_reduce over 'data' on the card: {ok}; total_memory "
+              f"{total} (launch.mesh.HBM_BYTES {mesh.HBM_BYTES}) on {smi}")
+        if not ok:
+            raise AssertionError("18a collectives")
+        counts["gatekeeper_loss_tokens"] = n_loss
+        return counts
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def _moe_params(torch, mcfg, dtype, seed: int) -> dict:
+    """A MoE layer's seeded weights (the router in fp32) with the port's
+    initializer."""
+    from repro_torch.models.common import ParamInit
+    pi = ParamInit(seed, dtype, DEV)
+    d, f, E = mcfg.d_model, mcfg.d_ff, mcfg.n_experts
+    ex = ("experts", "expert_embed", "expert_ffn")
+    p = {"router": pi.normal((d, E), d, ("embed", "experts"),
+                             torch.float32),
+         "w_gate": pi.normal((E, d, f), d, ex),
+         "w_up": pi.normal((E, d, f), d, ex),
+         "w_down": pi.normal((E, f, d), f,
+                             ("experts", "expert_ffn", "expert_embed"))}
+    if mcfg.n_shared_experts:
+        sf = mcfg.shared_d_ff or f * mcfg.n_shared_experts
+        p["shared"] = {"w_gate": pi.normal((d, sf), d, ("embed", "ffn")),
+                       "w_up": pi.normal((d, sf), d, ("embed", "ffn")),
+                       "w_down": pi.normal((sf, d), sf, ("ffn", "embed"))}
+    return p
+
+
+def _moe_oracle(torch, params, mcfg, x, blocks):
+    """`_moe_local_math` plus the shared experts on x [B, T, d], one call
+    per token block of the ranks' (rows, tokens) split (`blocks`: B and
+    T block counts), so every router product has the shape the ranks'
+    have and the same routes."""
+    from repro_torch.models import ffn
+    B, T, d = x.shape
+    nb, nt = blocks
+    y = torch.empty_like(x)
+    for i in range(nb):
+        for j in range(nt):
+            rows = slice(i * B // nb, (i + 1) * B // nb)
+            toks = slice(j * T // nt, (j + 1) * T // nt)
+            xb = x[rows, toks]
+            yb, _ = ffn._moe_local_math(
+                xb.reshape(-1, d), params["router"], params["w_gate"],
+                params["w_up"], params["w_down"], mcfg)
+            y[rows, toks] = yb.reshape(xb.shape)
+    if mcfg.n_shared_experts:
+        y = y + ffn.mlp_forward(params["shared"], x)
+    return y
+
+
+def _err(torch, outs, ref) -> float:
+    return max(float((o.float() - ref.float()).abs().max()) for o in outs)
+
+
+def moe_deepseek(torch, smi) -> None:
+    """18b: one DeepSeek-V2 MoE layer at published width in the 8-rank
+    threaded world on a (2, 4) mesh: the scatter path (8 x 128 tokens)
+    and the decode path (8 x 1) at capacity factor 8 against the local
+    path on the same card; the scatter path's dropped share at 1.25."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(MLA_ARCH)
+    mcfg = dataclasses.replace(tfm.moe_config(cfg), capacity_factor=8.0)
+    torch.cuda.reset_peak_memory_stats()
+    params = _moe_params(torch, mcfg, cfg.pdtype(), SEED + 18)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    B, T = MOE_TOKENS
+    xs = torch.randn((B, T, mcfg.d_model), generator=g, device=DEV,
+                     dtype=torch.float32).to(cfg.cdtype())
+    xd = xs[:, :1].contiguous()
+    base = torch.cuda.memory_allocated()
+
+    def rank(r):
+        with torch.inference_mode():
+            ctx = _scale_ctx()
+            t0 = time.perf_counter()
+            ys, _ = ffn.moe_forward(params, mcfg, xs, ctx, decode=False)
+            yd, _ = ffn.moe_forward(params, mcfg, xd, ctx, decode=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _, _, drop = ffn.moe_scatter(
+                params, tfm.moe_config(cfg), xs, ctx)
+            return ys, yd, float(drop), wall, dist.get_backend()
+
+    t0 = time.perf_counter()
+    res = threaded_world(torch, rank)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with torch.inference_mode():
+        ref_s = _moe_oracle(torch, params, mcfg, xs, SCALE_MESH)
+        ref_d = _moe_oracle(torch, params, mcfg, xd, (SCALE_MESH[0], 1))
+    es = _err(torch, [r[0] for r in res], ref_s)
+    ed = _err(torch, [r[1] for r in res], ref_d)
+    print(f"[18b] backend {res[0][4]} (8 threads, one card), {cfg.name} MoE "
+          f"layer d {mcfg.d_model}, {mcfg.n_experts} experts top-"
+          f"{mcfg.top_k}, d_ff {mcfg.d_ff}, {mcfg.n_shared_experts} shared "
+          f"of {mcfg.shared_d_ff}, {cfg.pdtype()}: scatter {B} x {T} max "
+          f"|err| {es:.4g}, decode {B} x 1 {ed:.4g} against the local path "
+          f"(guard {MOE_BF16_GUARD}); a rank's scatter + decode "
+          f"{max(r[3] for r in res):.3f} s host wall, the world "
+          f"{wall:.1f} s, peak {peak:.2f} GiB above the weights; dropped "
+          f"share at capacity factor {cfg.moe.capacity_factor}: "
+          f"{res[0][2]:.5f} on {smi}")
+    if es > MOE_BF16_GUARD or ed > MOE_BF16_GUARD or len(
+            {r[2] for r in res}) != 1:
+        raise AssertionError(f"18b: scatter {es}, decode {ed}, dropped "
+                             f"{[r[2] for r in res]}")
+    del params, res
+    torch.cuda.empty_cache()
+
+
+def moe_kimi(torch, smi) -> None:
+    """18c: one kimi-k2-1t-a32b MoE layer (384 experts top-8, d 7168,
+    d_ff 2048, bf16, ~31.5 GiB) through the decode path under
+    expert_embed -> (), expert_ffn -> data ("gather tokens, not
+    weights"): each rank computes against views of its (experts,
+    f-slice) blocks, and no rank allocates a gathered weight."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(KIMI_ARCH)
+    mcfg = tfm.moe_config(cfg)
+    params = _moe_params(torch, mcfg, cfg.pdtype(), SEED + 20)
+    w_gib = sum(t.numel() * t.element_size()
+                for t in _leaves(params)) / 2**30
+    g = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    x = torch.randn((MOE_TOKENS[0], 1, mcfg.d_model), generator=g,
+                    device=DEV, dtype=torch.float32).to(cfg.cdtype())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rules = {"expert_embed": (), "expert_ffn": ("data",)}
+
+    def rank(r):
+        with torch.inference_mode():
+            ctx = _scale_ctx(rules)
+            t0 = time.perf_counter()
+            y, _ = ffn.moe_forward(params, mcfg, x, ctx, decode=True)
+            torch.cuda.synchronize()
+            return y, time.perf_counter() - t0, dist.get_backend()
+
+    res = threaded_world(torch, rank)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with torch.inference_mode():
+        # the ranks route the 8 gathered tokens together: one block
+        ref = _moe_oracle(torch, params, mcfg, x, (1, 1))
+    e = _err(torch, [r[0] for r in res], ref)
+    per_rank = w_gib / SCALE_WORLD
+    print(f"[18c] backend {res[0][2]}, {cfg.name} MoE layer ({mcfg.n_experts}"
+          f" experts top-{mcfg.top_k}, d {mcfg.d_model}, d_ff {mcfg.d_ff}, "
+          f"{w_gib:.2f} GiB of weights), decode {x.shape[0]} x 1 under "
+          f"expert_ffn -> data: max |err| {e:.4g} against the local path "
+          f"(guard {MOE_BF16_GUARD}); a rank's step {max(r[1] for r in res):.3f}"
+          f" s host wall; peak {peak:.3f} GiB above the weights for 8 ranks "
+          f"(a gathered copy of a rank's {per_rank:.2f} GiB block would add "
+          f"it per rank) on {smi}")
+    if e > MOE_BF16_GUARD or peak > per_rank:
+        raise AssertionError(f"18c: err {e}, peak {peak} GiB")
+    del params, res
+    torch.cuda.empty_cache()
+
+
+def _equal_outside(torch, a, b, pos: int, rows: int = 16) -> bool:
+    """a and b [B, S, ...] equal at every position but `pos`, compared
+    `rows` batch rows at a time."""
+    return all(torch.equal(a[i:i + rows, :pos], b[i:i + rows, :pos])
+               and torch.equal(a[i:i + rows, pos + 1:],
+                               b[i:i + rows, pos + 1:])
+               for i in range(0, a.shape[0], rows))
+
+
+def seq_sharded_decode(torch, smi) -> None:
+    """18d: the sequence-sharded GQA decode against the dense decode on
+    the card, fp32 activations over a bf16 cache: kimi-k2's heads at
+    `decode_32k` (B 128, S 32768, cache_seq -> (data, model): rows over
+    data, sequence over model) and llama3-405b's at batch 1 over 524,288
+    positions under the default rules (sequence over data, KV heads over
+    model). The written cache is checked against the dense path's write."""
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import Spec
+    shape = SHAPES["decode_32k"]
+    cases = ((KIMI_ARCH, shape.global_batch, shape.seq_len,
+              {"cache_seq": ("data", "model")}, Spec("data", "model", None,
+                                                      None)),
+             (LLAMA_ARCH, 1, LONG_POSITIONS, None,
+              Spec(None, "data", "model", None)))
+    for arch, B, S, rules, want in cases:
+        cfg = get_config(arch).replace(param_dtype="float32")
+        ac = tfm.attn_config(cfg)
+        pi_params = tfm.ParamInit(SEED + 22, torch.float32, DEV)
+        p = tfm._init_attn(pi_params, cfg.replace(n_layers=1), 0)
+        g = torch.Generator(device=DEV).manual_seed(SEED + 23)
+        kv = (B, S, cfg.n_kv_heads, cfg.head_dim)
+        cache = {n: torch.randn(kv, generator=g, device=DEV,
+                                dtype=torch.bfloat16) for n in ("k", "v")}
+        x = torch.randn((B, 1, cfg.d_model), generator=g, device=DEV,
+                        dtype=torch.float32)
+        pos = int(S * SHARD_POSITION_FRAC)
+        before = {n: c.clone() for n, c in cache.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def rank(r):
+            with torch.inference_mode():
+                ctx = _scale_ctx(rules)
+                spec = attn._seq_sharded_spec(cache["k"].shape,
+                                              torch.ones(1, S, dtype=torch.bool,
+                                                         device=DEV), ctx)
+                t0 = time.perf_counter()
+                y, _ = attn.gqa_decode(p, ac, x, pos, cache, ctx=ctx)
+                torch.cuda.synchronize()
+                return y, spec, time.perf_counter() - t0, dist.get_backend()
+
+        res = threaded_world(torch, rank)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        # the sharded decode wrote nothing outside slot `pos`
+        kept = all(_equal_outside(torch, cache[n], before[n], pos)
+                   for n in ("k", "v"))
+        del before
+        written = {n: cache[n][:, pos].clone() for n in ("k", "v")}
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref, _ = attn.gqa_decode(p, ac, x, pos, cache)
+            torch.cuda.synchronize()
+            t_dense = time.perf_counter() - t0
+        e = _err(torch, [r[0] for r in res], ref)
+        wrote = all(torch.equal(written[n], cache[n][:, pos])
+                    for n in ("k", "v"))
+        gb = 2 * math.prod(kv) * 2 / 1e9
+        print(f"[18d] backend {res[0][3]}, {arch} {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} x {cfg.head_dim}, B {B}, S {S} ({gb:.2f} GB"
+              f" of bf16 cache), position {pos}, spec {res[0][1]}: max |err|"
+              f" {e:.4g} against the dense decode (atol {SHARD_DECODE_ATOL};"
+              f" |output| up to {float(ref.abs().max()):.4g}), the owner "
+              f"ranks' cache write equal to the dense path's: {wrote}, the "
+              f"cache outside slot {pos} unchanged: {kept}; a rank {max(r[2] for r in res):.3f} s, the dense "
+              f"decode {t_dense:.3f} s host wall; peak {peak:.2f} GiB above "
+              f"the cache on {smi}")
+        if (e > SHARD_DECODE_ATOL or not wrote or not kept
+                or any(r[1] != want for r in res)):
+            raise AssertionError(f"18d {arch}: err {e}, write {wrote}, "
+                                 f"rest of the cache kept {kept}, spec "
+                                 f"{res[0][1]}")
+        del cache, res, p
+        torch.cuda.empty_cache()
+
+
+def _signal_sensitivity(torch, logits):
+    """Per row, what a logit error of 1 can move (neg_entropy, max_prob)
+    by, to first order: d(-H)/dl_j = p_j (log p_j + H) and dp_max/dl_j =
+    p_max (delta_jmax - p_j), so |d(-H)| <= sum_j p_j |log p_j + H| and
+    |dp_max| <= 2 p_max (1 - p_max), times max_j |dl_j|."""
+    logp = torch.log_softmax(logits, dim=-1)
+    p = logp.exp()
+    h = -(p * logp).sum(-1, keepdim=True)
+    pmax = p.amax(-1)
+    return (p * (logp + h).abs()).sum(-1), 2 * pmax * (1 - pmax)
+
+
+def d_sharded_signal(torch, smi) -> dict:
+    """18e: kimi-k2's serve-step signal (`steps.decode_signal` on the
+    kernel path) at decode_32k's 128 rows with unembed_d -> data: each
+    rank's partial logits of its d-slices, summed, through one
+    `deferral_entropy` launch a rank, against the unsharded signal. The
+    error is split into its parts: the summed logits against the full
+    product (SHARD_LOGIT_ATOL); each rank's kernel result against
+    `deferral_entropy_plain` on its own summed logits, at this launch's
+    128 rows (SIGNAL_ATOL; the unsharded kernel likewise); and the
+    sharded signal against the unsharded one, held to what the measured
+    logit error can move the signal by to first order, twice over, plus
+    the two kernels' measured errors. Returns the launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
+    from repro_torch.launch import steps
+    cfg = get_config(KIMI_ARCH)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 24)
+    B = SHAPES["decode_32k"].global_batch
+    table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=g,
+                         device=DEV) / math.sqrt(cfg.d_model)
+             ).to(cfg.pdtype())
+    x = torch.randn((B, cfg.d_model), generator=g, device=DEV
+                    ).to(cfg.cdtype()) * 4
+    with torch.inference_mode():
+        full = steps.unembed_logits(x, table)
+        ref = steps.decode_signal(x, table, True)
+
+    def rank(r):
+        with torch.inference_mode():
+            ctx = _scale_ctx({"unembed_d": ("data",)})
+            return (steps.decode_signal(x, table, True, ctx),
+                    steps.unembed_logits(x, table, ctx), dist.get_backend())
+
+    reset_counts()
+    res = threaded_world(torch, rank)
+    torch.cuda.synchronize()
+    counts = read_counts()
+
+    def gap(a, b):
+        return max(float((u - v).abs().max()) for u, v in zip(a[:2], b[:2]))
+
+    with torch.inference_mode():
+        # the logits a rank returned are the ones its kernel saw
+        again = all(all(torch.equal(u, v) for u, v in
+                        zip(kernel_ops.deferral_signal(r[1]), r[0]))
+                    for r in res)
+        plain = [deferral_entropy_plain(r[1]) for r in res]
+        plain_full = deferral_entropy_plain(full)
+        d_row = torch.stack([(r[1] - full).abs().amax(-1) for r in res]
+                            ).amax(0)
+        s_ent, s_p = _signal_sensitivity(torch, full)
+        est_ent = float((s_ent * d_row).max())
+        est_p = float((s_p * d_row).max())
+    e_logit = float(d_row.max())
+    e_kern = max(gap(r[0], q) for r, q in zip(res, plain))
+    e_kern_ref = gap(ref, plain_full)
+    e_sum = max(gap(q, plain_full) for q in plain)
+    e_ent = max(float((r[0][0] - ref[0]).abs().max()) for r in res)
+    e_p = max(float((r[0][1] - ref[1]).abs().max()) for r in res)
+    lim_ent = 2 * est_ent + e_kern + e_kern_ref
+    lim_p = 2 * est_p + e_kern + e_kern_ref
+    top2 = torch.topk(full, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > TIE_GAP
+    same = all(torch.equal(r[0][2], ref[2]) for r in res)
+    same_plain = all(torch.equal(r[0][2][clear], q[2][clear])
+                     for r, q in zip(res, plain))
+    print(f"[18e] backend {res[0][2]}, {cfg.name} signal, {B} rows x V "
+          f"{cfg.vocab_size}, d {cfg.d_model} split over 'data': summed "
+          f"logits against the full product max |err| {e_logit:.4g} "
+          f"(atol {SHARD_LOGIT_ATOL}; |logit| up to "
+          f"{float(full.abs().max()):.4g}); kernel against "
+          f"deferral_entropy_plain on the same logits at {B} rows: sharded "
+          f"{e_kern:.4g}, unsharded {e_kern_ref:.4g} (atol {SIGNAL_ATOL}), "
+          f"argmax equal on clear rows {same_plain}, the kernel's input "
+          f"re-run bit-equal {again}; plain on the summed against plain on "
+          f"the full logits {e_sum:.4g}; first-order bound of the logit "
+          f"error: neg_entropy {est_ent:.4g} (max sum p|log p + H| "
+          f"{float(s_ent.max()):.4g}), max_prob {est_p:.4g}; sharded "
+          f"against unsharded kernel: neg_entropy {e_ent:.4g} (limit "
+          f"{lim_ent:.4g}), max_prob {e_p:.4g} (limit {lim_p:.4g}), argmax "
+          f"equal {same}; launches {counts} on {smi}")
+    want = {k: (SCALE_WORLD if k == "deferral_entropy" else 0)
+            for k in counts}
+    if (e_logit > SHARD_LOGIT_ATOL or e_kern > SIGNAL_ATOL
+            or e_kern_ref > SIGNAL_ATOL or not same_plain or not again
+            or e_ent > lim_ent or e_p > lim_p or not same
+            or counts != want):
+        raise AssertionError(f"18e: logits {e_logit}, kernel {e_kern} / "
+                             f"{e_kern_ref}, signal {e_ent} ({lim_ent}), "
+                             f"{e_p} ({lim_p}), argmax {same} / "
+                             f"{same_plain}, re-run {again}, launches "
+                             f"{counts}")
+    del table, full, res, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def scale_out_phase(torch, smi, t_start: float) -> dict:
+    """Phase 18 (18a-18e). Returns {path: launch counts}."""
+    phase("18a", t_start)
+    print(f"[18] NCCL, two processes on the one card: {nccl_pair_probe()}")
+    by_path = {"scale_out_world1": world_of_one(torch, smi)}
+    phase("18b", t_start)
+    moe_deepseek(torch, smi)
+    phase("18c", t_start)
+    moe_kimi(torch, smi)
+    phase("18d", t_start)
+    seq_sharded_decode(torch, smi)
+    phase("18e", t_start)
+    by_path["scale_out_signal"] = d_sharded_signal(torch, smi)
+    return by_path
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description="Chip smoke test of the PyTorch/CUDA port on one GPU.")
@@ -5353,6 +6013,10 @@ def parse_args(argv=None):
                          "attn_chunk) and phase 7a's loss kernel at their "
                          "two Stage-2 shapes after the build: prints their "
                          "lines, no contract line")
+    ap.add_argument("--scale-out", action="store_true",
+                    help="run only phase 18 (sharding, ParallelContext and "
+                         "the expert- and sequence-parallel paths) after "
+                         "the build: prints its lines, no contract line")
     ap.add_argument("--ml-server", action="store_true",
                     help="run as phase 14c's M_L server process (this "
                          "script starts it): the full-width large tier "
@@ -5409,6 +6073,10 @@ def main(argv=None) -> int:
 
     if args.ml_tier:
         return ml_tier_only(torch, smi, src, t_start)
+    if args.scale_out:
+        scale_out_phase(torch, smi, t_start)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.ladder:
         from repro_torch.launch import serve
         from repro_torch.models import transformer as tfm
@@ -5602,6 +6270,14 @@ def main(argv=None) -> int:
     for path, counts in by_train.items():
         rec["launches_by_path"][path] = counts["gatekeeper_loss_tokens"]
         chunked["launches_by_path"][path] = counts["wkv_scan_chunked"]
+
+    # -- 18. sharding and the expert- and sequence-parallel paths -----------
+    for path, counts in scale_out_phase(torch, smi, t_start).items():
+        for name, n in counts.items():
+            r = rec if name == "gatekeeper_loss_tokens" else records[name]
+            if n:
+                r["launches"] += n
+                r["launches_by_path"][path] = n
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[k] for k in KERNELS] + [rec]}))

@@ -7,7 +7,10 @@ the Mamba2 hybrid with its shared attention block, the encoder-decoder
 whisper and the vision-language decoder with its stub frontend);
 `pdtype()` and `cdtype()` return torch dtypes. Each architecture lives in
 its own module (src/repro_torch/configs/<id>.py) exporting `CONFIG`.
-`InputShape` and `SHAPES` stay with their readers (see ROADMAP.md).
+`InputShape` and `SHAPES` are the assigned input shapes, JAX's field for
+field (`decode_32k` sizes the sequence-sharded decode's check on the
+card). `MoESpec` carries the GShard capacity factor and the router's
+aux-loss weight, which `models.transformer.moe_config` passes on.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ class MoESpec:
     n_shared_experts: int = 0
     shared_d_ff: Optional[int] = None
     n_dense_layers: int = 1          # leading layers with dense FFN
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +112,25 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 ARCH_IDS = (
     "kimi_k2_1t_a32b",

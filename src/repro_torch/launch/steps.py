@@ -37,6 +37,12 @@ REPRO_PAGED_KERNEL, then on for CUDA) `make_serve_step` unembeds the
 [B, d] decode states and takes the triple from one `deferral_signal`
 launch, and `make_prefill` does the same for the prompts' last tokens
 (their prefill attention through the flash kernel).
+
+Every builder takes `ctx` (a `sharding.ParallelContext`, None for one
+device), as JAX's do: it reaches the MoE's expert-parallel paths, the
+sequence-sharded decode and, under the `unembed_d` rule, the d-sharded
+signal (`unembed_logits`: partial logits summed over the d axes, then
+the one `deferral_signal` launch or `fused_confidence`'s chunks).
 """
 from __future__ import annotations
 
@@ -52,6 +58,8 @@ from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import rms_norm, unembed
+from repro_torch.sharding import (ParallelContext, Spec, all_reduce, axes_of,
+                                  take_block)
 from repro_torch.training import optim
 
 
@@ -154,22 +162,65 @@ def fused_gatekeeper_loss(x_final: torch.Tensor, table: torch.Tensor,
                   "mean_entropy": (a["entropy"] * v).sum() / denom}
 
 
+def _unembed_d_spec(x_final: torch.Tensor,
+                    ctx: Optional[ParallelContext]) -> Optional[Spec]:
+    """x_final's spec when the `unembed_d` rule splits its d dim into more
+    than one block, else None."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    spec = ctx.spec((None, "unembed_d"), x_final.shape)
+    return spec if ctx.n_blocks(axes_of(spec[1])) > 1 else None
+
+
+def unembed_logits(x_final: torch.Tensor, table: torch.Tensor,
+                   ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    """fp32 logits [T, V] of x_final [T, d]. Where the `unembed_d` rule
+    shards d, each rank contracts its d-slice of x_final with its d-slice
+    of the table and the partial logits are summed over those axes."""
+    spec = _unembed_d_spec(x_final, ctx)
+    if spec is None:
+        return unembed(x_final, table)
+    part = unembed(take_block(x_final, spec, ctx), take_block(table, spec,
+                                                                 ctx))
+    return all_reduce(part, axes_of(spec[1]), ctx, "sum")
+
+
+def decode_signal(x_final: torch.Tensor, table: torch.Tensor,
+                  use_kernel: bool, ctx: Optional[ParallelContext] = None):
+    """The serve step's (neg_entropy, max_prob, argmax) of x_final [B, d]:
+    one `deferral_signal` launch on the (summed, under `unembed_d`)
+    logits on the kernel path, `fused_confidence` on the plain one."""
+    if use_kernel:
+        return kernel_ops.deferral_signal(unembed_logits(x_final, table, ctx))
+    return fused_confidence(x_final, table, ctx=ctx)
+
+
 def fused_confidence(x_final: torch.Tensor, table: torch.Tensor,
-                     n_chunks: int = 8):
+                     n_chunks: int = 8,
+                     ctx: Optional[ParallelContext] = None):
     """Deferral signal at decode from final hidden states, vocabulary-
     chunked (eqs. 7-8 fused with the unembedding; plain PyTorch): x_final
     [T, d], table [V, d] -> (neg_entropy fp32 [T], max_prob fp32 [T],
     argmax int32 [T]). `n_chunks` halves until it divides V. Two passes:
-    max, log-sum-exp and first-index argmax, then the entropy."""
+    max, log-sum-exp and first-index argmax, then the entropy. Where
+    `ctx`'s `unembed_d` rule shards d, each chunk's logits are the sum
+    over those axes of the ranks' d-slice products (JAX's partial-logit
+    psums)."""
     T, d = x_final.shape
     V = table.shape[0]
     while V % n_chunks != 0:
         n_chunks //= 2
     Vc = V // n_chunks
     x2 = x_final.float()
+    spec = _unembed_d_spec(x_final, ctx)
+    if spec is not None:
+        x2, table = take_block(x2, spec, ctx), take_block(table, spec, ctx)
 
     def chunk_logits(i):
-        return x2 @ table[i * Vc:(i + 1) * Vc].float().t()
+        logits = x2 @ table[i * Vc:(i + 1) * Vc].float().t()
+        if spec is None:
+            return logits
+        return all_reduce(logits, axes_of(spec[1]), ctx, "sum")
 
     m = torch.full((T,), -math.inf, device=x2.device)
     lse_acc = torch.zeros(T, device=x2.device)
@@ -194,7 +245,7 @@ def fused_confidence(x_final: torch.Tensor, table: torch.Tensor,
     return -entropy, torch.exp(amax_val - lse), amax_idx
 
 
-def _final_hidden(params, cfg: ModelConfig, batch):
+def _final_hidden(params, cfg: ModelConfig, batch, ctx=None):
     """(x_final [B, T, d], MoE aux-loss sum, loss mask or None). With
     patches [B, P, d] the sequence is P + T long and the mask is 0 on the
     P patch positions (times any ``batch["loss_mask"]``)."""
@@ -205,7 +256,7 @@ def _final_hidden(params, cfg: ModelConfig, batch):
                                     batch["tokens"])
         return x, torch.zeros((), dtype=torch.float32, device=x.device), mask
     extra = batch.get("patches")
-    x, aux = tfm.final_hidden(params, cfg, batch["tokens"], extra)
+    x, aux = tfm.final_hidden(params, cfg, batch["tokens"], extra, ctx)
     if extra is not None:
         P = extra.shape[1]
         m = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
@@ -227,11 +278,11 @@ def _pad_targets(cfg: ModelConfig, batch, T: int):
 
 def make_loss_fn(cfg: ModelConfig, gk: GatekeeperConfig,
                  aux_weight: float = 0.01,
-                 loss_kernel: Optional[bool] = None):
+                 loss_kernel: Optional[bool] = None, ctx=None):
     """loss_fn(params, batch) -> (loss + aux_weight * MoE aux, aux)."""
 
     def loss_fn(params, batch):
-        x, model_aux, mask = _final_hidden(params, cfg, batch)
+        x, model_aux, mask = _final_hidden(params, cfg, batch, ctx)
         table = params.get("unembed", params["embedding"])
         tgt = _pad_targets(cfg, batch, x.shape[1])
         use_kernel = (x.is_cuda if loss_kernel is None else loss_kernel)
@@ -246,12 +297,14 @@ def make_train_step(cfg: ModelConfig,
                     gk: GatekeeperConfig = GatekeeperConfig(alpha=0.5),
                     opt_cfg: optim.AdamWConfig = optim.AdamWConfig(),
                     aux_weight: float = 0.01, microbatches: int = 1,
-                    loss_kernel: Optional[bool] = None):
+                    loss_kernel: Optional[bool] = None, ctx=None):
     """Gatekeeper fine-tune step (paper Stage 2):
     (params, opt_state, batch) -> (params, opt_state, metrics), with the
     parameters and moments updated in place. `microbatches` > 1
-    accumulates gradients over equal splits of the batch's first axis."""
-    loss_fn = make_loss_fn(cfg, gk, aux_weight, loss_kernel)
+    accumulates gradients over equal splits of the batch's first axis.
+    `ctx` (a `sharding.ParallelContext`) runs the MoE layers through the
+    expert-parallel scatter path; every rank takes the same step."""
+    loss_fn = make_loss_fn(cfg, gk, aux_weight, loss_kernel, ctx)
 
     def train_step(params, opt_state, batch):
         if microbatches > 1:
@@ -281,13 +334,15 @@ def make_train_step(cfg: ModelConfig,
     return train_step
 
 
-def make_prefill(cfg: ModelConfig, paged_kernel: Optional[bool] = None):
+def make_prefill(cfg: ModelConfig, paged_kernel: Optional[bool] = None,
+                 ctx=None):
     """prefill_fn(params, cache, batch) -> (greedy token int32 [B], eq.-8
     negative entropy fp32 [B] of the last prompt position, cache).
     `batch["tokens"]` [B, T] (after `batch["patches"]` for a VLM, or
     with `batch["frames"]` for an encoder-decoder) fills `cache` (from
     `tfm.init_cache`, or `encdec.init_cache`) in place; `paged_kernel`
-    picks the kernel path (None: on for CUDA)."""
+    picks the kernel path (None: on for CUDA); `ctx` runs the MoE layers
+    expert-parallel."""
     tfm.check_ported(cfg)
 
     def prefill_fn(params, cache, batch):
@@ -300,7 +355,8 @@ def make_prefill(cfg: ModelConfig, paged_kernel: Optional[bool] = None):
         else:
             logits, cache = tfm.prefill(
                 params, cfg, batch["tokens"], cache, last_only=True,
-                paged_kernel=use_kernel, extra_embeds=batch.get("patches"))
+                paged_kernel=use_kernel, extra_embeds=batch.get("patches"),
+                ctx=ctx)
         signal = (kernel_ops.deferral_signal if use_kernel
                   else deferral_entropy_plain)
         neg_ent, _, tok = signal(logits[:, -1, :])
@@ -310,13 +366,15 @@ def make_prefill(cfg: ModelConfig, paged_kernel: Optional[bool] = None):
 
 
 def make_serve_step(cfg: ModelConfig, tau: float = -1.0,
-                    paged_kernel: Optional[bool] = None):
+                    paged_kernel: Optional[bool] = None, ctx=None):
     """One-token decode with the deferral signal:
     serve_step(params, cache, token, position) -> (next token int32 [B],
     confidence fp32 [B], defer [B] bool, cache). The plain path is
     `fused_confidence`; the kernel path unembeds and takes one
-    `deferral_signal` launch (None: on for CUDA). An encoder-decoder's
-    cache holds the cross K/V its prefill wrote."""
+    `deferral_signal` launch (None: on for CUDA) (`decode_signal`). An
+    encoder-decoder's cache holds the cross K/V its prefill wrote. `ctx`
+    runs the sequence-sharded decode, the MoE decode path and the
+    `unembed_d`-sharded signal."""
     tfm.check_ported(cfg)
 
     @torch.inference_mode()
@@ -324,12 +382,9 @@ def make_serve_step(cfg: ModelConfig, tau: float = -1.0,
         use_kernel = kernel_ops.paged_kernel_enabled(
             paged_kernel, tfm.param_device(params))
         x, cache = _decode_hidden(params, cfg, token, position, cache,
-                                  paged_kernel=use_kernel)
+                                  paged_kernel=use_kernel, ctx=ctx)
         table = params.get("unembed", params["embedding"])
-        if use_kernel:
-            neg_ent, _, nxt = kernel_ops.deferral_signal(unembed(x, table))
-        else:
-            neg_ent, _, nxt = fused_confidence(x, table)
+        neg_ent, _, nxt = decode_signal(x, table, use_kernel, ctx)
         defer = neg_ent < tau          # eq. (6): route to M_L
         return nxt, neg_ent, defer, cache
 
@@ -337,18 +392,18 @@ def make_serve_step(cfg: ModelConfig, tau: float = -1.0,
 
 
 def _decode_hidden(params, cfg: ModelConfig, token, position, cache,
-                   paged_kernel: Optional[bool] = None):
+                   paged_kernel: Optional[bool] = None, ctx=None):
     """One decode step's final hidden states [B, d] (after the final norm,
     before the unembedding), the cache written in place."""
     if cfg.family == "encdec":
         x = encdec_lib.decode_hidden(params, cfg, token, position, cache,
-                                     paged_kernel=paged_kernel)
+                                     paged_kernel=paged_kernel, ctx=ctx)
     else:
         if token.dim() == 1:
             token = token[:, None]
         x = tfm._embed(params, cfg, token)
         x, cache, _ = tfm._trunk(params, cfg, x, None, cache=cache,
                                  decode=True, position=position,
-                                 paged_kernel=paged_kernel)
+                                 paged_kernel=paged_kernel, ctx=ctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, 0, :], cache

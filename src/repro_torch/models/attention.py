@@ -61,6 +61,15 @@ nope and rope halves as one concatenated head (JAX's branch, which
 rounds differently from the two-term score even when no chunking
 happens). The flash kernel is online-softmax already and takes none;
 decode and cross-attention take none, as in JAX.
+
+Under a `sharding.ParallelContext` whose rules shard the slot cache's
+sequence (``cache_seq``), a decode at one position for the whole batch
+runs `_flash_decode_sharded` (JAX's sequence-sharded flash decode): each
+rank scores its block of the cache, and the row max and the softmax sums
+combine over the sequence axes; where the KV heads are sharded too, each
+rank takes its KV heads' query groups (JAX's body does not, and is wrong
+there: ROADMAP.md §3). Per-row positions and the paged cache keep the
+dense path, as in JAX.
 """
 from __future__ import annotations
 
@@ -74,6 +83,8 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import (ParamInit, apply_rope, einsum,
                                        make_causal_mask, make_sliding_mask,
                                        rms_norm)
+from repro_torch.sharding import (ParallelContext, Spec, all_reduce, assemble,
+                                  axes_of, take_block)
 
 NEG_INF = -1e30
 
@@ -289,10 +300,70 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
     return _out_proj(params, out, x), new_cache
 
 
+def _seq_sharded_spec(cache_shape, mask: torch.Tensor,
+                      ctx: Optional[ParallelContext]) -> Optional[Spec]:
+    """The cache's spec when the sequence-sharded decode runs (JAX's
+    rule: the spec shards ``cache_seq`` and the mask is 2-D, i.e. one
+    position for the whole batch), else None. A sequence split into one
+    block is the whole cache: the dense path computes it."""
+    if ctx is None or ctx.mesh is None or mask.dim() != 2:
+        return None
+    spec = ctx.spec(("batch", "cache_seq", "kv_heads", None), cache_shape)
+    if ctx.n_blocks(axes_of(spec[1])) == 1:
+        return None
+    return spec
+
+
+def _flash_decode_sharded(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, ck: torch.Tensor,
+                          cv: torch.Tensor, slot: int, mask: torch.Tensor,
+                          scale: float, spec: Spec,
+                          ctx: ParallelContext) -> torch.Tensor:
+    """Decode attention over a sequence-sharded KV cache without gathering
+    it (flash decode): each rank writes the new token's K/V if it owns
+    cache slot `slot` (at slot minus its block's offset), scores q against
+    its block, and the row max (all-reduce max), the softmax sums and P @
+    V (all-reduce sums) combine over the sequence axes. Where the spec
+    also shards the KV heads, the rank takes the query heads of its KV
+    heads' groups and the output's head groups are gathered (JAX's body
+    pairs every query head with the rank's KV heads there). A row that
+    sees no key gives 0 (JAX's `safe` guard). q, k, v [B, 1, H | KV, hd];
+    ck, cv the global [B, S, KV, hd] cache, of which the rank reads and
+    writes only its block; mask [1, S]. Returns [B, 1, H, hd] in q's
+    type on every rank."""
+    seq_axes = axes_of(spec[1])
+    head_spec = Spec(spec[0], None, spec[2], None)
+    kb, vb = take_block(ck, spec, ctx), take_block(cv, spec, ctx)
+    S_loc = kb.shape[1]
+    off = ctx.coord(seq_axes) * S_loc
+    if off <= slot < off + S_loc:
+        kb[:, slot - off] = take_block(k, head_spec, ctx)[:, 0].to(kb.dtype)
+        vb[:, slot - off] = take_block(v, head_spec, ctx)[:, 0].to(vb.dtype)
+    qb = take_block(q, head_spec, ctx)
+    mb = take_block(mask, Spec(None, spec[1]), ctx)
+    B, Tq, H, hd = qb.shape
+    KV = kb.shape[2]
+    qg = qb.reshape(B, Tq, KV, H // KV, hd).float()
+    s = torch.einsum("btkgh,bskh->bkgts", qg,
+                     kb.to(q.dtype).float()) * scale
+    s = torch.where(mb[None, None, None], s, float("-inf"))
+    M = all_reduce(s.amax(-1), seq_axes, ctx, "max")        # global row max
+    safe = torch.isfinite(M)
+    p = torch.where(safe[..., None], torch.exp(s - M[..., None]), 0.0)
+    l = all_reduce(p.sum(-1), seq_axes, ctx, "sum")
+    pv = torch.einsum("bkgts,bskh->bkgth", p.to(q.dtype).float(),
+                      vb.to(q.dtype).float())
+    pv = all_reduce(pv, seq_axes, ctx, "sum")
+    out = pv / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, hd).to(q.dtype)
+    return assemble(out, head_spec, ctx)
+
+
 def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
                position: Union[int, torch.Tensor], cache: dict,
                pages: Optional[torch.Tensor] = None,
-               paged_kernel: Optional[bool] = None
+               paged_kernel: Optional[bool] = None,
+               ctx: Optional[ParallelContext] = None
                ) -> Tuple[torch.Tensor, dict]:
     """One-token decode. x [B,1,d]; `position` is a scalar (the whole batch
     at one depth) or an int vector [B] of per-row depths. With `pages`
@@ -300,7 +371,10 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
     `paged_kernel` picks the kernel path over the plain gather path. With
     a sliding window w, a cache of S <= w positions is a ring (the token
     goes to slot position % S; a slot is valid when its absolute position
-    is >= 0) and a longer one masks keys w or more positions back."""
+    is >= 0) and a longer one masks keys w or more positions back. With a
+    `ctx` whose rules shard the cache's sequence (scalar positions), the
+    slot cache decodes through `_flash_decode_sharded`; the paged path
+    has no mesh path, as in JAX."""
     B, T, _ = x.shape
     assert T == 1
     q, k, v = _qkv(params, cfg, x)
@@ -336,15 +410,11 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
     ring = window is not None and S <= window
     idx = torch.arange(S, device=x.device)
     if per_row:
-        rows = torch.arange(B, device=x.device)
-        slot = torch.remainder(pos, S) if ring else pos
-        ck[rows, slot.long()] = k[:, 0].to(ck.dtype)
-        cv[rows, slot.long()] = v[:, 0].to(cv.dtype)
+        slot = torch.remainder(pos, S).long() if ring else pos.long()
         p = pos[:, None]                                       # [B, 1]
     else:
         p = int(position)
-        ck[:, p % S if ring else p] = k[:, 0].to(ck.dtype)
-        cv[:, p % S if ring else p] = v[:, 0].to(cv.dtype)
+        slot = p % S if ring else p
     if ring:
         # slot s holds absolute position p - ((p - s) mod S), valid when
         # it is >= 0
@@ -354,6 +424,18 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
         if window:
             mask = mask & (idx > p - window)
     mask = mask[:, None, :] if per_row else mask[None, :]   # [B,1,S] / [1,S]
+    spec = _seq_sharded_spec(ck.shape, mask, ctx)
+    if spec is not None:
+        out = _flash_decode_sharded(q, k, v, ck, cv, slot, mask, scale, spec,
+                                    ctx)
+        return _out_proj(params, out, x), {"k": ck, "v": cv}
+    if per_row:
+        rows = torch.arange(B, device=x.device)
+        ck[rows, slot] = k[:, 0].to(ck.dtype)
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+    else:
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
     out = _attend(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale)
     return _out_proj(params, out, x), {"k": ck, "v": cv}
 
@@ -367,10 +449,12 @@ def init_cross_attn(pi: ParamInit, cfg: AttnConfig, L: int) -> dict:
     layout: wq/wk/wv [L, d, H, hd], wo [L, H, hd, d] (H heads, no
     grouping)."""
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
-    return {"wq": pi.normal((L, d, H, hd), fan_in=d),
-            "wk": pi.normal((L, d, H, hd), fan_in=d),
-            "wv": pi.normal((L, d, H, hd), fan_in=d),
-            "wo": pi.normal((L, H, hd, d), fan_in=H * hd)}
+    proj = ("layers", "embed", "heads", "head_dim")
+    return {"wq": pi.normal((L, d, H, hd), fan_in=d, axes=proj),
+            "wk": pi.normal((L, d, H, hd), fan_in=d, axes=proj),
+            "wv": pi.normal((L, d, H, hd), fan_in=d, axes=proj),
+            "wo": pi.normal((L, H, hd, d), fan_in=H * hd,
+                            axes=("layers", "heads", "head_dim", "embed"))}
 
 
 def cross_attn_kv(params: dict, enc_out: torch.Tensor) -> dict:

@@ -34,8 +34,8 @@ def init_classifier(cfg: MLPClassifierConfig, seed: int = 0,
     dims = (cfg.d_in,) + cfg.hidden + (cfg.n_classes,)
     params = {}
     for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        params[f"w{i}"] = init.normal((a, b), fan_in=a)
-        params[f"b{i}"] = init.zeros((b,))
+        params[f"w{i}"] = init.normal((a, b), fan_in=a, axes=("embed", "ffn"))
+        params[f"b{i}"] = init.zeros((b,), ("ffn",))
     return params
 
 

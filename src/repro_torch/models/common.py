@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import AbstractParam
+
 
 class ParamInit:
     """Seeded parameter initializer on one device.
@@ -24,13 +26,18 @@ class ParamInit:
     JAX `ParamFactory`; the bits do not (its crc32 key folding is not
     reproduced — tests carry JAX weights over through `convert.py`). On
     the "meta" device it draws nothing: the tree's shapes and types
-    without its memory, as JAX's abstract init gives them."""
+    without its memory, as JAX's abstract init gives them. Every creator
+    takes the leaf's logical axes (`axes`, those of JAX's
+    `ParamFactory.param`); with `abstract` it returns
+    `sharding.AbstractParam(shape, dtype, axes)` and touches no device."""
 
-    def __init__(self, seed: int, dtype: torch.dtype, device: torch.device):
+    def __init__(self, seed: int, dtype: torch.dtype, device,
+                 abstract: bool = False):
         self.dtype = dtype
         self.device = device
+        self.abstract = abstract
         self.gen = None
-        if torch.device(device).type != "meta":
+        if not abstract and torch.device(device).type != "meta":
             self.gen = torch.Generator(device=device)
             self.gen.manual_seed(int(seed))
 
@@ -40,11 +47,23 @@ class ParamInit:
     # of a single draw per tensor)
     CHUNK = 1 << 29
 
-    def normal(self, shape: Sequence[int], fan_in: int,
+    def _leaf(self, shape, axes, dtype=None):
+        """An AbstractParam in abstract mode, else None."""
+        if len(axes) != len(shape):
+            raise ValueError(f"shape {tuple(shape)} vs axes {tuple(axes)}")
+        if self.abstract:
+            return AbstractParam(tuple(int(s) for s in shape),
+                                 dtype or self.dtype, tuple(axes))
+        return None
+
+    def normal(self, shape: Sequence[int], fan_in: int, axes: Sequence,
                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """std 1/sqrt(fan_in) normal in `dtype` (default: the factory's),
         drawn in fp32 CHUNK elements at a time into the flat output, so a
         bf16 expert stack of tens of GB never exists in fp32 at once."""
+        leaf = self._leaf(shape, axes, dtype)
+        if leaf is not None:
+            return leaf
         out = torch.empty(tuple(shape), dtype=dtype or self.dtype,
                           device=self.device)
         flat = out.view(-1)
@@ -56,19 +75,51 @@ class ParamInit:
                                           dtype=torch.float32) * std
         return out
 
-    def zeros(self, shape: Sequence[int]) -> torch.Tensor:
+    def zeros(self, shape: Sequence[int], axes: Sequence) -> torch.Tensor:
+        leaf = self._leaf(shape, axes)
+        if leaf is not None:
+            return leaf
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
 
-    def uniform(self, shape: Sequence[int], scale: float) -> torch.Tensor:
+    def uniform(self, shape: Sequence[int], scale: float,
+                axes: Sequence) -> torch.Tensor:
         """Uniform in [-scale, scale), drawn in fp32 (JAX's "uniform")."""
+        leaf = self._leaf(shape, axes)
+        if leaf is not None:
+            return leaf
         u = torch.rand(tuple(shape), generator=self.gen, device=self.device,
                        dtype=torch.float32)
         return ((2.0 * u - 1.0) * scale).to(self.dtype)
 
-    def full(self, shape: Sequence[int], value: float) -> torch.Tensor:
+    def full(self, shape: Sequence[int], value: float,
+             axes: Sequence) -> torch.Tensor:
         """Every entry `value` (JAX's "constant")."""
+        leaf = self._leaf(shape, axes)
+        if leaf is not None:
+            return leaf
         return torch.full(tuple(shape), value, dtype=self.dtype,
                           device=self.device)
+
+
+def buffer(shape: Sequence[int], axes: Sequence, abstract: bool = False,
+           **kw):
+    """A zeroed cache or state leaf of `shape` (`kw`: dtype, device), or
+    its `AbstractParam` with the logical `axes`."""
+    if abstract:
+        return AbstractParam(tuple(int(s) for s in shape), kw["dtype"],
+                             tuple(axes))
+    return torch.zeros(tuple(shape), **kw)
+
+
+def lead(L: int) -> tuple:
+    """The stacked layer axis of `L` layers; none for L = 0 (JAX's
+    ``stacked=0``: the hybrid's shared block)."""
+    return (L,) if L else ()
+
+
+def lead_axes(L: int) -> tuple:
+    """`lead(L)`'s logical axis."""
+    return ("layers",) if L else ()
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

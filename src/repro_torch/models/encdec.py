@@ -84,13 +84,15 @@ def cross_kv(params, cfg: ModelConfig, enc_out: torch.Tensor) -> dict:
 def _decoder_trunk(params, cfg: ModelConfig, x, positions, kv: List[dict],
                    cache: Optional[dict] = None, cache_offset: int = 0,
                    decode: bool = False, position=None,
-                   paged_kernel: Optional[bool] = None) -> torch.Tensor:
+                   paged_kernel: Optional[bool] = None,
+                   ctx=None) -> torch.Tensor:
     """The decoder's layers over x [B, T, d]: self-attention (in-sequence
     without a cache; over the slot cache `cache` {"k", "v"} of [L, ...]
     written in place, at a prefill or, with `decode`, a one-token step at
     `position`), cross-attention over layer i's `kv[i]` after its
     cross_norm, GELU MLP, each layer under `tfm._maybe_remat` (as the
-    encoder's). Returns x before the final norm."""
+    encoder's); `ctx` reaches the decode's self-attention (its
+    sequence-sharded path). Returns x before the final norm."""
     ac = tfm.attn_config(cfg)
     L = cfg.n_layers
     blocks = tfm._layers(params["blocks"]["dense"], L)
@@ -100,7 +102,8 @@ def _decoder_trunk(params, cfg: ModelConfig, x, positions, kv: List[dict],
     def block(p, cp, cn, kv_l, x, c):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         if decode:
-            y, _ = attn_lib.gqa_decode(p["attn"], ac, h, position, c)
+            y, _ = attn_lib.gqa_decode(p["attn"], ac, h, position, c,
+                                       ctx=ctx)
         else:
             y, _ = attn_lib.gqa_forward(p["attn"], ac, h, positions, c,
                                         cache_offset,
@@ -182,8 +185,8 @@ def prefill(params, cfg: ModelConfig, frames: torch.Tensor,
 
 
 def decode_hidden(params, cfg: ModelConfig, token: torch.Tensor, position,
-                  cache: dict, paged_kernel: Optional[bool] = None
-                  ) -> torch.Tensor:
+                  cache: dict, paged_kernel: Optional[bool] = None,
+                  ctx=None) -> torch.Tensor:
     """One decoder step's final hidden states [B, 1, d] (before the final
     norm) at `position` (a scalar or an int vector [B]), the
     self-attention cache written in place. The cross K/V are read in the
@@ -195,13 +198,15 @@ def decode_hidden(params, cfg: ModelConfig, token: torch.Tensor, position,
           for layer in _layer_views(cache["cross_kv"], cfg.n_layers)]
     return _decoder_trunk(params, cfg, x, None, kv, cache["dense"],
                           decode=True, position=position,
-                          paged_kernel=paged_kernel)
+                          paged_kernel=paged_kernel, ctx=ctx)
 
 
 @torch.inference_mode()
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, position,
-                cache: dict, paged_kernel: Optional[bool] = None):
+                cache: dict, paged_kernel: Optional[bool] = None,
+                ctx=None):
     """One-token decode: token [B] or [B, 1] at `position`. Returns (fp32
     logits [B, V], cache)."""
-    x = decode_hidden(params, cfg, token, position, cache, paged_kernel)
+    x = decode_hidden(params, cfg, token, position, cache, paged_kernel,
+                      ctx)
     return tfm._logits(params, cfg, x)[:, 0, :], cache

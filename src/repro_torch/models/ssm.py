@@ -43,7 +43,7 @@ from repro_torch.kernels.wkv_scan import (linear_attention_chunked,
                                           linear_attention_scan,
                                           linear_attention_step, wkv_scan,
                                           wkv_scan_fused, wkv_scan_plain)
-from repro_torch.models.common import ParamInit, rms_norm
+from repro_torch.models.common import ParamInit, buffer, rms_norm
 
 __all__ = ["Mamba2Config", "RWKVConfig", "init_mamba2_block",
            "init_mamba2_state", "init_rwkv_block", "init_rwkv_state",
@@ -68,44 +68,56 @@ class RWKVConfig:
 
 def init_rwkv_block(pi: ParamInit, cfg: RWKVConfig, L: int) -> dict:
     """Seeded weights of `L` stacked RWKV6 blocks, with the JAX package's
-    names, shapes, layouts and init rules."""
+    names, shapes, layouts, init rules and logical axes."""
     d, H, hd, r = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.lora_mix
+    LA = ("layers",)
+    proj = LA + ("embed", "heads", "head_dim")
     return {
         # data-dependent lerp (ddlerp) mixing: 5 streams (r, k, v, g, w)
-        "mu_base": pi.uniform((L, 5, d), 0.5),
-        "mix_A": pi.normal((L, d, 5 * r), fan_in=d),
-        "mix_B": pi.normal((L, 5, r, d), fan_in=r),
-        "wr": pi.normal((L, d, H, hd), fan_in=d),
-        "wk": pi.normal((L, d, H, hd), fan_in=d),
-        "wv": pi.normal((L, d, H, hd), fan_in=d),
-        "wg": pi.normal((L, d, H, hd), fan_in=d),
-        "wo": pi.normal((L, H, hd, d), fan_in=H * hd),
+        "mu_base": pi.uniform((L, 5, d), 0.5, LA + (None, "act_embed")),
+        "mix_A": pi.normal((L, d, 5 * r), fan_in=d, axes=LA + ("embed", None)),
+        "mix_B": pi.normal((L, 5, r, d), fan_in=r,
+                           axes=LA + (None, None, "embed")),
+        "wr": pi.normal((L, d, H, hd), fan_in=d, axes=proj),
+        "wk": pi.normal((L, d, H, hd), fan_in=d, axes=proj),
+        "wv": pi.normal((L, d, H, hd), fan_in=d, axes=proj),
+        "wg": pi.normal((L, d, H, hd), fan_in=d, axes=proj),
+        "wo": pi.normal((L, H, hd, d), fan_in=H * hd,
+                        axes=LA + ("heads", "head_dim", "embed")),
         # data-dependent decay: logw = -exp(w0 + tanh(x A_w) B_w)
-        "w0": pi.full((L, H, hd), -0.6),
-        "decay_A": pi.normal((L, d, cfg.lora_decay), fan_in=d),
+        "w0": pi.full((L, H, hd), -0.6, LA + ("heads", "head_dim")),
+        "decay_A": pi.normal((L, d, cfg.lora_decay), fan_in=d,
+                             axes=LA + ("embed", None)),
         "decay_B": pi.normal((L, cfg.lora_decay, H, hd),
-                             fan_in=cfg.lora_decay),
-        "u": pi.uniform((L, H, hd), 0.5),
-        "ln_x": pi.zeros((L, H, hd)),
+                             fan_in=cfg.lora_decay,
+                             axes=LA + (None, "heads", "head_dim")),
+        "u": pi.uniform((L, H, hd), 0.5, LA + ("heads", "head_dim")),
+        "ln_x": pi.zeros((L, H, hd), LA + ("heads", "head_dim")),
         # channel mix
-        "cm_mu": pi.uniform((L, 2, d), 0.5),
-        "cm_wk": pi.normal((L, d, cfg.d_ff), fan_in=d),
-        "cm_wr": pi.normal((L, d, d), fan_in=d),
-        "cm_wv": pi.normal((L, cfg.d_ff, d), fan_in=cfg.d_ff),
-        "norm1": pi.zeros((L, d)),
-        "norm2": pi.zeros((L, d)),
+        "cm_mu": pi.uniform((L, 2, d), 0.5, LA + (None, "act_embed")),
+        "cm_wk": pi.normal((L, d, cfg.d_ff), fan_in=d,
+                           axes=LA + ("embed", "ffn")),
+        "cm_wr": pi.normal((L, d, d), fan_in=d, axes=LA + ("embed", "embed")),
+        "cm_wv": pi.normal((L, cfg.d_ff, d), fan_in=cfg.d_ff,
+                           axes=LA + ("ffn", "embed")),
+        "norm1": pi.zeros((L, d), LA + ("act_embed",)),
+        "norm2": pi.zeros((L, d), LA + ("act_embed",)),
     }
 
 
 def init_rwkv_state(cfg: RWKVConfig, batch: int, dtype: torch.dtype, L: int,
-                    device) -> dict:
+                    device, abstract: bool = False) -> dict:
     """Zeroed stacked state: shift1, shift2 [L, batch, d] in `dtype`; S
-    [L, batch, H, K, V] in fp32 whatever `dtype` is."""
+    [L, batch, H, K, V] in fp32 whatever `dtype` is (`abstract`: their
+    AbstractParams, with JAX's logical axes)."""
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
-    return {"shift1": torch.zeros((L, batch, d), dtype=dtype, device=device),
-            "shift2": torch.zeros((L, batch, d), dtype=dtype, device=device),
-            "S": torch.zeros((L, batch, H, hd, hd), dtype=torch.float32,
-                             device=device)}
+    kw = dict(dtype=dtype, device=device)
+    shift = ("layers", "batch", "act_embed")
+    return {"shift1": buffer((L, batch, d), shift, abstract, **kw),
+            "shift2": buffer((L, batch, d), shift, abstract, **kw),
+            "S": buffer((L, batch, H, hd, hd),
+                        ("layers", "batch", "heads", "head_dim", "state"),
+                        abstract, dtype=torch.float32, device=device)}
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -240,34 +252,40 @@ class Mamba2Config:
 
 def init_mamba2_block(pi: ParamInit, cfg: Mamba2Config, L: int) -> dict:
     """Seeded weights of `L` stacked Mamba2 blocks, with the JAX package's
-    names, shapes and init rules."""
+    names, shapes, init rules and logical axes."""
     d, di, N, H = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_heads
     conv_ch = di + 2 * N
+    LA = ("layers",)
     return {
-        "norm": pi.zeros((L, d)),
-        "in_proj": pi.normal((L, d, 2 * di + 2 * N + H), fan_in=d),
+        "norm": pi.zeros((L, d), LA + ("act_embed",)),
+        "in_proj": pi.normal((L, d, 2 * di + 2 * N + H), fan_in=d,
+                             axes=LA + ("embed", "d_inner")),
         "conv_w": pi.normal((L, cfg.conv_width, conv_ch),
-                            fan_in=cfg.conv_width),
-        "conv_b": pi.zeros((L, conv_ch)),
-        "A_log": pi.full((L, H), 0.0),
-        "dt_bias": pi.full((L, H), -1.0),
-        "D": pi.full((L, H), 1.0),
-        "out_norm": pi.zeros((L, di)),
-        "out_proj": pi.normal((L, di, d), fan_in=di),
+                            fan_in=cfg.conv_width,
+                            axes=LA + ("conv", "d_inner")),
+        "conv_b": pi.zeros((L, conv_ch), LA + ("d_inner",)),
+        "A_log": pi.full((L, H), 0.0, LA + ("heads",)),
+        "dt_bias": pi.full((L, H), -1.0, LA + ("heads",)),
+        "D": pi.full((L, H), 1.0, LA + ("heads",)),
+        "out_norm": pi.zeros((L, di), LA + ("d_inner",)),
+        "out_proj": pi.normal((L, di, d), fan_in=di,
+                              axes=LA + ("d_inner", "embed")),
     }
 
 
 def init_mamba2_state(cfg: Mamba2Config, batch: int, dtype: torch.dtype,
-                      L: int, device) -> dict:
+                      L: int, device, abstract: bool = False) -> dict:
     """Zeroed stacked state: the convolution's history conv [L, batch,
     W-1, d_inner + 2 d_state] in `dtype`; S [L, batch, H, d_state,
-    head_dim] in fp32 whatever `dtype` is."""
+    head_dim] in fp32 whatever `dtype` is (`abstract`: their
+    AbstractParams, with JAX's logical axes)."""
     C = cfg.d_inner + 2 * cfg.d_state
-    return {"conv": torch.zeros((L, batch, cfg.conv_width - 1, C),
-                                dtype=dtype, device=device),
-            "S": torch.zeros((L, batch, cfg.n_heads, cfg.d_state,
-                              cfg.head_dim), dtype=torch.float32,
-                             device=device)}
+    return {"conv": buffer((L, batch, cfg.conv_width - 1, C),
+                           ("layers", "batch", "conv", "d_inner"), abstract,
+                           dtype=dtype, device=device),
+            "S": buffer((L, batch, cfg.n_heads, cfg.d_state, cfg.head_dim),
+                        ("layers", "batch", "heads", "state", "head_dim"),
+                        abstract, dtype=torch.float32, device=device)}
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

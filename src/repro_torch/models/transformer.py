@@ -63,8 +63,8 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import (ParamInit, embed_tokens, rms_norm,
-                                       unembed)
+from repro_torch.models.common import (ParamInit, buffer, embed_tokens,
+                                       lead, lead_axes, rms_norm, unembed)
 
 _ATTN_FAMILIES = ("dense", "moe")
 _SERVED_FAMILIES = _ATTN_FAMILIES + ("ssm_rwkv", "hybrid")
@@ -143,7 +143,7 @@ def moe_config(cfg: ModelConfig) -> ffn_lib.MoEConfig:
     return ffn_lib.MoEConfig(
         d_model=cfg.d_model, d_ff=m.d_ff_expert, n_experts=m.n_experts,
         top_k=m.top_k, n_shared_experts=m.n_shared_experts,
-        shared_d_ff=m.shared_d_ff)
+        shared_d_ff=m.shared_d_ff, capacity_factor=m.capacity_factor)
 
 
 def _group_sizes(cfg: ModelConfig) -> Dict[str, int]:
@@ -171,35 +171,40 @@ def shared_attn_calls(cfg: ModelConfig) -> int:
 # Init
 # ---------------------------------------------------------------------------
 
-def _lead(L: int) -> tuple:
-    """The stacked layer axis of `L` layers; none for L = 0 (JAX's
-    ``stacked=0``: the hybrid's shared block)."""
-    return (L,) if L else ()
-
-
 def _init_attn(pi: ParamInit, cfg: ModelConfig, L: int) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    lead = _lead(L)
+    ld, LA = lead(L), lead_axes(L)
     if cfg.mla:
         m = cfg.mla
         dr, dv = m.rope_dim, m.v_head_dim or hd
-        return {"wdq": pi.normal(lead + (d, m.q_lora), fan_in=d),
-                "q_norm": pi.zeros(lead + (m.q_lora,)),
-                "wuq": pi.normal(lead + (m.q_lora, H, hd + dr),
-                                 fan_in=m.q_lora),
-                "wdkv": pi.normal(lead + (d, m.kv_lora), fan_in=d),
-                "kv_norm": pi.zeros(lead + (m.kv_lora,)),
-                "wkr": pi.normal(lead + (d, dr), fan_in=d),
-                "wuk": pi.normal(lead + (m.kv_lora, H, hd), fan_in=m.kv_lora),
-                "wuv": pi.normal(lead + (m.kv_lora, H, dv), fan_in=m.kv_lora),
-                "wo": pi.normal(lead + (H, dv, d), fan_in=H * dv)}
-    attn = {"wq": pi.normal(lead + (d, H, hd), fan_in=d),
-            "wk": pi.normal(lead + (d, KV, hd), fan_in=d),
-            "wv": pi.normal(lead + (d, KV, hd), fan_in=d),
-            "wo": pi.normal(lead + (H, hd, d), fan_in=H * hd)}
+        up = LA + ("kv_lora", "heads", "head_dim")
+        return {"wdq": pi.normal(ld + (d, m.q_lora), fan_in=d,
+                                 axes=LA + ("embed", "q_lora")),
+                "q_norm": pi.zeros(ld + (m.q_lora,), LA + ("q_lora",)),
+                "wuq": pi.normal(ld + (m.q_lora, H, hd + dr), fan_in=m.q_lora,
+                                 axes=LA + ("q_lora", "heads", "head_dim")),
+                "wdkv": pi.normal(ld + (d, m.kv_lora), fan_in=d,
+                                  axes=LA + ("embed", "kv_lora")),
+                "kv_norm": pi.zeros(ld + (m.kv_lora,), LA + ("kv_lora",)),
+                "wkr": pi.normal(ld + (d, dr), fan_in=d,
+                                 axes=LA + ("embed", "head_dim")),
+                "wuk": pi.normal(ld + (m.kv_lora, H, hd), fan_in=m.kv_lora,
+                                 axes=up),
+                "wuv": pi.normal(ld + (m.kv_lora, H, dv), fan_in=m.kv_lora,
+                                 axes=up),
+                "wo": pi.normal(ld + (H, dv, d), fan_in=H * dv,
+                                axes=LA + ("heads", "head_dim", "embed"))}
+    kv = LA + ("embed", "kv_heads", "head_dim")
+    attn = {"wq": pi.normal(ld + (d, H, hd), fan_in=d,
+                            axes=LA + ("embed", "heads", "head_dim")),
+            "wk": pi.normal(ld + (d, KV, hd), fan_in=d, axes=kv),
+            "wv": pi.normal(ld + (d, KV, hd), fan_in=d, axes=kv),
+            "wo": pi.normal(ld + (H, hd, d), fan_in=H * hd,
+                            axes=LA + ("heads", "head_dim", "embed"))}
     if cfg.qkv_bias:
-        attn.update(bq=pi.zeros(lead + (H, hd)), bk=pi.zeros(lead + (KV, hd)),
-                    bv=pi.zeros(lead + (KV, hd)))
+        attn.update(bq=pi.zeros(ld + (H, hd), LA + ("heads", "head_dim")),
+                    bk=pi.zeros(ld + (KV, hd), LA + ("kv_heads", "head_dim")),
+                    bv=pi.zeros(ld + (KV, hd), LA + ("kv_heads", "head_dim")))
     return attn
 
 
@@ -207,22 +212,28 @@ def _init_mlp(pi: ParamInit, L: int, d: int, f: int,
               activation: str = "swiglu") -> dict:
     """SwiGLU (w_gate, w_up, w_down) or GELU (w_up, w_down and the
     zero-initialised biases b_up, b_down) weights."""
-    lead = _lead(L)
-    mlp = {"w_up": pi.normal(lead + (d, f), fan_in=d),
-           "w_down": pi.normal(lead + (f, d), fan_in=f)}
+    ld, LA = lead(L), lead_axes(L)
+    mlp = {"w_up": pi.normal(ld + (d, f), fan_in=d, axes=LA + ("embed", "ffn")),
+           "w_down": pi.normal(ld + (f, d), fan_in=f,
+                               axes=LA + ("ffn", "embed"))}
     if activation == "swiglu":
-        mlp["w_gate"] = pi.normal(lead + (d, f), fan_in=d)
+        mlp["w_gate"] = pi.normal(ld + (d, f), fan_in=d,
+                                  axes=LA + ("embed", "ffn"))
     else:
-        mlp.update(b_up=pi.zeros(lead + (f,)), b_down=pi.zeros(lead + (d,)))
+        mlp.update(b_up=pi.zeros(ld + (f,), LA + ("ffn",)),
+                   b_down=pi.zeros(ld + (d,), LA + ("act_embed",)))
     return mlp
+
+
+def _norm(pi: ParamInit, L: int, d: int):
+    return pi.zeros(lead(L) + (d,), lead_axes(L) + ("act_embed",))
 
 
 def _init_attn_mlp_block(pi: ParamInit, cfg: ModelConfig, L: int,
                          activation: str = "swiglu") -> dict:
-    lead = _lead(L)
-    return {"norm1": pi.zeros(lead + (cfg.d_model,)),
+    return {"norm1": _norm(pi, L, cfg.d_model),
             "attn": _init_attn(pi, cfg, L),
-            "norm2": pi.zeros(lead + (cfg.d_model,)),
+            "norm2": _norm(pi, L, cfg.d_model),
             "mlp": _init_mlp(pi, L, cfg.d_model, cfg.d_ff, activation)}
 
 
@@ -233,26 +244,31 @@ def _init_encoder(pi: ParamInit, cfg: ModelConfig) -> dict:
     L, d = cfg.n_layers, cfg.d_model
     return {"stack": _init_attn_mlp_block(pi, cfg, cfg.encoder.n_layers,
                                           "gelu"),
-            "final_norm": pi.zeros((d,)),
+            "final_norm": _norm(pi, 0, d),
             "cross": attn_lib.init_cross_attn(pi, attn_config(cfg), L),
-            "cross_norm": pi.zeros((L, d))}
+            "cross_norm": _norm(pi, L, d)}
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                abstract: bool = False) -> dict:
     """Seeded random weights with the JAX package's shapes and layout (the
     MoE router in fp32 whatever the parameter type, as in JAX; the
     hybrid's shared block built whenever its period is set, as in JAX,
     even when the trunk is too shallow to call it; an encoder-decoder's
-    GELU decoder blocks and its "encoder" subtree)."""
+    GELU decoder blocks and its "encoder" subtree). With `abstract` the
+    tree's leaves are `sharding.AbstractParam`s carrying JAX's logical
+    axes (the port's sharding plan), and nothing is drawn or allocated."""
     check_ported(cfg)
-    pi = ParamInit(seed, cfg.pdtype(), resolve_device(device))
+    pi = ParamInit(seed, cfg.pdtype(),
+                   None if abstract else resolve_device(device), abstract)
     d, V = cfg.d_model, cfg.vocab_size
     params: Dict[str, Any] = {
-        "embedding": pi.normal((V, d), fan_in=d),
-        "final_norm": pi.zeros((d,)),
+        "embedding": pi.normal((V, d), fan_in=d, axes=("vocab", "embed")),
+        "final_norm": _norm(pi, 0, d),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = pi.normal((V, d), fan_in=d)
+        params["unembed"] = pi.normal((V, d), fan_in=d,
+                                      axes=("vocab", "embed"))
     blocks: Dict[str, Any] = {}
     for kind, L in _group_sizes(cfg).items():
         if not L:
@@ -270,15 +286,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             act = "gelu" if cfg.family == "encdec" else "swiglu"
             blocks[kind] = _init_attn_mlp_block(pi, cfg, L, act)
             continue
-        b = {"norm1": pi.zeros((L, d)), "attn": _init_attn(pi, cfg, L),
-             "norm2": pi.zeros((L, d))}
+        b = {"norm1": _norm(pi, L, d), "attn": _init_attn(pi, cfg, L),
+             "norm2": _norm(pi, L, d)}
         m = cfg.moe
         E, f = m.n_experts, m.d_ff_expert
+        ex = ("layers", "experts", "expert_embed", "expert_ffn")
         b["moe"] = {
-            "router": pi.normal((L, d, E), fan_in=d, dtype=torch.float32),
-            "w_gate": pi.normal((L, E, d, f), fan_in=d),
-            "w_up": pi.normal((L, E, d, f), fan_in=d),
-            "w_down": pi.normal((L, E, f, d), fan_in=f)}
+            "router": pi.normal((L, d, E), fan_in=d, dtype=torch.float32,
+                                axes=("layers", "embed", "experts")),
+            "w_gate": pi.normal((L, E, d, f), fan_in=d, axes=ex),
+            "w_up": pi.normal((L, E, d, f), fan_in=d, axes=ex),
+            "w_down": pi.normal((L, E, f, d), fan_in=f,
+                                axes=("layers", "experts", "expert_ffn",
+                                      "expert_embed"))}
         if m.n_shared_experts > 0:
             b["moe"]["shared"] = _init_mlp(
                 pi, L, d, m.shared_d_ff or f * m.n_shared_experts)
@@ -290,7 +310,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: Optional[torch.dtype] = None, device=None) -> dict:
+               dtype: Optional[torch.dtype] = None, device=None,
+               abstract: bool = False) -> dict:
     """Zeroed caches, one per layer group: GQA {"k", "v"} of [L, batch,
     kv_len, KV, hd] (kv_len = max_len, or min(max_len, sliding window));
     MLA {"ckv", "kr"} of [L, batch, max_len, kv_lora | rope_dim]; RWKV
@@ -302,36 +323,46 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     (JAX makes one without the calls axis, which no trunk reads). `dtype`
     types every leaf but the fp32 S. With batch = n_blocks + 1 and
     max_len = block_size the attention caches are exactly the paged
-    layout (block 0 = trash). Every leaf has its batch at axis 1."""
-    kw = dict(dtype=dtype or cfg.cdtype(), device=resolve_device(device))
+    layout (block 0 = trash). Every leaf has its batch at axis 1. With
+    `abstract` the leaves are AbstractParams with JAX's logical axes
+    (``cache_seq`` on the sequence dim) and nothing is allocated."""
+    kw = dict(dtype=dtype or cfg.cdtype(),
+              device=None if abstract else resolve_device(device))
     kv_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
               else max_len)
+    kv_axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
     cache = {}
     for kind, L in _group_sizes(cfg).items():
         if not L:
             continue
         if kind == "rwkv":
             cache[kind] = ssm_lib.init_rwkv_state(rwkv_config(cfg), batch,
-                                                  L=L, **kw)
+                                                  L=L, abstract=abstract,
+                                                  **kw)
             continue
         if kind == "mamba":
-            cache[kind] = ssm_lib.init_mamba2_state(mamba_config(cfg), batch,
-                                                    L=L, **kw)
+            cache[kind] = ssm_lib.init_mamba2_state(
+                mamba_config(cfg), batch, L=L, abstract=abstract, **kw)
             n_calls = shared_attn_calls(cfg)
             if n_calls:
                 shape = (n_calls, batch, min(kv_len, SHARED_ATTN_MAX_LEN),
                          cfg.n_kv_heads, cfg.head_dim)
-                cache["shared_attn"] = {"k": torch.zeros(shape, **kw),
-                                        "v": torch.zeros(shape, **kw)}
+                cache["shared_attn"] = {
+                    n: buffer(shape, kv_axes, abstract, **kw)
+                    for n in ("k", "v")}
             continue
-        lead = (L, batch, kv_len)
+        ld = (L, batch, kv_len)
         if cfg.mla:
-            cache[kind] = {"ckv": torch.zeros(lead + (cfg.mla.kv_lora,), **kw),
-                           "kr": torch.zeros(lead + (cfg.mla.rope_dim,), **kw)}
+            la = ("layers", "batch", "cache_seq")
+            cache[kind] = {
+                "ckv": buffer(ld + (cfg.mla.kv_lora,), la + ("kv_lora",),
+                              abstract, **kw),
+                "kr": buffer(ld + (cfg.mla.rope_dim,), la + ("head_dim",),
+                             abstract, **kw)}
         else:
-            shape = lead + (cfg.n_kv_heads, cfg.head_dim)
-            cache[kind] = {"k": torch.zeros(shape, **kw),
-                           "v": torch.zeros(shape, **kw)}
+            shape = ld + (cfg.n_kv_heads, cfg.head_dim)
+            cache[kind] = {n: buffer(shape, kv_axes, abstract, **kw)
+                           for n in ("k", "v")}
     return cache
 
 
@@ -416,34 +447,36 @@ def _layers(tree: dict, n: int) -> list:
 
 def _attn_ffn_block(p, cfg: ModelConfig, ac: attn_lib.AttnConfig, x,
                     positions, c, cache_offset, decode, position, pages,
-                    paged_kernel, mc=None):
+                    paged_kernel, mc=None, ctx=None):
     """One pre-norm block: attention or MLA, then the dense MLP (`p`
-    holds "mlp") or the MoE FFN (`mc`). Returns (x, MoE aux loss or
+    holds "mlp") or the MoE FFN (`mc`). `ctx` reaches the GQA decode
+    (its sequence-sharded path) and the MoE (its expert-parallel paths;
+    `decode` picks the decode path). Returns (x, MoE aux loss or
     None)."""
-    if cfg.mla:          # MLA prefill has no kernel: no switch to pass
+    if cfg.mla:          # MLA prefill has no kernel, its decode no mesh path
         fwd, dec = attn_lib.mla_forward, attn_lib.mla_decode
-        fwd_kw = {}
+        fwd_kw, dec_kw = {}, {}
     else:
         fwd, dec = attn_lib.gqa_forward, attn_lib.gqa_decode
-        fwd_kw = {"paged_kernel": paged_kernel}
+        fwd_kw, dec_kw = {"paged_kernel": paged_kernel}, {"ctx": ctx}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if decode:
         y, _ = dec(p["attn"], ac, h, position, c, pages=pages,
-                   paged_kernel=paged_kernel)
+                   paged_kernel=paged_kernel, **dec_kw)
     else:
         y, _ = fwd(p["attn"], ac, h, positions, c, cache_offset, pages=pages,
                    **fwd_kw)
     x = x + y
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if mc is not None:
-        y, aux = ffn_lib.moe_forward(p["moe"], mc, h)
+        y, aux = ffn_lib.moe_forward(p["moe"], mc, h, ctx, decode)
         return x + y, aux
     return x + ffn_lib.mlp_forward(p["mlp"], h), None
 
 
 def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
            cache_offset: int = 0, decode: bool = False, position=None,
-           pages=None, paged_kernel=None):
+           pages=None, paged_kernel=None, ctx=None):
     """Pre-norm blocks over each stacked layer group in order (attention or
     MLA, then the dense MLP or the MoE FFN; or RWKV6 blocks; or Mamba2
     blocks with the shared block between them), each layer under
@@ -457,7 +490,7 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
         return _rwkv_trunk(params, cfg, x, cache, pages, paged_kernel)
     if cfg.family == "hybrid":
         return _hybrid_trunk(params, cfg, x, positions, cache, cache_offset,
-                             decode, position, pages, paged_kernel)
+                             decode, position, pages, paged_kernel, ctx)
     ac = attn_config(cfg)
     mc = moe_config(cfg) if cfg.moe else None
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -468,7 +501,8 @@ def _trunk(params, cfg: ModelConfig, x, positions, cache=None,
 
         def block(p, x, c, _mc=mc if kind == "moe" else None):
             return _attn_ffn_block(p, cfg, ac, x, positions, c, cache_offset,
-                                   decode, position, pages, paged_kernel, _mc)
+                                   decode, position, pages, paged_kernel, _mc,
+                                   ctx)
         blk = _maybe_remat(block, cfg)
         for i, p in enumerate(_layers(params["blocks"][kind], L)):
             c = (None if stacked is None
@@ -513,7 +547,8 @@ def _rwkv_trunk(params, cfg: ModelConfig, x, cache, pages, paged_kernel):
 
 
 def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache,
-                  cache_offset, decode, position, pages, paged_kernel):
+                  cache_offset, decode, position, pages, paged_kernel,
+                  ctx=None):
     """The Mamba2 layer loop, each Mamba2 layer under `_maybe_remat`, with
     the ONE shared attention + MLP block (not remat'd, as in JAX) after
     every `shared_attn_every` layers (zamba2's super-blocks; none when
@@ -547,7 +582,7 @@ def _hybrid_trunk(params, cfg: ModelConfig, x, positions, cache,
                  else {name: leaf[g] for name, leaf in sa_cache.items()})
             x, _ = _attn_ffn_block(params["blocks"]["shared_attn"], cfg, ac,
                                    x, positions, c, cache_offset, decode,
-                                   position, None, use_kernel)
+                                   position, None, use_kernel, ctx=ctx)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -570,26 +605,27 @@ def _logits(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-            return_aux: bool = False, extra_embeds=None):
+            return_aux: bool = False, extra_embeds=None, ctx=None):
     """Full-sequence forward (training). tokens [B, T] (after
     `extra_embeds` [B, P, d] when given) -> fp32 logits [B, P + T, V],
-    and with `return_aux` also the MoE aux-loss sum."""
+    and with `return_aux` also the MoE aux-loss sum. `ctx` (a
+    `sharding.ParallelContext`) runs the MoE layers expert-parallel."""
     x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _, aux = _trunk(params, cfg, x, positions)
+    x, _, aux = _trunk(params, cfg, x, positions, ctx=ctx)
     logits = _logits(params, cfg, x)
     return (logits, aux) if return_aux else logits
 
 
 def final_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
-                 extra_embeds=None):
+                 extra_embeds=None, ctx=None):
     """The trunk and the final norm, without the unembedding: tokens
     [B, T] (after `extra_embeds` [B, P, d] when given) -> (x [B, P + T, d]
     in the compute type, MoE aux-loss sum). The Stage-2 loss fuses the
     unembedding with its reductions."""
     x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, _, aux = _trunk(params, cfg, x, positions)
+    x, _, aux = _trunk(params, cfg, x, positions, ctx=ctx)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -598,7 +634,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
             last_only: bool = False, cache_offset: int = 0,
             pages: Optional[torch.Tensor] = None,
             last_index: Optional[torch.Tensor] = None,
-            paged_kernel: Optional[bool] = None, extra_embeds=None):
+            paged_kernel: Optional[bool] = None, extra_embeds=None,
+            ctx=None):
     """Process a prompt (or one chunk of it at absolute offset
     `cache_offset`), filling `cache` in place; `extra_embeds` [B, P, d]
     (the VLM's patches) go in front of the tokens and take positions
@@ -606,13 +643,14 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     `last_index` ([B]) unembeds that position instead of the last one;
     `last_only` unembeds only the last position; `paged_kernel` picks the
     flash-attention kernel for GQA layers over the plain attention (None:
-    on for CUDA). Returns (logits, cache)."""
+    on for CUDA); `ctx` runs the MoE layers expert-parallel. Returns
+    (logits, cache)."""
     x = _embed(params, cfg, tokens, extra_embeds)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None, :] + cache_offset
     x, cache, _ = _trunk(params, cfg, x, positions, cache=cache,
                       cache_offset=cache_offset, pages=pages,
-                      paged_kernel=paged_kernel)
+                      paged_kernel=paged_kernel, ctx=ctx)
     if last_index is not None:
         idx = torch.as_tensor(last_index, device=x.device).long()
         x = x[torch.arange(B, device=x.device), idx.expand(B)][:, None, :]
@@ -624,16 +662,17 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
 @torch.inference_mode()
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, position,
                 cache: dict, pages: Optional[torch.Tensor] = None,
-                paged_kernel: Optional[bool] = None):
+                paged_kernel: Optional[bool] = None, ctx=None):
     """One-token decode. token [B] or [B,1]; `position` a scalar or an int
     vector [B] of per-row depths; `pages` [B, M] routes the cache through
     a page table (needs vector positions); `paged_kernel` picks the
-    paged kernels over the plain gather path (None: on for CUDA).
+    paged kernels over the plain gather path (None: on for CUDA); `ctx`
+    runs the sequence-sharded GQA decode and the MoE decode path.
     Returns (fp32 logits [B, V], cache)."""
     if token.dim() == 1:
         token = token[:, None]
     x = _embed(params, cfg, token)
     x, cache, _ = _trunk(params, cfg, x, None, cache=cache, decode=True,
                       position=position, pages=pages,
-                      paged_kernel=paged_kernel)
+                      paged_kernel=paged_kernel, ctx=ctx)
     return _logits(params, cfg, x)[:, 0, :], cache

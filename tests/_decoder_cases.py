@@ -57,9 +57,8 @@ def set_biases(jparams, seed):
 def fields_equal(t, j):
     """Every field of the port's dataclass equals JAX's: the model's
     fields and the runtime policy (`remat`, `scan_layers`, `attn_chunk`,
-    `microbatches`) alike. MoESpec's `capacity_factor` and
-    `router_aux_weight`, read only by JAX's sharded MoE paths, are the
-    fields the port leaves out."""
+    `microbatches`) alike, MoESpec's `capacity_factor` and
+    `router_aux_weight` included."""
     for f in dataclasses.fields(t):
         tv, jv = getattr(t, f.name), getattr(j, f.name)
         if dataclasses.is_dataclass(tv):

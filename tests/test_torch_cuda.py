@@ -1508,3 +1508,135 @@ def test_sample_kernel_path_matches_plain(cuda):
     np.testing.assert_array_equal(on, again)
     np.testing.assert_array_equal(on, off)
     assert on.shape == (4, 6) and on.dtype == np.int32
+
+
+# ---------------------------------------------------------------------------
+# Sharding: a world of one over NCCL, and a threaded world of 8 on the card
+# ---------------------------------------------------------------------------
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_world_of_one_over_nccl_equals_ctx_none(cuda):
+    """A (1, 1) DeviceMesh over a one-rank NCCL world: reduced
+    internlm2-1.8b's make_serve_step with the context is bit-equal to
+    ctx=None on the kernel path, one deferral launch a step."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_context, make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import rules_dict
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{_free_port()}")
+    try:
+        ctx = make_context(make_host_mesh(),
+                           rules_dict({"unembed_d": ("data",),
+                                       "cache_seq": ("data", "model")}))
+        cfg = reduced(get_config("internlm2-1.8b"))
+        params = tfm.init_params(cfg, 0, cuda)
+        tok0 = torch.arange(4, device=cuda) + 3
+
+        def serve(c):
+            step = steps.make_serve_step(cfg, ctx=c)
+            cache = tfm.init_cache(cfg, 4, 8, device=cuda)
+            tok, outs = tok0, []
+            for pos in range(3):
+                tok, conf, _, cache = step(params, cache, tok, pos)
+                outs += [tok, conf]
+            return outs + [cache["dense"]["k"]]
+
+        ref = serve(None)
+        de.deferral_entropy.launches = 0
+        got = serve(ctx)
+        assert de.deferral_entropy.launches == 3
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    finally:
+        dist.destroy_process_group()
+
+
+def _threaded_world(fn, n=8):
+    import threading
+    import traceback
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mtp
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    world = mtp._install_threaded_pg()
+    if not hasattr(world, "comms"):     # torch 2.11's world lacks it
+        world.comms = []
+    store, out, errors = dist.HashStore(), [None] * n, []
+
+    def run(r):
+        try:
+            dist.init_process_group("threaded", rank=r, world_size=n,
+                                    store=store)
+            try:
+                out[r] = fn(r)
+            finally:
+                dist.destroy_process_group()
+        except BaseException as e:
+            errors.append(traceback.format_exc())
+            mtp.ProcessLocalGroup.exception_handle(e)
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True)
+               for r in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        mtp._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        mtp.ProcessLocalGroup.reset()
+    assert not errors, errors[0]
+    assert not any(t.is_alive() for t in threads)
+    return out
+
+
+def test_threaded_world_of_8_moe_and_seq_sharded_decode(cuda):
+    """8 ranks as threads on the card, a (2, 4) mesh: the MoE scatter and
+    decode paths (fp32, capacity factor 8) against the local path, and
+    the sequence-sharded GQA decode (batch 1: sequence over data, KV
+    heads over model) against the dense decode, cache write included."""
+    from repro_torch.models import ffn
+    from repro_torch.models.attention import AttnConfig, gqa_decode
+    from repro_torch.sharding import ParallelContext, make_mesh
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * s
+
+    cfg = ffn.MoEConfig(d_model=64, d_ff=32, n_experts=8, top_k=2,
+                        capacity_factor=8.0)
+    p = {"router": rn(64, 8, s=.2), "w_gate": rn(8, 64, 32, s=.2),
+         "w_up": rn(8, 64, 32, s=.2), "w_down": rn(8, 32, 64, s=.2)}
+    x = rn(4, 8, 64)
+    acfg = AttnConfig(d_model=64, n_heads=8, n_kv_heads=4, head_dim=16)
+    ap = {"wq": rn(64, 8, 16, s=.1), "wk": rn(64, 4, 16, s=.1),
+          "wv": rn(64, 4, 16, s=.1), "wo": rn(8, 16, 64, s=.1)}
+    cache = {n: rn(1, 256, 4, 16).to(torch.bfloat16) for n in ("k", "v")}
+    xa = rn(1, 1, 64)
+
+    def rank(r):
+        with torch.inference_mode():
+            ctx = ParallelContext(mesh=make_mesh((2, 4), ("data", "model")))
+            ys = ffn.moe_forward(p, cfg, x, ctx)[0]
+            yd = ffn.moe_forward(p, cfg, x, ctx, decode=True)[0]
+            ya = gqa_decode(ap, acfg, xa, 150, cache, ctx=ctx)[0]
+            return ys, yd, ya
+
+    res = _threaded_world(rank)
+    written = cache["k"][:, 150].clone()
+    with torch.inference_mode():
+        ref = ffn.moe_forward(p, cfg, x)[0]
+        ya = gqa_decode(ap, acfg, xa, 150, cache)[0]
+    assert torch.equal(written, cache["k"][:, 150])
+    for ys, yd, y in res:
+        torch.testing.assert_close(ys, ref, atol=1e-4, rtol=1e-3)
+        torch.testing.assert_close(yd, ref, atol=1e-4, rtol=1e-3)
+        torch.testing.assert_close(y, ya, atol=1e-5, rtol=1e-4)

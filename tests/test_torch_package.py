@@ -32,8 +32,9 @@ SSM_MODULES = ("kernels.wkv_scan", "models.ssm", "configs.rwkv6_3b")
 CLASSIFIER_MODULES = ("models.classifier", "data.synthetic", "training.loop")
 ENCDEC_VLM_MODULES = ("models.encdec", "configs.whisper_small",
                       "configs.phi_3_vision_4_2b")
+SCALE_OUT_MODULES = ("sharding", "launch.mesh")
 SLICE_MODULES = (TRAINING_MODULES + SIGNAL_MODULES + SSM_MODULES
-                 + CLASSIFIER_MODULES + ENCDEC_VLM_MODULES)
+                 + CLASSIFIER_MODULES + ENCDEC_VLM_MODULES + SCALE_OUT_MODULES)
 
 
 def _imported_roots(path: Path):
@@ -87,6 +88,37 @@ def test_import_check_covers_the_encdec_and_vlm_slice():
     src = REPO / "src" / "repro_torch"
     for mod in ENCDEC_VLM_MODULES:
         assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+
+
+def test_import_check_covers_the_scale_out_slice():
+    src = REPO / "src" / "repro_torch"
+    for mod in SCALE_OUT_MODULES:
+        assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES[:-1],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_package_file_imports_no_torch_testing(path):
+    """The package never reaches into torch's test helpers (the threaded
+    process group is chip_smoke.py's and the tests' own)."""
+    bad = [m for m in _imported_modules(path)
+           if m == "torch.testing" or m.startswith("torch.testing.")]
+    assert not bad, bad
+
+
+def test_torch_testing_check_sees_an_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("from torch.testing._internal.distributed import x\n")
+    assert list(_imported_modules(f)) == [
+        "torch.testing._internal.distributed"]
 
 
 def test_build_names_every_cuda_source():
