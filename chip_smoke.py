@@ -7,6 +7,7 @@
     python3 chip_smoke.py --ladder
     python3 chip_smoke.py --train-recurrent
     python3 chip_smoke.py --scale-out
+    python3 chip_smoke.py --dryrun
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
@@ -20,7 +21,9 @@ line; the fourth phase 15 (the four remaining decoders) and those archs'
 phase-5 fixtures, the same way; the fifth phase 16 (the ladder) alone;
 the sixth phase 17 (recurrent training, remat, attn_chunk) alone, after
 phase 7a's loss-kernel checks at its two Stage-2 shapes; the seventh
-phase 18 (sharding and the expert- and sequence-parallel paths) alone.
+phase 18 (sharding and the expert- and sequence-parallel paths) alone;
+the eighth phase 19 (the dry-run, its count against the card, the
+examples) alone.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -81,7 +84,8 @@ non-zero:
      (32/32 heads of 96). Then the paged engine's prefill dispatches of
      1, 2 and 4 rows (internlm2-1.8b's chunk at q_offset 0 and 128, and
      zamba2-1.2b's shared block at 0), the grids under one wave that
-     `kv_split` may split.
+     `kv_split` may split. Then phase 19b's prefill whole: 8 prompts of
+     4,096 tokens over themselves, causal, 16/8 heads of 128.
   3e. The recurrence kernel `wkv_scan` against its plain version (the JAX
      algorithms) in both modes: "rwkv" at the full-width rwkv6-3b decode
      step (8 rows, T 1, 40 heads, K = V = 64; the per-token kernel),
@@ -399,6 +403,41 @@ non-zero:
          (SIGNAL_ATOL); the sharded signal against the unsharded one
          within twice the first-order effect of the measured logit
          error plus the two kernels' measured errors.
+  19. The dry-run (`launch.dryrun`), held against the card, and the
+      examples, each part alone on the host. 19a: DRYRUN_WORKERS spawned
+      processes trace DRYRUN_COMBOS, one per family and shape kind at
+      published widths (meta tensors, a fake world of 256 ranks; full
+      depth but for rwkv6-3b's and zamba2-1.2b's train and prefill, cut
+      to DRYRUN_CUT layers), llama3-405b train_4k on 2 x 16 x 16 and
+      JAX's gather-tokens MoE decode, one line a combo (dominant term,
+      compute / memory / collective seconds, fits_hbm, per-rank peak and
+      sharded-state GiB, collective GiB by op, trace seconds), all
+      written to chiprun_out/dryrun_torch.jsonl; any combo that raises
+      fails the phase.
+     19b. internlm2-1.8b at its published width, all 24 layers, bf16
+         (`adapt_for_shape`), a world of one with ctx None, at
+         ROOF_SHAPES (prefill 8 x 4096, decode 32 rows over a 4,096-token
+         cache, Stage-2 train 2 x 2048): (i) the meta trace's FLOP count
+         equals FlopCounterMode's of the same step on the card with the
+         kernels off, as integers; (ii) the plain step's median wall (CUDA
+         events, ROOF_CALLS calls after a warm-up) is at least
+         ROOF_MIN_RATIO x max(compute_s, memory_s) of its roofline, and
+         its device time by kernel under torch.profiler is printed; (iii)
+         `max_memory_allocated` over one plain step lies within
+         ROOF_PEAK_RTOL of the traced peak; (iv) the same step with the
+         kernels on launches exactly 24 `flash_attention` + 1
+         `deferral_entropy` (prefill), 1 `deferral_entropy` (decode) or 1
+         `gatekeeper_loss_tokens` (train), its outputs held as phases 8
+         and 7 hold theirs (the prefill: the K/V of every layer, row
+         and position within PREFILL_CACHE_RTOL, the last position's
+         logits within PREFILL_LOGIT_GUARD, the step's signal against the
+         plain one on the kernel path's logits as phase 8 holds it; phase
+         3d holds the flash kernel alone at this shape), and its time
+         printed beside the bound.
+     19c. examples/torch_quickstart.py, torch_lm_cascade.py,
+         torch_serve_cascade.py at their defaults and torch_train_100m.py
+         at 20 + 10 steps, as four child processes at once: each exits 0
+         with its JSON result line last.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -1131,7 +1170,8 @@ def check_flash_kernel(torch, fa, smi, parent=None) -> dict:
     over its 593-slot cache, 32/32 heads of 96); the internlm2 chunk and
     zamba2's block again at 1, 2 and 4 rows, as the paged engine
     dispatches a prefill group of next_pow2(k) rows once the first wave
-    of admissions has gone.
+    of admissions has gone; internlm2-1.8b's whole prefill as phase 19b
+    runs it (ROOF_SHAPES' 8 x 4096, causal over itself).
     The bound counts q and the output once, K/V only at the positions
     some query sees, and the visible pairs' products at the rate of the
     kernel's products: three TF32 products for fp32 (the SIMT-rate bound
@@ -1189,6 +1229,9 @@ def check_flash_kernel(torch, fa, smi, parent=None) -> dict:
         for label, H, KV, hd, window, offsets in (
             ("internlm2 chunk", 16, 8, 128, 0, (0, 128)),
             ("zamba2 shared block", 32, 32, 64, S, (0,))))
+    _, T19, B19 = ROOF_SHAPES[0]
+    cases += (("19b prefill", B19, T19, T19, 16, 8, 128, 0, (0,), True,
+               True),)
     rec = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:72",
@@ -5980,6 +6023,409 @@ def scale_out_phase(torch, smi, t_start: float) -> dict:
     return by_path
 
 
+# phase 19: the dry-run and its roofline, held against the card
+# 19a: one combo per family and shape kind (train, prefill, decode) at
+# published widths and full depth, but for the recurrent families' train
+# and prefill, cut to DRYRUN_CUT layers (their plain chunk loops trace at
+# 5-10 s a layer: rwkv6-3b's prefill_32k alone takes over 300 s at 32);
+# then llama3-405b train_4k on 2 x 16 x 16 and JAX's gather-tokens MoE
+# decode. Traced in the foreground, before 19b, so that no timed phase
+# shares the host with it. `python -m repro_torch.launch.dryrun --all`
+# traces all 40 at full depth on any machine.
+DRYRUN_COMBOS = (
+    ("internlm2-1.8b", "train_4k"), ("internlm2-1.8b", "prefill_32k"),
+    ("llama3-405b", "long_500k"),
+    ("deepseek-v2-236b", "train_4k"), ("kimi-k2-1t-a32b", "prefill_32k"),
+    ("deepseek-v2-236b", "decode_32k"),
+    ("rwkv6-3b", "train_4k"), ("rwkv6-3b", "prefill_32k"),
+    ("rwkv6-3b", "decode_32k"),
+    ("zamba2-1.2b", "train_4k"), ("zamba2-1.2b", "prefill_32k"),
+    ("zamba2-1.2b", "long_500k"),
+    ("whisper-small", "train_4k"), ("whisper-small", "prefill_32k"),
+    ("whisper-small", "decode_32k"),
+    ("phi-3-vision-4.2b", "train_4k"), ("phi-3-vision-4.2b", "prefill_32k"),
+    ("phi-3-vision-4.2b", "long_500k"))
+DRYRUN_CUT = {"rwkv6-3b": 2, "zamba2-1.2b": 6}   # zamba2: one shared period
+DRYRUN_MULTI_POD = ("llama3-405b", "train_4k")
+DRYRUN_VARIANT = "perf: gather-tokens MoE decode"    # dryrun.PERF_VARIANTS
+DRYRUN_WORKERS = 4      # processes, each tracing one combo at a time
+DRYRUN_TIMEOUT = 300    # seconds 19a may take
+# 19b: internlm2-1.8b at its published width on one card, three steps
+# sized to fit it beside the weights: (kind, seq_len, batch). bf16 weights
+# 3.8 GB; the decode's 4,096-token cache 12.9 GB; the train step's fp32
+# moments 15.1 GB
+ROOF_SHAPES = (("prefill", 4096, 8), ("decode", 4096, 32),
+               ("train", 2048, 2))
+ROOF_CALLS = 5          # timed calls of each step after one warm-up
+ROOF_MIN_RATIO = 0.9    # 19b (ii): a step's time over its roofline bound
+ROOF_PEAK_RTOL = 0.15   # 19b (iii): measured peak against the traced one
+PREFILL_CACHE_RTOL = 0.15  # 19b (iv): the kernel prefill's K/V against the
+                        # plain one's, relative at the worst (layer, row,
+                        # position): bf16 flash against the plain attention,
+                        # carried through the bf16 residual stream. The
+                        # reading on an H100 was 0.0468; a mask one key off
+                        # or a tile's V lost gave 0.86-1.5 on the CPU at 8
+                        # layers, the bf16 reordering 0.023
+                        # (tools/prefill_fault_probe.py)
+PREFILL_LOGIT_GUARD = 0.5  # 19b (iv): the last position's logits, max |d|:
+                        # about 3x the H100's reading of 0.154
+EXAMPLES = (("torch_quickstart.py", ()), ("torch_lm_cascade.py", ()),
+            ("torch_serve_cascade.py", ()),
+            ("torch_train_100m.py", ("--stage1-steps", "20",
+                                     "--stage2-steps", "10")))
+EXAMPLE_TIMEOUT = 600   # seconds one example may take
+
+
+def dryrun_jobs() -> list:
+    """19a's combos as `lower_combo` keywords, the longest first; checks
+    that DRYRUN_COMBOS holds every family at every shape kind once."""
+    from repro_torch.configs import SHAPES, get_config, list_configs
+    from repro_torch.launch import dryrun
+    got = sorted((get_config(a).family, SHAPES[s].kind)
+                 for a, s in DRYRUN_COMBOS)
+    want = sorted((f, k) for f in {get_config(a).family
+                                   for a in list_configs()}
+                  for k in ("train", "prefill", "decode"))
+    assert got == want, f"19a's combos: {got} != {want}"
+    jobs = []
+    for a, s in DRYRUN_COMBOS:
+        job = dict(arch=a, shape_name=s, multi_pod=False)
+        if a in DRYRUN_CUT and SHAPES[s].kind != "decode":
+            job.update(cfg_overrides={"n_layers": DRYRUN_CUT[a]},
+                       label=f"{DRYRUN_CUT[a]} layers")
+        jobs.append(job)
+    jobs.append(dict(arch=DRYRUN_MULTI_POD[0],
+                     shape_name=DRYRUN_MULTI_POD[1], multi_pod=True))
+    jobs += [dict(v, multi_pod=False) for v in dryrun.PERF_VARIANTS
+             if v["label"] == DRYRUN_VARIANT]
+    return sorted(jobs, key=lambda j: (SHAPES[j["shape_name"]].kind
+                                       == "prefill", "label" in j),
+                  reverse=True)
+
+
+def _trace_combo(src: str, job: dict) -> dict:
+    """One 19a combo in a fake world of this pool process's own, made and
+    destroyed by `lower_combo` (a process group is global to its
+    process); a failure comes back as "error"."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)        # DRYRUN_WORKERS of them share the host
+    from repro_torch.launch import dryrun
+    try:
+        return dryrun.lower_combo(verbose=False, **job)
+    except Exception as e:
+        return {**job, "error": repr(e)[:300]}
+
+
+def dryrun_combos(src: Path, smi: str) -> list:
+    """19a: trace the combos on DRYRUN_WORKERS processes; every combo
+    must trace. Prints one line per combo, writes them all to
+    chiprun_out/dryrun_torch.jsonl, returns them."""
+    import multiprocessing
+    from repro_torch.launch import dryrun
+    jobs = dryrun_jobs()
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(
+            DRYRUN_WORKERS) as pool:        # leaving terminates the pool
+        pending = [pool.apply_async(_trace_combo, (str(src), j))
+                   for j in jobs]
+        results = [p.get(timeout=max(t0 + DRYRUN_TIMEOUT
+                                     - time.perf_counter(), 1.0))
+                   for p in pending]
+    wall = time.perf_counter() - t0
+    for r in results:
+        if "error" not in r:
+            print(f"[19a] {dryrun.format_line(r)}")
+    out = ROOT / "chiprun_out" / "dryrun_torch.jsonl"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text("".join(json.dumps(r) + "\n" for r in results))
+    bad = [(r["arch"], r["shape_name"], r["error"]) for r in results
+           if "error" in r]
+    print(f"[19a] {len(results) - len(bad)} of {len(jobs)} combos traced "
+          f"on {DRYRUN_WORKERS} processes in {wall:.1f} s wall, "
+          f"{sum(r.get('t_trace_s', 0) for r in results):.1f} s of traces, "
+          f"on the host of {smi}")
+    if bad:
+        raise AssertionError(f"19a: failed {bad}")
+    return results
+
+
+def _step_ms(torch, step, args_fn) -> list:
+    """Wall milliseconds of ROOF_CALLS calls of `step` (CUDA events around
+    each, synchronised), after one warm-up; `args_fn()` gives each call's
+    arguments."""
+    step(*args_fn())
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ROOF_CALLS):
+        a = args_fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(*a)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def roofline_on_card(torch, smi) -> dict:
+    """19b: internlm2-1.8b at its published width (24 layers, bf16 by
+    `adapt_for_shape`) on a world of one, ctx None, at ROOF_SHAPES: the
+    meta trace's count held against the card. Returns {path: launches}."""
+    import statistics
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.steps import _decode_hidden
+    from repro_torch.kernels.deferral_entropy import deferral_entropy_plain
+    from repro_torch.models.common import unembed
+    from repro_torch.sharding import MeshLayout
+    from repro_torch.models import transformer as tfm
+    mesh = MeshLayout((1, 1), ("data", "model"))
+    by_path = {}
+
+    def last_logits(args, kernel: bool):
+        """The prefill's last-position logits [B, V] in fp32, its cache
+        (rewritten in place with the same values)."""
+        logits, _ = tfm.prefill(args[0], cfg, args[2]["tokens"], args[1],
+                                last_only=True, paged_kernel=kernel)
+        return logits[:, -1].float()
+
+    def position_rel(a, b):
+        """The largest relative difference of one position's K or V (its
+        KV heads x head dim) over the layers, rows and positions of two
+        [L, B, S, KV, hd] cache leaves."""
+        a, b = a.flatten(3).float(), b.flatten(3).float()
+        return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+    for kind, S, B in ROOF_SHAPES:
+        shape = InputShape(f"{kind}_{B}x{S}", S, B, kind)
+        cfg = specs.adapt_for_shape(get_config(ARCH), shape)
+        step, meta_args, _ = dryrun.step_and_inputs(cfg, shape, mesh)
+        t0 = time.perf_counter()
+        tr = dryrun.trace_step(step, meta_args)
+        t_trace = time.perf_counter() - t0
+        rep = rf.make_report(ARCH, shape.name, "1x1", 1,
+                             {"flops": tr["flops"],
+                              "bytes accessed": tr["bytes"]}, tr["events"],
+                             rf.analytic_model_flops(cfg, shape),
+                             tr["peak_bytes"])
+        bound_s = max(rep.compute_s, rep.memory_s)
+
+        def fresh():
+            gen = torch.Generator(device=DEV).manual_seed(SEED)
+            return dryrun.materialize(meta_args, DEV, gen, cfg.vocab_size)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = fresh()
+        # (i) the same count on the card, kernels off
+        with FlopCounterMode(display=False) as fc:
+            step(*args)
+        torch.cuda.synchronize()
+        card_flops = int(fc.get_total_flops())
+        # (iii) the peak of one plain call over what the process held
+        # before its inputs (after a warm call: cuBLAS's workspaces exist)
+        step(*args)
+        del args
+        torch.cuda.synchronize()
+        args = fresh()
+        torch.cuda.reset_peak_memory_stats()
+        step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        # (ii) the plain step's time against its bound (the train step
+        # updates its state in place; the decode writes one position)
+        ms = _step_ms(torch, step, lambda: args)
+        med = statistics.median(ms)
+
+        def one():
+            step(*args)
+            torch.cuda.synchronize()
+        _, busy, ranked = profile_steps(torch, one, 1, warm=True)
+        # (iv) the kernel path on the same inputs, against the plain
+        # step's outputs (kept small, so that one state is live at a time)
+        kstep, _, _ = dryrun.step_and_inputs(cfg, shape, mesh, kernels=True)
+        del args
+        args = fresh()
+        if kind == "prefill":
+            # the plain prefill as its step runs it, keeping its last
+            # position's logits and every layer's K/V
+            ref_logits = last_logits(args, False)
+            neg, _, tok = deferral_entropy_plain(ref_logits)
+            out = ref = (tok, neg)
+            ref_cache = [t.clone() for t in _leaves(args[1])]
+        else:
+            out = step(*args)
+        if kind == "train":
+            ref = {k: float(out[2][k]) for k in (
+                "loss", "l_corr", "l_incorr", "mean_entropy", "frac_correct")}
+        elif kind == "decode":
+            ref = (out[0].clone(), out[1].clone())
+            # phase 8's check: tokens equal where the top-2 gap is clear
+            x, _ = _decode_hidden(args[0], cfg, args[2], args[3], args[1],
+                                  paged_kernel=False)
+            top2 = torch.topk(unembed(x, args[0].get(
+                "unembed", args[0]["embedding"])), 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > TIE_GAP
+            del x, top2
+        del args, out
+        args_k = fresh()
+        reset_counts()
+        from repro_torch.kernels import gatekeeper_loss as gk
+        gk.gatekeeper_loss_tokens.launches = 0
+        out = kstep(*args_k)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        counts["gatekeeper_loss_tokens"] = gk.gatekeeper_loss_tokens.launches
+        want = dict.fromkeys(counts, 0)
+        if kind == "prefill":
+            want.update(flash_attention=cfg.n_layers, deferral_entropy=1)
+        elif kind == "decode":
+            want.update(deferral_entropy=1)
+        else:
+            want.update(gatekeeper_loss_tokens=1)
+        if kind == "train":
+            err = max(abs(ref[k] - float(out[2][k]))
+                      for k in ("loss", "l_corr", "l_incorr",
+                                "mean_entropy"))
+            agree = (f"loss terms max|d| {err:.3g} (atol {LOSS_ATOL}), "
+                     f"frac_correct {ref['frac_correct']:.4f} / "
+                     f"{float(out[2]['frac_correct']):.4f}")
+            ok = err <= LOSS_ATOL
+        elif kind == "decode":
+            # phase 8's: neg_entropy within SIGNAL_ATOL on the same state
+            err = float((ref[1] - out[1]).abs().max())
+            flips = int((ref[0][clear] != out[0][clear]).sum())
+            agree = (f"neg_entropy max|d| {err:.3g} (atol {SIGNAL_ATOL}), "
+                     f"tokens equal on the {int(clear.sum())} rows of a "
+                     f"clear top-2 gap ({flips} differ)")
+            ok = err <= SIGNAL_ATOL and flips == 0
+        else:
+            # bf16 flash against the plain attention: every position's
+            # K/V in every layer after the first depends on the attention
+            # below it; then the last position's logits (the kernel path
+            # again, after the counts were read); then the step's signal
+            # against the plain one on those logits, as phase 8 holds it
+            cache_rel = max(position_rel(a, b) for a, b in
+                            zip(_leaves(args_k[1]), ref_cache))
+            k_logits = last_logits(args_k, True)
+            logit_err = float((k_logits - ref_logits).abs().max())
+            neg, _, tok = deferral_entropy_plain(k_logits)
+            err = float((neg - out[1]).abs().max())
+            top2 = torch.topk(k_logits, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > TIE_GAP
+            flips = int((tok[clear] != out[0][clear]).sum())
+            agree = (f"K/V worst position's relative error {cache_rel:.3g} "
+                     f"(<= {PREFILL_CACHE_RTOL}), last position's logits "
+                     f"max|d| {logit_err:.3g} (guard {PREFILL_LOGIT_GUARD}"
+                     f"), {int((ref[0] != out[0]).sum())} of {B} tokens "
+                     f"differ from the plain prefill's (no bound); the "
+                     f"signal on the kernel path's logits: neg_entropy "
+                     f"max|d| {err:.3g} (atol {SIGNAL_ATOL}), tokens equal "
+                     f"on the {int(clear.sum())} rows of a clear top-2 gap "
+                     f"({flips} differ)")
+            ok = (cache_rel <= PREFILL_CACHE_RTOL
+                  and logit_err <= PREFILL_LOGIT_GUARD
+                  and err <= SIGNAL_ATOL and flips == 0)
+            del ref_cache, ref_logits, k_logits, top2
+        del out, ref
+        k_ms = statistics.median(_step_ms(torch, kstep, lambda: args_k))
+        del args_k
+        torch.cuda.empty_cache()
+        ratio = med / 1e3 / bound_s
+        peak_err = abs(peak - tr["peak_bytes"]) / tr["peak_bytes"]
+        print(f"[19b] {ARCH} {shape.name} ({cfg.n_layers} layers, bf16, world of one): "
+              f"FLOPs meta {tr['flops']} / card {card_flops} "
+              f"({'equal' if card_flops == tr['flops'] else 'DIFFER'}); "
+              f"bytes {tr['bytes']}; compute {rep.compute_s * 1e3:.4g} ms, "
+              f"memory {rep.memory_s * 1e3:.4g} ms -> bound "
+              f"{bound_s * 1e3:.4g} ms ({rep.dominant}); plain step median "
+              f"{med:.4g} ms of {[round(t, 3) for t in ms]} = "
+              f"{ratio:.3f} x the bound (>= {ROOF_MIN_RATIO}); peak traced "
+              f"{tr['peak_bytes'] / 2**30:.4g} GiB / measured "
+              f"{peak / 2**30:.4g} GiB ({peak_err:.1%}, <= "
+              f"{ROOF_PEAK_RTOL:.0%}); traced in {t_trace:.2f} s; kernel "
+              f"path {k_ms:.4g} ms ({k_ms / 1e3 / bound_s:.3f} x the plain "
+              f"count's bound, no guard), launches "
+              f"{ {k: v for k, v in counts.items() if v} }, {agree}; plain "
+              f"step under torch.profiler: device busy "
+              f"{'none recorded' if busy is None else f'{busy:.4g} ms'}, top "
+              f"kernels " + ", ".join(f"{n[:60]} {t:.4g}"
+                                      for n, t in ranked[:3])
+              + f"; {smi}")
+        if not (card_flops == tr["flops"] and ratio >= ROOF_MIN_RATIO
+                and peak_err <= ROOF_PEAK_RTOL and counts == want and ok):
+            raise AssertionError(f"19b {shape.name}: flops {tr['flops']} vs "
+                                 f"{card_flops}, ratio {ratio}, peak error "
+                                 f"{peak_err}, launches {counts} != {want}, "
+                                 f"agreement {ok}")
+        by_path[f"roofline_{kind}"] = counts
+    return by_path
+
+
+def run_examples(src: Path, smi: str) -> None:
+    """19c: the examples as child processes on the card at their defaults
+    (the trainer at 20 + 10 steps), all four at once (their loops are
+    host-bound): each must exit 0 and print its JSON result line last.
+    Each one's wall runs from their common start to its exit; their
+    output goes to chiprun_out/examples/."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(src))
+    logs = ROOT / "chiprun_out" / "examples"
+    logs.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs, walls = {}, {}
+    try:
+        for name, extra in EXAMPLES:
+            with open(logs / f"{name}.out", "w") as out, \
+                    open(logs / f"{name}.err", "w") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / name), *extra],
+                    stdout=out, stderr=err, env=env, cwd=ROOT)
+        while len(walls) < len(procs):
+            if time.perf_counter() - t0 > EXAMPLE_TIMEOUT:
+                raise AssertionError(f"19c: {sorted(set(procs) - set(walls))}"
+                                     f" still running after "
+                                     f"{EXAMPLE_TIMEOUT} s")
+            for name, p in procs.items():
+                if name not in walls and p.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, extra in EXAMPLES:
+        out = (logs / f"{name}.out").read_text()
+        last = (out.strip().splitlines() or [""])[-1]
+        try:
+            rec = json.loads(last)
+        except ValueError:
+            rec = {}
+        rc = procs[name].returncode
+        print(f"[19c] {name} {' '.join(extra)}: exit {rc} after "
+              f"{walls[name]:.1f} s wall (the four together) on {smi}; "
+              f"{last[:400]}")
+        if rc != 0 or rec.get("example") != name[:-3]:
+            raise AssertionError(
+                f"19c {name}: exit {rc}\n{out[-2000:]}\n"
+                f"{(logs / f'{name}.err').read_text()[-3000:]}")
+
+
+def dryrun_phase(torch, smi, src: Path, t_start: float) -> dict:
+    """Phase 19: 19a, 19b and 19c, one after another. Returns {path:
+    launch counts}."""
+    phase("19a", t_start)
+    dryrun_combos(src, smi)
+    phase("19b", t_start)
+    by_path = roofline_on_card(torch, smi)
+    phase("19c", t_start)
+    run_examples(src, smi)
+    return by_path
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description="Chip smoke test of the PyTorch/CUDA port on one GPU.")
@@ -6017,6 +6463,12 @@ def parse_args(argv=None):
                     help="run only phase 18 (sharding, ParallelContext and "
                          "the expert- and sequence-parallel paths) after "
                          "the build: prints its lines, no contract line")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="run only phase 19 (the dry-run of a combo per "
+                         "family and shape kind, its roofline held against "
+                         "the card, the examples) "
+                         "after the build: prints its lines, no contract "
+                         "line")
     ap.add_argument("--ml-server", action="store_true",
                     help="run as phase 14c's M_L server process (this "
                          "script starts it): the full-width large tier "
@@ -6105,6 +6557,10 @@ def main(argv=None) -> int:
                           smi, t_start)
             phase("5 (phase 15's archs)", t_start)
             reduced_fixtures(torch, serve, DECODER_ARCHS)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.dryrun:
+        dryrun_phase(torch, smi, src, t_start)
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
     rng = np.random.default_rng(SEED)
@@ -6272,7 +6728,10 @@ def main(argv=None) -> int:
         chunked["launches_by_path"][path] = counts["wkv_scan_chunked"]
 
     # -- 18. sharding and the expert- and sequence-parallel paths -----------
-    for path, counts in scale_out_phase(torch, smi, t_start).items():
+    # -- 19. the dry-run, its roofline against the card, the examples ------
+    for path, counts in {**scale_out_phase(torch, smi, t_start),
+                         **dryrun_phase(torch, smi, src,
+                                        t_start)}.items():
         for name, n in counts.items():
             r = rec if name == "gatekeeper_loss_tokens" else records[name]
             if n:
@@ -6388,16 +6847,19 @@ def profile_decode(torch, tfm, params, cfg, rng, steps: int = 5):
     return profile_steps(torch, run, steps)
 
 
-def profile_steps(torch, run, steps: int):
+def profile_steps(torch, run, steps: int, warm: bool = False):
     """`run()` (which runs `steps` steps and synchronises) once to warm
-    up, once on the host clock, once under torch.profiler. Returns (wall
-    ms per step, device-busy ms per step or None, [(kernel, ms per step)]
-    from the largest)."""
+    up, once on the host clock, once under torch.profiler; only the last
+    when `warm` (the wall is then None). Returns (wall ms per step,
+    device-busy ms per step or None, [(kernel, ms per step)] from the
+    largest)."""
     from torch.profiler import ProfilerActivity, profile
-    run()                                             # warm-up
-    t0 = time.perf_counter()
-    run()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    wall_ms = None
+    if not warm:
+        run()                                         # warm-up
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()

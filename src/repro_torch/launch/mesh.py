@@ -37,3 +37,8 @@ NVLINK_BW = 450e9               # bytes/s per direction per GPU (NVLink 4,
                                 # 900 GB/s both directions)
 HBM_BYTES = 85_017_493_504      # torch.cuda.get_device_properties(0)
                                 # .total_memory on that card (79.18 GiB)
+IB_BW = 50e9                    # bytes/s per GPU across nodes: one 400 Gb/s
+                                # ConnectX-7 InfiniBand port per GPU in a
+                                # DGX H100 (NVIDIA's DGX H100 data sheet)
+NVLINK_DOMAIN = 8               # GPUs one NVLink domain joins (a DGX H100
+                                # node: 8 GPUs over NVSwitch)

@@ -37,8 +37,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import (rms_norm, sinusoidal_positions,
-                                       unembed)
+from repro_torch.models.common import (buffer, rms_norm,
+                                       sinusoidal_positions, unembed)
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor,
@@ -143,17 +143,23 @@ def forward(params, cfg: ModelConfig, frames: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: Optional[torch.dtype] = None, device=None) -> dict:
+               dtype: Optional[torch.dtype] = None, device=None,
+               abstract: bool = False) -> dict:
     """The decoder's zeroed slot cache (`transformer.init_cache`) plus
     "cross_kv" {"k", "v"} of [L, batch, n_frames, H, hd], all in `dtype`
-    (default: the compute type)."""
+    (default: the compute type). With `abstract` the leaves are
+    AbstractParams with JAX's logical axes (the cross leaves'
+    ("layers", "batch", "seq", "heads", "head_dim")) and nothing is
+    allocated."""
     dtype = dtype or cfg.cdtype()
-    device = resolve_device(device)
-    cache = tfm.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
+    device = None if abstract else resolve_device(device)
+    cache = tfm.init_cache(cfg, batch, max_len, dtype=dtype, device=device,
+                           abstract=abstract)
     shape = (cfg.n_layers, batch, cfg.encoder.n_frames, cfg.n_heads,
              cfg.head_dim)
-    cache["cross_kv"] = {n: torch.zeros(shape, dtype=dtype, device=device)
-                         for n in ("k", "v")}
+    axes = ("layers", "batch", "seq", "heads", "head_dim")
+    cache["cross_kv"] = {n: buffer(shape, axes, abstract, dtype=dtype,
+                                   device=device) for n in ("k", "v")}
     return cache
 
 

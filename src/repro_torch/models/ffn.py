@@ -81,7 +81,10 @@ def _route(router_w: torch.Tensor, x2d: torch.Tensor, cfg: MoEConfig):
     gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     E = cfg.n_experts
-    counts = torch.bincount(idx.reshape(-1), minlength=E)
+    flat = idx.reshape(-1)
+    # a fixed-size count (bincount's integers): meta tensors can take it
+    counts = torch.zeros(E, dtype=torch.long, device=idx.device).index_add_(
+        0, flat, torch.ones_like(flat))
     frac_tokens = counts.float() / torch.clamp(counts.sum().float(), min=1.0)
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
     return gates, idx, aux, counts
@@ -100,6 +103,12 @@ def _moe_local_math(x2d: torch.Tensor, router_w: torch.Tensor,
     order = torch.argsort(idx.reshape(-1), stable=True)
     tok = torch.div(order, cfg.top_k, rounding_mode="floor")
     xs = x2d[tok]
+    if counts.is_meta:
+        raise RuntimeError(
+            "the local MoE path sizes each expert's group by its routed "
+            "count, which depends on the data: a meta tensor has none. The "
+            "dry-run reaches the capacity-buffer paths only (a mesh whose "
+            "model axis splits the experts)")
     counts = counts.tolist()
     out = torch.empty((xs.shape[0], d), dtype=torch.promote_types(
         x2d.dtype, w_down.dtype), device=x2d.device)
@@ -120,6 +129,15 @@ def _moe_local_math(x2d: torch.Tensor, router_w: torch.Tensor,
 def _round_cap(n: float) -> int:
     """JAX's capacity: the ceiling, up to a multiple of 8, at least 8."""
     return max(8, int(math.ceil(int(math.ceil(n)) / 8)) * 8)
+
+
+def _scatter_rows(src: torch.Tensor, dest: torch.Tensor, n: int,
+                  fill=0) -> torch.Tensor:
+    """An [n, ...] buffer of `fill` holding src's rows at `dest`. A row
+    whose dest is n (dropped) lands in a trash row past the end, which is
+    cut off: fixed shapes and no boolean mask, so meta tensors take it."""
+    buf = src.new_full((n + 1,) + tuple(src.shape[1:]), fill)
+    return buf.index_put_((dest,), src)[:n]
 
 
 def _expert_ffn_capacity(xflat: torch.Tensor, eflat: torch.Tensor,
@@ -144,10 +162,11 @@ def _expert_ffn_capacity(xflat: torch.Tensor, eflat: torch.Tensor,
     slot = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
     slot = torch.where(e < n_experts, slot, cap)
     keep = slot < cap
-    buf = xflat.new_zeros((n_experts + 1, cap, d))
-    buf = buf.index_put((e[keep], slot[keep]), xflat[keep])
-    h = swiglu(torch.einsum("ecd,edf->ecf", buf[:n_experts], w_gate),
-               torch.einsum("ecd,edf->ecf", buf[:n_experts], w_up))
+    trash = n_experts * cap
+    buf = _scatter_rows(xflat, torch.where(keep, e * cap + slot, trash),
+                        trash).view(n_experts, cap, d)
+    h = swiglu(torch.einsum("ecd,edf->ecf", buf, w_gate),
+               torch.einsum("ecd,edf->ecf", buf, w_up))
     out = torch.einsum("ecf,efd->ecd", h, w_down)
     out = torch.cat([out, out.new_zeros((1,) + out.shape[1:])])
     res = out[torch.clamp(e, max=n_experts), torch.clamp(slot, max=cap - 1)]
@@ -164,9 +183,11 @@ def _pack_by_destination(x2d: torch.Tensor, tok: torch.Tensor,
     slot = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
     slot = torch.where(valid.bool(), slot, capacity)
     keep = slot < capacity
-    buf = x2d.new_zeros((n_dst, capacity, x2d.shape[-1]))
-    buf = buf.index_put((dst.long()[keep], slot[keep]), x2d[tok[keep]])
-    return buf, slot
+    trash = n_dst * capacity
+    buf = _scatter_rows(x2d[tok],
+                        torch.where(keep, dst.long() * capacity + slot, trash),
+                        trash)
+    return buf.view(n_dst, capacity, x2d.shape[-1]), slot
 
 
 def _combine(res: torch.Tensor, tok: torch.Tensor, gates: torch.Tensor,
@@ -196,9 +217,9 @@ def _moe_scatter_shard(x_loc, router_w, w_gate_loc, w_up_loc, w_down_loc,
     valid = torch.ones((A,), dtype=torch.long, device=x_loc.device)
     xsend, slot = _pack_by_destination(x_loc, tok, dst, valid, mp, cap)
     keep = slot < cap
-    esend = torch.full((mp, cap), E_loc, dtype=torch.long,
-                       device=x_loc.device)
-    esend[dst[keep], slot[keep]] = (flat_e % E_loc)[keep]
+    esend = _scatter_rows(flat_e % E_loc,
+                          torch.where(keep, dst * cap + slot, mp * cap),
+                          mp * cap, fill=E_loc).view(mp, cap)
     # after the exchange block m holds what model shard m sent here
     xrecv = sharding.all_to_all(xsend, ctx.model_axis, ctx)
     erecv = sharding.all_to_all(esend, ctx.model_axis, ctx)
@@ -235,10 +256,9 @@ def _moe_decode_shard(x_loc, router_w, w_gate_loc, w_up_loc, w_down_loc,
     li = local.long()
     slot = torch.where(local, torch.cumsum(li, 0) - li, cap)
     keep = slot < cap
-    xbuf = x_loc.new_zeros((cap, d)).index_put((slot[keep],),
-                                               x_loc[tok[keep]])
-    ebuf = torch.full((cap,), E_loc, dtype=torch.long, device=x_loc.device)
-    ebuf[slot[keep]] = e_loc[keep]
+    dest = torch.clamp(slot, max=cap)
+    xbuf = _scatter_rows(x_loc[tok], dest, cap)
+    ebuf = _scatter_rows(e_loc, dest, cap, fill=E_loc)
     out = _expert_ffn_capacity(xbuf, ebuf, w_gate_loc, w_up_loc, w_down_loc,
                                E_loc, capacity_factor=2.0)
     res = out[torch.clamp(slot, max=cap - 1)]

@@ -44,6 +44,20 @@ rank holding the global values.
 `all_reduce` max returns a value with no gradient: the flash decode uses
 it only as the stabilising row max, which its result does not depend on.
 
+Recording. Inside `record_collectives()` every collective this module
+runs in that thread appends one `CollectiveEvent` (the op it runs, the
+result's bytes on the rank, the group's size, mesh axes and global
+ranks), the `assemble` rebuilds included; the backward's too where
+autograd runs it in the calling thread, as it does for CPU and meta
+tensors (a CUDA backward runs in a thread of its own, which the recorder
+does not see). These explicit collectives
+are all the port runs across ranks, so the events are what the dry-run
+counts in place of the collectives XLA writes into its HLO. The
+transpose of `all_gather` runs as an all-reduce of the whole gradient
+and keeps the rank's block (a reduce-scatter's result at an
+all-reduce's traffic), and is recorded as the all-reduce it is. With no
+recorder active nothing is recorded and nothing is read from the device.
+
 The process group is the caller's: this module picks no backend and
 initialises nothing; `make_mesh` refuses a world that does not match the
 mesh, and `ParallelContext` a `DeviceMesh` that does not cover the world
@@ -51,6 +65,8 @@ mesh, and `ParallelContext` a `DeviceMesh` that does not cover the world
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -325,31 +341,77 @@ class ParallelContext:
 
 
 # ---------------------------------------------------------------------------
+# Recording the collectives
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveEvent:
+    """One collective as the port ran it on this rank."""
+    op: str                    # "all-reduce", "all-gather" or "all-to-all"
+    nbytes: int                # bytes of the result on the rank
+    group_size: int
+    axes: Tuple[str, ...]      # mesh axes of the group; () for the world
+    ranks: Tuple[int, ...]     # the group's global ranks
+
+
+_EVENTS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_collective_events", default=None)
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Collect a `CollectiveEvent` for every collective of this module run
+    in this context into the list it yields."""
+    events: list = []
+    token = _EVENTS.set(events)
+    try:
+        yield events
+    finally:
+        _EVENTS.reset(token)
+
+
+def _record(op: str, out: torch.Tensor, group, axes) -> None:
+    events = _EVENTS.get()
+    if events is None:
+        return
+    ranks = (tuple(range(dist.get_world_size())) if group is None
+             else tuple(dist.get_process_group_ranks(group)))
+    events.append(CollectiveEvent(op, out.numel() * out.element_size(),
+                                  len(ranks), tuple(axes), ranks))
+
+
+# ---------------------------------------------------------------------------
 # Collectives with the port's transposes
 # ---------------------------------------------------------------------------
 
-def _gather_cat(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+def _gather_cat(x: torch.Tensor, group, n: int, dim: int,
+                axes=()) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    _record("all-gather", out, group, axes)
+    return out
 
 
-def _sum(x: torch.Tensor, group) -> torch.Tensor:
+def _sum(x: torch.Tensor, group, axes=(),
+         op=dist.ReduceOp.SUM) -> torch.Tensor:
     x = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(x, op=op, group=group)
+    _record("all-reduce", x, group, axes)
     return x
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx_, x, group):
-        ctx_.group = group
-        return _sum(x, group)
+    def forward(ctx_, x, group, axis):
+        ctx_.meta = (group, axis)
+        return _sum(x, group, (axis,))
 
     @staticmethod
     def backward(ctx_, g):
-        return _sum(g, ctx_.group), None
+        group, axis = ctx_.meta
+        return _sum(g, group, (axis,)), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -357,15 +419,15 @@ class _AllGather(torch.autograd.Function):
     sums the shares and keeps the rank's block (a reduce-scatter)."""
 
     @staticmethod
-    def forward(ctx_, x, group, n, idx, dim):
-        ctx_.meta = (group, n, idx, dim, x.shape[dim])
-        return _gather_cat(x, group, n, dim)
+    def forward(ctx_, x, group, n, idx, dim, axis):
+        ctx_.meta = (group, n, idx, dim, x.shape[dim], axis)
+        return _gather_cat(x, group, n, dim, (axis,))
 
     @staticmethod
     def backward(ctx_, g):
-        group, n, idx, dim, size = ctx_.meta
-        return (_sum(g, group).narrow(dim, idx * size, size),
-                None, None, None, None)
+        group, n, idx, dim, size, axis = ctx_.meta
+        return (_sum(g, group, (axis,)).narrow(dim, idx * size, size),
+                None, None, None, None, None)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -373,19 +435,21 @@ class _AllToAll(torch.autograd.Function):
     result came from it. Its own transpose."""
 
     @staticmethod
-    def forward(ctx_, x, group):
-        ctx_.group = group
-        return _all_to_all(x, group)
+    def forward(ctx_, x, group, axis):
+        ctx_.meta = (group, axis)
+        return _all_to_all(x, group, (axis,))
 
     @staticmethod
     def backward(ctx_, g):
-        return _all_to_all(g, ctx_.group), None
+        group, axis = ctx_.meta
+        return _all_to_all(g, group, (axis,)), None, None
 
 
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+def _all_to_all(x: torch.Tensor, group, axes=()) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
+    _record("all-to-all", out, group, axes)
     return out
 
 
@@ -413,7 +477,8 @@ class _Assemble(torch.autograd.Function):
             return y.view_as(y)
         for dim, axes, _, _ in gathers:
             for a in reversed(axes):          # minor axis first
-                y = _gather_cat(y, pctx.group(a), pctx.axis_size(a), dim)
+                y = _gather_cat(y, pctx.group(a), pctx.axis_size(a), dim,
+                                (a,))
         return y
 
     @staticmethod
@@ -433,14 +498,14 @@ def all_reduce(x: torch.Tensor, axes: Sequence[str], ctx: ParallelContext,
     """psum / pmean / pmax of `x` over the mesh axes `axes`."""
     axes = _live(ctx, axes)
     if op == "max":
-        x = x.detach().clone(memory_format=torch.contiguous_format)
+        x = x.detach()
         for a in axes:
-            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=ctx.group(a))
+            x = _sum(x, ctx.group(a), (a,), dist.ReduceOp.MAX)
         return x
     if op not in ("sum", "mean"):
         raise ValueError(f"all_reduce op {op!r}: sum, mean or max")
     for a in axes:
-        x = _AllReduceSum.apply(x, ctx.group(a))
+        x = _AllReduceSum.apply(x, ctx.group(a), a)
     return x / ctx.n_blocks(axes) if op == "mean" and axes else x
 
 
@@ -450,7 +515,7 @@ def all_gather(x: torch.Tensor, axes: Sequence[str], ctx: ParallelContext,
     on `dim`, inside a body."""
     for a in reversed(_live(ctx, axes)):
         x = _AllGather.apply(x, ctx.group(a), ctx.axis_size(a),
-                             ctx.coord((a,)), dim)
+                             ctx.coord((a,)), dim, a)
     return x
 
 
@@ -459,7 +524,7 @@ def all_to_all(x: torch.Tensor, axis: str, ctx: ParallelContext
     """JAX's tiled `all_to_all(x, axis, 0, 0)`."""
     if ctx.axis_size(axis) == 1:
         return x
-    return _AllToAll.apply(x, ctx.group(axis))
+    return _AllToAll.apply(x, ctx.group(axis), axis)
 
 
 def take_block(x: torch.Tensor, spec: Spec, ctx: ParallelContext

@@ -160,6 +160,41 @@ def job_moe(inp, mesh, torch):
     return out
 
 
+MOE_SHAPES = (("prefill", 16, 4), ("decode", 16, 4), ("train", 16, 4))
+
+
+def moe_flops(torch, mesh, meta: bool) -> dict:
+    """FlopCounterMode's count of the reduced kimi-k2-1t-a32b's prefill,
+    decode and train steps (bf16, `launch.dryrun`'s steps and inputs) on
+    the rank's context over `mesh`: on meta tensors (`meta`), or on real
+    CPU tensors drawn from seed 0."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import InputShape, get_config, reduced
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_context
+    out = {}
+    for kind, S, B in MOE_SHAPES:
+        shape = InputShape(kind, S, B, kind)
+        cfg = specs.adapt_for_shape(reduced(get_config("kimi-k2-1t-a32b")),
+                                    shape)
+        step, args, _ = dryrun.step_and_inputs(cfg, shape, mesh,
+                                               make_context(mesh))
+        if meta:
+            out[kind] = dryrun.trace_step(step, args)["flops"]
+            continue
+        args = dryrun.materialize(args, "cpu", torch.Generator().manual_seed(0),
+                                  cfg.vocab_size)
+        with FlopCounterMode(display=False) as fc:
+            step(*args)
+        out[kind] = int(fc.get_total_flops())
+    return out
+
+
+def job_flops(inp, mesh, torch):
+    """`moe_flops` on real tensors, rank by rank."""
+    return {k: np.array(v) for k, v in moe_flops(torch, mesh, False).items()}
+
+
 def main(job: str, rank: int, n: int, tmp: str):
     import torch
     import torch.distributed as dist
@@ -170,7 +205,8 @@ def main(job: str, rank: int, n: int, tmp: str):
         from repro_torch.sharding import make_mesh
         mesh = make_mesh(MESH, AXES, "cpu")
         inp = dict(np.load(f"{tmp}/{job}_in.npz"))
-        out = {"decode": job_decode, "moe": job_moe}[job](inp, mesh, torch)
+        out = {"decode": job_decode, "moe": job_moe,
+               "flops": job_flops}[job](inp, mesh, torch)
         np.savez(f"{tmp}/{job}_out{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

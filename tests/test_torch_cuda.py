@@ -1640,3 +1640,41 @@ def test_threaded_world_of_8_moe_and_seq_sharded_decode(cuda):
         torch.testing.assert_close(ys, ref, atol=1e-4, rtol=1e-3)
         torch.testing.assert_close(yd, ref, atol=1e-4, rtol=1e-3)
         torch.testing.assert_close(y, ya, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_dryrun_meta_count_equals_card_count(cuda, kind):
+    """Phase 19b (i) on a 2-layer cut of internlm2-1.8b at its published
+    widths in bf16: the dry-run's meta trace counts exactly the FLOPs
+    FlopCounterMode counts for the same step on the card, kernels off; the
+    traced peak lies within 15% of the card's."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.sharding import MeshLayout
+    S, B = {"prefill": (512, 2), "decode": (512, 4), "train": (256, 2)}[kind]
+    shape = InputShape(kind, S, B, kind)
+    cfg = specs.adapt_for_shape(get_config("internlm2-1.8b"), shape).replace(
+        n_layers=2)
+    step, meta, _ = dryrun.step_and_inputs(
+        cfg, shape, MeshLayout((1, 1), ("data", "model")))
+    tr = dryrun.trace_step(step, meta)
+
+    def fresh():
+        return dryrun.materialize(meta, cuda, torch.Generator(
+            device=cuda).manual_seed(0), cfg.vocab_size)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = fresh()
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    assert int(fc.get_total_flops()) == tr["flops"]
+    del args
+    args = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert abs(peak - tr["peak_bytes"]) <= 0.15 * tr["peak_bytes"], (
+        peak, tr["peak_bytes"])

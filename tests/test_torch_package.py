@@ -33,8 +33,10 @@ CLASSIFIER_MODULES = ("models.classifier", "data.synthetic", "training.loop")
 ENCDEC_VLM_MODULES = ("models.encdec", "configs.whisper_small",
                       "configs.phi_3_vision_4_2b")
 SCALE_OUT_MODULES = ("sharding", "launch.mesh")
+DRYRUN_MODULES = ("launch.specs", "launch.roofline", "launch.dryrun")
 SLICE_MODULES = (TRAINING_MODULES + SIGNAL_MODULES + SSM_MODULES
-                 + CLASSIFIER_MODULES + ENCDEC_VLM_MODULES + SCALE_OUT_MODULES)
+                 + CLASSIFIER_MODULES + ENCDEC_VLM_MODULES + SCALE_OUT_MODULES
+                 + DRYRUN_MODULES)
 
 
 def _imported_roots(path: Path):
@@ -96,22 +98,46 @@ def test_import_check_covers_the_scale_out_slice():
         assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
 
 
+def test_import_check_covers_the_dryrun_slice():
+    src = REPO / "src" / "repro_torch"
+    for mod in DRYRUN_MODULES:
+        assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+
+
+def _imports_of(node):
+    if isinstance(node, ast.Import):
+        return [alias.name for alias in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module or ""]
+    return []
+
+
 def _imported_modules(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.Import):
-            yield from (alias.name for alias in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module or ""
+        yield from _imports_of(node)
+
+
+# torch ships its fake process group only among its test helpers; the
+# dry-run's `fake_world` imports it inside the function, and nothing else
+# of the package reaches there
+FAKE_PG = {REPO / "src" / "repro_torch" / "launch" / "dryrun.py":
+           "torch.testing._internal.distributed.fake_pg"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES[:-1],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_package_file_imports_no_torch_testing(path):
     """The package never reaches into torch's test helpers (the threaded
-    process group is chip_smoke.py's and the tests' own)."""
+    process group is chip_smoke.py's and the tests' own), but for the
+    dry-run's fake process group, imported when a fake world is built,
+    never at module level."""
     bad = [m for m in _imported_modules(path)
-           if m == "torch.testing" or m.startswith("torch.testing.")]
+           if (m == "torch.testing" or m.startswith("torch.testing."))
+           and m != FAKE_PG.get(path)]
     assert not bad, bad
+    top = [m for node in ast.parse(path.read_text()).body
+           for m in _imports_of(node)]
+    assert FAKE_PG.get(path) not in top
 
 
 def test_torch_testing_check_sees_an_import(tmp_path):

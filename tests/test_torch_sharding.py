@@ -17,6 +17,7 @@ import torch
 from _torch_world import run_world
 import repro.configs as jconfigs
 from repro.models import attention as jattn
+from repro.models import encdec as jencdec
 from repro.models import transformer as jtfm
 from repro.models.common import ParamFactory
 from repro.sharding import AbstractParam as JAbstractParam
@@ -27,6 +28,7 @@ from repro.sharding import rules_dict as j_rules_dict
 import repro_torch.configs as tconfigs
 from repro_torch.launch.mesh import (make_context, make_host_mesh,
                                      make_production_mesh)
+from repro_torch.models import encdec as tencdec
 from repro_torch.models import transformer as ttfm
 from repro_torch.sharding import (DEFAULT_RULES, AbstractParam,
                                   ParallelContext, Spec, logical_to_spec,
@@ -214,6 +216,23 @@ def test_abstract_cache_carries_jax_axes(arch):
     jcfg = jconfigs.reduced(jconfigs.get_config(arch))
     _same_leaves(ttfm.init_cache(tcfg, 2, 16, abstract=True),
                  jtfm.init_cache(jcfg, 2, 16, abstract=True))
+
+
+@pytest.mark.parametrize("reduce", [True, False])
+def test_abstract_encdec_cache_carries_jax_axes(reduce):
+    """whisper-small's cache through `encdec.init_cache`, whose cross K/V
+    leaves the test above never reaches; the meta tensors of its tree
+    allocate nothing."""
+    tcfg = tconfigs.get_config("whisper-small")
+    jcfg = jconfigs.get_config("whisper-small")
+    if reduce:
+        tcfg, jcfg = tconfigs.reduced(tcfg), jconfigs.reduced(jcfg)
+    port = tencdec.init_cache(tcfg, 2, 16, abstract=True)
+    _same_leaves(port, jencdec.init_cache(jcfg, 2, 16, abstract=True))
+    assert port["cross_kv"]["k"].logical_axes == (
+        "layers", "batch", "seq", "heads", "head_dim")
+    assert all(t.device.type == "meta"
+               for t in _named(tree_shape_structs(port)).values())
 
 
 def test_full_width_abstract_tree_is_jax_sharding_plan():
