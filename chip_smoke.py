@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train-recurrent
     python3 chip_smoke.py --scale-out
     python3 chip_smoke.py --dryrun
+    python3 chip_smoke.py --analysis
 
 The second form runs only the named kernel phases (after phases 1 and 2)
 and prints their records with no contract line; `--src` builds and checks
@@ -23,7 +24,7 @@ the sixth phase 17 (recurrent training, remat, attn_chunk) alone, after
 phase 7a's loss-kernel checks at its two Stage-2 shapes; the seventh
 phase 18 (sharding and the expert- and sequence-parallel paths) alone;
 the eighth phase 19 (the dry-run, its count against the card, the
-examples) alone.
+examples) alone; the ninth phase 20 (the static analysis) alone.
 
 Phases, in the order they run; any failure raises and the script exits
 non-zero:
@@ -438,6 +439,17 @@ non-zero:
          torch_serve_cascade.py at their defaults and torch_train_100m.py
          at 20 + 10 steps, as four child processes at once: each exits 0
          with its JSON result line last.
+  20. The port's static analysis on the machine that builds the kernels:
+      (a) `python -m repro_torch.analysis --paths src/repro_torch
+      chip_smoke.py`, as CI runs it, exits 0 modulo
+      analysis_baseline_torch.json (findings by rule, baselined and stale
+      counts printed); (b) each csrc/*.cu through `nvcc -E -x cu` with the
+      build's flags gives the extern "C" signatures of the raw source's
+      parse (`kernel_contracts.own_text` keeps the source's own lines);
+      (c) `nm -D --defined-only` on each built library: its C-linkage
+      exports are exactly that set; (d) a copy of a kernel module with one
+      argtypes entry dropped makes the CLI exit 1 with KC001. The phase's
+      seconds are printed beside the card's name and power limit.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -6426,6 +6438,135 @@ def dryrun_phase(torch, smi, src: Path, t_start: float) -> dict:
     return by_path
 
 
+def _nm_exports(lib: Path) -> set:
+    """The C-linkage (unmangled) functions a shared library exports."""
+    out = subprocess.run(["nm", "-D", "--defined-only", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    return {parts[2] for parts in (line.split() for line in
+                                   out.splitlines())
+            if len(parts) == 3 and parts[1] in "TWi"
+            and not parts[2].startswith("_Z")}
+
+
+def analysis_phase(smi: str) -> None:
+    """Phase 20: the port's static analysis, run on the machine that builds
+    the kernels. (a) `python -m repro_torch.analysis` over the port and this
+    script, as CI runs it, must exit 0 modulo analysis_baseline_torch.json;
+    (b) each csrc/*.cu through `nvcc -E -x cu` with the build's flags must
+    give the same extern "C" signatures as the raw source's parse (no macro
+    hides a parameter); (c) each built library's exported C-linkage
+    (unmangled) functions must be exactly the parsed extern "C" set; (d) a
+    kernel module copied with one argtypes entry dropped must make the CLI
+    exit 1 with KC001. Any failure raises."""
+    import ast
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.analysis import kernel_contracts as kc
+    from repro_torch.analysis.core import SourceModule
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = [sys.executable, "-m", "repro_torch.analysis"]
+
+    # (a) the gate, as CI runs it
+    proc = subprocess.run(cli + ["--paths", "src/repro_torch",
+                                 "chip_smoke.py", "--json"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"20a: the analysis exits {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    rep = json.loads(proc.stdout)
+    by_rule = {}
+    for f in rep["new"] + rep["baselined"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    print(f"[20a] repro_torch.analysis: rc 0, {rep['n_files']} files, "
+          f"findings by rule {json.dumps(by_rule, sort_keys=True)}, "
+          f"{len(rep['baselined'])} baselined, {len(rep['new'])} new, "
+          f"{len(rep['stale_baseline'])} stale")
+
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    raw = {cu.stem: {s.name: s.abi for s in kc.c_signatures(cu.read_text())}
+           for cu in sources}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def nvcc(args):
+            return subprocess.run([_build.nvcc_path(), *args],
+                                  capture_output=True, text=True)
+        jobs = [["-E", "-x", "cu", *_build.NVCC_FLAGS, "-o",
+                 str(tmp / f"{cu.stem}.ii"), str(cu)] for cu in sources]
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            procs = list(pool.map(nvcc, jobs))
+        for job, p in zip(jobs, procs):
+            if p.returncode != 0:
+                raise AssertionError(f"20: nvcc {' '.join(job)} exits "
+                                     f"{p.returncode}:\n{p.stderr[-3000:]}")
+
+        # (b) preprocessed signatures against the raw source's
+        for cu in sources:
+            own = kc.own_text((tmp / f"{cu.stem}.ii").read_text(), str(cu))
+            seen = {}
+            for s in kc.c_signatures(own):
+                if seen.setdefault(s.name, s.abi) != s.abi:
+                    raise AssertionError(
+                        f"20b {cu.name}: `{s.name}` preprocesses to two "
+                        f"signatures: {seen[s.name]} and {s.abi}")
+            if seen != raw[cu.stem]:
+                raise AssertionError(f"20b {cu.name}: preprocessed "
+                                     f"{seen} != raw {raw[cu.stem]}")
+            print(f"[20b] {cu.name}: nvcc -E gives the raw extern \"C\" "
+                  f"signatures: " + ", ".join(
+                      f"{n}({len(a[1])})" for n, a in sorted(seen.items())))
+
+        # (c) the built libraries' exports against the parsed set
+        for cu in sources:
+            lib = _build.library_path(cu.stem)
+            exports = _nm_exports(lib)
+            if exports != set(raw[cu.stem]):
+                raise AssertionError(
+                    f"20c {lib.name}: exports {sorted(exports)} != "
+                    f"extern \"C\" {sorted(raw[cu.stem])}")
+            print(f"[20c] {lib.name}: exports {sorted(exports)}")
+
+        # (d) a seeded drop of one argtypes entry is caught as KC001
+        kdir = tmp / "seeded" / "kernels"
+        (kdir / "csrc").mkdir(parents=True)
+        path = _build.CSRC.parent / "deferral_entropy.py"
+        text = path.read_text()
+        decl = next(iter(kc.KernelModule(SourceModule(
+            str(path), path.name, text)).declarations.values()))
+        names = {}
+        for name, kind in kc.CTYPES_KINDS.items():
+            names.setdefault(kind, name)
+        lines = text.splitlines()
+        indent = lines[decl.node.lineno - 1][:decl.node.col_offset]
+        lines[decl.node.lineno - 1:decl.node.end_lineno] = [
+            f"{indent}{ast.unparse(decl.node.targets[0])} = ["
+            + ", ".join(f"ctypes.{names[k]}" for k in decl.argtypes[:-1])
+            + "]"]
+        (kdir / path.name).write_text("\n".join(lines) + "\n")
+        (kdir / "csrc" / f"{decl.lib}.cu").write_text(
+            (_build.CSRC / f"{decl.lib}.cu").read_text())
+        proc = subprocess.run(cli + ["--paths", "kernels", "--root",
+                                     str(kdir.parent), "--baseline", "",
+                                     "--json"],
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        got = (json.loads(proc.stdout)["new"] if proc.stdout.strip()
+               else [])
+        codes = sorted(f["code"] for f in got)
+        if proc.returncode != 1 or "KC001" not in codes:
+            raise AssertionError(f"20d: a dropped argtypes entry of "
+                                 f"`{decl.fn}` gives rc {proc.returncode}, "
+                                 f"codes {codes}\n{proc.stderr[-2000:]}")
+        print(f"[20d] `{decl.fn}` with {len(decl.argtypes) - 1} of "
+              f"{len(decl.argtypes)} argtypes: rc 1, {codes}")
+    print(f"[20] static analysis and its card-side checks in "
+          f"{time.perf_counter() - t0:.1f} s on {smi}")
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description="Chip smoke test of the PyTorch/CUDA port on one GPU.")
@@ -6469,6 +6610,11 @@ def parse_args(argv=None):
                          "the card, the examples) "
                          "after the build: prints its lines, no contract "
                          "line")
+    ap.add_argument("--analysis", action="store_true",
+                    help="run only phase 20 (the static analysis, the "
+                         "preprocessed signatures, the libraries' exports, "
+                         "a seeded argtypes drop) after the build: prints "
+                         "its lines, no contract line")
     ap.add_argument("--ml-server", action="store_true",
                     help="run as phase 14c's M_L server process (this "
                          "script starts it): the full-width large tier "
@@ -6561,6 +6707,11 @@ def main(argv=None) -> int:
         return 0
     if args.dryrun:
         dryrun_phase(torch, smi, src, t_start)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.analysis:
+        phase("20", t_start)
+        analysis_phase(smi)
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
     rng = np.random.default_rng(SEED)
@@ -6737,6 +6888,10 @@ def main(argv=None) -> int:
             if n:
                 r["launches"] += n
                 r["launches_by_path"][path] = n
+
+    # -- 20. the static analysis and its card-side checks ------------------
+    phase("20", t_start)
+    analysis_phase(smi)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [records[k] for k in KERNELS] + [rec]}))

@@ -9,14 +9,21 @@ Entry points take a `device` argument. Left out, they run on CUDA and
 raise when no CUDA device is present — never a silent CPU fallback. The
 CPU tests pass ``device="cpu"``.
 """
-from typing import Optional, Union
+from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING, Optional, Union
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """`device` as a torch.device; None means CUDA, which must exist."""
+    """`device` as a torch.device; None means CUDA, which must exist.
+    (torch is imported here, not with the package, so that the static
+    analysis, `python -m repro_torch.analysis`, runs on the standard
+    library alone.)"""
+    import torch
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

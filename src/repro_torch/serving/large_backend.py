@@ -596,7 +596,7 @@ class RemoteStubBackend(_WorkerBackend):
 
     def _encode_submit(self, req: Request) -> bytes:
         return json.dumps({"rid": req.rid,
-                           "prompt": req.prompt.tolist()}).encode()
+                           "prompt": req.prompt.tolist()}).encode()  # repro: ignore[TS005] a host numpy array
 
     def _decode_submit(self, payload: bytes) -> _Pending:
         msg = json.loads(payload.decode())
@@ -606,7 +606,7 @@ class RemoteStubBackend(_WorkerBackend):
 
     def _encode_result(self, res: LargeResult) -> bytes:
         msg = {
-            "rid": res.rid, "tokens": res.tokens.tolist(),
+            "rid": res.rid, "tokens": res.tokens.tolist(),  # repro: ignore[TS005] a host numpy array
             "batch_id": res.batch_id, "n_real": res.n_real,
             "pad_to": res.pad_to, "reason": res.reason,
             "prompt_len": res.prompt_len}

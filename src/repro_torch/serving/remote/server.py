@@ -238,7 +238,7 @@ class MLServer:
                 for i, p in enumerate(group):
                     epoch, rid = divmod(p.rid, _RID_SPAN)
                     res = {
-                        "rid": rid, "tokens": tokens[i].tolist(),
+                        "rid": rid, "tokens": tokens[i].tolist(),  # repro: ignore[TS005] a host numpy array
                         "batch_id": bid, "n_real": len(group),
                         "pad_to": pad_to, "reason": reason,
                         "prompt_len": int(p.prompt.shape[0])}

@@ -34,9 +34,12 @@ ENCDEC_VLM_MODULES = ("models.encdec", "configs.whisper_small",
                       "configs.phi_3_vision_4_2b")
 SCALE_OUT_MODULES = ("sharding", "launch.mesh")
 DRYRUN_MODULES = ("launch.specs", "launch.roofline", "launch.dryrun")
+ANALYSIS_MODULES = ("analysis.core", "analysis.registry",
+                    "analysis.trace_safety", "analysis.lock_discipline",
+                    "analysis.determinism", "analysis.kernel_contracts")
 SLICE_MODULES = (TRAINING_MODULES + SIGNAL_MODULES + SSM_MODULES
                  + CLASSIFIER_MODULES + ENCDEC_VLM_MODULES + SCALE_OUT_MODULES
-                 + DRYRUN_MODULES)
+                 + DRYRUN_MODULES + ANALYSIS_MODULES)
 
 
 def _imported_roots(path: Path):
@@ -101,6 +104,12 @@ def test_import_check_covers_the_scale_out_slice():
 def test_import_check_covers_the_dryrun_slice():
     src = REPO / "src" / "repro_torch"
     for mod in DRYRUN_MODULES:
+        assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
+
+
+def test_import_check_covers_the_analysis_slice():
+    src = REPO / "src" / "repro_torch"
+    for mod in ANALYSIS_MODULES:
         assert src / (mod.replace(".", "/") + ".py") in PORT_FILES, mod
 
 
